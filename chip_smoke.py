@@ -13,17 +13,30 @@ exits non-zero and prints no result. Phases, one JSON line each:
   3. parity   each kernel held against its plain PyTorch version on the
               card, exactly (torch.equal on the decisions and all nine
               carry fields): seeded small clusters, non-default weights,
-              repeated service ids, multi-word bitsets, then the 50k x 5k backlog chunk by
-              chunk (all of it when the plain loop fits its budget, else
-              the first pipeline chunk; the line says which);
-  4. main     solve_backlog_pipelined on synthetic_objects(50000, 5000,
+              repeated service ids, multi-word bitsets, the scan
+              cluster's edges (an unpadded node axis of 5,121, fewer
+              nodes than CTAs, crowded services, unplaceable pods between
+              placed ones), then the 50k x 5k backlog chunk by chunk (all
+              of it when the plain loop fits its budget, else the first
+              pipeline chunk; the line says which);
+  4. repeat   the scan kernel five times on the first 50k x 5k chunk:
+              every run's decisions and carry equal the checked ones (a
+              race between the cluster's CTAs shows up as a difference);
+  5. main     solve_backlog_pipelined on synthetic_objects(50000, 5000,
               seed=2+r): a warm-up and three timed runs, with the phase
               times, pods placed and kernel launches of each; then
               schedule_backlog once. Every run's names must equal the
               plain version's where phase 3 checked them;
-  5. kernels  per kernel: launches on the main path, its time by CUDA
+  6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
-              on the same inputs, and the bound for that work.
+              on the same inputs, and the bound for that work; for the
+              scan kernel also sweeps over the node count, the cluster
+              size and the threads per CTA (each configuration's result
+              equal to the checked one), a run with no service ids (no
+              count commits), a node axis near the shared-memory limit,
+              timed once, and a `launch` line per configuration (cluster size,
+              shared memory, cudaOccupancyMaxActiveClusters, registers
+              and spills from ptxas).
 
 Then the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}. Any failure ends the run with a non-zero
@@ -111,12 +124,16 @@ def main() -> int:
     parity = check_parity(torch, device)
     emit("parity", ok=True, **parity["summary"])
 
-    # -- 4. main path ------------------------------------------------------
+    # -- 4. repeat ----------------------------------------------------------
+    emit("repeat", ok=True, **check_repeat(torch, parity["chunk_state"], parity["chunk_result"]))
+
+    # -- 5. main path ------------------------------------------------------
     main_result = run_main_path(torch, device, parity["reference"])
     emit("main", ok=True, **main_result)
 
-    # -- 5. kernels --------------------------------------------------------
-    timing = time_kernel(torch, device, parity["chunk_state"])
+    # -- 6. kernels --------------------------------------------------------
+    ptxas = "\n".join(str(r["log"]) for r in records if r["name"] == "scan_kernel")
+    timing = time_kernel(torch, device, parity["chunk_state"], parity["chunk_result"], ptxas)
     kernels = [
         {
             "name": "scan_kernel",
@@ -254,6 +271,27 @@ def check_parity(torch, device):
     max_err = max(max_err, _kernel_vs_plain(torch, "multi-word bitsets", d.pods, d.nodes, (1, 1, 1)))
     cases += 1
 
+    # The scan cluster's edges, on node axes left unpadded (pad_to=1): a
+    # last CTA with a short slice (5,121 nodes over 16 CTAs of 324),
+    # CTAs with no node (7 nodes), crowded services whose max count the
+    # commits keep raising (6 nodes), and unplaceable pods (pinned to -2
+    # or past the node axis) between placed ones. Nodes of nine kinds
+    # give equal best scores in several CTAs.
+    edges = (
+        ("5,121 nodes", 2048, 5121, 7),
+        ("7 nodes, fewer than the CTAs", 300, 7, 8),
+        ("crowded services on 6 nodes", 400, 6, 9),
+        ("unplaceable pods between placed ones", 600, 200, 10),
+    )
+    for tag, n_pods, n_nodes, seed in edges:
+        pending, nodes, services = workload.synthetic_objects(n_pods, n_nodes, seed=seed)
+        d = device_snapshot(build_snapshot(pending, nodes, services=services), device, 1)
+        if tag.startswith("unplaceable"):
+            d.pods["pinned"][1::3] = -2
+            d.pods["pinned"][2::7] = n_nodes + 3
+        max_err = max(max_err, _kernel_vs_plain(torch, tag, d.pods, d.nodes, (1, 1, 1)))
+        cases += 1
+
     # The main path's state: the 50k x 5k backlog of the first main run,
     # lowered and staged exactly as solve_backlog_pipelined does.
     pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
@@ -272,6 +310,8 @@ def check_parity(torch, device):
         if ci == 0:
             chunk_state = (dpods, _copy(carry_k))
         got, carry_k = scan_kernel.scan_with_state(dpods, carry_k)
+        if ci == 0:
+            chunk_result = (got.clone(), _copy(carry_k))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -293,7 +333,7 @@ def check_parity(torch, device):
     names = [n.metadata.name for n in nodes]
     return {
         "summary": {
-            "small_cases": cases,
+            "cases": cases,
             "backlog_scope": scope,
             "backlog_pods_checked": checked,
             "backlog_chunks_checked": chunks_checked,
@@ -303,12 +343,36 @@ def check_parity(torch, device):
         },
         "reference": [names[j] if j >= 0 else None for j in reference],
         "chunk_state": chunk_state,
+        "chunk_result": chunk_result,
         "plain_ms": plain_ms,
     }
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 4: repeated runs
+# ---------------------------------------------------------------------------
+
+
+def check_repeat(torch, chunk_state, chunk_result, runs=5):
+    """The scan kernel `runs` times on the first 50k x 5k chunk, each run
+    from the same carry: decisions and carry must equal the checked
+    result every time. The CPU emulation's barriers are sequentially
+    consistent, so a missing fence or a stale cache line between the
+    cluster's CTAs can only show here."""
+    from kubernetes_tpu_torch.ops import scan_kernel
+
+    pods, carry0 = chunk_state
+    ref, ref_nodes = chunk_result
+    for i in range(runs):
+        nodes = _copy(carry0)
+        got, nodes = scan_kernel.scan_with_state(pods, nodes)
+        torch.cuda.synchronize()
+        _compare(torch, f"repeat {i} of the first chunk", got, nodes, ref, ref_nodes)
+    return {"runs": runs, "pods": int(pods["cpu"].shape[0]), "identical": True}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the main path
 # ---------------------------------------------------------------------------
 
 
@@ -376,48 +440,101 @@ def run_main_path(torch, device, reference):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: kernel time and bound at the main path's shape
+# Phase 6: kernel time and bound at the main path's shape
 # ---------------------------------------------------------------------------
 
 
-def time_kernel(torch, device, chunk_state):
+def _time_ms(torch, pods, carry, plan=None, reps=3, warm=True):
+    """Median CUDA-event milliseconds of `reps` launches (after one
+    warm-up launch when `warm`), each from a fresh copy of `carry`.
+    Returns (median, all times, the last launch's (choice, nodes))."""
     from kubernetes_tpu_torch.ops import scan_kernel
 
-    pods, carry0 = chunk_state
-    times = []
-    for _ in range(KERNEL_REPEATS + 1):
-        nodes = _copy(carry0)
+    times, out = [], None
+    for _ in range(reps + (1 if warm else 0)):
+        nodes = _copy(carry)
         torch.cuda.synchronize()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
-        scan_kernel.scan_with_state(pods, nodes)
+        out = scan_kernel._launch(pods, nodes, (1, 1, 1), plan)
         ev1.record()
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1))
-    times = times[1:]  # the first call warms the caches
+    if warm:
+        times = times[1:]  # the first call warms the caches
+    return statistics.median(times), times, out
 
-    # The same pods against the first n nodes only: how the time per pod
-    # splits into a fixed part (barriers, reduction, commit) and a part
-    # that grows with the nodes each of the block's threads walks.
-    per_pod_us = {}
-    for n in (1024, 2048, 4096):
-        part = {k: v[:n].clone() for k, v in carry0.items()}
-        ms = []
-        for _ in range(3):
-            nodes = {k: v.clone() for k, v in part.items()}
-            torch.cuda.synchronize()
-            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            scan_kernel.scan_with_state(pods, nodes)
-            ev1.record()
-            torch.cuda.synchronize()
-            ms.append(ev0.elapsed_time(ev1))
-        per_pod_us[n] = statistics.median(ms[1:]) * 1e3 / pods["cpu"].shape[0]
 
+def _ptxas_figures(log: str):
+    """The most registers any instance of the scan kernel uses, and the
+    spill bytes (stores + loads) of all of them."""
+    import re
+
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    return (
+        max(int(x) for x in regs) if regs else None,
+        sum(int(x) + int(y) for x, y in spills) if spills else None,
+    )
+
+
+def time_kernel(torch, device, chunk_state, chunk_result, ptxas):
+    from kubernetes_tpu_torch.ops import scan_kernel
+
+    pods, carry0 = chunk_state
+    ref, ref_nodes = chunk_result
     P, N = pods["cpu"].shape[0], carry0["cpu_cap"].shape[0]
     SW, PW = pods["sel"].shape[1], pods["port"].shape[1]
     VW, K = pods["vol_any"].shape[1], pods["svc_ids"].shape[1]
     S = carry0["svc_counts"].shape[1]
+    ms, times, _ = _time_ms(torch, pods, carry0, None, KERNEL_REPEATS)
+    plan = scan_kernel.plan_for(pods, carry0)
+    regs, spills = _ptxas_figures(ptxas)
+
+    def launch_line(cfg, n_nodes, t):
+        line = {
+            "cluster": cfg.cluster, "threads": cfg.threads, "nodes": n_nodes,
+            "nodes_per_cta": cfg.nodes_per_cta, "smem_bytes": cfg.smem_bytes,
+            "max_active_clusters": scan_kernel.occupancy(cfg, n_nodes, SW, PW, VW, K),
+            "registers": regs, "spill_bytes": spills, "default": cfg == plan,
+            "ms": t, "per_pod_us": t * 1e3 / P,
+        }
+        emit("launch", ok=True, **line)
+        return line
+
+    # The same pods against the first n nodes only: how the time per pod
+    # splits into a fixed part (barriers, reductions, commit) and a part
+    # that grows with the nodes each thread walks.
+    per_pod_us = {}
+    for n in (1024, 2048, 4096):
+        part = {k: v[:n].clone() for k, v in carry0.items()}
+        t, _, _ = _time_ms(torch, pods, part, None, 2)
+        per_pod_us[n] = t * 1e3 / P
+    per_pod_us[N] = ms * 1e3 / P
+
+    # Cluster size and threads per CTA on the whole chunk. Each
+    # configuration's decisions and carry must equal the checked ones.
+    sweep = [launch_line(plan, N, ms)]
+    for C, T in ((8, 320), (8, 640), (16, 160), (16, 640)):
+        cfg = scan_kernel.plan_for(pods, carry0, C, T)
+        t, _, (got, nodes) = _time_ms(torch, pods, carry0, cfg, 2)
+        _compare(torch, f"cluster of {C} x {T} threads", got, nodes, ref, ref_nodes)
+        sweep.append(launch_line(cfg, N, t))
+
+
+    # No service ids: no commit changes a count (other decisions, the
+    # same shape of work), so the difference is what the counts cost.
+    count_steps = int(((ref >= 0) & (pods["svc_ids"] >= 0).any(dim=1)).sum().item())
+    no_ids = dict(pods, svc_ids=torch.full_like(pods["svc_ids"], -1))
+    ms_no_ids, _, _ = _time_ms(torch, no_ids, carry0, None, 2)
+
+    # A node axis near the shared-memory limit, timed once: the chunk's
+    # nodes repeated up to max_nodes.
+    n_max = scan_kernel.max_nodes(SW, PW, VW, K)
+    big = {k: torch.cat([v] * -(-n_max // N))[:n_max].contiguous() for k, v in carry0.items()}
+    ms_big, _, _ = _time_ms(torch, pods, big, None, 1, warm=False)
+    near_limit = launch_line(scan_kernel.plan_for(pods, big), n_max, ms_big)
+
     # Bytes: every input read once, every output written once. Pods:
     # cpu, mem, pinned, svc (4 B), zero_req (1 B), bitset words and
     # service ids (4 B each); node constants; the carry in and out;
@@ -431,21 +548,31 @@ def time_kernel(torch, device, chunk_state):
     # selector 2 per word, ports 2 per word, disk 4 per word; casts 4;
     # LeastRequested 12; BalancedResourceAllocation 14; spreading 4;
     # weighted sum 5; key and max 3. All 32-bit, taken at the f32 rate.
+    # Pods that no node can take (the padding) need no pair at all.
     ops_per_pair = 13 + 2 + 4 + 12 + 14 + 4 + 5 + 3 + 2 * SW + 2 * PW + 4 * VW
-    nops = P * N * ops_per_pair
+    pin = pods["pinned"]
+    placeable = int(((pin == -1) | ((pin >= 0) & (pin < N))).sum().item())
+    nops = placeable * N * ops_per_pair
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / F32_OPS_PER_S * 1e3
-    per_pod_us[N] = statistics.median(times) * 1e3 / P
     return {
         "shape": {"P": P, "N": N, "S": S, "SW": SW, "PW": PW, "VW": VW, "K": K},
-        "ms": statistics.median(times),
+        "plan": {"cluster": plan.cluster, "threads": plan.threads,
+                 "nodes_per_cta": plan.nodes_per_cta, "smem_bytes": plan.smem_bytes},
+        "ms": ms,
         "per_pod_us_by_nodes": per_pod_us,
+        "fixed_part_us": per_pod_us[1024],
         "ms_all": times,
+        "sweep": [{k: x[k] for k in ("cluster", "threads", "ms", "per_pod_us")} for x in sweep],
+        "placeable_pods": placeable,
+        "count_commit_steps": count_steps,
+        "ms_no_service_ids": ms_no_ids,
+        "near_limit": {k: near_limit[k] for k in ("nodes", "cluster", "threads", "smem_bytes", "ms", "per_pod_us")},
         "bytes": nbytes,
         "ops": nops,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "timed": "scan_with_state on the first pipeline chunk, layout conversion included",
+        "timed": "the wrapper's launch on the first pipeline chunk, layout conversion included",
     }
 
 

@@ -1,41 +1,65 @@
-"""The sequential-parity scan as one CUDA kernel launch.
+"""The sequential-parity scan as one CUDA kernel launch on a cluster.
 
 Replaces `kubernetes_tpu/ops/pallas_scan.py::_kernel`, the JAX
 package's Pallas kernel: the whole default-spec sequential solve (for
 each pod in order, every predicate and priority against all N nodes,
 first-max selection, commit into the occupancy carry) in one launch.
-The kernel is `csrc/scan_kernel.cu`; this module binds it.
+The kernel is `csrc/scan_kernel.cu`; this module plans and binds it.
 
 What bounds it: P dependent steps, each an N-wide evaluation followed
 by an N-wide max whose winner changes the state the next step reads.
 It is neither bytes nor FLOPs: a 13,312 x 5,120 chunk moves about
 23 MB and does about 5 G simple 32-bit operations, under a tenth of a
-millisecond at the card's rates, while the chain of P reductions cannot
-run in parallel. So the kernel is ONE persistent thread block that loops
-over the pods: each step costs two block barriers and one block-wide
-64-bit max, with no launch, no host round trip and no global
-synchronisation between pods; warp 0 commits the winner, one lane per
-carry entry.
-The carry (about 11 MB at 5k nodes x 512 services) stays in device
-memory and L2 holds it; only the chosen node's entries are written.
+millisecond at the card's rates. A step's latency is the cost, so the
+kernel spreads each step over one thread-block cluster of C CTAs on
+neighbouring SMs. CTA r keeps its slice of the node axis (ceil(N / C)
+nodes, rounded up to 4) in shared memory for the whole launch, node
+constants and carry both; the count rows pods read and tiles of pod
+rows arrive ahead of use by cp.async. Each CTA reduces its slice to one
+64-bit key and stores it, with its max count of the next pod's service
+and that count at its best node, into every CTA's shared memory through
+distributed shared memory; after one cluster barrier every CTA picks
+the same winner and the same max count for the next pod.
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-output and scratch with torch, converts the service counts between the
-JAX layout (N, S) f32 and the kernel's (S, N) int32 (the row a pod reads
-is then contiguous), launches on the current stream and raises if the
-launch failed. It never synchronises. CPU tensors go to the plain
-version, the per-pod loop of `ops/solver.py`; no CUDA tensor ever
-does.
+The launch plan (`launch_plan`) is pure Python: the cluster size, the
+nodes per CTA, the threads per CTA and the dynamic shared memory, by
+the same layout the kernel's `make_layout` uses. A node axis that does
+not fit the shared memory of a 16-CTA cluster raises ValueError before
+any launch: at the main path's widths (2-word bitsets, 8 service ids)
+the limit is 40,384 nodes (`max_nodes`); the Pallas kernel's was 8,192.
+Nothing falls back to another kernel or to the plain version.
+
+The wrapper checks device, dtype, shape and contiguity, packs the pod
+columns into one (P, row_words) int32 matrix, converts the service
+counts between the JAX layout (N, S) f32 and the kernel's (S, NS) int32
+(the row a pod reads is then contiguous and 16-byte aligned per CTA),
+launches on the current stream and raises if the launch failed. It
+never synchronises. CPU tensors go to the plain version, the per-pod
+loop of `ops/solver.py`; no CUDA tensor ever does.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
 Tensors = Dict[str, torch.Tensor]
+
+#: Dynamic shared memory one block may use on Hopper (227 KB).
+SMEM_LIMIT = 232448
+#: The largest cluster (16 needs the non-portable cluster attribute).
+MAX_CLUSTER = 16
+MAX_THREADS = 1024
+#: Pods staged into shared memory per tile (the kernel's kTile).
+TILE = 128
+#: Count rows held in shared memory: the pod's and the next three (kRows).
+COUNT_ROWS = 4
+#: Words of a packed pod row ahead of the bitsets: cpu, mem, zero_req,
+#: pinned, svc (the kernel's kRowBits).
+_ROW_SCALARS = 5
 
 _POD_SPEC = (
     # key, dtype, trailing width key (None for a vector)
@@ -67,17 +91,99 @@ _NODE_SPEC = (
     ("uvol_rw", torch.int32, "VW"),
     ("svc_counts", torch.float32, "S"),
 )
-# Pointers the launcher takes: every pod and node column except the
-# (N, S) f32 service counts, whose (S, N) int32 copy goes in instead,
-# then the max-count scratch and the choice output.
-_N_PTRS = len(_POD_SPEC) + len(_NODE_SPEC) - 1 + 3
+# Pointers the launcher takes: the packed pod rows, every node column
+# except the (N, S) f32 service counts, whose (S, NS) int32 copy goes
+# in instead, then the choice output.
+_N_PTRS = 1 + len(_NODE_SPEC) - 1 + 2
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def smem_bytes(N: int, SW: int, PW: int, VW: int, K: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA: the kernel's `make_layout`."""
+    npc = _round_up(-(-N // cluster), 4)
+    row_words = _round_up(_ROW_SCALARS + SW + PW + 2 * VW + K, 4)
+    return (
+        4 * npc * (8 + SW + PW + 2 * VW + COUNT_ROWS)  # f32 columns, bitset words, count rows
+        + 2 * 4 * TILE * row_words  # pod tiles
+        + 32 * (8 + 4)  # a key and a max count per warp
+        + 2 * MAX_CLUSTER * 16  # slots: [parity][CTA]
+        + _round_up(2 * npc, 16)  # over, sched
+    )
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch is cut: one cluster of `cluster` CTAs of `threads`
+    threads, CTA r owning nodes [r * nodes_per_cta, (r + 1) *
+    nodes_per_cta); the service counts have `count_stride` columns and a
+    packed pod row `row_words` words."""
+
+    cluster: int
+    nodes_per_cta: int
+    threads: int
+    smem_bytes: int
+    count_stride: int
+    row_words: int
+
+
+def max_nodes(SW: int, PW: int, VW: int, K: int, cluster: int = MAX_CLUSTER) -> int:
+    """The largest node axis whose slices fit a cluster's shared memory."""
+    lo, hi = 0, 1
+    while smem_bytes(hi, SW, PW, VW, K, cluster) <= SMEM_LIMIT:
+        lo, hi = hi, hi * 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if smem_bytes(mid, SW, PW, VW, K, cluster) <= SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def launch_plan(
+    N: int, SW: int, PW: int, VW: int, K: int,
+    cluster: Optional[int] = None, threads: Optional[int] = None,
+) -> LaunchPlan:
+    """The launch for a node axis of N at these widths. By default the
+    largest cluster, 16 CTAs, and one thread per node of a slice (a
+    multiple of 32, at most 1024); `cluster` and `threads` override
+    them for a sweep. Raises ValueError for a plan the card cannot run,
+    before any launch."""
+    C = MAX_CLUSTER if cluster is None else int(cluster)
+    if not 1 <= C <= MAX_CLUSTER:
+        raise ValueError(f"scan kernel: cluster size {C} is outside [1, {MAX_CLUSTER}]")
+    if K > 32:
+        raise ValueError(f"scan kernel: {K} service ids per pod; the kernel takes at most 32")
+    npc = _round_up(-(-N // C), 4)
+    T = min(MAX_THREADS, max(32, _round_up(npc, 32))) if threads is None else int(threads)
+    if T % 32 or not 32 <= T <= MAX_THREADS:
+        raise ValueError(f"scan kernel: {T} threads per CTA; need a multiple of 32 up to 1024")
+    smem = smem_bytes(N, SW, PW, VW, K, C)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"scan kernel: N={N} nodes need {smem} bytes of shared memory per CTA in a "
+            f"cluster of {C}, over the limit of {SMEM_LIMIT}; at these widths a cluster "
+            f"of {C} holds at most {max_nodes(SW, PW, VW, K, C)} nodes"
+        )
+    return LaunchPlan(
+        cluster=C, nodes_per_cta=npc, threads=T, smem_bytes=smem,
+        count_stride=npc * C,
+        row_words=_round_up(_ROW_SCALARS + SW + PW + 2 * VW + K, 4),
+    )
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.ktt_scan_launch.argtypes = (
-        [ctypes.c_void_p] * _N_PTRS + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * _N_PTRS + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     )
     lib.ktt_scan_launch.restype = ctypes.c_int
+    lib.ktt_scan_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.ktt_scan_smem_bytes.restype = ctypes.c_int
+    lib.ktt_scan_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ktt_scan_occupancy.restype = ctypes.c_int
     lib.ktt_error_string.argtypes = [ctypes.c_int]
     lib.ktt_error_string.restype = ctypes.c_char_p
 
@@ -95,51 +201,100 @@ def _check(d: Tensors, spec, rows: int, dims: Dict[str, int], device, what: str)
             raise ValueError(f"scan kernel: {what}[{key!r}] is not contiguous")
 
 
-def _call(lib: ctypes.CDLL, pods: Tensors, nodes: Tensors, weights, stream) -> torch.Tensor:
-    """Check the tensors, allocate the output and scratch on their
-    device, convert the service counts to the kernel's layout, call the
-    launcher, and convert them back. Returns the choices."""
-    device = pods["cpu"].device
-    P = pods["cpu"].shape[0]
-    N = nodes["cpu_cap"].shape[0]
-    dims = {
+def _dims(pods: Tensors, nodes: Tensors) -> Dict[str, int]:
+    return {
         "SW": pods["sel"].shape[1],
         "PW": pods["port"].shape[1],
         "VW": pods["vol_any"].shape[1],
         "K": pods["svc_ids"].shape[1],
         "S": nodes["svc_counts"].shape[1],
     }
+
+
+def plan_for(pods: Tensors, nodes: Tensors, cluster=None, threads=None) -> LaunchPlan:
+    """`launch_plan` at the shapes of these tensors."""
+    d = _dims(pods, nodes)
+    return launch_plan(
+        nodes["cpu_cap"].shape[0], d["SW"], d["PW"], d["VW"], d["K"], cluster, threads
+    )
+
+
+def _pod_rows(pods: Tensors, row_words: int) -> torch.Tensor:
+    """The pod columns as one (P, row_words) int32 matrix, the f32
+    columns by their bits, zero-padded to whole 16-byte chunks."""
+    P = pods["cpu"].shape[0]
+    cols = [
+        pods["cpu"].view(torch.int32)[:, None],
+        pods["mem"].view(torch.int32)[:, None],
+        pods["zero_req"].to(torch.int32)[:, None],
+        pods["pinned"][:, None],
+        pods["svc"][:, None],
+        pods["sel"], pods["port"], pods["vol_any"], pods["vol_rw"], pods["svc_ids"],
+    ]
+    used = sum(c.shape[1] for c in cols)
+    cols.append(torch.zeros((P, row_words - used), dtype=torch.int32, device=pods["cpu"].device))
+    return torch.cat(cols, dim=1)
+
+
+def _call(
+    lib: ctypes.CDLL, pods: Tensors, nodes: Tensors, weights, stream,
+    plan: Optional[LaunchPlan] = None,
+) -> torch.Tensor:
+    """Check the tensors, plan the launch (unless given a plan), pack the
+    pod rows, convert the service counts to the kernel's layout, call
+    the launcher, and convert them back. Returns the choices."""
+    device = pods["cpu"].device
+    P = pods["cpu"].shape[0]
+    N = nodes["cpu_cap"].shape[0]
+    dims = _dims(pods, nodes)
     _check(pods, _POD_SPEC, P, dims, device, "pods")
     _check(nodes, _NODE_SPEC, N, dims, device, "nodes")
     S = dims["S"]
     if S < 1:
         raise ValueError("scan kernel: the service axis must have at least one column")
+    if plan is None:
+        plan = plan_for(pods, nodes)
+    elif plan != plan_for(pods, nodes, plan.cluster, plan.threads):
+        raise ValueError(f"scan kernel: {plan} was made for other shapes")
     w_lr, w_bra, w_spread = (int(w) for w in weights)
-    counts = torch.empty((S, N), dtype=torch.int32, device=device)
-    counts.copy_(nodes["svc_counts"].t())
-    maxc = torch.empty(S, dtype=torch.int32, device=device)
+    rows = _pod_rows(pods, plan.row_words)
+    counts = torch.zeros((S, plan.count_stride), dtype=torch.int32, device=device)
+    counts[:, :N].copy_(nodes["svc_counts"].t())
     choice = torch.empty(P, dtype=torch.int32, device=device)
-    ptrs = [pods[k].data_ptr() for k, _, _ in _POD_SPEC]
+    ptrs = [rows.data_ptr()]
     ptrs += [nodes[k].data_ptr() for k, _, _ in _NODE_SPEC if k != "svc_counts"]
-    ptrs += [counts.data_ptr(), maxc.data_ptr(), choice.data_ptr()]
+    ptrs += [counts.data_ptr(), choice.data_ptr()]
     rc = lib.ktt_scan_launch(
         *ptrs, P, N, S, dims["SW"], dims["PW"], dims["VW"], dims["K"],
-        w_lr, w_bra, w_spread, stream,
+        w_lr, w_bra, w_spread, plan.cluster, plan.threads, stream,
     )
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: {lib.ktt_error_string(rc).decode()}")
-    nodes["svc_counts"].copy_(counts.t())
+    nodes["svc_counts"].copy_(counts[:, :N].t())
     return choice
 
 
-def _launch(pods: Tensors, nodes: Tensors, weights) -> Tuple[torch.Tensor, Tensors]:
+def occupancy(plan: LaunchPlan, N: int, SW: int, PW: int, VW: int, K: int) -> int:
+    """cudaOccupancyMaxActiveClusters for this plan on the current card."""
+    from kubernetes_tpu_torch.ops import build
+
+    lib = build.load("scan_kernel", _bind)
+    active = ctypes.c_int(0)
+    rc = lib.ktt_scan_occupancy(N, SW, PW, VW, K, plan.cluster, plan.threads,
+                                ctypes.byref(active))
+    if rc != 0:
+        raise RuntimeError(f"scan kernel occupancy query failed: {lib.ktt_error_string(rc).decode()}")
+    return active.value
+
+
+def _launch(pods: Tensors, nodes: Tensors, weights, plan=None) -> Tuple[torch.Tensor, Tensors]:
     from kubernetes_tpu_torch.ops import build
 
     lib = build.load("scan_kernel", _bind)
     device = pods["cpu"].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        choice = _call(lib, pods, nodes, weights, stream)
+        choice = _call(lib, pods, nodes, weights, stream, plan)
     scan_with_state.launches += 1
     return choice, nodes
 

@@ -1,19 +1,28 @@
 """The CUDA scan kernel's source, run on the CPU, equals its plain version.
 
-There is no CUDA compiler here, so `csrc/scan_kernel.cu` is compiled with
-the host C++ compiler against a small emulation of the CUDA features it
-uses: one thread block of std::threads, `__syncthreads` as a block
-barrier, warp shuffles through a per-warp barrier, atomics as
-std::atomic_ref, and the `_rn` float
-intrinsics as plain IEEE operations (with FMA contraction off, as nvcc's
--fmad=false). The wrapper's own argument handling (`scan_kernel._call`)
-then drives the emulated launcher with CPU tensors, and the decisions and
-carry must equal the plain loop's bit for bit. This checks the kernel's indexing,
-selection and commit logic; the chip run checks the real build.
+There is no CUDA compiler here, so `csrc/scan_kernel.cu` is compiled as
+it stands with the host C++ compiler, against small headers that stand
+in for the CUDA ones: a launch (`cudaLaunchKernelEx` with a cluster
+attribute) runs every thread of every CTA of the cluster as a
+std::thread; `__syncthreads` is a barrier per CTA and the cluster
+barrier one over the whole cluster; each CTA has its own dynamic
+shared-memory arena, and `map_shared_rank` points into another CTA's;
+warp reductions go through a barrier per warp; atomics are
+std::atomic_ref; the asynchronous copies of `csrc/scan_async.cuh` are
+plain copies; the `_rn` float intrinsics are plain IEEE operations
+(with FMA contraction off, as nvcc's -fmad=false). The wrapper's own
+argument handling (`scan_kernel._call`) drives the emulated launcher
+with CPU tensors, and the decisions and carry must equal the plain
+loop's bit for bit.
+
+This checks the kernel's slicing, selection across CTAs, commit and
+count bookkeeping on clusters of 1, 2, 4 and 8 CTAs. Its barriers are
+sequentially consistent, so it cannot show a missing fence or a stale
+L1 line: the repeated runs on the card in `chip_smoke.py` look for
+those. An emulated launch runs at most 256 OS threads.
 """
 
 import ctypes
-import re
 import shutil
 import subprocess
 
@@ -25,14 +34,16 @@ from kubernetes_tpu_torch.models.columnar import build_snapshot
 from kubernetes_tpu_torch.ops import build, scan_kernel
 from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, device_snapshot
 
-EMULATION_HEADER = r"""
+CUDA_RUNTIME_H = r"""
 #pragma once
 #include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <climits>
 #include <cmath>
+#include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -40,105 +51,191 @@ using std::max;
 using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
-#define __shared__ static
+#define __align__(n) alignas(n)
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-inline cudaError_t cudaGetLastError() { return 0; }
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchOutOfResources = 701 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-struct EmuDim { int x; };
-inline thread_local EmuDim threadIdx;
-inline std::barrier<>* emu_block = nullptr;
-inline std::vector<std::unique_ptr<std::barrier<>>> emu_warps;
-inline long long emu_lanes[1024];
-inline void __syncthreads() { emu_block->arrive_and_wait(); }
-template <class T> T __shfl_xor_sync(unsigned, T v, int offset) {
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncAttributeNonPortableClusterSizeAllowed,
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension };
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+
+struct EmuIdx { unsigned x, y, z; };
+inline thread_local EmuIdx threadIdx, blockIdx;
+inline EmuIdx blockDim;
+struct alignas(16) EmuChunk { unsigned char b[16]; };
+struct EmuBlock {
+  std::unique_ptr<std::barrier<>> block;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<long long> lanes;
+  std::vector<EmuChunk> smem;
+};
+inline std::vector<EmuBlock>* emu_blocks = nullptr;
+inline std::barrier<>* emu_cluster = nullptr;
+inline EmuBlock& emu_block() { return (*emu_blocks)[blockIdx.x]; }
+
+inline void __syncthreads() { emu_block().block->arrive_and_wait(); }
+inline unsigned __ballot_sync(unsigned, bool v) {
+  EmuBlock& b = emu_block();
   const int t = threadIdx.x;
-  std::barrier<>& warp = *emu_warps[t / 32];
-  emu_lanes[t] = (long long)v;
+  std::barrier<>& warp = *b.warps[t / 32];
+  b.lanes[t] = v;
   warp.arrive_and_wait();
-  const T r = (T)emu_lanes[t ^ offset];
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= (b.lanes[(t & ~31) + l] ? 1u : 0u) << l;
   warp.arrive_and_wait();
   return r;
 }
-template <class T> T __ldcg(const T* p) { return std::atomic_ref<T>(*const_cast<T*>(p)).load(); }
-inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
-inline int atomicMax(int* p, int v) {
-  std::atomic_ref<int> r(*p);
-  int old = r.load();
-  while (old < v && !r.compare_exchange_weak(old, v)) {}
-  return old;
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+template <class T> T __reduce_max_sync(unsigned, T v) {
+  EmuBlock& b = emu_block();
+  const int t = threadIdx.x;
+  std::barrier<>& warp = *b.warps[t / 32];
+  b.lanes[t] = (long long)v;
+  warp.arrive_and_wait();
+  T r = v;
+  for (int l = t & ~31; l < (t & ~31) + 32; ++l) r = std::max(r, (T)b.lanes[l]);
+  warp.arrive_and_wait();
+  return r;
 }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __int2float_rn(int i) { return (float)i; }
 inline int __float2int_rz(float f) { return (int)f; }
-template <class F, class A> void emu_launch(int threads, F kernel, const A& args) {
-  std::barrier<> block(threads);
-  emu_block = &block;
-  emu_warps.clear();
-  for (int w = 0; w < threads / 32; ++w) emu_warps.emplace_back(new std::barrier<>(32));
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
+
+template <class F> cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, F*, const cudaLaunchConfig_t*) {
+  *n = 1;
+  return cudaSuccess;
+}
+template <class... Exp, class... Act>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...),
+                               Act&&... args) {
+  const unsigned C = cfg->gridDim.x, T = cfg->blockDim.x;
+  if (cfg->numAttrs != 1 || cfg->attrs[0].id != cudaLaunchAttributeClusterDimension ||
+      cfg->attrs[0].val.clusterDim.x != C) {
+    return cudaErrorInvalidValue;  // one cluster spans the grid
+  }
+  blockDim = {T, 1, 1};
+  std::vector<EmuBlock> blocks(C);
+  for (EmuBlock& b : blocks) {
+    b.block.reset(new std::barrier<>(T));
+    for (unsigned w = 0; w < T / 32; ++w) b.warps.emplace_back(new std::barrier<>(32));
+    b.lanes.resize(T);
+    b.smem.resize(cfg->dynamicSmemBytes / 16 + 1);
+  }
+  std::barrier<> cluster(C * T);
+  emu_blocks = &blocks;
+  emu_cluster = &cluster;
   std::vector<std::thread> pool;
-  for (int t = 0; t < threads; ++t)
-    pool.emplace_back([&, t] { threadIdx.x = t; kernel(args); });
+  for (unsigned b = 0; b < C; ++b)
+    for (unsigned t = 0; t < T; ++t)
+      pool.emplace_back([&, b, t] {
+        blockIdx = {b, 0, 0};
+        threadIdx = {t, 0, 0};
+        kernel(args...);
+      });
   for (auto& th : pool) th.join();
+  return cudaSuccess;
 }
 """
 
+COOPERATIVE_GROUPS_H = r"""
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { emu_cluster->arrive_and_wait(); }
+  unsigned block_rank() const { return blockIdx.x; }
+  template <class T> T* map_shared_rank(T* p, unsigned rank) const {
+    const unsigned char* mine = emu_block().smem.data()->b;
+    unsigned char* theirs = (*emu_blocks)[rank].smem.data()->b;
+    return reinterpret_cast<T*>(theirs + (reinterpret_cast<const unsigned char*>(p) - mine));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+"""
 
-def _emulated_source(threads: int) -> str:
-    with open(f"{build.CSRC}/scan_kernel.cu") as f:
-        src = f.read()
-    src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
-    src, n_threads = re.subn(
-        r"constexpr int kThreads = \d+;", f"constexpr int kThreads = {threads};", src
-    )
-    src, n_launch = re.subn(
-        r"scan_kernel<<<1, kThreads, 0, .*?>>>\(a\);",
-        "emu_launch(kThreads, scan_kernel, a);",
-        src,
-    )
-    assert n_threads == 1 and n_launch == 1, "kernel source layout changed"
-    return src
+SCAN_ASYNC_CUH = r"""
+#pragma once
+#include <cuda_runtime.h>
+inline unsigned char* dyn_smem() { return emu_block().smem.data()->b; }
+inline void cp_async16(void* smem, const void* gmem) { std::memcpy(smem, gmem, 16); }
+inline void cp_async_wait_all() {}
+"""
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """threads -> loaded emulation library (built once per module)."""
+    """The kernel's source compiled against the emulation headers."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler to emulate the kernel with")
     out = tmp_path_factory.mktemp("scan_emu")
-    (out / "cuda_emu.h").write_text(EMULATION_HEADER)
-    libs = {}
-    for threads in (64, 1024):
-        src = out / f"scan_emu_{threads}.cc"
-        src.write_text(_emulated_source(threads))
-        lib = out / f"libscan_emu_{threads}.so"
-        subprocess.run(
-            [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-             "-pthread", "-o", str(lib), str(src)],
-            check=True, capture_output=True, text=True, timeout=300,
-        )
-        libs[threads] = ctypes.CDLL(str(lib))
-        scan_kernel._bind(libs[threads])
-    return libs
+    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (out / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS_H)
+    (out / "scan_async.cuh").write_text(SCAN_ASYNC_CUH)
+    # The source as it stands, beside the emulated scan_async.cuh.
+    src = out / "scan_kernel.cc"
+    shutil.copy(f"{build.CSRC}/scan_kernel.cu", src)
+    lib = out / "libscan_emu.so"
+    subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
+         "-I", str(out), "-o", str(lib), str(src)],
+        check=True, capture_output=True, text=True, timeout=300,
+    )
+    handle = ctypes.CDLL(str(lib))
+    scan_kernel._bind(handle)
+    return handle
 
 
-def _check_case(lib, seed, weights, repeat_ids=False):
+def _state(seed, pad_to=128, repeat_ids=False):
     pending, nodes, assigned, services = workload.small_cluster(seed)
-    d = device_snapshot(build_snapshot(pending, nodes, assigned, services), device="cpu")
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services), "cpu", pad_to)
     if repeat_ids:
         ids = d.pods["svc_ids"]
         ids[:, 1] = torch.where(ids[:, 0] >= 0, ids[:, 0], ids[:, 1])
-    got_nodes = {k: v.clone() for k, v in d.nodes.items()}
-    ref_nodes = {k: v.clone() for k, v in d.nodes.items()}
+    return d.pods, d.nodes
+
+
+def _check_case(lib, pods, nodes, weights, cluster, threads):
+    plan = scan_kernel.plan_for(pods, nodes, cluster, threads)
+    got_nodes = {k: v.clone() for k, v in nodes.items()}
+    ref_nodes = {k: v.clone() for k, v in nodes.items()}
     # The wrapper's own argument handling, with CPU tensors and no stream.
-    got = scan_kernel._call(lib, d.pods, got_nodes, weights, None)
-    ref, ref_nodes = scan_kernel.plain_scan_with_state(d.pods, ref_nodes, weights)
+    got = scan_kernel._call(lib, pods, got_nodes, weights, None, plan)
+    ref, ref_nodes = scan_kernel.plain_scan_with_state(pods, ref_nodes, weights)
     assert torch.equal(got, ref), f"{int((got != ref).sum())} decisions differ"
     for k in CARRY_KEYS:
         assert torch.equal(got_nodes[k], ref_nodes[k]), f"carry field {k} differs"
@@ -147,17 +244,137 @@ def _check_case(lib, seed, weights, repeat_ids=False):
 @pytest.mark.parametrize("weights", [(1, 1, 1), (2, 0, 3), (0, 5, 1)])
 @pytest.mark.parametrize("seed", range(4))
 def test_emulated_kernel_matches_plain_64_threads(emulated, seed, weights):
-    """A 64-thread block: each thread owns several nodes, and the
-    block-wide max crosses two warps."""
-    _check_case(emulated[64], seed, weights)
+    """Two CTAs of 64 threads: the 128 padded nodes split 64 and 64, and
+    the block-wide max crosses two warps before the cluster's."""
+    pods, nodes = _state(seed)
+    _check_case(emulated, pods, nodes, weights, 2, 64)
 
 
 @pytest.mark.parametrize("seed", range(2))
 def test_emulated_kernel_repeated_service_ids(emulated, seed):
-    """A service id listed twice commits twice (the lanes add atomically)."""
-    _check_case(emulated[64], seed, (1, 1, 1), repeat_ids=True)
+    """A service id listed twice commits twice, and the new max count
+    of its service reaches every CTA."""
+    pods, nodes = _state(seed, repeat_ids=True)
+    _check_case(emulated, pods, nodes, (1, 1, 1), 4, 32)
 
 
 def test_emulated_kernel_matches_plain_full_block(emulated):
-    """The kernel's real 1024-thread block, where most threads own no node."""
-    _check_case(emulated[1024], 1, (1, 1, 1))
+    """The wrapper's own thread count on a cluster of 8 CTAs, where each
+    thread owns one node of a 16-node slice and half the threads none."""
+    pods, nodes = _state(1)
+    _check_case(emulated, pods, nodes, (1, 1, 1), 8, None)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("seed", range(4, 8))
+def test_emulated_unpadded_node_axis(emulated, seed, cluster):
+    """The node axis unpadded (3 to 40 nodes): slices of ceil(N / C)
+    rounded up to 4, so the last CTAs hold a short slice or none."""
+    pods, nodes = _state(seed, pad_to=1)
+    _check_case(emulated, pods, nodes, (1, 1, 1), cluster, 32)
+
+
+def _cut_nodes(nodes, n):
+    return {k: v[:n].contiguous() for k, v in nodes.items()}
+
+
+@pytest.mark.parametrize("n_nodes", [1, 2, 3, 5, 13])
+def test_emulated_fewer_nodes_than_cluster_slots(emulated, n_nodes):
+    """N < C and N not a multiple of C on 4 CTAs: some CTAs own no node
+    and still take every cluster barrier."""
+    pods, nodes = _state(6, pad_to=1)
+    nodes = _cut_nodes(nodes, min(n_nodes, nodes["cpu_cap"].shape[0]))
+    _check_case(emulated, pods, nodes, (1, 1, 1), 4, 32)
+
+
+@pytest.mark.parametrize("cluster,threads", [(2, 32), (4, 32), (4, 64)])
+def test_emulated_ties_across_ctas_and_tiles(emulated, cluster, threads):
+    """300 pods over 45 nodes of nine kinds: equal best scores in several
+    CTAs (the lowest index must win), winners on the first and last node
+    of a slice, services and host ports, and pod rows from three tiles."""
+    pending, nodes, services = workload.synthetic_objects(300, 45, seed=11)
+    d = device_snapshot(build_snapshot(pending, nodes, services=services), "cpu", 1)
+    assert d.pods["cpu"].shape[0] > scan_kernel.TILE * 2
+    _check_case(emulated, d.pods, d.nodes, (1, 1, 1), cluster, threads)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, "services"])
+def test_emulated_unplaceable_pods_between_placed_ones(emulated, seed):
+    """Pods pinned to -2 (the padding's fill) or past the node axis, in
+    the middle of the backlog: two in a row take no cluster step, the
+    slots' parity must still line up across the steps that do, and the
+    count adds flushed on a step without one must still reach the next
+    fetch (the "services" case: 150 pods of one service on 60 nodes)."""
+    if seed == "services":
+        pending, nodes, services = workload.synthetic_objects(150, 60, seed=10)
+        d = device_snapshot(build_snapshot(pending, nodes, services=services), "cpu", 1)
+        pods, nodes = d.pods, d.nodes
+    else:
+        pods, nodes = _state(seed, pad_to=1)
+    pods = {k: v.clone() for k, v in pods.items()}
+    N = nodes["cpu_cap"].shape[0]
+    pods["pinned"][1::3] = -2
+    pods["pinned"][2::7] = N + 3
+    _check_case(emulated, pods, nodes, (1, 1, 1), 4, 32)
+
+
+@pytest.mark.parametrize("cluster,weights", [(1, (1, 1, 1)), (4, (1, 1, 1)), (4, (2, 1, 3))])
+def test_emulated_crowded_services(emulated, cluster, weights):
+    """200 pods of two services on 6 nodes: commits keep raising the max
+    count of the next pod's service, and the spreading scores that
+    follow turn on every CTA folding in the winner's new counts."""
+    pending, nodes, services = workload.synthetic_objects(200, 6, seed=9)
+    d = device_snapshot(build_snapshot(pending, nodes, services=services), "cpu", 1)
+    _check_case(emulated, d.pods, d.nodes, weights, cluster, 32)
+
+
+def _many_ports(n_nodes, n_pods):
+    """Pods with distinct host ports: 70 ports need 3 words (bucketed
+    to 4), so the kernel takes its widths from the arguments."""
+    from kubernetes_tpu_torch.models.objects import (
+        Container, ContainerPort, Node, NodeCondition, NodeStatus, ObjectMeta, Pod, PodSpec,
+        ResourceRequirements,
+    )
+    from kubernetes_tpu_torch.models.quantity import Quantity, parse_quantity
+
+    nodes = [
+        Node(
+            metadata=ObjectMeta(name=f"n{j}"),
+            status=NodeStatus(
+                capacity={"cpu": Quantity.from_milli(4000), "memory": parse_quantity("4096Mi"),
+                          "pods": Quantity.from_int(200)},
+                conditions=[NodeCondition(type="Ready", status="True")],
+            ),
+        )
+        for j in range(n_nodes)
+    ]
+    pods = [
+        Pod(
+            metadata=ObjectMeta(name=f"p{i}", namespace="default"),
+            spec=PodSpec(containers=[Container(
+                name="c", ports=[ContainerPort(container_port=80, host_port=7000 + i % 70)],
+                resources=ResourceRequirements(limits={
+                    "cpu": Quantity.from_milli(10), "memory": parse_quantity("8Mi")}),
+            )]),
+        )
+        for i in range(n_pods)
+    ]
+    return pods, nodes
+
+
+@pytest.mark.parametrize("cluster,n_nodes", [(1, 4), (4, 9)])
+def test_emulated_multiword_bitsets(emulated, cluster, n_nodes):
+    """Port bitsets of 4 words, reused ports avoiding their nodes."""
+    pods, nodes = _many_ports(n_nodes, 90)
+    d = device_snapshot(build_snapshot(pods, nodes), "cpu", 1)
+    assert d.pods["port"].shape[1] == 4
+    _check_case(emulated, d.pods, d.nodes, (1, 1, 1), cluster, 32)
+
+
+@pytest.mark.parametrize(
+    "widths", [(5121, 2, 2, 2, 8, 16), (40, 1, 4, 1, 8, 4), (3, 2, 2, 2, 8, 8),
+               (0, 2, 2, 2, 8, 2)],
+)
+def test_emulated_layout_equals_the_plan(emulated, widths):
+    """The kernel's shared-memory layout and the Python plan agree."""
+    assert emulated.ktt_scan_smem_bytes(*widths) == scan_kernel.smem_bytes(*widths)

@@ -1,0 +1,135 @@
+"""The scan kernel's launch plan: pure Python, checked on the CPU.
+
+`ops/scan_kernel.launch_plan` cuts the node axis over one cluster of
+CTAs and sizes each CTA's shared memory by the kernel's own layout
+(`make_layout` in `csrc/scan_kernel.cu`; the emulation test holds the
+two equal). These tests pin the figures `PERF.md` reports, that the
+slices cover the nodes exactly once, and that a node axis past the
+shared-memory limit raises before anything is launched.
+"""
+
+import pytest
+import torch
+
+from kubernetes_tpu_torch.ops import scan_kernel
+from kubernetes_tpu_torch.ops.scan_kernel import LaunchPlan, launch_plan, max_nodes, smem_bytes
+
+# The main path's widths: 2-word label, port and volume bitsets, 8
+# service ids per pod.
+MAIN = dict(SW=2, PW=2, VW=2, K=8)
+
+
+def test_main_path_plan_is_the_one_perf_md_reports():
+    plan = launch_plan(5120, **MAIN)
+    assert plan == LaunchPlan(
+        cluster=16, nodes_per_cta=320, threads=320, smem_bytes=51712,
+        count_stride=5120, row_words=24,
+    )
+    assert max_nodes(**MAIN) == 40384
+
+
+@pytest.mark.parametrize(
+    "N,widths,cluster,expected",
+    [
+        # 320 nodes x (8 f32 + 8 words + 4 count rows) x 4 B + 2 flags,
+        # 2 tiles x 128 pods x 24 words x 4 B, a key and a count per warp
+        # (32 x 12 B), slots of 2 x 16 CTAs x 16 B.
+        (5120, (2, 2, 2, 8), 16, 320 * 82 + 24576 + 384 + 512),
+        (5120, (2, 2, 2, 8), 8, 640 * 82 + 24576 + 384 + 512),
+        # One-word bitsets: 12 nodes of (8 + 4 + 4) x 4 B and flags
+        # rounded up to 32 B, rows of 5 + 4 + 8 = 17 -> 20 words.
+        (40, (1, 1, 1, 8), 4, 12 * 64 + 32 + 2 * 4 * 128 * 20 + 384 + 512),
+        # No nodes: the fixed regions only.
+        (0, (2, 2, 2, 8), 2, 24576 + 384 + 512),
+    ],
+)
+def test_shared_memory_bytes_for_given_widths(N, widths, cluster, expected):
+    SW, PW, VW, K = widths
+    assert smem_bytes(N, SW, PW, VW, K, cluster) == expected
+    assert launch_plan(N, SW, PW, VW, K, cluster).smem_bytes == expected
+
+
+@pytest.mark.parametrize("N", [0, 1, 3, 7, 16, 37, 128, 5120, 5121, 40384])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_slices_cover_every_node_exactly_once(N, cluster):
+    if N > max_nodes(cluster=cluster, **MAIN):
+        with pytest.raises(ValueError, match="shared memory"):
+            launch_plan(N, cluster=cluster, **MAIN)
+        return
+    plan = launch_plan(N, cluster=cluster, **MAIN)
+    owned = []
+    for r in range(plan.cluster):
+        owned += range(r * plan.nodes_per_cta, min((r + 1) * plan.nodes_per_cta, N))
+    assert owned == list(range(N))
+    assert plan.nodes_per_cta % 4 == 0 and plan.count_stride % 4 == 0
+    assert plan.count_stride == plan.cluster * plan.nodes_per_cta >= N
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    # One thread per node of a slice, up to 1,024.
+    assert plan.threads >= min(plan.nodes_per_cta, 1024)
+
+
+def test_node_axis_past_the_limit_raises_before_any_launch():
+    limit = max_nodes(**MAIN)
+    launch_plan(limit, **MAIN)
+    with pytest.raises(ValueError, match=rf"N={limit + 1} nodes.*at most {limit} nodes"):
+        launch_plan(limit + 1, **MAIN)
+    # A smaller cluster holds fewer nodes.
+    assert max_nodes(cluster=8, **MAIN) < limit
+
+
+class _NoLaunch:
+    def ktt_scan_launch(self, *args):
+        raise AssertionError("the launcher was called for a plan past the limit")
+
+
+def _tensors(N, S, P=4):
+    """Pod and node tensors of the kernel's dtypes, one-word bitsets."""
+    pods = {
+        "cpu": torch.zeros(P), "mem": torch.zeros(P),
+        "zero_req": torch.zeros(P, dtype=torch.bool),
+        "pinned": torch.full((P,), -1, dtype=torch.int32),
+        "svc": torch.full((P,), -1, dtype=torch.int32),
+        "svc_ids": torch.full((P, 8), -1, dtype=torch.int32),
+    }
+    for k in ("sel", "port", "vol_any", "vol_rw"):
+        pods[k] = torch.zeros((P, 1), dtype=torch.int32)
+    nodes = {k: torch.zeros(N) for k in
+             ("cpu_cap", "mem_cap", "pods_cap", "cpu_fit", "mem_fit", "cpu_used", "mem_used",
+              "pods_used")}
+    nodes.update({k: torch.zeros(N, dtype=torch.bool) for k in ("over", "sched")})
+    nodes.update({k: torch.zeros((N, 1), dtype=torch.int32)
+                  for k in ("labels", "uport", "uvol_any", "uvol_rw")})
+    nodes["svc_counts"] = torch.zeros((N, S))
+    return pods, nodes
+
+
+def test_wrapper_raises_past_the_limit_without_calling_the_launcher():
+    pods, nodes = _tensors(N=max_nodes(1, 1, 1, 8) + 1, S=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        scan_kernel._call(_NoLaunch(), pods, nodes, (1, 1, 1), None)
+
+
+@pytest.mark.parametrize(
+    "kwargs,match",
+    [
+        (dict(cluster=17), "cluster size"),
+        (dict(cluster=0), "cluster size"),
+        (dict(threads=48), "threads"),
+        (dict(threads=2048), "threads"),
+    ],
+)
+def test_plans_the_card_cannot_run_raise(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        launch_plan(5120, **MAIN, **kwargs)
+
+
+def test_more_than_32_service_ids_raise():
+    with pytest.raises(ValueError, match="service ids"):
+        launch_plan(5120, 2, 2, 2, 33)
+
+
+def test_a_plan_made_for_other_shapes_is_refused():
+    pods, nodes = _tensors(N=64, S=4)
+    stale = launch_plan(5120, 1, 1, 1, 8, cluster=4, threads=64)
+    with pytest.raises(ValueError, match="other shapes"):
+        scan_kernel._call(_NoLaunch(), pods, nodes, (1, 1, 1), None, stale)
