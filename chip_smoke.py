@@ -27,6 +27,28 @@ exits non-zero and prints no result. Phases, one JSON line each:
               times, pods placed and kernel launches of each; then
               schedule_backlog once. Every run's names must equal the
               plain version's where phase 3 checked them;
+  5b. churn   BASELINE config 5 on the incremental SolverSession: the
+              5,000 nodes and 500 services of that backlog, its pods as
+              the first main run placed them as the assigned pods,
+              node_capacity 6,250, prewarm to the 1,024-pod bucket, then
+              2 warm-up and 10 timed ticks of 1,000 creates and 1,000
+              random deletes (workload.churn_replay). Per tick the wall,
+              the phases, the kernel's ms by CUDA events; after every
+              tick the device rows equal the host mirror wherever no
+              delta is pending; on timed ticks 1, 5 and 10 the kernel's
+              choices and carry equal the plain version's on clones of
+              that tick's inputs. The same operations are replayed on a
+              fresh session with solve_async (a tick in flight while the
+              next tick's deltas land) and must give the same results.
+              Last, solve_gang on one more tick with groups, against the
+              same tick on the replayed session with the plain version
+              in place of the kernel; and the kernel timed at the
+              session's shape;
+  5c. gang    schedule_backlog_gang on seeded small clusters with groups
+              on the card against device="cpu" (destinations, accepted
+              and rejected keys), then on the 50k x 5k backlog in groups
+              of 50, some of which cannot reach minMember: all or
+              nothing, with at least two rounds;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -58,6 +80,9 @@ N_PODS, N_NODES = 50000, 5000
 MAIN_REPEATS = 3
 PLAIN_BUDGET_S = 60.0  # the plain loop over the whole backlog, else one chunk
 KERNEL_REPEATS = 5
+CHURN_RATE, CHURN_WARMUP, CHURN_TICKS = 1000, 2, 10
+CHURN_CHECKED = (1, 5, 10)  # timed ticks whose kernel runs are held to the plain version
+GANG_SIZE = 50
 
 # The card's published rates (NVIDIA H100 SXM data sheet): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
@@ -129,7 +154,16 @@ def main() -> int:
 
     # -- 5. main path ------------------------------------------------------
     main_result = run_main_path(torch, device, parity["reference"])
+    placed_names = main_result.pop("first_names")
     emit("main", ok=True, **main_result)
+
+    # -- 5b. churn on the incremental session ------------------------------
+    churn = run_churn(torch, device, placed_names)
+    emit("churn", ok=True, card=smi, **churn)
+
+    # -- 5c. gangs -----------------------------------------------------------
+    gang = run_gang(torch, device)
+    emit("gang", ok=True, **gang)
 
     # -- 6. kernels --------------------------------------------------------
     ptxas = "\n".join(str(r["log"]) for r in records if r["name"] == "scan_kernel")
@@ -141,6 +175,12 @@ def main() -> int:
             "source": "kubernetes_tpu_torch/csrc/scan_kernel.cu",
             "replaces": "kubernetes_tpu/ops/pallas_scan.py:126",
             "launches": main_result["launches_last_run"],
+            "launches_by_path": {
+                "main": main_result["launches_last_run"],
+                "churn": churn["launches"],
+                "churn_pipelined": churn["pipelined"]["launches"],
+                "gang_50k": gang["backlog"]["launches"],
+            },
             "max_abs_err": parity["summary"]["max_abs_err"],
             "ms": timing["ms"],
             "plain_ms": parity["plain_ms"],
@@ -148,6 +188,7 @@ def main() -> int:
             "bound_by": timing["bound_by"],
             # No single PyTorch call computes the sequential solve.
             "library_ms": None,
+            "session_shape": churn["kernel_at_session_shape"],
         }
     ]
     emit("kernel_timing", ok=True, card=smi, **timing)
@@ -175,7 +216,7 @@ def _max_abs_err(torch, a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max().item())
 
 
-def _compare(torch, tag, got_choice, got_nodes, ref_choice, ref_nodes) -> float:
+def _compare(torch, tag, got_choice, got_nodes, ref_choice, ref_nodes, phase="parity") -> float:
     """The largest absolute difference over the decisions and the nine
     carry fields (bitset words compared as int32, exactly). The
     tolerance is exact equality: any difference fails the phase."""
@@ -185,11 +226,11 @@ def _compare(torch, tag, got_choice, got_nodes, ref_choice, ref_nodes) -> float:
     if not torch.equal(got_choice, ref_choice):
         bad = int((got_choice != ref_choice).sum().item())
         first = int((got_choice != ref_choice).nonzero()[0].item())
-        fail("parity", f"{tag}: {bad} decisions differ, first at pod {first}")
+        fail(phase, f"{tag}: {bad} decisions differ, first at pod {first}")
     for k in CARRY_KEYS:
         field_err = _max_abs_err(torch, got_nodes[k], ref_nodes[k])
         if not torch.equal(got_nodes[k], ref_nodes[k]):
-            fail("parity", f"{tag}: carry field {k} differs (max abs err {field_err})")
+            fail(phase, f"{tag}: carry field {k} differs (max abs err {field_err})")
         err = max(err, field_err)
     return err
 
@@ -436,6 +477,404 @@ def run_main_path(torch, device, reference):
         "checked_against_plain": len(reference),
         "schedule_backlog": {"wall_s": wall, "launches": batch_launches,
                              "phases_s": timer.seconds, "equal_to_pipelined": True},
+        "first_names": first_names,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: churn on the incremental session (BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+
+def _churn_cluster(placed_names):
+    """The 50k x 5k backlog's nodes and services, and its pods as the
+    first main run placed them, bound and Running (unplaced ones left
+    out)."""
+    from kubernetes_tpu_torch import workload
+
+    pods, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    assigned = []
+    for pod, name in zip(pods, placed_names):
+        if name is not None:
+            pod.spec.node_name = name
+            pod.status.phase = "Running"
+            assigned.append(pod)
+    return nodes, services, assigned
+
+
+def _new_session(torch, device, nodes, services, assigned):
+    """A session as the incremental daemon builds one (node capacity
+    1.25 x the nodes), prewarmed to the tick's pod bucket."""
+    from kubernetes_tpu_torch.ops import SolverSession
+
+    t0 = time.perf_counter()
+    session = SolverSession(
+        nodes, services, assigned, node_capacity=int(len(nodes) * 1.25), device=device
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warmed = session.prewarm(max_pod_bucket=1024)
+    return session, build_s, time.perf_counter() - t0, warmed
+
+
+def _mirror_check(torch, session, what):
+    """Device rows equal the host mirror, exactly, on every row with no
+    pending delta (all fifteen columns, the nine carry fields among
+    them)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops.matrices import state_to_numpy
+
+    dev = state_to_numpy(session.dev)
+    clean = np.ones(session.N_cap, bool)
+    clean[sorted(session._dirty)] = False
+    for key, col in session.h.items():
+        if not np.array_equal(dev[key][clean], col[clean]):
+            bad = int((dev[key][clean] != col[clean]).reshape(int(clean.sum()), -1).any(1).sum())
+            fail("churn", f"{what}: device column {key} differs from the host mirror on {bad} rows")
+    return int(clean.sum())
+
+
+class _Recorder:
+    """Wraps a session's launch: CUDA events around each tick's kernel,
+    and for the chosen ticks clones of the pods and the pre-launch carry
+    plus the kernel's choices and post-launch carry."""
+
+    def __init__(self, torch, session, capture):
+        self.torch, self.capture = torch, set(capture)
+        self.events, self.captured = [], {}
+        self._launch = session._dispatch
+        session._dispatch = self
+
+    def __call__(self, pods, carry):
+        torch = self.torch
+        k = len(self.events)
+        before = None
+        if k in self.capture:
+            before = ({n: v.clone() for n, v in pods.items()}, {n: v.clone() for n, v in carry.items()})
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        choice = self._launch(pods, carry)
+        ev1.record()
+        self.events.append((ev0, ev1))
+        if before is not None:
+            self.captured[k] = (before, choice.clone(), {n: v.clone() for n, v in carry.items()})
+        return choice
+
+    def kernel_ms(self):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+class _GcPauses:
+    """Python's garbage-collector passes while in the block, by
+    generation, with their wall seconds (a pause shows up in whichever
+    tick phase it falls into)."""
+
+    def __init__(self):
+        self.pauses, self._t0 = [], 0.0
+
+    def _on_gc(self, stage, info):
+        if stage == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.pauses.append((info["generation"], time.perf_counter() - self._t0))
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+
+    def summary(self):
+        return {
+            "passes": len(self.pauses),
+            "gen2_passes": sum(g == 2 for g, _ in self.pauses),
+            "total_s": sum(t for _, t in self.pauses),
+            "max_s": max((t for _, t in self.pauses), default=0.0),
+        }
+
+
+def _held_to_plain(torch, captured, tag):
+    """The kernel's choices and carry of one tick against the plain
+    version on clones of that tick's inputs; returns the plain ms."""
+    from kubernetes_tpu_torch.ops import scan_kernel
+
+    (pods, carry), choice, after = captured
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    ref, ref_nodes = scan_kernel.plain_scan_with_state(pods, carry, (1, 1, 1))
+    ev1.record()
+    torch.cuda.synchronize()
+    _compare(torch, tag, choice, after, ref, ref_nodes, phase="churn")
+    return ev0.elapsed_time(ev1)
+
+
+def _percentile(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def _session_gang_tick(session, first_index, n_services):
+    """One more tick of churn pods with groups: as many gangs of
+    GANG_SIZE as the tick holds (20 of 50), the second of which has a
+    member pinned to a node that does not exist, so its minMember of
+    GANG_SIZE cannot be reached."""
+    import random
+
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops import SessionGang
+
+    pods = workload.churn_pods(random.Random(99), first_index, CHURN_RATE, n_services)
+    gangs = []
+    for g in range(CHURN_RATE // GANG_SIZE):
+        members = pods[g * GANG_SIZE:(g + 1) * GANG_SIZE]
+        if g == 1:
+            members[-1].spec.node_name = "no-such-node"
+        gangs.append(SessionGang(
+            key=f"default/tick-gang{g}", min_member=GANG_SIZE, bound=0,
+            pod_keys=frozenset(f"default/{p.metadata.name}" for p in members),
+        ))
+    for pod in pods:
+        session.add_pending(pod)
+    return gangs
+
+
+def _check_session_gangs(results, gangs, rejected):
+    """All or nothing: a rejected gang has no pod placed, an accepted
+    one at least its minMember less those already bound."""
+    dest = dict(results)
+    for g in gangs:
+        placed = sum(dest[k] is not None for k in g.pod_keys)
+        if g.key in rejected and placed:
+            fail("churn", f"rejected group {g.key} kept {placed} placements")
+        if g.key not in rejected and placed + g.bound < g.min_member:
+            fail("churn", f"accepted group {g.key} has {placed} + {g.bound} < {g.min_member}")
+
+
+def run_churn(torch, device, placed_names):
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops import scan_kernel
+
+    nodes, services, assigned = _churn_cluster(placed_names)
+    live = [f"default/{p.metadata.name}" for p in assigned]
+    ticks = CHURN_WARMUP + CHURN_TICKS
+    replay = dict(live=live, ticks=ticks, rate=CHURN_RATE, seed=7,
+                  n_services=len(services), first_index=N_PODS)
+
+    # The synchronous run, timed.
+    session, build_s, prewarm_s, warmed = _new_session(torch, device, nodes, services, assigned)
+    checked_rows = []
+    rec = _Recorder(torch, session, [CHURN_WARMUP - 1 + t for t in CHURN_CHECKED])
+    gc_pauses = _GcPauses()
+    scan_kernel.scan_with_state.launches = 0
+    with gc_pauses:
+        records = workload.churn_replay(
+            session, **replay,
+            on_result=lambda k, _r: checked_rows.append(_mirror_check(torch, session, f"tick {k}")),
+        )
+    launches = scan_kernel.scan_with_state.launches
+    if launches != ticks:
+        fail("churn", f"{ticks} ticks launched the scan kernel {launches} times")
+    kernel_ms = rec.kernel_ms()
+    plain_ms = {}
+    for t in CHURN_CHECKED:
+        k = CHURN_WARMUP - 1 + t
+        plain_ms[t] = _held_to_plain(torch, rec.captured[k], f"churn tick {t}")
+    timed = records[CHURN_WARMUP:]
+    walls = [r.wall_s for r in timed]
+    scheduled = sum(d is not None for r in timed for _k, d in r.results)
+    if scheduled == 0:
+        fail("churn", "no pod placed in the timed ticks")
+    phases = sorted({p for r in timed for p in r.phases_s})
+
+    # The kernel at the session's shape: the last tick's inputs.
+    (pods, carry), _choice, _after = rec.captured[ticks - 1]
+    ms_shape, ms_all, _ = _time_ms(torch, pods, carry, None, KERNEL_REPEATS)
+    plan = scan_kernel.plan_for(pods, carry)
+    bound = kernel_bound(torch, pods, carry)
+
+    # The same operations with a tick in flight while the next tick's
+    # creates and deletes land.
+    session_p, build_p, _, _ = _new_session(torch, device, nodes, services, assigned)
+    scan_kernel.scan_with_state.launches = 0
+    records_p = workload.churn_replay(
+        session_p, **replay, pipelined=True,
+        on_result=lambda k, _r: _mirror_check(torch, session_p, f"pipelined tick {k}"),
+    )
+    launches_p = scan_kernel.scan_with_state.launches
+    if launches_p != ticks:
+        fail("churn", f"{ticks} pipelined ticks launched the scan kernel {launches_p} times")
+    walls_p = [r.wall_s for r in records_p[CHURN_WARMUP:]]
+    for k, (a, b) in enumerate(zip(records, records_p)):
+        if a.results != b.results:
+            bad = sum(x != y for x, y in zip(a.results, b.results))
+            fail("churn", f"pipelined tick {k}: {bad} results differ from the synchronous run's")
+    for key, col in session.h.items():
+        if not (col == session_p.h[key]).all():
+            fail("churn", f"host mirror column {key} differs between the two runs")
+
+    # solve_gang on one more tick: the kernel session against the
+    # replayed session with the plain version in place of the kernel.
+    first = N_PODS + ticks * CHURN_RATE
+    gangs = _session_gang_tick(session, first, len(services))
+    gangs_p = _session_gang_tick(session_p, first, len(services))
+    session_p._dispatch = lambda pods, carry: scan_kernel.plain_scan_with_state(pods, carry, (1, 1, 1))[0]
+    t0 = time.perf_counter()
+    results, rejected = session.solve_gang(gangs)
+    gang_wall = time.perf_counter() - t0
+    results_p, rejected_p = session_p.solve_gang(gangs_p)
+    if (results, rejected) != (results_p, rejected_p):
+        fail("churn", "solve_gang with the kernel differs from solve_gang with the plain version")
+    if rejected != ["default/tick-gang1"]:
+        fail("churn", f"solve_gang rejected {rejected}, expected only default/tick-gang1")
+    _check_session_gangs(results, gangs, set(rejected))
+    session.solve()  # flush the released rows
+    _mirror_check(torch, session, "after solve_gang")
+
+    total = sum(walls)
+    return {
+        "cell": f"{N_NODES} nodes, {len(services)} services, {len(assigned)} assigned pods, "
+                f"{CHURN_RATE} creates + {CHURN_RATE} deletes a tick",
+        "nodes": N_NODES, "services": len(services), "assigned": len(assigned),
+        "N_cap": session.N_cap, "n_launch": session.n_launch,
+        "session_build_s": build_s, "prewarm_s": prewarm_s, "prewarm_launches": warmed,
+        "ticks_timed": len(timed), "ticks_per_s": len(timed) / total,
+        "scheduled_pods_per_s": scheduled / total, "scheduled": scheduled,
+        "tick_p50_s": _percentile(walls, 50), "tick_p99_s": _percentile(walls, 99),
+        "phase_median_s": {p: statistics.median(r.phases_s.get(p, 0.0) for r in timed) for p in phases},
+        "kernel_ms_median": statistics.median(kernel_ms[CHURN_WARMUP:]),
+        "gc_during_replay": gc_pauses.summary(),
+        "launches": launches,
+        "ticks": [
+            {"tick": i - CHURN_WARMUP + 1 if i >= CHURN_WARMUP else f"warmup{i}",
+             "wall_s": r.wall_s, "phases_s": r.phases_s, "kernel_ms": kernel_ms[i],
+             "created": CHURN_RATE, "deleted": r.deleted,
+             "placed": sum(d is not None for _k, d in r.results)}
+            for i, r in enumerate(records)
+        ],
+        "checks": {
+            "mirror_rows_checked_per_tick": checked_rows,
+            "held_to_plain_ticks": list(CHURN_CHECKED), "plain_ms": plain_ms,
+            "tolerance": "exact (torch.equal, numpy array_equal)",
+        },
+        "pipelined": {"session_build_s": build_p, "ticks_per_s": len(walls_p) / sum(walls_p),
+                      "scheduled_pods_per_s": scheduled / sum(walls_p),
+                      "tick_p50_s": _percentile(walls_p, 50), "tick_p99_s": _percentile(walls_p, 99),
+                      "launches": launches_p, "equal_to_synchronous": True},
+        "solve_gang": {"gangs": len(gangs), "rejected": rejected, "wall_s": gang_wall,
+                       "equal_to_plain": True},
+        "kernel_at_session_shape": {
+            "shape": {"P": int(pods["cpu"].shape[0]), "N": int(carry["cpu_cap"].shape[0]),
+                      "S": int(carry["svc_counts"].shape[1]), "SW": int(pods["sel"].shape[1]),
+                      "PW": int(pods["port"].shape[1]), "VW": int(pods["vol_any"].shape[1]),
+                      "K": int(pods["svc_ids"].shape[1])},
+            "plan": {"cluster": plan.cluster, "threads": plan.threads,
+                     "nodes_per_cta": plan.nodes_per_cta, "smem_bytes": plan.smem_bytes},
+            "ms": ms_shape, "ms_all": ms_all, "plain_ms": plain_ms[CHURN_CHECKED[-1]],
+            "per_pod_us": ms_shape * 1e3 / max(bound["placeable_pods"], 1),
+            **bound,
+            "timed": "the wrapper's launch on the last timed tick's pods and carry",
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: gang acceptance
+# ---------------------------------------------------------------------------
+
+
+def _grouped_small_cluster(seed):
+    """A small_cluster backlog with a third of its pods in groups, some
+    of whose minMembers cannot be reached."""
+    import random
+
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL
+    from kubernetes_tpu_torch.scheduler.gang import partition_backlog
+
+    pending, nodes, assigned, services = workload.small_cluster(seed)
+    rng = random.Random(seed)
+    names = [f"g{i}" for i in range(rng.randint(1, 5))]
+    for pod in pending:
+        if rng.random() < 0.35:
+            pod.metadata.labels[POD_GROUP_LABEL] = rng.choice(names)
+    for pod in assigned:
+        if rng.random() < 0.3:
+            pod.metadata.labels[POD_GROUP_LABEL] = rng.choice(names)
+    need = {name: rng.choice([1, 3, 8, 30, None]) for name in names}
+    groups = partition_backlog(pending, assigned, lambda ns, n: need[n])
+    return pending, nodes, assigned, services, groups
+
+
+def run_gang(torch, device):
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL
+    from kubernetes_tpu_torch.ops import scan_kernel
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog_gang
+    from kubernetes_tpu_torch.scheduler.gang import partition_backlog
+    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    keys = lambda gs: [g.key for g in gs]
+    small = []
+    for seed in range(8):
+        pending, nodes, assigned, services, groups = _grouped_small_cluster(seed)
+        scan_kernel.scan_with_state.launches = 0
+        got = schedule_backlog_gang(pending, nodes, assigned, services, groups, device=device)
+        rounds = scan_kernel.scan_with_state.launches
+        ref = schedule_backlog_gang(pending, nodes, assigned, services, groups, device="cpu")
+        if got[0] != ref[0] or keys(got[1]) != keys(ref[1]) or keys(got[2]) != keys(ref[2]):
+            fail("gang", f"small cluster {seed}: the card and the CPU disagree")
+        small.append({"seed": seed, "pods": len(pending), "groups": len(groups),
+                      "rejected": len(got[2]), "rounds": rounds})
+    if not any(c["rejected"] and c["rounds"] > 1 for c in small):
+        fail("gang", "no small case rejected a group and re-solved")
+
+    # The 50k x 5k backlog in groups of 50; in every 100th group one
+    # member is pinned to a node that does not exist, so it cannot
+    # reach its minMember of 50.
+    pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    for i, pod in enumerate(pending):
+        g = i // GANG_SIZE
+        pod.metadata.labels[POD_GROUP_LABEL] = f"gang{g}"
+        if g % 100 == 0 and i % GANG_SIZE == 0:
+            pod.spec.node_name = "no-such-node"
+    groups = partition_backlog(pending, min_member_of=lambda ns, n: GANG_SIZE)
+    timer = PhaseTimer()
+    scan_kernel.scan_with_state.launches = 0
+    t0 = time.perf_counter()
+    dests, accepted, rejected = schedule_backlog_gang(
+        pending, nodes, services=services, groups=groups, device=device, timer=timer
+    )
+    wall = time.perf_counter() - t0
+    rounds = scan_kernel.scan_with_state.launches
+    if rounds < 2:
+        fail("gang", f"the 50k x 5k gang solve took {rounds} round(s), expected at least 2")
+    for g in accepted:
+        placed = sum(dests[i] is not None for i in g.indices)
+        if placed + g.bound < g.min_member:
+            fail("gang", f"accepted {g.key} has {placed} placed, under minMember {g.min_member}")
+    for g in rejected:
+        if any(dests[i] is not None for i in g.indices):
+            fail("gang", f"rejected {g.key} kept placements")
+    if not accepted or not rejected:
+        fail("gang", f"expected accepted and rejected groups, got {len(accepted)} / {len(rejected)}")
+    return {
+        "small": small,
+        "backlog": {
+            "pods": N_PODS, "nodes": N_NODES, "groups": len(groups), "group_size": GANG_SIZE,
+            "accepted": len(accepted), "rejected": len(rejected),
+            "placed": sum(d is not None for d in dests), "rounds": rounds,
+            "launches": rounds, "wall_s": wall, "phases_s": timer.seconds,
+            "all_or_nothing": True,
+        },
     }
 
 
@@ -476,6 +915,41 @@ def _ptxas_figures(log: str):
         max(int(x) for x in regs) if regs else None,
         sum(int(x) + int(y) for x, y in spills) if spills else None,
     )
+
+
+def kernel_bound(torch, pods, carry):
+    """The least time the card could take for one scan launch on these
+    inputs: the larger of the bytes it must move over the HBM rate and
+    the operations it must do over the f32 rate."""
+    P, N = pods["cpu"].shape[0], carry["cpu_cap"].shape[0]
+    SW, PW = pods["sel"].shape[1], pods["port"].shape[1]
+    VW, K = pods["vol_any"].shape[1], pods["svc_ids"].shape[1]
+    S = carry["svc_counts"].shape[1]
+    # Bytes: every input read once, every output written once. Pods:
+    # cpu, mem, pinned, svc (4 B), zero_req (1 B), bitset words and
+    # service ids (4 B each); node constants; the carry in and out;
+    # the choices.
+    pod_bytes = P * (4 * 4 + 1 + 4 * (SW + PW + 2 * VW + K))
+    const_bytes = N * (3 * 4 + 2 + 4 * SW)
+    carry_bytes = N * (5 * 4 + 4 * (PW + 2 * VW) + 4 * S)
+    nbytes = pod_bytes + const_bytes + 2 * carry_bytes + 4 * P
+    # Operations per (pod, node) pair, counted from the plain version's
+    # arithmetic: resources and pod-count predicates 13, hostname 2,
+    # selector 2 per word, ports 2 per word, disk 4 per word; casts 4;
+    # LeastRequested 12; BalancedResourceAllocation 14; spreading 4;
+    # weighted sum 5; key and max 3. All 32-bit, taken at the f32 rate.
+    # Pods that no node can take (the padding) need no pair at all.
+    ops_per_pair = 13 + 2 + 4 + 12 + 14 + 4 + 5 + 3 + 2 * SW + 2 * PW + 4 * VW
+    pin = pods["pinned"]
+    placeable = int(((pin == -1) | ((pin >= 0) & (pin < N))).sum().item())
+    nops = placeable * N * ops_per_pair
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / F32_OPS_PER_S * 1e3
+    return {
+        "bytes": nbytes, "ops": nops, "placeable_pods": placeable,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
 
 
 def time_kernel(torch, device, chunk_state, chunk_result, ptxas):
@@ -535,26 +1009,7 @@ def time_kernel(torch, device, chunk_state, chunk_result, ptxas):
     ms_big, _, _ = _time_ms(torch, pods, big, None, 1, warm=False)
     near_limit = launch_line(scan_kernel.plan_for(pods, big), n_max, ms_big)
 
-    # Bytes: every input read once, every output written once. Pods:
-    # cpu, mem, pinned, svc (4 B), zero_req (1 B), bitset words and
-    # service ids (4 B each); node constants; the carry in and out;
-    # the choices.
-    pod_bytes = P * (4 * 4 + 1 + 4 * (SW + PW + 2 * VW + K))
-    const_bytes = N * (3 * 4 + 2 + 4 * SW)
-    carry_bytes = N * (5 * 4 + 4 * (PW + 2 * VW) + 4 * S)
-    nbytes = pod_bytes + const_bytes + 2 * carry_bytes + 4 * P
-    # Operations per (pod, node) pair, counted from the plain version's
-    # arithmetic: resources and pod-count predicates 13, hostname 2,
-    # selector 2 per word, ports 2 per word, disk 4 per word; casts 4;
-    # LeastRequested 12; BalancedResourceAllocation 14; spreading 4;
-    # weighted sum 5; key and max 3. All 32-bit, taken at the f32 rate.
-    # Pods that no node can take (the padding) need no pair at all.
-    ops_per_pair = 13 + 2 + 4 + 12 + 14 + 4 + 5 + 3 + 2 * SW + 2 * PW + 4 * VW
-    pin = pods["pinned"]
-    placeable = int(((pin == -1) | ((pin >= 0) & (pin < N))).sum().item())
-    nops = placeable * N * ops_per_pair
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_OPS_PER_S * 1e3
+    bound = kernel_bound(torch, pods, carry0)
     return {
         "shape": {"P": P, "N": N, "S": S, "SW": SW, "PW": PW, "VW": VW, "K": K},
         "plan": {"cluster": plan.cluster, "threads": plan.threads,
@@ -564,14 +1019,14 @@ def time_kernel(torch, device, chunk_state, chunk_result, ptxas):
         "fixed_part_us": per_pod_us[1024],
         "ms_all": times,
         "sweep": [{k: x[k] for k in ("cluster", "threads", "ms", "per_pod_us")} for x in sweep],
-        "placeable_pods": placeable,
+        "placeable_pods": bound["placeable_pods"],
         "count_commit_steps": count_steps,
         "ms_no_service_ids": ms_no_ids,
         "near_limit": {k: near_limit[k] for k in ("nodes", "cluster", "threads", "smem_bytes", "ms", "per_pod_us")},
-        "bytes": nbytes,
-        "ops": nops,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": bound["bytes"],
+        "ops": bound["ops"],
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
         "timed": "the wrapper's launch on the first pipeline chunk, layout conversion included",
     }
 

@@ -1,7 +1,8 @@
 """Typed API objects: the kinds the batch scheduler's lowering reads.
 
 A copy of the subset of `kubernetes_tpu/models/objects.py` that
-`models/columnar.py` consumes (reference: pkg/api/types.go): ObjectMeta,
+`models/columnar.py`, the incremental session and the gang solver
+consume (reference: pkg/api/types.go): ObjectMeta,
 Pod with its spec, containers, ports, resources and the exclusive-disk
 volume sources, Node with its status and conditions, and Service. The
 lowering reads these objects by attribute only, so the JAX package's
@@ -25,6 +26,10 @@ RESOURCE_PODS = "pods"
 # honours it as a HostName pin.
 REBALANCE_DEST_ANNOTATION = "rebalance.kubernetes-tpu.io/destination"
 
+# The pod label naming the PodGroup (same namespace) a pod belongs to;
+# the gang solver places a group's pods all-or-nothing.
+POD_GROUP_LABEL = "pod-group.kubernetes-tpu.io/name"
+
 
 @dataclass
 class ObjectMeta:
@@ -33,6 +38,9 @@ class ObjectMeta:
     name: str = ""
     namespace: str = ""
     uid: str = ""
+    # Set when a pod is marked Terminating; gang membership no longer
+    # counts it.
+    deletion_timestamp: str = ""
     labels: Dict[str, str] = field(default_factory=dict)
     annotations: Dict[str, str] = field(default_factory=dict)
 

@@ -1,1 +1,10 @@
-"""Device operations: staging, the solver and its kernels, the pipeline."""
+"""Device operations: staging, the solver and its kernels, the pipeline,
+the incremental session."""
+
+from kubernetes_tpu_torch.ops.incremental import (  # noqa: F401
+    RebuildRequired,
+    SessionGang,
+    SolverSession,
+)
+
+__all__ = ["RebuildRequired", "SessionGang", "SolverSession"]

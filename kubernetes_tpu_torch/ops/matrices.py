@@ -234,3 +234,17 @@ def state_to_numpy(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         a = t.detach().cpu().numpy()
         out[k] = a.view(np.uint32) if k in BITSET_KEYS else a
     return out
+
+
+def gang_member_counts(
+    placed: torch.Tensor, group_ids: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """Per-group placed-member counts, int32[num_groups], as a masked
+    segment sum: `placed` is bool[P], `group_ids` int32[P] with -1 for
+    ungrouped and padding rows, which are masked out of the sum. Ids
+    past the last group add to it, as the JAX package's clipped
+    segment_sum does."""
+    mask = placed & (group_ids >= 0)
+    idx = group_ids.clamp(0, num_groups - 1).to(torch.int64)
+    out = torch.zeros(num_groups, dtype=torch.int32, device=placed.device)
+    return out.scatter_add_(0, idx, mask.to(torch.int32))

@@ -11,18 +11,27 @@ the next chunk's work. The one wait is the final readback.
 Decisions equal the monolithic solve's bit for bit: chunking changes
 when pod rows reach the device, never the order they are scanned or the
 carry they see.
+
+`gang_member_counts_device` is the device half of gang acceptance
+(`scheduler/gang.py`), as in the JAX package's pipeline module.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from kubernetes_tpu_torch import DeviceLike, resolve_device
 from kubernetes_tpu_torch.models.columnar import SnapshotBuilder
 from kubernetes_tpu_torch.models.objects import Node, Pod, Service
-from kubernetes_tpu_torch.ops.matrices import device_nodes, device_pods
+from kubernetes_tpu_torch.ops.matrices import (
+    device_nodes,
+    device_pods,
+    gang_member_counts,
+    pow2_bucket,
+)
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, solve_with_state
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
 
@@ -40,6 +49,34 @@ def _to_host_async(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
+
+
+def gang_member_counts_device(
+    placed, group_ids, num_groups: int, device: DeviceLike = None
+) -> np.ndarray:
+    """The gang-acceptance reduction on `device` (default: the CUDA
+    card; raises without one): the host placed-mask and group-id
+    columns go to the device, `matrices.gang_member_counts` runs there,
+    and the counts come back as int32[num_groups]. Both axes pad to the
+    JAX package's power-of-two buckets (minimum 8), with placed=False
+    and id -1, which the reduction masks out."""
+    G = int(num_groups)
+    if G <= 0:
+        return np.zeros(0, np.int32)
+    device = resolve_device(device)
+    placed = np.asarray(placed, bool)
+    gids = np.asarray(group_ids, np.int32)
+    P = placed.shape[0]
+    PP = pow2_bucket(max(P, 1), minimum=8)
+    if PP != P:
+        placed = np.pad(placed, (0, PP - P))
+        gids = np.pad(gids, (0, PP - P), constant_values=-1)
+    counts = gang_member_counts(
+        torch.from_numpy(placed).to(device),
+        torch.from_numpy(gids).to(device),
+        pow2_bucket(G, minimum=8),
+    )
+    return counts.cpu().numpy()[:G]
 
 
 def solve_backlog_pipelined(

@@ -188,13 +188,17 @@ def _commit(nodes: Tensors, pod: Tensors, choice: torch.Tensor, idx: torch.Tenso
 
 def _scan_solve(pods: Tensors, nodes: Tensors, weights) -> torch.Tensor:
     """The sequential scan, one pod per iteration: i32[P] node indices
-    (-1 = unschedulable). `nodes` is updated in place. No step reads a
-    value back to the host, so on a card the loop only enqueues work."""
+    (-1 = unschedulable). `nodes` is updated in place. Past the one read
+    of which pods can be placed at all, no step reads a value back to
+    the host, so on a card the loop only enqueues work."""
     N = nodes["cpu_cap"].shape[0]
     P = pods["cpu"].shape[0]
     idx = torch.arange(N, dtype=torch.int32, device=nodes["cpu_cap"].device)
-    choices = torch.empty(P, dtype=torch.int32, device=idx.device)
-    for i in range(P):
+    choices = torch.full((P,), -1, dtype=torch.int32, device=idx.device)
+    # A pod pinned to -2 (padding, or a pin to an unknown node) fits no
+    # node and commits nothing, so its choice stays -1 without a step.
+    steps = (pods["pinned"] != -2).nonzero()[:, 0].tolist()
+    for i in steps:
         pod = {k: v[i] for k, v in pods.items()}
         feas = _feasible(pod, nodes, idx)
         masked = torch.where(feas, _scores(pod, nodes, weights), -1)

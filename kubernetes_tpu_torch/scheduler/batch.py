@@ -1,19 +1,24 @@
 """Full-relower batch scheduling on the card.
 
 The counterpart of `kubernetes_tpu/scheduler/batch.py`'s
-`schedule_backlog_tpu`: lower the whole backlog, stage it, run the
-sequential-parity solve, map indices back to node names.
+`schedule_backlog_tpu` and `schedule_backlog_gang_tpu`: lower the whole
+backlog, stage it, run the sequential-parity solve, map indices back to
+node names; with gangs, wrap that in the all-or-nothing acceptance
+loop.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional, Sequence
 
 from kubernetes_tpu_torch import DeviceLike, resolve_device
 from kubernetes_tpu_torch.models.columnar import build_snapshot
 from kubernetes_tpu_torch.models.objects import Node, Pod, Service
 from kubernetes_tpu_torch.ops.matrices import device_snapshot
+from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device
 from kubernetes_tpu_torch.ops.solver import solve_assignments
+from kubernetes_tpu_torch.scheduler.gang import gang_solve
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
 
 
@@ -40,3 +45,29 @@ def schedule_backlog(
     with phase(timer, "readback"):
         names = snap.nodes.names
         return [names[i] if i >= 0 else None for i in assignment]
+
+
+def schedule_backlog_gang(
+    pending: Sequence[Pod],
+    nodes: Sequence[Node],
+    assigned: Sequence[Pod] = (),
+    services: Sequence[Service] = (),
+    groups=(),
+    device: DeviceLike = None,
+    timer: Optional[PhaseTimer] = None,
+):
+    """Gang-accepting backlog solve on `device` (default: the CUDA card;
+    raises without one): `schedule_backlog` each round, the group
+    counts by the masked segment sum on the device. Returns
+    (destinations, accepted_groups, rejected_groups); see
+    `scheduler.gang.gang_solve`."""
+    device = resolve_device(device)
+
+    def solver(p, n, a, s):
+        return schedule_backlog(p, n, a, s, device=device, timer=timer)
+
+    return gang_solve(
+        solver, pending, nodes, assigned, services, groups,
+        counts_fn=partial(gang_member_counts_device, device=device),
+        timer=timer,
+    )

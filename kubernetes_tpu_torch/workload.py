@@ -5,13 +5,18 @@
 same seed draws the same `random.Random` stream and yields the same
 pods, nodes and services. `small_cluster` is a fuzz cluster that
 exercises every predicate and commit path of the solver at a few dozen
-pods and nodes.
+pods and nodes. `churn_replay` drives an incremental session through
+BASELINE config 5, continuous pod creates and deletes (the tick loop of
+`bench.py`'s `_churn_figure`), with pods of `synthetic_objects`'
+distribution.
 """
 
 from __future__ import annotations
 
 import random
-from typing import List, Tuple
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from kubernetes_tpu_torch.models.objects import (
     AWSElasticBlockStoreVolumeSource,
@@ -31,8 +36,43 @@ from kubernetes_tpu_torch.models.objects import (
     Volume,
 )
 from kubernetes_tpu_torch.models.quantity import Quantity, parse_quantity
+from kubernetes_tpu_torch.utils.tracing import PhaseTimer
 
 Objects = Tuple[List[Pod], List[Node], List[Service]]
+
+
+ZONES = tuple(f"z{i}" for i in range(4))
+
+
+def _synthetic_pod(rng: random.Random, name: str, n_services: int) -> Pod:
+    """One pod of `synthetic_objects`' distribution, drawing from `rng`
+    in the generator's order: service, host port, cpu, memory, zone
+    selector."""
+    app = f"app{rng.randrange(n_services)}"
+    ports = (
+        [ContainerPort(container_port=80, host_port=30000 + rng.randrange(64))]
+        if rng.random() < 0.05
+        else []
+    )
+    limits = {
+        "cpu": Quantity.from_milli(rng.choice([100, 250, 500, 1000])),
+        "memory": parse_quantity(f"{rng.choice([64, 128, 256, 512])}Mi"),
+    }
+    selector = {"zone": rng.choice(ZONES)} if rng.random() < 0.1 else {}
+    return Pod(
+        metadata=ObjectMeta(name=name, namespace="default", labels={"app": app}),
+        spec=PodSpec(
+            containers=[
+                Container(
+                    name="c",
+                    image="app",
+                    ports=ports,
+                    resources=ResourceRequirements(limits=limits),
+                )
+            ],
+            node_selector=selector,
+        ),
+    )
 
 
 def synthetic_objects(n_pods: int, n_nodes: int, seed: int = 0) -> Objects:
@@ -41,10 +81,9 @@ def synthetic_objects(n_pods: int, n_nodes: int, seed: int = 0) -> Objects:
     per hundred pods, 5% of pods with a host port and 10% with a zone
     selector."""
     rng = random.Random(seed)
-    zones = [f"z{i}" for i in range(4)]
     nodes = [
         Node(
-            metadata=ObjectMeta(name=f"n{j}", labels={"zone": rng.choice(zones)}),
+            metadata=ObjectMeta(name=f"n{j}", labels={"zone": rng.choice(ZONES)}),
             status=NodeStatus(
                 capacity={
                     "cpu": Quantity.from_milli(rng.choice([8000, 16000, 32000])),
@@ -63,43 +102,7 @@ def synthetic_objects(n_pods: int, n_nodes: int, seed: int = 0) -> Objects:
         )
         for s in range(max(1, n_pods // 100))
     ]
-    pods = []
-    for i in range(n_pods):
-        app = f"app{rng.randrange(len(services))}"
-        ports = (
-            [ContainerPort(container_port=80, host_port=30000 + rng.randrange(64))]
-            if rng.random() < 0.05
-            else []
-        )
-        pods.append(
-            Pod(
-                metadata=ObjectMeta(
-                    name=f"p{i}", namespace="default", labels={"app": app}
-                ),
-                spec=PodSpec(
-                    containers=[
-                        Container(
-                            name="c",
-                            image="app",
-                            ports=ports,
-                            resources=ResourceRequirements(
-                                limits={
-                                    "cpu": Quantity.from_milli(
-                                        rng.choice([100, 250, 500, 1000])
-                                    ),
-                                    "memory": parse_quantity(
-                                        f"{rng.choice([64, 128, 256, 512])}Mi"
-                                    ),
-                                }
-                            ),
-                        )
-                    ],
-                    node_selector=(
-                        {"zone": rng.choice(zones)} if rng.random() < 0.1 else {}
-                    ),
-                ),
-            )
-        )
+    pods = [_synthetic_pod(rng, f"p{i}", len(services)) for i in range(n_pods)]
     return pods, nodes, services
 
 
@@ -213,3 +216,105 @@ def small_cluster(seed: int) -> Tuple[List[Pod], List[Node], List[Pod], List[Ser
         assigned.append(a)
     pending = [_pod(rng, f"p{i}", n_services, names) for i in range(rng.randint(1, 200))]
     return pending, nodes, assigned, services
+
+
+def churn_pods(rng: random.Random, first: int, count: int, n_services: int) -> List[Pod]:
+    """`count` new pods p{first}, p{first + 1}, ... drawn from `rng` with
+    `synthetic_objects`' pod distribution over `n_services` services."""
+    return [_synthetic_pod(rng, f"p{first + i}", n_services) for i in range(count)]
+
+
+@dataclass
+class ChurnTick:
+    """One tick of a churn replay: its results, the deletes that found
+    their pod, and its host wall and phase seconds (`lower` in
+    add_pending, `delete`, and the session's `upload`, `solve`,
+    `readback` and `commit`)."""
+
+    results: List[Tuple[str, Optional[str]]]
+    deleted: int
+    wall_s: float
+    phases_s: Dict[str, float]
+
+
+def churn_replay(
+    session,
+    live: Sequence[str],
+    ticks: int,
+    rate: int,
+    seed: int,
+    n_services: int,
+    first_index: int,
+    pipelined: bool = False,
+    on_result: Optional[Callable[[int, List[Tuple[str, Optional[str]]]], None]] = None,
+) -> List[ChurnTick]:
+    """Drive `session` (a SolverSession) through `ticks` churn ticks.
+
+    Each tick creates `rate` pods (p{first_index}, ... of
+    `synthetic_objects`' distribution over `n_services` services),
+    deletes `rate` random pods of the live pool, and solves; the pods
+    and the deletes come from `random.Random(seed)`. `live` is the
+    initial pool (the keys of the session's assigned pods). A tick's
+    placements join the pool after the next tick's deletes, so the same
+    operations can be replayed with a tick in flight: with `pipelined`
+    the tick launches by `solve_async`, and the next tick's creates and
+    deletes are applied while it runs. Either way the session sees the
+    same operations in the same order and makes the same decisions.
+
+    `on_result(k, results)` is called once tick k's results are in and
+    before the next launch; its time is not in any tick's wall. The
+    session's `timer` is set to a fresh PhaseTimer for each tick."""
+    rng = random.Random(seed)
+    pool = list(live)
+    late: List[str] = []
+    records: List[ChurnTick] = []
+    handle = None
+    index = first_index
+
+    def resolve(k: int) -> float:
+        """Collect tick k's results; returns the seconds on_result took."""
+        records[k].results = handle.result()
+        pool.extend(key for key, dest in records[k].results if dest is not None)
+        if on_result is None:
+            return 0.0
+        t0 = time.perf_counter()
+        on_result(k, records[k].results)
+        return time.perf_counter() - t0
+
+    saved_timer = session.timer
+    try:
+        for k in range(ticks):
+            pods = churn_pods(rng, index, rate, n_services)
+            index += rate
+            timer = PhaseTimer()
+            session.timer = timer
+            t0 = time.perf_counter()
+            with timer.phase("lower"):
+                for pod in pods:
+                    session.add_pending(pod)
+            deleted = 0
+            with timer.phase("delete"):
+                for _ in range(min(rate, len(pool))):
+                    i = rng.randrange(len(pool))
+                    pool[i], pool[-1] = pool[-1], pool[i]
+                    deleted += session.delete_assigned(pool.pop())
+            records.append(ChurnTick([], deleted, 0.0, timer.seconds))
+            callback_s = 0.0
+            if pipelined:
+                if handle is not None:
+                    callback_s = resolve(k - 1)
+                handle = session.solve_async()
+            else:
+                pool.extend(late)
+                records[k].results = session.solve()
+                late = [key for key, dest in records[k].results if dest is not None]
+            records[k].wall_s = time.perf_counter() - t0 - callback_s
+            if not pipelined and on_result is not None:
+                on_result(k, records[k].results)
+        if pipelined and handle is not None:
+            t0 = time.perf_counter()
+            callback_s = resolve(ticks - 1)
+            records[-1].wall_s += time.perf_counter() - t0 - callback_s
+    finally:
+        session.timer = saved_timer
+    return records

@@ -24,8 +24,9 @@ from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.models.columnar import build_snapshot
 from kubernetes_tpu_torch.ops import build, scan_kernel
 from kubernetes_tpu_torch.ops.matrices import device_snapshot
-from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
-from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+from kubernetes_tpu_torch.ops import SolverSession
+from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device, solve_backlog_pipelined
+from kubernetes_tpu_torch.scheduler.batch import schedule_backlog, schedule_backlog_gang
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "kubernetes_tpu_torch")
@@ -86,6 +87,34 @@ def test_entry_points_raise_without_cuda(no_cuda):
         schedule_backlog(pods, nodes, services=services)
     with pytest.raises(RuntimeError, match="CUDA"):
         device_snapshot(build_snapshot(pods, nodes, services=services))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SolverSession(nodes, services)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        schedule_backlog_gang(pods, nodes, services=services)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gang_member_counts_device([True], [0], 1)
+
+
+def test_new_modules_fall_under_the_import_check():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {
+        "kubernetes_tpu_torch/ops/incremental.py",
+        "kubernetes_tpu_torch/scheduler/gang.py",
+    } <= names
+
+
+def test_session_routes_cpu_tensors_to_the_plain_version(monkeypatch):
+    def no_launch(*args, **kwargs):
+        raise AssertionError("the CUDA launch path was taken for CPU tensors")
+
+    monkeypatch.setattr(scan_kernel, "_launch", no_launch)
+    pods, nodes, services = workload.synthetic_objects(8, 2)
+    session = SolverSession(nodes, services, device="cpu")
+    for pod in pods:
+        session.add_pending(pod)
+    before = scan_kernel.scan_with_state.launches
+    assert len(session.solve()) == 8
+    assert scan_kernel.scan_with_state.launches == before
 
 
 def test_wrapper_routes_cpu_tensors_to_the_plain_version(monkeypatch):
