@@ -49,6 +49,30 @@ exits non-zero and prints no result. Phases, one JSON line each:
               and rejected keys), then on the 50k x 5k backlog in groups
               of 50, some of which cannot reach minMember: all or
               nothing, with at least two rounds;
+  5d. policy_parity
+              the policy scan kernel held against its plain version on
+              the card, exactly (decisions, the nine carry fields, anchor
+              and svc_total): every policy of workload.POLICY_SHAPES on
+              seeded small clusters (BASELINE configs 2 and 3, label
+              presence and absence, label preference, service affinity
+              with an anchor on an unknown node, one and two
+              anti-affinity instances, the full vocabulary), and ties and
+              unplaceable pods under the full vocabulary;
+  5e. policy  schedule_backlog(spec=FULL_VOCABULARY_POLICY) on
+              policy_objects(50000, 5000, seed=2): a warm-up and three
+              timed runs (wall, phases, launches; the three runs' names
+              identical), the kernel's ms by CUDA events on the whole
+              backlog, and the first 4,096 pods held to the plain
+              version on the card, decisions and carry;
+  5f. explain explain_backlog for 1,024 pods of that backlog against its
+              5,000 nodes on the card, equal to the same call with
+              device="cpu";
+  5g. sidecar python -m kubernetes_tpu_torch.ops.sidecar as a subprocess
+              on the card, sent the default 50k backlog and the policy
+              backlog by the port's SidecarSolver: the answers equal the
+              in-process schedule_backlog's; round-trip seconds and frame
+              bytes; a wave request comes back as a structured error, and
+              a ping after a garbage frame still answers;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -69,6 +93,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -83,6 +108,10 @@ KERNEL_REPEATS = 5
 CHURN_RATE, CHURN_WARMUP, CHURN_TICKS = 1000, 2, 10
 CHURN_CHECKED = (1, 5, 10)  # timed ticks whose kernel runs are held to the plain version
 GANG_SIZE = 50
+POLICY_REPEATS = 3
+POLICY_CHECKED = 4096  # pods of the 50k policy backlog held to the plain version
+EXPLAIN_PODS = 1024
+SIDECAR_WAIT_S = 120
 
 # The card's published rates (NVIDIA H100 SXM data sheet): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
@@ -165,6 +194,17 @@ def main() -> int:
     gang = run_gang(torch, device)
     emit("gang", ok=True, **gang)
 
+    # -- 5d-5g. policy specs, explain, the sidecar ---------------------------
+    policy_parity = check_policy_parity(torch, device)
+    emit("policy_parity", ok=True, **policy_parity)
+    policy = run_policy(torch, device)
+    policy_names = policy.pop("names")
+    policy_timing = policy.pop("timing")
+    emit("policy", ok=True, card=smi, **policy)
+    emit("explain", ok=True, card=smi, **run_explain(torch, device))
+    sidecar_line = run_sidecar(torch, placed_names, policy_names)
+    emit("sidecar", ok=True, card=smi, **sidecar_line)
+
     # -- 6. kernels --------------------------------------------------------
     ptxas = "\n".join(str(r["log"]) for r in records if r["name"] == "scan_kernel")
     timing = time_kernel(torch, device, parity["chunk_state"], parity["chunk_result"], ptxas)
@@ -180,6 +220,7 @@ def main() -> int:
                 "churn": churn["launches"],
                 "churn_pipelined": churn["pipelined"]["launches"],
                 "gang_50k": gang["backlog"]["launches"],
+                "sidecar_default": sidecar_line["default"]["kernel_launches"]["scan_kernel"],
             },
             "max_abs_err": parity["summary"]["max_abs_err"],
             "ms": timing["ms"],
@@ -189,7 +230,29 @@ def main() -> int:
             # No single PyTorch call computes the sequential solve.
             "library_ms": None,
             "session_shape": churn["kernel_at_session_shape"],
-        }
+        },
+        {
+            "name": "policy_scan_kernel",
+            "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/policy_scan_kernel.cu",
+            # An XLA function of the JAX package, not a Pallas kernel.
+            "replaces": "kubernetes_tpu/ops/solver.py:304 (_scan_solve under _solve_xla, "
+                        "policy LoweredSpec; XLA, not a Pallas kernel)",
+            "launches": policy["launches_last_run"],
+            "launches_by_path": {
+                "policy": policy["launches_last_run"],
+                "sidecar_policy": sidecar_line["policy"]["kernel_launches"]["policy_scan_kernel"],
+            },
+            "max_abs_err": max(policy_parity["max_abs_err"], policy_timing["max_abs_err"]),
+            "ms": policy_timing["ms"],
+            "plain_ms": policy_timing["plain_ms"],
+            "bound_ms": policy_timing["bound_ms"],
+            "bound_by": policy_timing["bound_by"],
+            # No single PyTorch call computes the sequential solve.
+            "library_ms": None,
+            "timed": policy_timing["timed"],
+            "backlog_ms": policy["kernel_ms"],
+        },
     ]
     emit("kernel_timing", ok=True, card=smi, **timing)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -218,16 +281,17 @@ def _max_abs_err(torch, a, b) -> float:
 
 def _compare(torch, tag, got_choice, got_nodes, ref_choice, ref_nodes, phase="parity") -> float:
     """The largest absolute difference over the decisions and the nine
-    carry fields (bitset words compared as int32, exactly). The
-    tolerance is exact equality: any difference fails the phase."""
-    from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS
+    carry fields, and the service carry where there is one (bitset words
+    compared as int32, exactly). The tolerance is exact equality: any
+    difference fails the phase."""
+    from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, POLICY_CARRY_KEYS
 
     err = _max_abs_err(torch, got_choice, ref_choice)
     if not torch.equal(got_choice, ref_choice):
         bad = int((got_choice != ref_choice).sum().item())
         first = int((got_choice != ref_choice).nonzero()[0].item())
         fail(phase, f"{tag}: {bad} decisions differ, first at pod {first}")
-    for k in CARRY_KEYS:
+    for k in CARRY_KEYS + tuple(k for k in POLICY_CARRY_KEYS if k in ref_nodes):
         field_err = _max_abs_err(torch, got_nodes[k], ref_nodes[k])
         if not torch.equal(got_nodes[k], ref_nodes[k]):
             fail(phase, f"{tag}: carry field {k} differs (max abs err {field_err})")
@@ -876,6 +940,318 @@ def run_gang(torch, device):
             "all_or_nothing": True,
         },
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 5d-5g: policy specs, explain, the sidecar
+# ---------------------------------------------------------------------------
+
+
+def _policy_kernel_vs_plain(torch, tag, pods, nodes, weights, lspec, phase="policy_parity"):
+    from kubernetes_tpu_torch.ops import policy_scan
+
+    kn, pn = _copy(nodes), _copy(nodes)
+    got, kn = policy_scan.policy_scan_with_state(pods, kn, weights, lspec)
+    ref, pn = policy_scan.plain_policy_scan_with_state(pods, pn, weights, lspec)
+    torch.cuda.synchronize()
+    return _compare(torch, tag, got, kn, ref, pn, phase=phase)
+
+
+def check_policy_parity(torch, device):
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops.matrices import device_snapshot
+
+    cases, max_err, shapes = 0, 0.0, {}
+    for shape, policy in workload.POLICY_SHAPES.items():
+        spec = spec_from_policy(policy)
+        for seed in range(4):
+            pending, nodes, assigned, services = workload.policy_cluster(seed)
+            d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), device)
+            max_err = max(max_err, _policy_kernel_vs_plain(
+                torch, f"{shape} seed {seed}", d.pods, d.nodes, d.weights, d.lowered))
+            cases += 1
+        shapes[shape] = str(d.lowered)
+    # Ties between nodes of different threads and pods that fit nowhere
+    # (pinned to -2 or past the node axis) between placed ones, on an
+    # unpadded node axis, under the full vocabulary.
+    pending, nodes, assigned, services = workload.policy_objects(600, 45, seed=11)
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), device, 1)
+    d.pods["pinned"][1::9] = -2
+    d.pods["pinned"][2::13] = 45 + 3
+    max_err = max(max_err, _policy_kernel_vs_plain(
+        torch, "ties and unplaceable pods", d.pods, d.nodes, d.weights, d.lowered))
+    cases += 1
+    return {"cases": cases, "shapes": shapes, "max_abs_err": max_err,
+            "tolerance": "exact (torch.equal; anchor and svc_total included)"}
+
+
+def policy_kernel_bound(torch, pods, carry, lspec):
+    """The least time the card could take for one policy scan launch on
+    these inputs: the larger of the bytes it must move over the HBM rate
+    and the operations it must do over the f32 rate."""
+    P, N = pods["cpu"].shape[0], carry["cpu_cap"].shape[0]
+    SW, PW = pods["sel"].shape[1], pods["port"].shape[1]
+    VW, K = pods["vol_any"].shape[1], pods["svc_ids"].shape[1]
+    S = carry["svc_counts"].shape[1]
+    KA = pods["aff_pin"].shape[1] if lspec.service_affinity else 0
+    I = len(lspec.aa_weights)
+    SA = carry["anchor"].shape[0] if "anchor" in carry else 0
+    # Bytes: every input read once, every output written once. Pods:
+    # cpu, mem, pinned, svc (4 B), zero_req (1 B), bitset words, service
+    # ids and affinity pins (4 B each); node constants with the policy
+    # columns (policy_ok 1 B, static_prio, aff_vid, aa_zone 4 B each);
+    # the carry in and out (the service carry included); the choices.
+    pod_bytes = P * (4 * 4 + 1 + 4 * (SW + PW + 2 * VW + K + KA))
+    const_bytes = N * (3 * 4 + 2 + 4 * SW + 1 + 4 + 4 * KA + 4 * I)
+    carry_bytes = N * (5 * 4 + 4 * (PW + 2 * VW) + 4 * S) + 8 * SA
+    nbytes = pod_bytes + const_bytes + 2 * carry_bytes + 4 * P
+    # Operations per (pod, node) pair, counted from the plain version's
+    # arithmetic: the scan kernel's count (kernel_bound), plus the label
+    # mask 1, static priority 1, 3 per affinity label, and per
+    # anti-affinity instance 10 (zone test and sum, the zone's count,
+    # the score's division and select, the weighted add). Only pods some
+    # node could take need pairs.
+    ops_per_pair = 13 + 2 + 4 + 12 + 14 + 4 + 5 + 3 + 2 * SW + 2 * PW + 4 * VW
+    ops_per_pair += 2 + 3 * KA + 10 * I
+    pin = pods["pinned"]
+    placeable = int(((pin == -1) | ((pin >= 0) & (pin < N))).sum().item()) if lspec.hostname else P
+    nops = placeable * N * ops_per_pair
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / F32_OPS_PER_S * 1e3
+    return {
+        "bytes": nbytes, "ops": nops, "placeable_pods": placeable,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def _policy_time_ms(torch, pods, carry, weights, lspec, reps):
+    """Median CUDA-event ms of `reps` policy kernel launches after a
+    warm-up, each from a fresh copy of `carry`; and the last result."""
+    from kubernetes_tpu_torch.ops import policy_scan
+
+    times, out = [], None
+    for _ in range(reps + 1):
+        nodes = _copy(carry)
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = policy_scan._launch(pods, nodes, weights, lspec)
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+    return statistics.median(times[1:]), times[1:], out
+
+
+def run_policy(torch, device):
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops import policy_scan, scan_kernel
+    from kubernetes_tpu_torch.ops.matrices import device_snapshot
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    t0 = time.perf_counter()
+    pending, nodes, assigned, services = workload.policy_objects(N_PODS, N_NODES, seed=2)
+    objects_s = time.perf_counter() - t0
+    runs, names = [], None
+    for r in range(POLICY_REPEATS + 1):
+        timer = PhaseTimer()
+        torch.cuda.synchronize()
+        policy_scan.policy_scan_with_state.launches = 0
+        scan_kernel.scan_with_state.launches = 0
+        t0 = time.perf_counter()
+        got = schedule_backlog(pending, nodes, assigned, services, device=device, timer=timer,
+                               spec=spec)
+        wall = time.perf_counter() - t0
+        launches = policy_scan.policy_scan_with_state.launches
+        if launches != 1 or scan_kernel.scan_with_state.launches:
+            fail("policy", f"the policy backlog made {launches} policy kernel launches and "
+                           f"{scan_kernel.scan_with_state.launches} scan kernel launches, expected 1 and 0")
+        node_names = {n.metadata.name for n in nodes}
+        if len(got) != N_PODS or any(n is not None and n not in node_names for n in got):
+            fail("policy", "result has the wrong length or unknown node names")
+        if names is None:
+            names = got
+        elif got != names:
+            fail("policy", f"run {r}: {sum(a != b for a, b in zip(got, names))} decisions differ "
+                           "from the first run's")
+        runs.append({"run": "warmup" if r == 0 else f"timed{r}", "wall_s": wall,
+                     "placed": sum(n is not None for n in got), "launches": launches,
+                     "phases_s": timer.seconds})
+    placed = runs[-1]["placed"]
+    if placed == 0:
+        fail("policy", "no pod placed")
+
+    # The kernel alone on the whole backlog, and the first POLICY_CHECKED
+    # pods against the plain version, decisions and carry.
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), device)
+    ms_all_pods, _, (choice, _) = _policy_time_ms(torch, d.pods, d.nodes, d.weights, d.lowered, 1)
+    index = {n.metadata.name: j for j, n in enumerate(nodes)}
+    if [index[n] if n is not None else -1 for n in names] != choice[:N_PODS].tolist():
+        fail("policy", "schedule_backlog disagrees with the kernel launched on its snapshot")
+    head = {k: v[:POLICY_CHECKED].contiguous() for k, v in d.pods.items()}
+    ms, ms_runs, (got, got_nodes) = _policy_time_ms(torch, head, d.nodes, d.weights, d.lowered, 3)
+    ref_nodes = _copy(d.nodes)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    ref, ref_nodes = policy_scan.plain_policy_scan_with_state(head, ref_nodes, d.weights, d.lowered)
+    ev1.record()
+    torch.cuda.synchronize()
+    plain_ms = ev0.elapsed_time(ev1)
+    err = _compare(torch, f"first {POLICY_CHECKED} pods of the policy backlog", got, got_nodes,
+                   ref, ref_nodes, phase="policy")
+    if got.tolist() != choice[:POLICY_CHECKED].tolist():
+        fail("policy", "the kernel on the first pods disagrees with its run on the whole backlog")
+    bound = policy_kernel_bound(torch, head, d.nodes, d.lowered)
+    full_bound = policy_kernel_bound(torch, d.pods, d.nodes, d.lowered)
+    plan = policy_scan.plan_for(d.pods, d.nodes, d.lowered)
+    timed = [x["wall_s"] for x in runs[1:]]
+    return {
+        "backlog": f"{N_PODS} pods x {N_NODES} nodes, {len(services)} services, "
+                   f"{len(assigned)} bound peers, FULL_VOCABULARY_POLICY",
+        "lowered": str(d.lowered), "weights": list(d.weights),
+        "objects_s": objects_s,
+        "runs": runs,
+        "wall_s_median": statistics.median(timed),
+        "pods_per_s_median": N_PODS / statistics.median(timed),
+        "placed": placed,
+        "launches_last_run": runs[-1]["launches"],
+        "identical_runs": len(runs),
+        "kernel_ms": ms_all_pods,
+        "kernel_per_pod_us": ms_all_pods * 1e3 / max(full_bound["placeable_pods"], 1),
+        "kernel_bound_ms": full_bound["bound_ms"],
+        "plan": {"threads": plan.threads, "smem_bytes": plan.smem_bytes,
+                 "zone_bins": plan.zone_bins, "row_words": plan.row_words},
+        "shape": {"P": int(d.pods["cpu"].shape[0]), "N": int(d.nodes["cpu_cap"].shape[0]),
+                  "S": int(d.nodes["svc_counts"].shape[1]), "SA": int(d.nodes["anchor"].shape[0])},
+        "checked_against_plain": POLICY_CHECKED,
+        "names": names,
+        "timing": {
+            "ms": ms, "ms_all": ms_runs, "plain_ms": plain_ms, "max_abs_err": err,
+            "per_pod_us": ms * 1e3 / max(bound["placeable_pods"], 1), **bound,
+            "timed": f"the wrapper's launch on the first {POLICY_CHECKED} pods of the policy "
+                     "backlog and its staged carry, layout conversion included",
+        },
+    }
+
+
+def run_explain(torch, device):
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops.pipeline import explain_backlog
+
+    pending, nodes, assigned, services = workload.policy_objects(N_PODS, N_NODES, seed=2)
+    pods = pending[:EXPLAIN_PODS]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = explain_backlog(pods, nodes, assigned, services, device=device)
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref = explain_backlog(pods, nodes, assigned, services, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if got != ref:
+        bad = sum(a != b for a, b in zip(got, ref))
+        fail("explain", f"{bad} of {len(ref)} explain entries differ between the card and the CPU")
+    return {
+        "pods": len(pods), "nodes": len(nodes),
+        "ms_median": statistics.median(times[1:]) * 1e3, "ms_all": [t * 1e3 for t in times],
+        "cpu_ms": cpu_s * 1e3,
+        "feasible_nodes_median": statistics.median(e["feasibleNodes"] for e in got),
+        "equal_to_cpu": True,
+        "timed": "explain_backlog wall (lowering, staging, the batched readback, the per-pod "
+                 "dicts); first call a warm-up",
+    }
+
+
+def _stop_process(proc):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
+def run_sidecar(torch, default_names, policy_names):
+    """The port's sidecar as a subprocess on the card, driven by the
+    port's own client with the default and the policy 50k backlogs."""
+    import socket
+
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops import sidecar
+
+    proc, sock_path = None, None
+    t0 = time.perf_counter()
+    try:
+        proc, sock_path = sidecar.spawn_sidecar(wait=SIDECAR_WAIT_S)
+        start_s = time.perf_counter() - t0
+        client = sidecar.SidecarSolver(sock_path, timeout=SIDECAR_WAIT_S)
+        spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+        pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+        ppending, pnodes, passigned, pservices = workload.policy_objects(N_PODS, N_NODES, seed=2)
+        cases = {
+            "default": ((pending, nodes, (), services), None, default_names),
+            "policy": ((ppending, pnodes, passigned, pservices), spec, policy_names),
+        }
+        out = {"start_s": start_s}
+        # The server's first request loads the kernels and warms its card.
+        client.solve(*cases["default"][0])
+        for tag, (objs, spec_, expected) in cases.items():
+            snap = build_snapshot(*objs, spec=spec_)
+            header, arrays = sidecar._encode({"op": "solve", "mode": "scan",
+                                              **sidecar._snapshot_payload(snap)})
+            walls = []
+            # The server counts each solve's launches from 0 and returns
+            # them with the reply.
+            want = {"scan_kernel": int(spec_ is None), "policy_scan_kernel": int(spec_ is not None)}
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got = client.solve(*objs, spec=spec_)
+                walls.append(time.perf_counter() - t0)
+                if got != expected:
+                    bad = sum(a != b for a, b in zip(got, expected))
+                    fail("sidecar", f"{tag}: {bad} decisions differ from in-process schedule_backlog")
+                if client.last_kernel_launches != want:
+                    fail("sidecar", f"{tag}: the server's solve launched "
+                                    f"{client.last_kernel_launches}, expected {want}")
+            out[tag] = {"round_trip_s": walls, "round_trip_s_min": min(walls),
+                        "request_frame_bytes": 18 + len(header) + sum(a.nbytes for a in arrays),
+                        "kernel_launches": client.last_kernel_launches,
+                        "equal_to_in_process": True}
+        try:
+            client.solve(*cases["default"][0], mode="wave")
+            fail("sidecar", "a wave request did not come back as an error")
+        except sidecar.SidecarError as e:
+            if "NotImplementedError" not in str(e):
+                fail("sidecar", f"a wave request failed without a structured error: {e}")
+            out["wave"] = str(e)[:160]
+        s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        s.settimeout(10)
+        s.connect(sock_path)
+        s.sendall(b"GARBAGE" * 100)
+        s.close()
+        if not client.ping():
+            fail("sidecar", "the server did not answer a ping after a garbage frame")
+        out["alive_after_garbage"] = True
+        out["timed"] = ("SidecarSolver.solve wall: client-side lowering, the frame both ways, the "
+                        "server's staging, solve and readback")
+        return out
+    except sidecar.SidecarError as e:
+        fail("sidecar", f"sidecar failure: {e}")
+    finally:
+        if proc is not None:
+            _stop_process(proc)
+            shutil.rmtree(os.path.dirname(sock_path), ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------

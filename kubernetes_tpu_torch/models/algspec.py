@@ -1,9 +1,9 @@
 """Algorithm specs: a structured description of the configured
 predicate/priority set, as the columnar lowering reads it.
 
-A copy of `kubernetes_tpu/models/algspec.py` without the policy-file
-and key-set parsers (the port builds specs directly). The port's solver
-runs the default spec only; a lowered non-default spec raises there.
+A copy of `kubernetes_tpu/models/algspec.py`. The port's solver takes
+every lowerable spec: the default one runs the scan kernel, any other
+the policy scan kernel (`ops/solver.py`).
 
 The reference builds its scheduler from either an algorithm provider's
 key sets (plugin/pkg/scheduler/algorithmprovider/defaults/defaults.go)
@@ -117,6 +117,79 @@ def _weight_map(priorities: Tuple[PrioritySpec, ...]) -> Dict[str, int]:
             continue  # argumented kinds are not mergeable by kind
         out[p.kind] = out.get(p.kind, 0) + p.weight
     return out
+
+
+DEFAULT_SPEC = AlgorithmSpec(
+    predicates=tuple(PredicateSpec(k) for k in BASE_PREDICATES),
+    priorities=(
+        PrioritySpec("LeastRequestedPriority", 1),
+        PrioritySpec("BalancedResourceAllocation", 1),
+        PrioritySpec("ServiceSpreadingPriority", 1),
+    ),
+)
+
+
+def spec_from_policy(policy: dict) -> AlgorithmSpec:
+    """Policy document -> spec (plugin/pkg/scheduler/api/types.go).
+
+    Argumented entries carry arbitrary display names; the argument
+    decides the semantic kind. Plain entries must be base kinds or
+    user-registered names (which lower_spec will reject, routing the
+    daemon to the scalar path)."""
+    predicates = []
+    for p in policy.get("predicates", []):
+        arg = p.get("argument") or {}
+        if "serviceAffinity" in arg:
+            predicates.append(
+                PredicateSpec(
+                    "ServiceAffinity",
+                    labels=tuple(arg["serviceAffinity"].get("labels", [])),
+                )
+            )
+        elif "labelsPresence" in arg:
+            predicates.append(
+                PredicateSpec(
+                    "NodeLabelPresence",
+                    labels=tuple(arg["labelsPresence"].get("labels", [])),
+                    presence=arg["labelsPresence"].get("presence", True),
+                )
+            )
+        else:
+            predicates.append(PredicateSpec(p["name"]))
+    priorities = []
+    for p in policy.get("priorities", []):
+        weight = p.get("weight", 1)
+        arg = p.get("argument") or {}
+        if "serviceAntiAffinity" in arg:
+            priorities.append(
+                PrioritySpec(
+                    "ServiceAntiAffinity",
+                    weight=weight,
+                    label=arg["serviceAntiAffinity"].get("label", ""),
+                )
+            )
+        elif "labelPreference" in arg:
+            priorities.append(
+                PrioritySpec(
+                    "LabelPreference",
+                    weight=weight,
+                    label=arg["labelPreference"].get("label", ""),
+                    presence=arg["labelPreference"].get("presence", True),
+                )
+            )
+        else:
+            priorities.append(PrioritySpec(p["name"], weight=weight))
+    return AlgorithmSpec(tuple(predicates), tuple(priorities))
+
+
+def spec_from_keys(
+    predicate_keys, priority_keys: Dict[str, int]
+) -> AlgorithmSpec:
+    """Provider key sets -> spec (factory.CreateFromKeys shape)."""
+    return AlgorithmSpec(
+        tuple(PredicateSpec(k) for k in predicate_keys),
+        tuple(PrioritySpec(k, weight=w) for k, w in priority_keys.items()),
+    )
 
 
 # ---------------------------------------------------------------------------

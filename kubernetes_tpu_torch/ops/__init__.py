@@ -1,5 +1,5 @@
-"""Device operations: staging, the solver and its kernels, the pipeline,
-the incremental session."""
+"""Device operations: staging, the solver and its kernels, the pipeline
+and the explain readback, the incremental session, the solver sidecar."""
 
 from kubernetes_tpu_torch.ops.incremental import (  # noqa: F401
     RebuildRequired,

@@ -39,6 +39,29 @@ CARRY_KEYS = (
     "uport", "uvol_any", "uvol_rw", "svc_counts",
 )
 
+#: The ServiceAffinity/AntiAffinity carry a policy solve adds (per
+#: service plus a scratch slot): the first peer's node and the peer count.
+POLICY_CARRY_KEYS = ("anchor", "svc_total")
+
+#: Predicate bit positions in the explain readback's packed per-node
+#: failure mask (`ops.solver.explain_rows`; bit set = the predicate
+#: rejected the node), in the solver's order, under the reference's
+#: FitPredicate names, plus NodeSchedulable, the ready/unschedulable
+#: node filter that runs before the predicates (factory.go:166,209).
+EXPLAIN_PREDICATES = (
+    "NodeSchedulable",
+    "PodFitsResources",
+    "MatchNodeSelector",
+    "PodFitsPorts",
+    "NoDiskConflict",
+    "HostName",
+)
+
+
+def decode_predicate_bits(bits: int) -> list:
+    """Failed-predicate names for one node's packed verdict mask."""
+    return [name for i, name in enumerate(EXPLAIN_PREDICATES) if bits & (1 << i)]
+
 
 def _pad(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
     """Pad axis 0 to length n."""

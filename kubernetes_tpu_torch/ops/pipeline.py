@@ -13,26 +13,30 @@ when pod rows reach the device, never the order they are scanned or the
 carry they see.
 
 `gang_member_counts_device` is the device half of gang acceptance
-(`scheduler/gang.py`), as in the JAX package's pipeline module.
+(`scheduler/gang.py`), and `explain_matrix` / `explain_backlog` the
+explain readback, as in the JAX package's pipeline module.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from kubernetes_tpu_torch import DeviceLike, resolve_device
-from kubernetes_tpu_torch.models.columnar import SnapshotBuilder
+from kubernetes_tpu_torch.models.columnar import SnapshotBuilder, build_snapshot, pod_key
 from kubernetes_tpu_torch.models.objects import Node, Pod, Service
 from kubernetes_tpu_torch.ops.matrices import (
+    EXPLAIN_PREDICATES,
+    decode_predicate_bits,
     device_nodes,
     device_pods,
+    device_snapshot,
     gang_member_counts,
     pow2_bucket,
 )
-from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, solve_with_state
+from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, explain_rows, solve_with_state
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
 
 # The JAX package's chunk: 50k pods in four chunks, each padded to a
@@ -128,3 +132,90 @@ def solve_backlog_pipelined(
             for j in host[:count].tolist():
                 result.append(names[j] if 0 <= j < n_nodes else None)
         return result
+
+
+# -- explain readback ---------------------------------------------------
+
+
+def explain_matrix(
+    pending: Sequence[Pod],
+    nodes: Sequence[Node],
+    assigned: Sequence[Pod] = (),
+    services: Sequence[Service] = (),
+    device: DeviceLike = None,
+):
+    """Raw explain readback for a backlog against one FIXED cluster state
+    (`assigned` pods charge occupancy; `pending` pods commit nothing, so
+    every row sees the same state), on `device` (default: the CUDA card;
+    raises without one). Returns (node_names, bits u32[P, N], components
+    dict of i32[P, N]): bit i of bits[p, n] set means
+    matrices.EXPLAIN_PREDICATES[i] rejected node n for pod p; bits == 0
+    is feasibility under the default pipeline. One batched evaluation
+    and one readback, never on the solve path."""
+    snap = build_snapshot(pending, nodes, assigned_pods=assigned, services=services)
+    dsnap = device_snapshot(snap, resolve_device(device))
+    bits, lr, bra, spread = explain_rows(dsnap.pods, dsnap.nodes)
+    P, N = dsnap.n_pods, dsnap.n_nodes
+    host = lambda t: t[:P, :N].cpu().numpy()
+    return (
+        snap.nodes.names,
+        host(bits).view(np.uint32),
+        {"leastRequested": host(lr), "balanced": host(bra), "spreading": host(spread)},
+    )
+
+
+def explain_backlog(
+    pending: Sequence[Pod],
+    nodes: Sequence[Node],
+    assigned: Sequence[Pod] = (),
+    services: Sequence[Service] = (),
+    device: DeviceLike = None,
+    top_k: int = 3,
+    max_failed: int = 16,
+) -> List[dict]:
+    """Bounded per-pod explain verdicts, the flight recorder's shape, as
+    the JAX package's `explain_backlog` builds them. For each pending pod
+    (aligned with the input): the top_k feasible nodes ranked by total
+    default-priority score (lowest index wins ties, the solver's
+    tie-break) with the score decomposition, up to max_failed
+    individually listed infeasible nodes, and aggregate failed-predicate
+    counts over all nodes."""
+    pending = list(pending)
+    if not pending:
+        return []
+    names, bits, comps = explain_matrix(pending, nodes, assigned, services, device=device)
+    total = comps["leastRequested"] + comps["balanced"] + comps["spreading"]
+    out: List[dict] = []
+    n_nodes = len(names)
+    for i, pod in enumerate(pending):
+        row = bits[i]
+        feasible = np.flatnonzero(row == 0)
+        entry_nodes: List[dict] = []
+        # Score descending, node index ascending within a score (a stable
+        # sort of -score keeps index order: the scan's tie-break).
+        for j in feasible[np.argsort(-total[i][feasible], kind="stable")][:top_k].tolist():
+            entry_nodes.append({
+                "node": names[j],
+                "ok": True,
+                "score": int(total[i, j]),
+                "components": {k: int(v[i, j]) for k, v in comps.items()},
+            })
+        reason_counts: Dict[str, int] = {}
+        for b, name in enumerate(EXPLAIN_PREDICATES):
+            c = int(((row >> np.uint32(b)) & 1).sum())
+            if c:
+                reason_counts[name] = c
+        for j in np.flatnonzero(row != 0)[:max_failed].tolist():
+            entry_nodes.append({
+                "node": names[j],
+                "ok": False,
+                "reasons": decode_predicate_bits(int(row[j])),
+            })
+        out.append({
+            "pod": pod_key(pod),
+            "feasibleNodes": int(len(feasible)),
+            "totalNodes": n_nodes,
+            "nodes": entry_nodes,
+            "reasonCounts": reason_counts,
+        })
+    return out

@@ -13,6 +13,7 @@ from functools import partial
 from typing import List, Optional, Sequence
 
 from kubernetes_tpu_torch import DeviceLike, resolve_device
+from kubernetes_tpu_torch.models.algspec import AlgorithmSpec
 from kubernetes_tpu_torch.models.columnar import build_snapshot
 from kubernetes_tpu_torch.models.objects import Node, Pod, Service
 from kubernetes_tpu_torch.ops.matrices import device_snapshot
@@ -29,13 +30,18 @@ def schedule_backlog(
     services: Sequence[Service] = (),
     device: DeviceLike = None,
     timer: Optional[PhaseTimer] = None,
+    spec: Optional[AlgorithmSpec] = None,
 ) -> List[Optional[str]]:
     """Node name per pending pod (None = unschedulable), with the
     reference's sequential decision semantics. Runs on `device`
-    (default: the CUDA card; raises without one)."""
+    (default: the CUDA card; raises without one). A non-default `spec`
+    lowers the configured predicate/priority set (UnloweredPolicyError
+    when it cannot) and solves it on the policy scan kernel."""
     device = resolve_device(device)
     with phase(timer, "lower"):
-        snap = build_snapshot(pending, nodes, assigned_pods=assigned, services=services)
+        snap = build_snapshot(
+            pending, nodes, assigned_pods=assigned, services=services, spec=spec
+        )
     with phase(timer, "upload"):
         dsnap = device_snapshot(snap, device)
     with phase(timer, "solve"):
@@ -55,16 +61,17 @@ def schedule_backlog_gang(
     groups=(),
     device: DeviceLike = None,
     timer: Optional[PhaseTimer] = None,
+    spec: Optional[AlgorithmSpec] = None,
 ):
     """Gang-accepting backlog solve on `device` (default: the CUDA card;
-    raises without one): `schedule_backlog` each round, the group
-    counts by the masked segment sum on the device. Returns
+    raises without one): `schedule_backlog` each round, under `spec`,
+    the group counts by the masked segment sum on the device. Returns
     (destinations, accepted_groups, rejected_groups); see
     `scheduler.gang.gang_solve`."""
     device = resolve_device(device)
 
     def solver(p, n, a, s):
-        return schedule_backlog(p, n, a, s, device=device, timer=timer)
+        return schedule_backlog(p, n, a, s, device=device, timer=timer, spec=spec)
 
     return gang_solve(
         solver, pending, nodes, assigned, services, groups,

@@ -3,9 +3,12 @@
 `synthetic_objects` is the repo's benchmark backlog (the generator in
 `__graft_entry__._synthetic_objects`, over this package's objects): the
 same seed draws the same `random.Random` stream and yields the same
-pods, nodes and services. `small_cluster` is a fuzz cluster that
-exercises every predicate and commit path of the solver at a few dozen
-pods and nodes. `churn_replay` drives an incremental session through
+pods, nodes and services. `policy_objects` is that backlog with the node
+labels and bound service peers that the full-vocabulary scheduler
+policy (`FULL_VOCABULARY_POLICY`) reads; `policy_cluster` does the same
+for `small_cluster`, under each policy of `POLICY_SHAPES`. `small_cluster` is a fuzz
+cluster that exercises every predicate and commit path of the solver at
+a few dozen pods and nodes. `churn_replay` drives an incremental session through
 BASELINE config 5, continuous pod creates and deletes (the tick loop of
 `bench.py`'s `_churn_figure`), with pods of `synthetic_objects`'
 distribution.
@@ -104,6 +107,170 @@ def synthetic_objects(n_pods: int, n_nodes: int, seed: int = 0) -> Objects:
     ]
     pods = [_synthetic_pod(rng, f"p{i}", len(services)) for i in range(n_pods)]
     return pods, nodes, services
+
+
+_BASE_PREDICATES = [
+    {"name": "PodFitsPorts"},
+    {"name": "PodFitsResources"},
+    {"name": "NoDiskConflict"},
+    {"name": "MatchNodeSelector"},
+    {"name": "HostName"},
+]
+
+#: A scheduler policy file (`scheduler --policy-config-file`) that uses
+#: every kind of the reference's vocabulary: the base predicates,
+#: labelsPresence present and absent, serviceAffinity on `zone`,
+#: weighted default priorities, serviceAntiAffinity on `rack` and
+#: labelPreference `ssd`.
+FULL_VOCABULARY_POLICY = {
+    "kind": "Policy",
+    "predicates": _BASE_PREDICATES + [
+        {"name": "zone-aff", "argument": {"serviceAffinity": {"labels": ["zone"]}}},
+        {"name": "has-zone",
+         "argument": {"labelsPresence": {"labels": ["zone"], "presence": True}}},
+        {"name": "not-retiring",
+         "argument": {"labelsPresence": {"labels": ["retiring"], "presence": False}}},
+    ],
+    "priorities": [
+        {"name": "LeastRequestedPriority", "weight": 1},
+        {"name": "BalancedResourceAllocation", "weight": 1},
+        {"name": "ServiceSpreadingPriority", "weight": 2},
+        {"name": "EqualPriority", "weight": 1},
+        {"name": "zone-anti", "weight": 2,
+         "argument": {"serviceAntiAffinity": {"label": "rack"}}},
+        {"name": "prefer-ssd", "weight": 1,
+         "argument": {"labelPreference": {"label": "ssd", "presence": True}}},
+    ],
+}
+
+
+def policy_objects(n_pods: int, n_nodes: int, seed: int = 0):
+    """(pending, nodes, assigned, services) for `FULL_VOCABULARY_POLICY`:
+    `synthetic_objects`' backlog with node j labelled rack=r{j % 10},
+    ssd=true when j % 3 == 0, retiring=soon when j % 17 == 0 and without
+    its zone when j % 11 == 0; and n_pods // 200 (at least 8) bound
+    service peers, so that anchors and zone counts start non-empty.
+    The same seed gives the same objects."""
+    pending, nodes, services = synthetic_objects(n_pods, n_nodes, seed)
+    for j, node in enumerate(nodes):
+        labels = node.metadata.labels
+        labels["rack"] = f"r{j % 10}"
+        if j % 3 == 0:
+            labels["ssd"] = "true"
+        if j % 17 == 0:
+            labels["retiring"] = "soon"
+        if j % 11 == 0:
+            del labels["zone"]
+    assigned = []
+    for k in range(max(8, n_pods // 200)):
+        peer = Pod(
+            metadata=ObjectMeta(
+                name=f"peer{k}", namespace="default",
+                labels={"app": f"app{(2 * k) % len(services)}"},
+            ),
+            spec=PodSpec(
+                containers=[Container(
+                    name="c", image="app",
+                    resources=ResourceRequirements(limits={
+                        "cpu": Quantity.from_milli(100), "memory": parse_quantity("64Mi")}),
+                )],
+                node_name=f"n{(7 * k) % n_nodes}",
+            ),
+        )
+        peer.status.phase = "Running"
+        assigned.append(peer)
+    return pending, nodes, assigned, services
+
+
+def _anti(name: str, label: str, weight: int) -> dict:
+    return {"name": name, "weight": weight,
+            "argument": {"serviceAntiAffinity": {"label": label}}}
+
+
+#: One scheduler policy per shape of the vocabulary, for the parity
+#: checks of the policy solve: the predicate subsets and weights of
+#: BASELINE configs 2 and 3, labelsPresence present and absent,
+#: labelPreference, serviceAffinity, one and two serviceAntiAffinity
+#: instances (beside a zero-weight one, which lowering drops), and the
+#: full vocabulary.
+POLICY_SHAPES = {
+    "resources_least_requested": {  # BASELINE config 2
+        "predicates": [{"name": "PodFitsResources"}],
+        "priorities": [{"name": "LeastRequestedPriority", "weight": 1}],
+    },
+    "selector_balanced": {  # BASELINE config 3
+        "predicates": [{"name": "MatchNodeSelector"}],
+        "priorities": [{"name": "BalancedResourceAllocation", "weight": 1}],
+    },
+    "presence_absence_weighted": {
+        "predicates": _BASE_PREDICATES + [
+            {"name": "z", "argument": {"labelsPresence": {"labels": ["zone"], "presence": True}}},
+            {"name": "r", "argument": {"labelsPresence": {"labels": ["retiring"],
+                                                          "presence": False}}},
+        ],
+        "priorities": [
+            {"name": "LeastRequestedPriority", "weight": 3},
+            {"name": "BalancedResourceAllocation", "weight": 2},
+            {"name": "ServiceSpreadingPriority", "weight": 1},
+        ],
+    },
+    "label_preference": {
+        "predicates": _BASE_PREDICATES,
+        "priorities": [
+            {"name": "LeastRequestedPriority", "weight": 1},
+            {"name": "ssd", "weight": 5,
+             "argument": {"labelPreference": {"label": "ssd", "presence": True}}},
+            {"name": "old", "weight": 2,
+             "argument": {"labelPreference": {"label": "retiring", "presence": False}}},
+        ],
+    },
+    "service_affinity": {
+        "predicates": _BASE_PREDICATES + [
+            {"name": "za", "argument": {"serviceAffinity": {"labels": ["zone", "rack"]}}}],
+        "priorities": [{"name": "LeastRequestedPriority", "weight": 1}],
+    },
+    "anti_affinity_one": {
+        "predicates": _BASE_PREDICATES,
+        "priorities": [_anti("spread-zone", "zone", 1)],
+    },
+    "anti_affinity_two": {
+        "predicates": _BASE_PREDICATES,
+        "priorities": [
+            {"name": "ServiceSpreadingPriority", "weight": 1},
+            _anti("dead", "zone", 0),
+            _anti("spread-rack", "rack", 2),
+            _anti("spread-zone", "zone", 3),
+        ],
+    },
+    "full_vocabulary": FULL_VOCABULARY_POLICY,
+}
+
+
+def policy_cluster(seed: int) -> Tuple[List[Pod], List[Node], List[Pod], List[Service]]:
+    """`small_cluster(seed)` with the node labels the policy shapes read
+    (rack=r{j % 4}, ssd on j % 3 == 0, retiring on j % 5 == 0) and one
+    more bound pod of every service, the first on a node the cluster
+    does not know: that service's anchor fits its pods nowhere."""
+    pending, nodes, assigned, services = small_cluster(seed)
+    for j, node in enumerate(nodes):
+        labels = node.metadata.labels
+        labels["rack"] = f"r{j % 4}"
+        if j % 3 == 0:
+            labels["ssd"] = "true"
+        if j % 5 == 0:
+            labels["retiring"] = "soon"
+    names = [n.metadata.name for n in nodes]
+    for s, svc in enumerate(services):
+        peer = Pod(
+            metadata=ObjectMeta(name=f"peer{s}", namespace="default",
+                                labels=dict(svc.spec.selector)),
+            spec=PodSpec(
+                containers=[Container(name="c", image="app")],
+                node_name="gone" if s == 0 else names[(3 * s) % len(names)],
+            ),
+        )
+        assigned.insert(0, peer)
+    return pending, nodes, assigned, services
 
 
 def _pod(rng: random.Random, name: str, n_services: int, node_names: List[str]) -> Pod:

@@ -1,6 +1,7 @@
-"""The CUDA scan kernel's source, run on the CPU, equals its plain version.
+"""The CUDA kernels' sources, run on the CPU, equal their plain versions.
 
-There is no CUDA compiler here, so `csrc/scan_kernel.cu` is compiled as
+There is no CUDA compiler here, so `csrc/scan_kernel.cu` (and, below,
+`csrc/policy_scan_kernel.cu`, launched as one plain block) is compiled as
 it stands with the host C++ compiler, against small headers that stand
 in for the CUDA ones: a launch (`cudaLaunchKernelEx` with a cluster
 attribute) runs every thread of every CTA of the cluster as a
@@ -31,8 +32,9 @@ import torch
 
 from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.models.columnar import build_snapshot
-from kubernetes_tpu_torch.ops import build, scan_kernel
-from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, device_snapshot
+from kubernetes_tpu_torch.models.algspec import spec_from_policy
+from kubernetes_tpu_torch.ops import build, policy_scan, scan_kernel
+from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, POLICY_CARRY_KEYS, device_snapshot
 
 CUDA_RUNTIME_H = r"""
 #pragma once
@@ -118,6 +120,14 @@ template <class T> T __reduce_max_sync(unsigned, T v) {
   return r;
 }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> r(*p);
+  int cur = r.load();
+  while (cur < v && !r.compare_exchange_weak(cur, v)) {
+  }
+  return cur;
+}
+template <class T> T __ldcg(const T* p) { return std::atomic_ref<T>(*const_cast<T*>(p)).load(); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -142,9 +152,11 @@ template <class... Exp, class... Act>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...),
                                Act&&... args) {
   const unsigned C = cfg->gridDim.x, T = cfg->blockDim.x;
-  if (cfg->numAttrs != 1 || cfg->attrs[0].id != cudaLaunchAttributeClusterDimension ||
-      cfg->attrs[0].val.clusterDim.x != C) {
-    return cudaErrorInvalidValue;  // one cluster spans the grid
+  // One cluster spans the grid, or a plain launch of one block.
+  const bool one_block = cfg->numAttrs == 0 && C == 1;
+  if (!one_block && (cfg->numAttrs != 1 || cfg->attrs[0].id != cudaLaunchAttributeClusterDimension ||
+                     cfg->attrs[0].val.clusterDim.x != C)) {
+    return cudaErrorInvalidValue;
   }
   blockDim = {T, 1, 1};
   std::vector<EmuBlock> blocks(C);
@@ -196,26 +208,31 @@ inline void cp_async_wait_all() {}
 """
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The kernel's source compiled against the emulation headers."""
+def _compile_emulated(tmp_path_factory, name):
+    """csrc/<name>.cu compiled against the emulation headers, loaded."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler to emulate the kernel with")
-    out = tmp_path_factory.mktemp("scan_emu")
+    out = tmp_path_factory.mktemp(f"{name}_emu")
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (out / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS_H)
     (out / "scan_async.cuh").write_text(SCAN_ASYNC_CUH)
     # The source as it stands, beside the emulated scan_async.cuh.
-    src = out / "scan_kernel.cc"
-    shutil.copy(f"{build.CSRC}/scan_kernel.cu", src)
-    lib = out / "libscan_emu.so"
+    src = out / f"{name}.cc"
+    shutil.copy(f"{build.CSRC}/{name}.cu", src)
+    lib = out / f"lib{name}_emu.so"
     subprocess.run(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
          "-I", str(out), "-o", str(lib), str(src)],
         check=True, capture_output=True, text=True, timeout=300,
     )
-    handle = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The scan kernel's source compiled against the emulation headers."""
+    handle = _compile_emulated(tmp_path_factory, "scan_kernel")
     scan_kernel._bind(handle)
     return handle
 
@@ -378,3 +395,76 @@ def test_emulated_multiword_bitsets(emulated, cluster, n_nodes):
 def test_emulated_layout_equals_the_plan(emulated, widths):
     """The kernel's shared-memory layout and the Python plan agree."""
     assert emulated.ktt_scan_smem_bytes(*widths) == scan_kernel.smem_bytes(*widths)
+
+
+# ---------------------------------------------------------------------------
+# The policy scan kernel (K1P): one block, launched without a cluster.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def emulated_policy(tmp_path_factory):
+    """The policy scan kernel's source compiled against the emulation
+    headers."""
+    handle = _compile_emulated(tmp_path_factory, "policy_scan_kernel")
+    policy_scan._bind(handle)
+    return handle
+
+
+def _policy_state(shape, seed, pad_to=128):
+    pending, nodes, assigned, services = workload.policy_cluster(seed)
+    spec = spec_from_policy(workload.POLICY_SHAPES[shape])
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), "cpu", pad_to)
+    return d.pods, d.nodes, d.weights, d.lowered
+
+
+def _check_policy_case(lib, pods, nodes, weights, lspec, threads):
+    plan = policy_scan.plan_for(pods, nodes, lspec, threads)
+    got_nodes = {k: v.clone() for k, v in nodes.items()}
+    ref_nodes = {k: v.clone() for k, v in nodes.items()}
+    got = policy_scan._call(lib, pods, got_nodes, weights, lspec, None, plan)
+    ref, ref_nodes = policy_scan.plain_policy_scan_with_state(pods, ref_nodes, weights, lspec)
+    assert torch.equal(got, ref), f"{int((got != ref).sum())} decisions differ"
+    for k in CARRY_KEYS + POLICY_CARRY_KEYS:
+        if k in ref_nodes:
+            assert torch.equal(got_nodes[k], ref_nodes[k]), f"carry field {k} differs"
+
+
+@pytest.mark.parametrize("shape", sorted(workload.POLICY_SHAPES))
+@pytest.mark.parametrize("seed", range(3))
+def test_emulated_policy_kernel_64_threads(emulated_policy, shape, seed):
+    """Every policy shape on seeded small clusters, two warps of threads
+    walking the 128 padded nodes: predicate subsets, weights, label
+    presence and preference, service affinity with an anchor on an
+    unknown node, one and two anti-affinity instances, and the full
+    vocabulary."""
+    pods, nodes, weights, lspec = _policy_state(shape, seed)
+    _check_policy_case(emulated_policy, pods, nodes, weights, lspec, 64)
+
+
+@pytest.mark.parametrize("shape", ["full_vocabulary", "anti_affinity_two", "service_affinity"])
+def test_emulated_policy_kernel_full_block(emulated_policy, shape):
+    """The wrapper's own thread count: one thread per node."""
+    pods, nodes, weights, lspec = _policy_state(shape, 4)
+    _check_policy_case(emulated_policy, pods, nodes, weights, lspec, None)
+
+
+@pytest.mark.parametrize("threads", [32, 64])
+def test_emulated_policy_ties_and_unplaceable_pods(emulated_policy, threads):
+    """300 pods over 45 nodes of nine kinds under the full vocabulary:
+    equal best scores held by nodes of different threads (the lowest
+    index must win), and pods pinned to -2 or past the node axis, which
+    fit nowhere, between placed ones."""
+    pending, nodes, assigned, services = workload.policy_objects(300, 45, seed=11)
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), "cpu", 1)
+    pods = {k: v.clone() for k, v in d.pods.items()}
+    pods["pinned"][1::9] = -2
+    pods["pinned"][2::13] = 45 + 3
+    _check_policy_case(emulated_policy, pods, d.nodes, d.weights, d.lowered, threads)
+
+
+@pytest.mark.parametrize("widths", [(5120, 1, 16), (40, 2, 32), (3, 0, 0), (0, 0, 0)])
+def test_emulated_policy_layout_equals_the_plan(emulated_policy, widths):
+    """The kernel's shared-memory layout and the Python plan agree."""
+    assert emulated_policy.ktt_policy_smem_bytes(*widths) == policy_scan.smem_bytes(*widths)

@@ -22,7 +22,7 @@ import torch
 import kubernetes_tpu_torch
 from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.models.columnar import build_snapshot
-from kubernetes_tpu_torch.ops import build, scan_kernel
+from kubernetes_tpu_torch.ops import build, policy_scan, scan_kernel
 from kubernetes_tpu_torch.ops.matrices import device_snapshot
 from kubernetes_tpu_torch.ops import SolverSession
 from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device, solve_backlog_pipelined
@@ -100,7 +100,91 @@ def test_new_modules_fall_under_the_import_check():
     assert {
         "kubernetes_tpu_torch/ops/incremental.py",
         "kubernetes_tpu_torch/scheduler/gang.py",
+        "kubernetes_tpu_torch/ops/policy_scan.py",
+        "kubernetes_tpu_torch/ops/sidecar.py",
     } <= names
+
+
+def _policy_state(seed=4):
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+
+    pending, nodes, assigned, services = workload.policy_cluster(seed)
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    return device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), device="cpu")
+
+
+def test_policy_entry_points_raise_without_cuda(no_cuda):
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+    from kubernetes_tpu_torch.ops.pipeline import explain_backlog
+    from kubernetes_tpu_torch.ops.sidecar import serve
+
+    pending, nodes, assigned, services = workload.policy_cluster(1)
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        schedule_backlog(pending, nodes, assigned, services, spec=spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        explain_backlog(pending, nodes, assigned, services)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("/nonexistent/dir/solver.sock")
+
+
+def test_policy_wrapper_routes_cpu_tensors_to_the_plain_version(monkeypatch):
+    def no_launch(*args, **kwargs):
+        raise AssertionError("the CUDA launch path was taken for CPU tensors")
+
+    monkeypatch.setattr(policy_scan, "_launch", no_launch)
+    d = _policy_state()
+    before = policy_scan.policy_scan_with_state.launches
+    choice, _ = policy_scan.policy_scan_with_state(
+        d.pods, {k: v.clone() for k, v in d.nodes.items()}, d.weights, d.lowered)
+    assert choice.shape == (d.pod_count_padded,)
+    assert policy_scan.policy_scan_with_state.launches == before
+
+
+def test_policy_wrapper_rejects_other_devices():
+    d = _policy_state()
+    meta_pods = {k: v.to("meta") for k, v in d.pods.items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        policy_scan.policy_scan_with_state(meta_pods, d.nodes, d.weights, d.lowered)
+
+
+def test_policy_launch_plan_raises_before_any_launch():
+    from kubernetes_tpu_torch.models.algspec import LoweredSpec
+
+    one = LoweredSpec(aa_weights=(1,), aa_zones=(16,))
+    plan = policy_scan.launch_plan(5120, 2, 2, 2, 8, 1, one)
+    assert plan.threads == 1024 and plan.zone_bins == 16
+    assert plan.smem_bytes == policy_scan.smem_bytes(5120, 1, 16) <= policy_scan.SMEM_LIMIT
+    assert policy_scan.launch_plan(40, 2, 2, 2, 8, 0, LoweredSpec(static_prio=True)).threads == 64
+    bad = [
+        (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,) * 9, aa_zones=(16,) * 9)), "instances"),
+        (dict(N=100, KA=9, lspec=LoweredSpec(service_affinity=True)), "labels"),
+        (dict(N=60000, KA=0, lspec=one), "shared memory"),
+        (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,), aa_zones=(60000,))), "shared memory"),
+        (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,), aa_zones=())), "zone sizes"),
+    ]
+    for kw, match in bad:
+        with pytest.raises(ValueError, match=match):
+            policy_scan.launch_plan(kw["N"], 2, 2, 2, 8, kw["KA"], kw["lspec"])
+    with pytest.raises(ValueError, match="threads"):
+        policy_scan.launch_plan(100, 2, 2, 2, 8, 0, one, threads=48)
+
+
+def test_policy_wrapper_checks_the_spec_columns():
+    """A spec whose columns the snapshot lacks is refused before any
+    launch, not read out of bounds."""
+    from kubernetes_tpu_torch.models.algspec import LoweredSpec
+
+    d = _policy_state()
+    nodes = {k: v for k, v in d.nodes.items() if k != "aa_zone"}
+    with pytest.raises(ValueError, match="aa_zone"):
+        policy_scan._check(d.pods, nodes, d.lowered, policy_scan._dims(d.pods, nodes, d.lowered),
+                           d.pods["cpu"].device)
+    with pytest.raises(ValueError, match="static_prio"):
+        lspec = LoweredSpec(static_prio=True)
+        nodes = {k: v for k, v in d.nodes.items() if k != "static_prio"}
+        policy_scan._check(d.pods, nodes, lspec, policy_scan._dims(d.pods, nodes, lspec),
+                           d.pods["cpu"].device)
 
 
 def test_session_routes_cpu_tensors_to_the_plain_version(monkeypatch):
@@ -151,7 +235,20 @@ def test_build_keys_libraries_by_source_hash(tmp_path, monkeypatch):
 
 
 def test_build_names_every_kernel_source():
-    assert build.kernel_names() == ["scan_kernel"]
+    assert build.kernel_names() == ["policy_scan_kernel", "scan_kernel"]
+
+
+def test_each_kernel_is_keyed_by_its_own_source(tmp_path, monkeypatch):
+    """Two sources, two libraries: editing one rebuilds only that one
+    (each is its own nvcc process, keyed by its own hash)."""
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    (tmp_path / "a.cu").write_text("// a\n")
+    (tmp_path / "b.cu").write_text("// b\n")
+    a, b = build.library_path("a"), build.library_path("b")
+    assert a != b
+    (tmp_path / "a.cu").write_text("// a, edited\n")
+    assert build.library_path("a") != a and build.library_path("b") == b
 
 
 def test_nvcc_missing_raises(tmp_path, monkeypatch):

@@ -201,10 +201,19 @@ def test_solve_leaves_carry_and_solve_with_state_updates_it():
 
 
 def test_policy_spec_raises_not_implemented():
-    pending, nodes, assigned, services = workload.small_cluster(0)
-    d = device_snapshot(build_snapshot(pending, nodes, assigned, services), device="cpu")
-    with pytest.raises(NotImplementedError, match="policy specs"):
-        solve_with_state(d.pods, d.nodes, (1, 1, 1), LoweredSpec(static_prio=True))
+    """A policy spec no longer raises NotImplementedError: it solves, on
+    the CPU through the plain loop, with the service carry updated, and
+    the default LoweredSpec is still the one the scan kernel takes."""
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+
+    pending, nodes, assigned, services = workload.policy_cluster(0)
+    spec = spec_from_policy(workload.POLICY_SHAPES["full_vocabulary"])
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), device="cpu")
+    assert d.lowered != DEFAULT_LOWERED
+    before = d.nodes["svc_total"].clone()
+    choice, state = solve_with_state(d.pods, d.nodes, d.weights, d.lowered)
+    assert (choice[: d.n_pods] >= 0).any()
+    assert state["svc_total"].sum() > before.sum()
     assert DEFAULT_LOWERED == LoweredSpec()
 
 
