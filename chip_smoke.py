@@ -52,18 +52,25 @@ exits non-zero and prints no result. Phases, one JSON line each:
   5d. policy_parity
               the policy scan kernel held against its plain version on
               the card, exactly (decisions, the nine carry fields, anchor
-              and svc_total): every policy of workload.POLICY_SHAPES on
-              seeded small clusters (BASELINE configs 2 and 3, label
-              presence and absence, label preference, service affinity
-              with an anchor on an unknown node, one and two
-              anti-affinity instances, the full vocabulary), and ties and
-              unplaceable pods under the full vocabulary;
+              and svc_total), each case at the default plan, on clusters
+              of 1 and 4 CTAs, and on 16 CTAs with the slices read in
+              place: every policy of workload.POLICY_SHAPES on seeded
+              small clusters (BASELINE configs 2 and 3, label presence
+              and absence, label preference, service affinity with an
+              anchor on an unknown node, one and two anti-affinity
+              instances, the full vocabulary), and the cluster's edges
+              (ties across CTAs with unplaceable pods between placed
+              ones, zones with nodes in every CTA, anchors in other CTAs,
+              fewer nodes than CTAs, an instance of weight 0, crowded
+              services);
   5e. policy  schedule_backlog(spec=FULL_VOCABULARY_POLICY) on
               policy_objects(50000, 5000, seed=2): a warm-up and three
               timed runs (wall, phases, launches; the three runs' names
-              identical), the kernel's ms by CUDA events on the whole
-              backlog, and the first 4,096 pods held to the plain
-              version on the card, decisions and carry;
+              identical; one policy kernel launch each, on a cluster of
+              more than one CTA), the kernel's ms by CUDA events on the
+              whole backlog, the launch plan and its occupancy, and the
+              first 4,096 pods held to the plain version on the card,
+              decisions and carry;
   5f. explain explain_backlog for 1,024 pods of that backlog against its
               5,000 nodes on the card, equal to the same call with
               device="cpu";
@@ -82,7 +89,13 @@ exits non-zero and prints no result. Phases, one JSON line each:
               count commits), a node axis near the shared-memory limit,
               timed once, and a `launch` line per configuration (cluster size,
               shared memory, cudaOccupancyMaxActiveClusters, registers
-              and spills from ptxas).
+              and spills from ptxas); for the policy scan kernel its µs a
+              pod at 1,024, 5,120 and 20,480 nodes, with no anti-affinity,
+              one instance and the full vocabulary, on clusters of 1, 4,
+              8 and 16 CTAs (each equal to the default plan's result),
+              and a split of its step: the scan kernel and the policy
+              kernel on the same pods under specs that add the service
+              carry, service affinity and anti-affinity one at a time.
 
 Then the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}. Any failure ends the run with a non-zero
@@ -200,6 +213,7 @@ def main() -> int:
     policy = run_policy(torch, device)
     policy_names = policy.pop("names")
     policy_timing = policy.pop("timing")
+    policy_sweep_state = policy.pop("sweep_state")
     emit("policy", ok=True, card=smi, **policy)
     emit("explain", ok=True, card=smi, **run_explain(torch, device))
     sidecar_line = run_sidecar(torch, placed_names, policy_names)
@@ -208,6 +222,7 @@ def main() -> int:
     # -- 6. kernels --------------------------------------------------------
     ptxas = "\n".join(str(r["log"]) for r in records if r["name"] == "scan_kernel")
     timing = time_kernel(torch, device, parity["chunk_state"], parity["chunk_result"], ptxas)
+    policy_sweep = time_policy_kernel(torch, policy_sweep_state)
     kernels = [
         {
             "name": "scan_kernel",
@@ -252,9 +267,13 @@ def main() -> int:
             "library_ms": None,
             "timed": policy_timing["timed"],
             "backlog_ms": policy["kernel_ms"],
+            "cluster": policy["plan"]["cluster"],
+            # This kernel's earlier one-CTA design on the same inputs, as
+            # PERF.md records it (NVIDIA H100 80GB HBM3, 700.00 W).
+            "earlier_ms": {"first_4096_pods": 95.48, "backlog": 1170.50},
         },
     ]
-    emit("kernel_timing", ok=True, card=smi, **timing)
+    emit("kernel_timing", ok=True, card=smi, **timing, policy_sweep=policy_sweep)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -947,14 +966,81 @@ def run_gang(torch, device):
 # ---------------------------------------------------------------------------
 
 
-def _policy_kernel_vs_plain(torch, tag, pods, nodes, weights, lspec, phase="policy_parity"):
+# The launch plans every policy_parity case runs at: the default plan,
+# clusters of 1 and 4 CTAs, and 16 CTAs with the slices read in place.
+POLICY_PARITY_PLANS = (
+    ("default", {}), ("cluster 1", {"cluster": 1}), ("cluster 4", {"cluster": 4}),
+    ("cluster 16 in place", {"cluster": 16, "resident": False}),
+)
+
+
+def _policy_kernel_vs_plain(torch, tag, pods, nodes, weights, lspec, phase="policy_parity",
+                            plans=POLICY_PARITY_PLANS):
+    """The policy kernel at each of `plans` against one run of the plain
+    version on the same inputs; returns the largest error and the
+    cluster sizes run."""
     from kubernetes_tpu_torch.ops import policy_scan
 
-    kn, pn = _copy(nodes), _copy(nodes)
-    got, kn = policy_scan.policy_scan_with_state(pods, kn, weights, lspec)
+    pn = _copy(nodes)
     ref, pn = policy_scan.plain_policy_scan_with_state(pods, pn, weights, lspec)
-    torch.cuda.synchronize()
-    return _compare(torch, tag, got, kn, ref, pn, phase=phase)
+    err, sizes = 0.0, []
+    for name, kw in plans:
+        plan = policy_scan.plan_for(pods, nodes, lspec, None, kw.get("cluster"), kw.get("resident"))
+        kn = _copy(nodes)
+        if name == "default":
+            got, kn = policy_scan.policy_scan_with_state(pods, kn, weights, lspec)
+        else:
+            got, kn = policy_scan._launch(pods, kn, weights, lspec, plan)
+        torch.cuda.synchronize()
+        err = max(err, _compare(torch, f"{tag}, {name} ({plan.cluster} CTAs)", got, kn, ref, pn,
+                                phase=phase))
+        sizes.append(plan.cluster)
+    return err, sizes
+
+
+def _policy_edge_cases(torch, device):
+    """The cluster's edges under policies, as (tag, pods, nodes, weights,
+    lspec): ties between nodes of different CTAs and pods that fit
+    nowhere between placed ones; zones with nodes in every CTA; anchors
+    in other CTAs' slices; fewer nodes than CTAs; two anti-affinity
+    instances, one of weight 0; crowded services whose every step
+    exchanges the zone sums."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops.matrices import device_snapshot
+
+    def objects(policy, n_pods, n_nodes, seed):
+        pending, nodes, assigned, services = workload.policy_objects(n_pods, n_nodes, seed=seed)
+        d = device_snapshot(build_snapshot(pending, nodes, assigned, services,
+                                           spec=spec_from_policy(policy)), device, 1)
+        return d.pods, d.nodes, d.weights, d.lowered
+
+    full = workload.FULL_VOCABULARY_POLICY
+    pods, nodes, weights, lspec = objects(full, 600, 45, 11)
+    pods["pinned"][1::9] = -2
+    pods["pinned"][2::13] = 45 + 3
+    pods["pinned"][3::9] = -2
+    yield "ties and unplaceable pods", pods, nodes, weights, lspec
+    rack = {"predicates": workload.POLICY_SHAPES["anti_affinity_one"]["predicates"],
+            "priorities": [{"name": "LeastRequestedPriority", "weight": 1},
+                           {"name": "spread-rack", "weight": 2,
+                            "argument": {"serviceAntiAffinity": {"label": "rack"}}}]}
+    yield ("zones with nodes in every CTA", *objects(rack, 400, 40, 3))
+    yield ("anchors in other CTAs", *objects(workload.POLICY_SHAPES["service_affinity"], 600, 40, 5))
+    for n in (1, 3, 13):
+        yield (f"{n} nodes, fewer than the CTAs", *objects(full, 200, n, 6))
+    pods, nodes, weights, lspec = objects(workload.POLICY_SHAPES["anti_affinity_one"], 300, 40, 2)
+    nz = lspec.aa_zones[0]
+    lspec = lspec._replace(aa_weights=(0, lspec.aa_weights[0]), aa_zones=(nz, nz))
+    nodes = dict(nodes, aa_zone=nodes["aa_zone"].repeat(1, 2).contiguous())
+    yield "two instances, one of weight 0", pods, nodes, weights, lspec
+    pending, nodes, services = workload.synthetic_objects(400, 6, seed=9)
+    for j, node in enumerate(nodes):
+        node.metadata.labels["rack"] = f"r{j % 3}"
+    d = device_snapshot(build_snapshot(pending, nodes, services=services,
+                                       spec=spec_from_policy(full)), device, 1)
+    yield "crowded services on 6 nodes", d.pods, d.nodes, d.weights, d.lowered
 
 
 def check_policy_parity(torch, device):
@@ -963,28 +1049,24 @@ def check_policy_parity(torch, device):
     from kubernetes_tpu_torch.models.columnar import build_snapshot
     from kubernetes_tpu_torch.ops.matrices import device_snapshot
 
-    cases, max_err, shapes = 0, 0.0, {}
+    cases, runs, max_err, shapes, sizes = 0, 0, 0.0, {}, set()
     for shape, policy in workload.POLICY_SHAPES.items():
         spec = spec_from_policy(policy)
         for seed in range(4):
             pending, nodes, assigned, services = workload.policy_cluster(seed)
             d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), device)
-            max_err = max(max_err, _policy_kernel_vs_plain(
-                torch, f"{shape} seed {seed}", d.pods, d.nodes, d.weights, d.lowered))
-            cases += 1
+            err, ran = _policy_kernel_vs_plain(
+                torch, f"{shape} seed {seed}", d.pods, d.nodes, d.weights, d.lowered)
+            max_err, cases, runs = max(max_err, err), cases + 1, runs + len(ran)
+            sizes.update(ran)
         shapes[shape] = str(d.lowered)
-    # Ties between nodes of different threads and pods that fit nowhere
-    # (pinned to -2 or past the node axis) between placed ones, on an
-    # unpadded node axis, under the full vocabulary.
-    pending, nodes, assigned, services = workload.policy_objects(600, 45, seed=11)
-    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
-    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), device, 1)
-    d.pods["pinned"][1::9] = -2
-    d.pods["pinned"][2::13] = 45 + 3
-    max_err = max(max_err, _policy_kernel_vs_plain(
-        torch, "ties and unplaceable pods", d.pods, d.nodes, d.weights, d.lowered))
-    cases += 1
-    return {"cases": cases, "shapes": shapes, "max_abs_err": max_err,
+    for tag, pods, nodes, weights, lspec in _policy_edge_cases(torch, device):
+        err, ran = _policy_kernel_vs_plain(torch, tag, pods, nodes, weights, lspec)
+        max_err, cases, runs = max(max_err, err), cases + 1, runs + len(ran)
+        sizes.update(ran)
+    return {"cases": cases, "kernel_runs": runs, "cluster_sizes": sorted(sizes),
+            "plans": [name for name, _ in POLICY_PARITY_PLANS], "shapes": shapes,
+            "max_abs_err": max_err,
             "tolerance": "exact (torch.equal; anchor and svc_total included)"}
 
 
@@ -1028,7 +1110,7 @@ def policy_kernel_bound(torch, pods, carry, lspec):
     }
 
 
-def _policy_time_ms(torch, pods, carry, weights, lspec, reps):
+def _policy_time_ms(torch, pods, carry, weights, lspec, reps, plan=None):
     """Median CUDA-event ms of `reps` policy kernel launches after a
     warm-up, each from a fresh copy of `carry`; and the last result."""
     from kubernetes_tpu_torch.ops import policy_scan
@@ -1039,7 +1121,7 @@ def _policy_time_ms(torch, pods, carry, weights, lspec, reps):
         torch.cuda.synchronize()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
-        out = policy_scan._launch(pods, nodes, weights, lspec)
+        out = policy_scan._launch(pods, nodes, weights, lspec, plan)
         ev1.record()
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1))
@@ -1111,6 +1193,8 @@ def run_policy(torch, device):
     bound = policy_kernel_bound(torch, head, d.nodes, d.lowered)
     full_bound = policy_kernel_bound(torch, d.pods, d.nodes, d.lowered)
     plan = policy_scan.plan_for(d.pods, d.nodes, d.lowered)
+    if plan.cluster < 2:
+        fail("policy", f"the policy backlog's plan is a cluster of {plan.cluster} CTA")
     timed = [x["wall_s"] for x in runs[1:]]
     return {
         "backlog": f"{N_PODS} pods x {N_NODES} nodes, {len(services)} services, "
@@ -1126,12 +1210,16 @@ def run_policy(torch, device):
         "kernel_ms": ms_all_pods,
         "kernel_per_pod_us": ms_all_pods * 1e3 / max(full_bound["placeable_pods"], 1),
         "kernel_bound_ms": full_bound["bound_ms"],
-        "plan": {"threads": plan.threads, "smem_bytes": plan.smem_bytes,
-                 "zone_bins": plan.zone_bins, "row_words": plan.row_words},
+        "plan": {"cluster": plan.cluster, "nodes_per_cta": plan.nodes_per_cta,
+                 "threads": plan.threads, "smem_bytes": plan.smem_bytes,
+                 "resident": plan.resident, "zone_bins": plan.zone_bins,
+                 "row_words": plan.row_words,
+                 "max_active_clusters": policy_scan.occupancy(plan, d.pods, d.nodes, d.lowered)},
         "shape": {"P": int(d.pods["cpu"].shape[0]), "N": int(d.nodes["cpu_cap"].shape[0]),
                   "S": int(d.nodes["svc_counts"].shape[1]), "SA": int(d.nodes["anchor"].shape[0])},
         "checked_against_plain": POLICY_CHECKED,
         "names": names,
+        "sweep_state": (head, d.nodes, d.weights, d.lowered),
         "timing": {
             "ms": ms, "ms_all": ms_runs, "plain_ms": plain_ms, "max_abs_err": err,
             "per_pod_us": ms * 1e3 / max(bound["placeable_pods"], 1), **bound,
@@ -1139,6 +1227,106 @@ def run_policy(torch, device):
                      "backlog and its staged carry, layout conversion included",
         },
     }
+
+
+POLICY_SWEEP_NODES = (1024, 5120, 20480)
+POLICY_SWEEP_CLUSTERS = (1, 4, 8, 16)
+
+
+def _node_axis(nodes, n):
+    """The node columns cut or repeated to n nodes (the service carry,
+    indexed by service, unchanged)."""
+    from kubernetes_tpu_torch.ops.matrices import POLICY_CARRY_KEYS
+
+    N = nodes["cpu_cap"].shape[0]
+    return {k: v if k in POLICY_CARRY_KEYS else v.repeat((-(-n // N),) + (1,) * (v.dim() - 1))[:n].contiguous()
+            for k, v in nodes.items()}
+
+
+def time_policy_kernel(torch, state):
+    """K1P's µs a pod on the policy backlog's first pods, against the
+    first 1,024, the 5,120 and those repeated to 20,480 nodes, for a spec
+    with no anti-affinity (one cluster barrier a step), with one
+    instance and nothing else of the policy, and the full vocabulary (a
+    second barrier on every step with peers), on clusters of 1, 4, 8
+    and 16 CTAs. Every configuration's decisions and carry must equal
+    the default plan's on the same inputs."""
+    from kubernetes_tpu_torch.models.algspec import LoweredSpec
+    from kubernetes_tpu_torch.ops import policy_scan
+    from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, POLICY_CARRY_KEYS
+
+    pods, nodes0, weights, full = state
+    P = pods["cpu"].shape[0]
+    specs = {
+        "no_anti_affinity": full._replace(aa_weights=(), aa_zones=()),
+        "one_instance": LoweredSpec(aa_weights=full.aa_weights, aa_zones=full.aa_zones),
+        "full_vocabulary": full,
+    }
+    out, plans = {}, {}
+    for tag, lspec in specs.items():
+        out[tag] = {}
+        for n in POLICY_SWEEP_NODES:
+            nodes = _node_axis(nodes0, n)
+            base = policy_scan.plan_for(pods, nodes, lspec)
+            _, _, (ref, ref_nodes) = _policy_time_ms(torch, pods, nodes, weights, lspec, 1, base)
+            row = {}
+            for C in POLICY_SWEEP_CLUSTERS:
+                try:
+                    plan = policy_scan.plan_for(pods, nodes, lspec, None, C)
+                except ValueError as e:
+                    # The plan refuses it before any launch (one CTA's
+                    # count rows alone outgrow its shared memory).
+                    row[C] = None
+                    plans[f"{tag}/{n}/{C}"] = {"refused": str(e)}
+                    continue
+                ms, _, (got, got_nodes) = _policy_time_ms(torch, pods, nodes, weights, lspec, 2, plan)
+                for k in ("choice",) + CARRY_KEYS + POLICY_CARRY_KEYS:
+                    a, b = (got, ref) if k == "choice" else (got_nodes.get(k), ref_nodes.get(k))
+                    if a is not None and not torch.equal(a, b):
+                        fail("kernel_timing", f"K1P {tag} at {n} nodes: {C} CTAs differ from "
+                                              f"{base.cluster} in {k}")
+                row[C] = ms * 1e3 / P
+                plans[f"{tag}/{n}/{C}"] = {"resident": plan.resident, "threads": plan.threads,
+                                          "smem_bytes": plan.smem_bytes}
+            out[tag][n] = row
+    return {"pods": P, "per_pod_us": out, "plans": plans,
+            "split_per_pod_us": _policy_step_split(torch, pods, nodes0, weights, full),
+            "timed": "the wrapper's launch on the policy backlog's first pods, layout "
+                     "conversion included; the carry cut or repeated to the node count"}
+
+
+def _policy_step_split(torch, pods, nodes, weights, full):
+    """Where a K1P step's time goes, at the default plan on the same pods
+    and nodes: the scan kernel (K1) on the default spec, then K1P on the
+    base predicates without and with the service carry, with service
+    affinity (anchors read, and all pods pinned so that none is), with
+    anti-affinity and no carry (no peers: one barrier a step) and with
+    the carry (the zone exchange and a second barrier), and the full
+    vocabulary. Not held to the plain version: the specs differ from the
+    checked ones, and each kernel is checked elsewhere."""
+    from kubernetes_tpu_torch.models.algspec import LoweredSpec
+    from kubernetes_tpu_torch.ops import policy_scan
+    from kubernetes_tpu_torch.ops.matrices import POLICY_CARRY_KEYS
+
+    P = pods["cpu"].shape[0]
+    bare = {k: v for k, v in nodes.items() if k not in POLICY_CARRY_KEYS}
+    pinned = dict(pods, aff_pin=torch.zeros_like(pods["aff_pin"]))
+    aa = LoweredSpec(aa_weights=full.aa_weights, aa_zones=full.aa_zones)
+    variants = {
+        "base": (pods, bare, LoweredSpec()),
+        "base_with_service_carry": (pods, nodes, LoweredSpec()),
+        "service_affinity": (pods, nodes, LoweredSpec(service_affinity=True)),
+        "service_affinity_all_pinned": (pinned, nodes, LoweredSpec(service_affinity=True)),
+        "anti_affinity_without_peers": (pods, bare, aa),
+        "anti_affinity": (pods, nodes, aa),
+        "full_vocabulary": (pods, nodes, full),
+    }
+    ms, _, _ = _time_ms(torch, pods, bare, None, 3)
+    split = {"scan_kernel_default_spec": ms * 1e3 / P}
+    for tag, (p, n, lspec) in variants.items():
+        ms, _, _ = _policy_time_ms(torch, p, n, weights, lspec, 3)
+        split[tag] = ms * 1e3 / P
+    return split
 
 
 def run_explain(torch, device):

@@ -1,4 +1,5 @@
-"""The policy-spec sequential solve as one CUDA kernel launch ("K1P").
+"""The policy-spec sequential solve as one CUDA kernel launch ("K1P")
+on one thread-block cluster.
 
 Replaces the XLA scan the JAX package runs for a policy LoweredSpec
 (`kubernetes_tpu/ops/solver.py:304 _scan_solve` under `_solve_xla` /
@@ -7,27 +8,35 @@ Replaces the XLA scan the JAX package runs for a policy LoweredSpec
 `csrc/policy_scan_kernel.cu`; this module plans, checks and binds it.
 
 What bounds it: as for the scan kernel, P dependent steps, each a chain
-of latencies (an N-wide evaluation, a block-wide max, a commit), with a
-second block barrier a step when the spec has ServiceAntiAffinity
-instances, whose zone sums over the feasible nodes must exist before
-any node is scored. It is neither bytes nor operations. The design is
-one CTA of up to 1024 threads over a carry kept in device memory:
-simple and right first; a cluster version is queued work (ROADMAP).
+of latencies (an N-wide evaluation, a cluster-wide max, a commit), with
+a second cluster barrier on a step whose ServiceAntiAffinity zone sums
+over the feasible nodes must exist before any node is scored. It is
+neither bytes nor operations. The design is the scan kernel's: one
+cluster of C CTAs, each holding its slice of the node axis (constants,
+policy columns, carry) in shared memory, the count rows fetched ahead by
+cp.async, the winner and the next pod's max count chosen through slots
+stored into every CTA by distributed shared memory; the service carry
+(anchor, svc_total) replicated in every CTA; each CTA's zone bins stored
+into a [C][zone_bins] receive array of every CTA.
 
 The spec travels as a runtime flag word (`FLAG_*`, the kernel's
 constants) with the weights and up to `MAX_AA` anti-affinity instances,
-so one compiled kernel serves every policy. `launch_plan` checks in
-Python, before any launch, what the kernel cannot take and raises
-ValueError: too many instances or affinity labels, or shared memory
-(zone bins plus, with anti-affinity, a score and a feasibility byte per
-node) past the card's limit. Nothing falls back to the plain version.
+so one compiled kernel serves every policy. `launch_plan` is pure
+Python, by the same layout as the kernel's `make_layout`: it takes the
+largest cluster, up to 16 CTAs, whose shared memory holds the slices
+("resident"), else at that size the same kernel reading the slices in
+place from device memory, else a smaller cluster; a zone vocabulary of
+thousands of values lowers C, down to 1. What no cluster can take
+(instances or affinity labels past 8, shared memory) raises ValueError
+before any launch. Nothing falls back to the plain version.
 
 The wrapper checks device, dtype, shape and contiguity, packs the pod
-columns into one (P, row_words) int32 matrix, converts the service
-counts between the JAX layout (N, S) f32 and the kernel's (S, N) int32,
-launches on the current stream and raises if the launch failed. It never
-synchronises. CPU tensors go to the plain version, the per-pod loop of
-`ops/solver.py`; no CUDA tensor ever does.
+columns into one (P, row_words) int32 matrix padded to whole 16-byte
+chunks, converts the service counts between the JAX layout (N, S) f32
+and the kernel's (S, NS) int32, launches on the current stream and
+raises if the launch failed. It never synchronises. CPU tensors go to
+the plain version, the per-pod loop of `ops/solver.py`; no CUDA tensor
+ever does.
 """
 
 from __future__ import annotations
@@ -78,12 +87,34 @@ _POLICY_SPEC = {
 }
 
 
-def smem_bytes(N: int, n_aa: int, zone_bins: int) -> int:
-    """Dynamic shared memory of the launch: the kernel's `make_layout`."""
+#: The largest cluster (above 8 the non-portable cluster attribute).
+MAX_CLUSTER = 16
+#: Pods staged into shared memory per tile (the kernel's kTile).
+TILE = 64
+#: Count rows held in shared memory: the pod's and the next three (kRows).
+COUNT_ROWS = 4
+
+
+def smem_bytes(
+    N: int, SW: int, PW: int, VW: int, K: int, KA: int, n_prio: int, n_aa: int, SA: int,
+    zone_bins: int, cluster: int, resident: bool,
+) -> int:
+    """Dynamic shared memory of one CTA: the kernel's `make_layout`.
+    `resident` keeps the slice's columns in shared memory; otherwise
+    they are read in place from device memory."""
+    npc = _round_up(-(-N // cluster), 4)
+    kept = npc if resident else 0
+    row_words = _round_up(_ROW_SCALARS + SW + PW + 2 * VW + K + KA, 4)
     return (
-        32 * 8  # a key per warp
-        + _round_up(4 * zone_bins, 16)
-        + (_round_up(4 * N, 16) + _round_up(N, 16) if n_aa > 0 else 0)
+        4 * kept * (8 + SW + PW + 2 * VW + n_prio + KA + n_aa)  # f32, bitset and policy columns
+        + 4 * npc * COUNT_ROWS  # count rows
+        + (4 * npc if n_aa else 0)  # score before the zones
+        + 2 * 4 * TILE * row_words  # pod tiles
+        + 32 * (8 + 4)  # a key and a max count per warp
+        + 2 * MAX_CLUSTER * 16  # slots: [parity][CTA]
+        + 2 * 4 * _round_up(SA, 4)  # anchor, svc_total
+        + _round_up(4 * cluster * zone_bins, 16)  # zone bins: [CTA][bin]
+        + _round_up(3 * kept + (npc if n_aa else 0), 16)  # over, sched, policy_ok, feasibility
     )
 
 
@@ -104,24 +135,31 @@ def flags_for(lspec: LoweredSpec, service_carry: bool) -> int:
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """One CTA of `threads` threads with `smem_bytes` of dynamic shared
-    memory, `zone_bins` of them the anti-affinity zone sums; a packed
-    pod row has `row_words` words."""
+    """How one launch is cut: one cluster of `cluster` CTAs of `threads`
+    threads, CTA r owning nodes [r * nodes_per_cta, (r + 1) *
+    nodes_per_cta), each with `smem_bytes` of dynamic shared memory and
+    its slice's columns held there (`resident`) or read in place; the
+    service counts have `count_stride` columns, a packed pod row
+    `row_words` words, and `zone_bins` is the anti-affinity instances'
+    zone vocabularies together."""
 
+    cluster: int
+    nodes_per_cta: int
     threads: int
     smem_bytes: int
-    zone_bins: int
+    count_stride: int
     row_words: int
+    zone_bins: int
+    resident: bool
 
 
-def launch_plan(
-    N: int, SW: int, PW: int, VW: int, K: int, KA: int, lspec: LoweredSpec,
-    threads: Optional[int] = None,
-) -> LaunchPlan:
-    """The launch for a node axis of N at these widths under `lspec`. By
-    default one thread per node up to 1024 (a multiple of 32); `threads`
-    overrides it for a test or a sweep. Raises ValueError for a launch
-    the kernel cannot take, before any launch."""
+def _layout_widths(SW, PW, VW, K, KA, lspec: LoweredSpec, SA: int):
+    """smem_bytes' arguments between N and the cluster size."""
+    return (SW, PW, VW, K, KA, int(bool(lspec.static_prio)), len(lspec.aa_weights), SA,
+            sum(int(z) for z in lspec.aa_zones))
+
+
+def _check_spec(KA: int, lspec: LoweredSpec) -> None:
     n_aa = len(lspec.aa_weights)
     if n_aa > MAX_AA:
         raise ValueError(
@@ -137,30 +175,83 @@ def launch_plan(
         raise ValueError(
             f"policy scan kernel: {KA} ServiceAffinity labels; it takes at most {MAX_AFF}"
         )
-    T = min(MAX_THREADS, max(32, _round_up(N, 32))) if threads is None else int(threads)
-    if T % 32 or not 32 <= T <= MAX_THREADS:
-        raise ValueError(f"policy scan kernel: {T} threads; need a multiple of 32 up to 1024")
-    zone_bins = sum(int(z) for z in lspec.aa_zones)
-    smem = smem_bytes(N, n_aa, zone_bins)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"policy scan kernel: N={N} nodes and {zone_bins} zone bins need {smem} bytes of "
-            f"shared memory, over the limit of {SMEM_LIMIT}"
-        )
-    return LaunchPlan(
-        threads=T, smem_bytes=smem, zone_bins=zone_bins,
-        row_words=_ROW_SCALARS + SW + PW + 2 * VW + K + KA,
+
+
+def launch_plan(
+    N: int, SW: int, PW: int, VW: int, K: int, KA: int, lspec: LoweredSpec,
+    threads: Optional[int] = None, cluster: Optional[int] = None, SA: int = 0,
+    resident: Optional[bool] = None,
+) -> LaunchPlan:
+    """The launch for a node axis of N at these widths under `lspec`,
+    with a service carry of SA slots (0: none). By default the largest
+    cluster up to 16 CTAs whose shared memory fits, the slices resident
+    where they fit and read in place where not, and one thread per node
+    of a slice (a multiple of 32, at most 1024); `cluster`, `resident`
+    and `threads` override them for a test or a sweep. Raises ValueError
+    for a launch no cluster can take, before any launch."""
+    _check_spec(KA, lspec)
+    widths = _layout_widths(SW, PW, VW, K, KA, lspec, SA)
+    if cluster is not None and not 1 <= int(cluster) <= MAX_CLUSTER:
+        raise ValueError(f"policy scan kernel: cluster size {cluster} is outside [1, {MAX_CLUSTER}]")
+    sizes = range(MAX_CLUSTER, 0, -1) if cluster is None else (int(cluster),)
+    kinds = (True, False) if resident is None else (bool(resident),)
+    tried = []
+    for C in sizes:
+        for res in kinds:
+            smem = smem_bytes(N, *widths, C, res)
+            tried.append(smem)
+            if smem > SMEM_LIMIT:
+                continue
+            npc = _round_up(-(-N // C), 4)
+            T = min(MAX_THREADS, max(32, _round_up(npc, 32))) if threads is None else int(threads)
+            if T % 32 or not 32 <= T <= MAX_THREADS:
+                raise ValueError(
+                    f"policy scan kernel: {T} threads per CTA; need a multiple of 32 up to 1024")
+            return LaunchPlan(
+                cluster=C, nodes_per_cta=npc, threads=T, smem_bytes=smem,
+                count_stride=npc * C,
+                row_words=_round_up(_ROW_SCALARS + SW + PW + 2 * VW + K + KA, 4),
+                zone_bins=widths[-1], resident=res,
+            )
+    raise ValueError(
+        f"policy scan kernel: N={N} nodes and {widths[-1]} zone bins need at least "
+        f"{min(tried)} bytes of shared memory per CTA, over the limit of {SMEM_LIMIT}"
     )
+
+
+def max_nodes(
+    SW: int, PW: int, VW: int, K: int, KA: int, lspec: LoweredSpec, SA: int = 0,
+    cluster: int = MAX_CLUSTER, resident: bool = True,
+) -> int:
+    """The largest node axis a cluster of this size can take, with the
+    slices resident or read in place."""
+    widths = _layout_widths(SW, PW, VW, K, KA, lspec, SA)
+
+    def fits(n):
+        return smem_bytes(n, *widths, cluster, resident) <= SMEM_LIMIT
+
+    if not fits(0):
+        return -1
+    lo, hi = 0, 1
+    while fits(hi):
+        lo, hi = hi, hi * 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ktt_policy_launch.argtypes = (
-        [ptr] * 24 + [i32] * 14 + [i32, ctypes.POINTER(i32), ctypes.POINTER(i32), i32, ptr]
+        [ptr] * 23 + [i32] * 14
+        + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, i32, i32, ptr]
     )
     lib.ktt_policy_launch.restype = i32
-    lib.ktt_policy_smem_bytes.argtypes = [i32] * 3
+    lib.ktt_policy_smem_bytes.argtypes = [i32] * 12
     lib.ktt_policy_smem_bytes.restype = i32
+    lib.ktt_policy_occupancy.argtypes = [i32] * 13 + [ctypes.POINTER(i32)]
+    lib.ktt_policy_occupancy.restype = i32
     lib.ktt_policy_error_string.argtypes = [i32]
     lib.ktt_policy_error_string.restype = ctypes.c_char_p
 
@@ -223,15 +314,20 @@ def _check(pods: Tensors, nodes: Tensors, lspec: LoweredSpec, dims: Dict[str, in
         raise ValueError("policy scan kernel: the service carry needs its scratch slot")
 
 
-def plan_for(pods: Tensors, nodes: Tensors, lspec: LoweredSpec, threads=None) -> LaunchPlan:
+def plan_for(
+    pods: Tensors, nodes: Tensors, lspec: LoweredSpec, threads=None, cluster=None, resident=None,
+) -> LaunchPlan:
     """`launch_plan` at the shapes of these tensors."""
     d = _dims(pods, nodes, lspec)
-    return launch_plan(d["N"], d["SW"], d["PW"], d["VW"], d["K"], d["KA"], lspec, threads)
+    return launch_plan(d["N"], d["SW"], d["PW"], d["VW"], d["K"], d["KA"], lspec, threads,
+                       cluster, d["SA"], resident)
 
 
-def _pod_rows(pods: Tensors, lspec: LoweredSpec) -> torch.Tensor:
+def _pod_rows(pods: Tensors, lspec: LoweredSpec, row_words: int) -> torch.Tensor:
     """The pod columns as one (P, row_words) int32 matrix, the f32
-    columns by their bits, the affinity pins last."""
+    columns by their bits, the affinity pins last, zero-padded to whole
+    16-byte chunks."""
+    P = pods["cpu"].shape[0]
     cols = [
         pods["cpu"].view(torch.int32)[:, None],
         pods["mem"].view(torch.int32)[:, None],
@@ -242,6 +338,8 @@ def _pod_rows(pods: Tensors, lspec: LoweredSpec) -> torch.Tensor:
     ]
     if lspec.service_affinity:
         cols.append(pods["aff_pin"])
+    used = sum(c.shape[1] for c in cols)
+    cols.append(torch.zeros((P, row_words - used), dtype=torch.int32, device=pods["cpu"].device))
     return torch.cat(cols, dim=1)
 
 
@@ -257,14 +355,14 @@ def _call(
     _check(pods, nodes, lspec, dims, device)
     if plan is None:
         plan = plan_for(pods, nodes, lspec)
-    elif plan != plan_for(pods, nodes, lspec, plan.threads):
+    elif plan != plan_for(pods, nodes, lspec, plan.threads, plan.cluster, plan.resident):
         raise ValueError(f"policy scan kernel: {plan} was made for other shapes")
     P, N, S = dims["P"], dims["N"], dims["S"]
     service_carry = "anchor" in nodes
     w_lr, w_bra, w_spread = (int(w) for w in weights)
-    rows = _pod_rows(pods, lspec)
-    counts = nodes["svc_counts"].t().to(torch.int32).contiguous()
-    maxc = torch.empty(S, dtype=torch.int32, device=device)
+    rows = _pod_rows(pods, lspec, plan.row_words)
+    counts = torch.zeros((S, plan.count_stride), dtype=torch.int32, device=device)
+    counts[:, :N].copy_(nodes["svc_counts"].t())
     choice = torch.empty(P, dtype=torch.int32, device=device)
 
     def ptr(d, key):
@@ -280,28 +378,45 @@ def _call(
     ]
     ptrs += [nodes[k].data_ptr() for k in (
         "cpu_fit", "mem_fit", "cpu_used", "mem_used", "pods_used", "uport", "uvol_any", "uvol_rw")]
-    ptrs += [counts.data_ptr(), maxc.data_ptr(), ptr(nodes, "anchor"), ptr(nodes, "svc_total"),
-             choice.data_ptr()]
-    n_aa = dims["I"]
+    ptrs += [counts.data_ptr(), ptr(nodes, "anchor"), ptr(nodes, "svc_total"), choice.data_ptr()]
     aa_w = (ctypes.c_int * MAX_AA)(*[int(w) for w in lspec.aa_weights])
     aa_nz = (ctypes.c_int * MAX_AA)(*[int(z) for z in lspec.aa_zones])
     rc = lib.ktt_policy_launch(
-        *ptrs, P, N, S, dims["SW"], dims["PW"], dims["VW"], dims["K"], dims["KA"],
-        dims["SA"], plan.row_words, flags_for(lspec, service_carry), w_lr, w_bra, w_spread,
-        n_aa, aa_w, aa_nz, plan.threads, stream,
+        *ptrs, P, N, S, dims["SW"], dims["PW"], dims["VW"], dims["K"], dims["KA"], dims["SA"],
+        flags_for(lspec, service_carry), w_lr, w_bra, w_spread, dims["I"], aa_w, aa_nz,
+        plan.cluster, plan.threads, int(plan.resident), stream,
     )
     if rc != 0:
         raise RuntimeError(
             f"policy scan kernel launch failed: {lib.ktt_policy_error_string(rc).decode()}"
         )
-    nodes["svc_counts"].copy_(counts.t())
+    nodes["svc_counts"].copy_(counts[:, :N].t())
     return choice
 
 
-def _launch(pods: Tensors, nodes: Tensors, weights, lspec: LoweredSpec, plan=None):
+def _load():
     from kubernetes_tpu_torch.ops import build
 
-    lib = build.load("policy_scan_kernel", _bind)
+    return build.load("policy_scan_kernel", _bind)
+
+
+def occupancy(plan: LaunchPlan, pods: Tensors, nodes: Tensors, lspec: LoweredSpec) -> int:
+    """cudaOccupancyMaxActiveClusters for this plan on the current card."""
+    lib = _load()
+    d = _dims(pods, nodes, lspec)
+    widths = _layout_widths(d["SW"], d["PW"], d["VW"], d["K"], d["KA"], lspec, d["SA"])
+    active = ctypes.c_int(0)
+    rc = lib.ktt_policy_occupancy(d["N"], *widths, plan.cluster, int(plan.resident),
+                                  plan.threads, ctypes.byref(active))
+    if rc != 0:
+        raise RuntimeError(
+            f"policy scan kernel occupancy query failed: {lib.ktt_policy_error_string(rc).decode()}"
+        )
+    return active.value
+
+
+def _launch(pods: Tensors, nodes: Tensors, weights, lspec: LoweredSpec, plan=None):
+    lib = _load()
     device = pods["cpu"].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -1,23 +1,26 @@
 """The CUDA kernels' sources, run on the CPU, equal their plain versions.
 
-There is no CUDA compiler here, so `csrc/scan_kernel.cu` (and, below,
-`csrc/policy_scan_kernel.cu`, launched as one plain block) is compiled as
-it stands with the host C++ compiler, against small headers that stand
-in for the CUDA ones: a launch (`cudaLaunchKernelEx` with a cluster
-attribute) runs every thread of every CTA of the cluster as a
-std::thread; `__syncthreads` is a barrier per CTA and the cluster
-barrier one over the whole cluster; each CTA has its own dynamic
-shared-memory arena, and `map_shared_rank` points into another CTA's;
-warp reductions go through a barrier per warp; atomics are
-std::atomic_ref; the asynchronous copies of `csrc/scan_async.cuh` are
-plain copies; the `_rn` float intrinsics are plain IEEE operations
-(with FMA contraction off, as nvcc's -fmad=false). The wrapper's own
-argument handling (`scan_kernel._call`) drives the emulated launcher
-with CPU tensors, and the decisions and carry must equal the plain
-loop's bit for bit.
+There is no CUDA compiler here, so `csrc/scan_kernel.cu` and
+`csrc/policy_scan_kernel.cu` are compiled as they stand with the host
+C++ compiler, against small headers that stand in for the CUDA ones: a
+launch (`cudaLaunchKernelEx` with a cluster attribute) runs every
+thread of every CTA of the cluster as a std::thread; `__syncthreads` is
+a barrier per CTA and the cluster barrier one over the whole cluster
+(barriers whose waiters yield, since the threads outnumber the cores);
+each CTA has its own dynamic shared-memory arena, and `map_shared_rank`
+points into another CTA's; warp reductions go through a barrier per
+warp; atomics are std::atomic_ref; the asynchronous copies of
+`csrc/scan_async.cuh` are plain copies; the `_rn` float intrinsics are
+plain IEEE operations (with FMA contraction off, as nvcc's -fmad=false).
+The wrappers' own argument handling (`scan_kernel._call`,
+`policy_scan._call`) drives the emulated launchers with CPU tensors, and
+the decisions and carry (for the policy kernel the service carry too)
+must equal the plain loop's bit for bit.
 
-This checks the kernel's slicing, selection across CTAs, commit and
-count bookkeeping on clusters of 1, 2, 4 and 8 CTAs. Its barriers are
+This checks each kernel's slicing, selection across CTAs, commit and
+count bookkeeping on clusters of 1, 2, 4 and 8 CTAs, and for the policy
+kernel the replicated service carry, the zone sums exchanged between
+CTAs, and slices read in place from device memory. Its barriers are
 sequentially consistent, so it cannot show a missing fence or a stale
 L1 line: the repeated runs on the card in `chip_smoke.py` look for
 those. An emulated launch runs at most 256 OS threads.
@@ -81,25 +84,44 @@ struct cudaLaunchConfig_t {
   unsigned numAttrs;
 };
 
+// A barrier whose waiters yield instead of sleeping: an emulated launch
+// runs many more threads than there are cores, and they meet at a
+// barrier several times a step.
+struct EmuBarrier {
+  explicit EmuBarrier(int n) : n(n) {}
+  void arrive_and_wait() {
+    const unsigned gen = generation.load(std::memory_order_acquire);
+    if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+      count.store(0, std::memory_order_relaxed);
+      generation.fetch_add(1, std::memory_order_acq_rel);
+    } else {
+      while (generation.load(std::memory_order_acquire) == gen) std::this_thread::yield();
+    }
+  }
+  const int n;
+  std::atomic<int> count{0};
+  std::atomic<unsigned> generation{0};
+};
+
 struct EmuIdx { unsigned x, y, z; };
 inline thread_local EmuIdx threadIdx, blockIdx;
 inline EmuIdx blockDim;
 struct alignas(16) EmuChunk { unsigned char b[16]; };
 struct EmuBlock {
-  std::unique_ptr<std::barrier<>> block;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::unique_ptr<EmuBarrier> block;
+  std::vector<std::unique_ptr<EmuBarrier>> warps;
   std::vector<long long> lanes;
   std::vector<EmuChunk> smem;
 };
 inline std::vector<EmuBlock>* emu_blocks = nullptr;
-inline std::barrier<>* emu_cluster = nullptr;
+inline EmuBarrier* emu_cluster = nullptr;
 inline EmuBlock& emu_block() { return (*emu_blocks)[blockIdx.x]; }
 
 inline void __syncthreads() { emu_block().block->arrive_and_wait(); }
 inline unsigned __ballot_sync(unsigned, bool v) {
   EmuBlock& b = emu_block();
   const int t = threadIdx.x;
-  std::barrier<>& warp = *b.warps[t / 32];
+  EmuBarrier& warp = *b.warps[t / 32];
   b.lanes[t] = v;
   warp.arrive_and_wait();
   unsigned r = 0;
@@ -111,7 +133,7 @@ inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 template <class T> T __reduce_max_sync(unsigned, T v) {
   EmuBlock& b = emu_block();
   const int t = threadIdx.x;
-  std::barrier<>& warp = *b.warps[t / 32];
+  EmuBarrier& warp = *b.warps[t / 32];
   b.lanes[t] = (long long)v;
   warp.arrive_and_wait();
   T r = v;
@@ -120,6 +142,11 @@ template <class T> T __reduce_max_sync(unsigned, T v) {
   return r;
 }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+inline int atomicCAS(int* p, int expected, int v) {
+  std::atomic_ref<int>(*p).compare_exchange_strong(expected, v);
+  return expected;
+}
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> r(*p);
   int cur = r.load();
@@ -128,6 +155,7 @@ inline int atomicMax(int* p, int v) {
   return cur;
 }
 template <class T> T __ldcg(const T* p) { return std::atomic_ref<T>(*const_cast<T*>(p)).load(); }
+template <class T> T __ldg(const T* p) { return *p; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -161,12 +189,12 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp
   blockDim = {T, 1, 1};
   std::vector<EmuBlock> blocks(C);
   for (EmuBlock& b : blocks) {
-    b.block.reset(new std::barrier<>(T));
-    for (unsigned w = 0; w < T / 32; ++w) b.warps.emplace_back(new std::barrier<>(32));
+    b.block.reset(new EmuBarrier(T));
+    for (unsigned w = 0; w < T / 32; ++w) b.warps.emplace_back(new EmuBarrier(32));
     b.lanes.resize(T);
     b.smem.resize(cfg->dynamicSmemBytes / 16 + 1);
   }
-  std::barrier<> cluster(C * T);
+  EmuBarrier cluster(C * T);
   emu_blocks = &blocks;
   emu_cluster = &cluster;
   std::vector<std::thread> pool;
@@ -398,7 +426,7 @@ def test_emulated_layout_equals_the_plan(emulated, widths):
 
 
 # ---------------------------------------------------------------------------
-# The policy scan kernel (K1P): one block, launched without a cluster.
+# The policy scan kernel (K1P): one cluster, as the scan kernel.
 # ---------------------------------------------------------------------------
 
 
@@ -418,8 +446,18 @@ def _policy_state(shape, seed, pad_to=128):
     return d.pods, d.nodes, d.weights, d.lowered
 
 
-def _check_policy_case(lib, pods, nodes, weights, lspec, threads):
-    plan = policy_scan.plan_for(pods, nodes, lspec, threads)
+def _policy_objects_state(policy, n_pods, n_nodes, seed):
+    pending, nodes, assigned, services = workload.policy_objects(n_pods, n_nodes, seed=seed)
+    spec = spec_from_policy(policy)
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), "cpu", 1)
+    return {k: v.clone() for k, v in d.pods.items()}, d.nodes, d.weights, d.lowered
+
+
+def _check_policy_case(lib, pods, nodes, weights, lspec, threads, cluster=None, resident=None):
+    """The emulated kernel against the plain loop: decisions, the nine
+    carry fields and, where the spec has one, the service carry (anchor
+    and svc_total), bit for bit. Returns the plan and the plain carry."""
+    plan = policy_scan.plan_for(pods, nodes, lspec, threads, cluster, resident)
     got_nodes = {k: v.clone() for k, v in nodes.items()}
     ref_nodes = {k: v.clone() for k, v in nodes.items()}
     got = policy_scan._call(lib, pods, got_nodes, weights, lspec, None, plan)
@@ -428,43 +466,135 @@ def _check_policy_case(lib, pods, nodes, weights, lspec, threads):
     for k in CARRY_KEYS + POLICY_CARRY_KEYS:
         if k in ref_nodes:
             assert torch.equal(got_nodes[k], ref_nodes[k]), f"carry field {k} differs"
+    return plan, ref_nodes
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4])
 @pytest.mark.parametrize("shape", sorted(workload.POLICY_SHAPES))
 @pytest.mark.parametrize("seed", range(3))
-def test_emulated_policy_kernel_64_threads(emulated_policy, shape, seed):
-    """Every policy shape on seeded small clusters, two warps of threads
-    walking the 128 padded nodes: predicate subsets, weights, label
+def test_emulated_policy_kernel_64_threads(emulated_policy, shape, seed, cluster):
+    """Every policy shape on seeded small clusters, CTAs of two warps
+    over the 128 padded nodes: predicate subsets, weights, label
     presence and preference, service affinity with an anchor on an
     unknown node, one and two anti-affinity instances, and the full
     vocabulary."""
     pods, nodes, weights, lspec = _policy_state(shape, seed)
-    _check_policy_case(emulated_policy, pods, nodes, weights, lspec, 64)
+    plan, _ = _check_policy_case(emulated_policy, pods, nodes, weights, lspec, 64, cluster)
+    assert plan.cluster == cluster and plan.resident
 
 
 @pytest.mark.parametrize("shape", ["full_vocabulary", "anti_affinity_two", "service_affinity"])
 def test_emulated_policy_kernel_full_block(emulated_policy, shape):
-    """The wrapper's own thread count: one thread per node."""
+    """The wrapper's own thread count on a cluster of 8: one thread per
+    node of a 16-node slice."""
     pods, nodes, weights, lspec = _policy_state(shape, 4)
-    _check_policy_case(emulated_policy, pods, nodes, weights, lspec, None)
+    plan, _ = _check_policy_case(emulated_policy, pods, nodes, weights, lspec, None, 8)
+    assert (plan.cluster, plan.nodes_per_cta, plan.threads) == (8, 16, 32)
 
 
+@pytest.mark.parametrize("cluster", [1, 4])
 @pytest.mark.parametrize("threads", [32, 64])
-def test_emulated_policy_ties_and_unplaceable_pods(emulated_policy, threads):
+def test_emulated_policy_ties_and_unplaceable_pods(emulated_policy, threads, cluster):
     """300 pods over 45 nodes of nine kinds under the full vocabulary:
-    equal best scores held by nodes of different threads (the lowest
-    index must win), and pods pinned to -2 or past the node axis, which
-    fit nowhere, between placed ones."""
-    pending, nodes, assigned, services = workload.policy_objects(300, 45, seed=11)
-    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
-    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), "cpu", 1)
-    pods = {k: v.clone() for k, v in d.pods.items()}
+    equal best scores held by nodes of different threads and CTAs (the
+    lowest index must win), and pods pinned to -2 or past the node axis,
+    which fit nowhere, between placed ones (two in a row take no cluster
+    step)."""
+    pods, nodes, weights, lspec = _policy_objects_state(workload.FULL_VOCABULARY_POLICY, 300, 45, 11)
     pods["pinned"][1::9] = -2
     pods["pinned"][2::13] = 45 + 3
-    _check_policy_case(emulated_policy, pods, d.nodes, d.weights, d.lowered, threads)
+    pods["pinned"][3::9] = -2
+    _check_policy_case(emulated_policy, pods, nodes, weights, lspec, threads, cluster)
 
 
-@pytest.mark.parametrize("widths", [(5120, 1, 16), (40, 2, 32), (3, 0, 0), (0, 0, 0)])
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_emulated_policy_zone_ties_across_ctas(emulated_policy, cluster, resident):
+    """Anti-affinity on `rack` (ten zones, each with nodes in every CTA)
+    over 40 nodes of nine kinds: the first pod's best score is held by
+    nodes of several CTAs, and the lowest index must win; the zone sums
+    are exchanged between the CTAs at every step with peers."""
+    policy = {"predicates": workload.POLICY_SHAPES["anti_affinity_one"]["predicates"],
+              "priorities": [{"name": "LeastRequestedPriority", "weight": 1},
+                             {"name": "spread-rack", "weight": 2,
+                              "argument": {"serviceAntiAffinity": {"label": "rack"}}}]}
+    pods, nodes, weights, lspec = _policy_objects_state(policy, 160, 40, 3)
+    from kubernetes_tpu_torch.ops.solver import _feasible, _scores
+
+    idx = torch.arange(40, dtype=torch.int32)
+    pod = {k: v[0] for k, v in pods.items()}
+    feas = _feasible(pod, nodes, idx, lspec)
+    masked = torch.where(feas, _scores(pod, nodes, weights, lspec, feas), -1)
+    npc = policy_scan.plan_for(pods, nodes, lspec, 32, cluster).nodes_per_cta
+    holders = (masked == masked.max()).nonzero().flatten() // npc
+    assert len(set(holders.tolist())) > 1, "the case must hold a tie across CTAs"
+    plan, _ = _check_policy_case(emulated_policy, pods, nodes, weights, lspec, 32, cluster, resident)
+    assert plan.resident == resident
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_emulated_policy_anchor_in_another_cta(emulated_policy, resident):
+    """Service affinity on `zone` and `rack` over 40 nodes in 4 CTAs of
+    12: the bound peers anchor six services on nodes 0, 7 and 14, so
+    anchors lie in slices other than the placed pod's, and the anchor's
+    labels are read from device memory."""
+    policy = workload.POLICY_SHAPES["service_affinity"]
+    pods, nodes, weights, lspec = _policy_objects_state(policy, 600, 40, 5)
+    plan, ref_nodes = _check_policy_case(emulated_policy, pods, nodes, weights, lspec, 32, 4, resident)
+    anchors = ref_nodes["anchor"][ref_nodes["anchor"] >= 0]
+    assert len(set((anchors // plan.nodes_per_cta).tolist())) > 1
+    assert not torch.equal(ref_nodes["svc_total"], nodes["svc_total"])
+
+
+@pytest.mark.parametrize("n_nodes", [1, 2, 3, 5, 13])
+def test_emulated_policy_fewer_nodes_than_cluster_slots(emulated_policy, n_nodes):
+    """N < C and N not a multiple of C on 4 CTAs under the full
+    vocabulary: some CTAs own no node and still take every barrier and
+    every zone exchange."""
+    pods, nodes, weights, lspec = _policy_objects_state(
+        workload.FULL_VOCABULARY_POLICY, 60, n_nodes, 6)
+    _check_policy_case(emulated_policy, pods, nodes, weights, lspec, 32, 4)
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_emulated_policy_two_instances_one_of_weight_zero(emulated_policy, cluster):
+    """Two anti-affinity instances on `zone`, the first of weight 0:
+    the zone sums of both are exchanged, and the first adds nothing."""
+    pods, nodes, weights, lspec = _policy_state("anti_affinity_one", 2, pad_to=1)
+    nz = lspec.aa_zones[0]
+    lspec = lspec._replace(aa_weights=(0, lspec.aa_weights[0]), aa_zones=(nz, nz))
+    nodes = dict(nodes, aa_zone=nodes["aa_zone"].repeat(1, 2).contiguous())
+    plan, _ = _check_policy_case(emulated_policy, pods, nodes, weights, lspec, 32, cluster)
+    assert plan.zone_bins == 2 * nz
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_emulated_policy_crowded_service_carry(emulated_policy, cluster):
+    """200 pods of two services on 6 nodes under the full vocabulary:
+    every step has peers, so every step exchanges the zone sums (two
+    cluster barriers), and the replicated anchor and svc_total must stay
+    equal in every CTA. The receive array has one buffer: the plan
+    counts C x zone_bins words for it, no more."""
+    pending, nodes, services = workload.synthetic_objects(200, 6, seed=9)
+    for j, node in enumerate(nodes):
+        node.metadata.labels["rack"] = f"r{j % 3}"
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    d = device_snapshot(build_snapshot(pending, nodes, services=services, spec=spec), "cpu", 1)
+    plan, ref_nodes = _check_policy_case(
+        emulated_policy, d.pods, d.nodes, d.weights, d.lowered, 32, cluster)
+    assert float(ref_nodes["svc_total"][:-1].sum()) > 100
+    widths = policy_scan._layout_widths(2, 2, 2, 8, 1, d.lowered, 0)
+    one = policy_scan.smem_bytes(6, *widths[:-1], plan.zone_bins, cluster, True)
+    none = policy_scan.smem_bytes(6, *widths[:-1], 0, cluster, True)
+    assert one - none == policy_scan._round_up(4 * cluster * plan.zone_bins, 16)
+
+
+@pytest.mark.parametrize(
+    "widths",
+    [(5120, 2, 2, 2, 8, 1, 1, 1, 513, 16, 16, 1), (40, 1, 4, 1, 8, 2, 0, 2, 33, 32, 4, 1),
+     (3, 2, 2, 2, 8, 0, 0, 0, 0, 0, 2, 0), (0, 2, 2, 2, 8, 0, 0, 0, 0, 0, 1, 1),
+     (5120, 2, 2, 2, 8, 1, 1, 1, 513, 5008, 4, 0)],
+)
 def test_emulated_policy_layout_equals_the_plan(emulated_policy, widths):
     """The kernel's shared-memory layout and the Python plan agree."""
     assert emulated_policy.ktt_policy_smem_bytes(*widths) == policy_scan.smem_bytes(*widths)

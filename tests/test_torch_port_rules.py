@@ -153,13 +153,17 @@ def test_policy_launch_plan_raises_before_any_launch():
 
     one = LoweredSpec(aa_weights=(1,), aa_zones=(16,))
     plan = policy_scan.launch_plan(5120, 2, 2, 2, 8, 1, one)
-    assert plan.threads == 1024 and plan.zone_bins == 16
-    assert plan.smem_bytes == policy_scan.smem_bytes(5120, 1, 16) <= policy_scan.SMEM_LIMIT
-    assert policy_scan.launch_plan(40, 2, 2, 2, 8, 0, LoweredSpec(static_prio=True)).threads == 64
+    assert (plan.cluster, plan.threads, plan.zone_bins, plan.resident) == (16, 320, 16, True)
+    widths = (5120, 2, 2, 2, 8, 1, 0, 1, 0, 16, 16, True)
+    assert plan.smem_bytes == policy_scan.smem_bytes(*widths) <= policy_scan.SMEM_LIMIT
+    assert policy_scan.launch_plan(40, 2, 2, 2, 8, 0, LoweredSpec(static_prio=True)).threads == 32
+    # Six hostname-like instances at 5,120 nodes: their bins alone fill
+    # a cluster of one CTA.
+    six = LoweredSpec(aa_weights=(1,) * 6, aa_zones=(5120,) * 6)
     bad = [
         (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,) * 9, aa_zones=(16,) * 9)), "instances"),
         (dict(N=100, KA=9, lspec=LoweredSpec(service_affinity=True)), "labels"),
-        (dict(N=60000, KA=0, lspec=one), "shared memory"),
+        (dict(N=5120, KA=0, lspec=six), "shared memory"),
         (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,), aa_zones=(60000,))), "shared memory"),
         (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,), aa_zones=())), "zone sizes"),
     ]
