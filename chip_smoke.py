@@ -268,9 +268,6 @@ def main() -> int:
             "timed": policy_timing["timed"],
             "backlog_ms": policy["kernel_ms"],
             "cluster": policy["plan"]["cluster"],
-            # This kernel's earlier one-CTA design on the same inputs, as
-            # PERF.md records it (NVIDIA H100 80GB HBM3, 700.00 W).
-            "earlier_ms": {"first_4096_pods": 95.48, "backlog": 1170.50},
         },
     ]
     emit("kernel_timing", ok=True, card=smi, **timing, policy_sweep=policy_sweep)
@@ -967,9 +964,11 @@ def run_gang(torch, device):
 
 
 # The launch plans every policy_parity case runs at: the default plan,
-# clusters of 1 and 4 CTAs, and 16 CTAs with the slices read in place.
+# clusters of 1 and 4 CTAs, and 1 and 16 CTAs in place (slices, count
+# rows and zone sums in device memory).
 POLICY_PARITY_PLANS = (
     ("default", {}), ("cluster 1", {"cluster": 1}), ("cluster 4", {"cluster": 4}),
+    ("cluster 1 in place", {"cluster": 1, "resident": False}),
     ("cluster 16 in place", {"cluster": 16, "resident": False}),
 )
 
@@ -1004,14 +1003,19 @@ def _policy_edge_cases(torch, device):
     nowhere between placed ones; zones with nodes in every CTA; anchors
     in other CTAs' slices; fewer nodes than CTAs; two anti-affinity
     instances, one of weight 0; crowded services whose every step
-    exchanges the zone sums."""
+    exchanges the zone sums; 4-word port bitsets, which take the
+    kernel's runtime-width instance; a zone label with a value per
+    node."""
     from kubernetes_tpu_torch import workload
     from kubernetes_tpu_torch.models.algspec import spec_from_policy
     from kubernetes_tpu_torch.models.columnar import build_snapshot
     from kubernetes_tpu_torch.ops.matrices import device_snapshot
 
-    def objects(policy, n_pods, n_nodes, seed):
-        pending, nodes, assigned, services = workload.policy_objects(n_pods, n_nodes, seed=seed)
+    def objects(policy, n_pods, n_nodes, seed, host_ports=0, host_label=False):
+        pending, nodes, assigned, services = workload.policy_objects(
+            n_pods, n_nodes, seed=seed, host_ports=host_ports)
+        for j, node in enumerate(nodes if host_label else ()):
+            node.metadata.labels["host"] = f"h{j}"
         d = device_snapshot(build_snapshot(pending, nodes, assigned, services,
                                            spec=spec_from_policy(policy)), device, 1)
         return d.pods, d.nodes, d.weights, d.lowered
@@ -1041,6 +1045,16 @@ def _policy_edge_cases(torch, device):
     d = device_snapshot(build_snapshot(pending, nodes, services=services,
                                        spec=spec_from_policy(full)), device, 1)
     yield "crowded services on 6 nodes", d.pods, d.nodes, d.weights, d.lowered
+    pods, nodes, weights, lspec = objects(full, 400, 40, 7, host_ports=70)
+    widths = tuple(pods[k].shape[1] for k in ("sel", "port", "vol_any", "svc_ids"))
+    if widths == (2, 2, 2, 8):
+        fail("policy_parity", "the 70-port case lowered to the unrolled widths")
+    yield "4-word port bitsets (runtime widths)", pods, nodes, weights, lspec
+    host = {"predicates": workload.POLICY_SHAPES["anti_affinity_one"]["predicates"],
+            "priorities": [{"name": "LeastRequestedPriority", "weight": 1},
+                           {"name": "spread-host", "weight": 3,
+                            "argument": {"serviceAntiAffinity": {"label": "host"}}}]}
+    yield ("a zone per node", *objects(host, 600, 200, 4, host_label=True))
 
 
 def check_policy_parity(torch, device):
@@ -1231,6 +1245,8 @@ def run_policy(torch, device):
 
 POLICY_SWEEP_NODES = (1024, 5120, 20480)
 POLICY_SWEEP_CLUSTERS = (1, 4, 8, 16)
+#: Pods of each sweep row held to the plain version.
+SWEEP_CHECKED = 256
 
 
 def _node_axis(nodes, n):
@@ -1250,7 +1266,8 @@ def time_policy_kernel(torch, state):
     instance and nothing else of the policy, and the full vocabulary (a
     second barrier on every step with peers), on clusters of 1, 4, 8
     and 16 CTAs. Every configuration's decisions and carry must equal
-    the default plan's on the same inputs."""
+    the default plan's on the same inputs, and the default plan must
+    equal the plain version on the first SWEEP_CHECKED pods."""
     from kubernetes_tpu_torch.models.algspec import LoweredSpec
     from kubernetes_tpu_torch.ops import policy_scan
     from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, POLICY_CARRY_KEYS
@@ -1268,17 +1285,14 @@ def time_policy_kernel(torch, state):
         for n in POLICY_SWEEP_NODES:
             nodes = _node_axis(nodes0, n)
             base = policy_scan.plan_for(pods, nodes, lspec)
+            head = {k: v[:SWEEP_CHECKED].contiguous() for k, v in pods.items()}
+            _policy_kernel_vs_plain(torch, f"sweep {tag} at {n} nodes, first {SWEEP_CHECKED} pods",
+                                    head, nodes, weights, lspec, "kernel_timing",
+                                    (("default", {}),))
             _, _, (ref, ref_nodes) = _policy_time_ms(torch, pods, nodes, weights, lspec, 1, base)
             row = {}
             for C in POLICY_SWEEP_CLUSTERS:
-                try:
-                    plan = policy_scan.plan_for(pods, nodes, lspec, None, C)
-                except ValueError as e:
-                    # The plan refuses it before any launch (one CTA's
-                    # count rows alone outgrow its shared memory).
-                    row[C] = None
-                    plans[f"{tag}/{n}/{C}"] = {"refused": str(e)}
-                    continue
+                plan = policy_scan.plan_for(pods, nodes, lspec, None, C)
                 ms, _, (got, got_nodes) = _policy_time_ms(torch, pods, nodes, weights, lspec, 2, plan)
                 for k in ("choice",) + CARRY_KEYS + POLICY_CARRY_KEYS:
                     a, b = (got, ref) if k == "choice" else (got_nodes.get(k), ref_nodes.get(k))
@@ -1290,6 +1304,7 @@ def time_policy_kernel(torch, state):
                                           "smem_bytes": plan.smem_bytes}
             out[tag][n] = row
     return {"pods": P, "per_pod_us": out, "plans": plans,
+            "checked_against_plain": f"the default plan of each row on its first {SWEEP_CHECKED} pods",
             "split_per_pod_us": _policy_step_split(torch, pods, nodes0, weights, full),
             "timed": "the wrapper's launch on the policy backlog's first pods, layout "
                      "conversion included; the carry cut or repeated to the node count"}

@@ -32,15 +32,23 @@
 //   - the slice's constants, policy columns and carry live in shared
 //     memory for the whole launch (struct of arrays, loaded once, written
 //     back once). Where they do not fit at the plan's cluster size, the
-//     plan keeps them in device memory and the owning threads read and write
-//     them there ("in place"): the same code, other pointers and strides;
+//     plan keeps everything that grows with the nodes or the zone bins in
+//     device memory ("in place"): the slice's columns, the count rows,
+//     the scores before the zones and the zone sums. The owning threads
+//     read and write them there: the same code, other pointers and
+//     strides. Shared memory then holds only the reductions, the slots,
+//     two tiles of 4 pod rows and, with C > 1, the service carry, so
+//     every shape the plan meets in practice fits;
 //   - service counts are (S, NS) int32 in device memory, each slice's
-//     columns written only by its CTA. The count row a pod reads is
-//     fetched three pods ahead by cp.async.cg; a commit's adds reach
-//     device memory one step late, and the owning thread patches the
-//     rows already in shared memory (the scan kernel's scheme). One row
-//     serves ServiceSpreading and ServiceAntiAffinity;
-//   - pod rows are staged 64 at a time by cp.async, double-buffered;
+//     columns written only by its CTA. Resident, the count row a pod
+//     reads is fetched three pods ahead by cp.async.cg; a commit's adds
+//     reach device memory one step late, and the owning thread patches
+//     the rows already in shared memory (the scan kernel's scheme). In
+//     place, the owning thread adds at the commit and reads its nodes'
+//     counts through L2. One row serves ServiceSpreading and
+//     ServiceAntiAffinity;
+//   - pod rows are staged 64 at a time (4 in place) by cp.async,
+//     double-buffered;
 //   - selection: each CTA stores one slot (its best 64-bit key
 //     score << 32 | ~index, infeasible nodes at -1; its max count of the
 //     next pod's service; that count at its best node) into every CTA
@@ -50,32 +58,38 @@
 //   - the service carry (anchor, svc_total: S + 1 slots) is replicated
 //     in every CTA's shared memory. Every CTA applies each commit in id
 //     order with the same __fadd_rn, so the copies stay equal bit for
-//     bit; CTA 0 writes them back. Warp 0 updates the arrays after the
-//     step's last barrier, and every thread carries the next pod's
-//     (anchor, peers) in registers: read after the step's first barrier,
-//     then this step's commit applied to them;
+//     bit; CTA 0 writes them back. A single CTA in place works on the
+//     device copy. Warp 0 updates the arrays after the step's last
+//     barrier, and every thread carries the next pod's (anchor, peers)
+//     in registers: read after the step's first barrier, then this
+//     step's commit applied to them;
 //   - ServiceAntiAffinity: the zone sums run over the feasible nodes of
 //     the whole node axis, so they must exist before any node is scored.
-//     Each CTA adds its feasible nodes' counts into its own row of a
-//     [C][zone_bins] receive array (shared-memory atomics), stores that
-//     row into every other CTA's receive array by DSMEM, and takes a
-//     first cluster barrier; then each thread sums the C rows for the
-//     zones of its nodes, scores them, and the key slots follow with the
-//     second cluster barrier. A step whose pod has no peers (the zone
-//     term is then 10 for any labelled node) or no service takes one
-//     barrier. The receive array needs no second buffer: a CTA reads
-//     step p's rows between step p's two cluster barriers, and no CTA
-//     stores step p + 1's rows before it has passed step p's second
-//     barrier, which every CTA reaches only after its reads. A CTA's own
-//     row is cleared between its last read (a block barrier) and the
-//     second cluster barrier, before any thread adds step p + 1's counts;
+//     Resident, each CTA adds its feasible nodes' counts into its
+//     partial bins (shared-memory atomics), adds every non-zero partial
+//     into the one [zone_bins] sum array of every CTA by DSMEM atomics,
+//     and takes a first cluster barrier; then each thread reads the sums
+//     of its nodes' zones, scores them, and the key slots follow with
+//     the second cluster barrier. In place, the feasible nodes add
+//     straight into a [2][zone_bins] array in device memory, read through
+//     L2 after the first barrier. Either way a CTA's shared memory does
+//     not grow with C. A step whose pod has no peers (the zone term is
+//     then 10 for any labelled node) or no service takes one barrier.
+//     The shared sum array needs no second buffer: a CTA reads step p's
+//     sums between step p's two cluster barriers, clears them after its
+//     last read (a block barrier) and before the second barrier, and no
+//     CTA adds step p + 1's partials before it has passed that barrier.
+//     The device array does: any CTA may clear only what every CTA has
+//     read, so step p's sums are cleared at the next zone step, after
+//     its first barrier, while that step adds into the other buffer;
 //   - a pod that no node can take whatever the carry (hostname gated on
 //     and a pin outside [-1, N): the padding's -2) takes no cluster step
 //     when the next pod needs no max count either: choice -1, and its
 //     commit only sends its ids to the scratch slot of svc_total, as
 //     JAX's commit does. Without HostName the padding pods are placed;
 //   - the widths the lowering nearly always gives (2-word bitsets, 8
-//     service ids) get their own instance with those loops unrolled.
+//     service ids) get their own instances with those loops unrolled;
+//     residency is a template parameter too.
 //
 // Parity with the plain version is bit for bit: -fmad=false, no fast
 // math, the _rn intrinsics, floor_div where JAX's `//` floors, and int32
@@ -84,7 +98,8 @@
 //
 // Launcher: plain C, loaded with ctypes. It launches one cluster on the
 // caller's stream with cudaLaunchKernelEx, never synchronises,
-// allocates nothing, and returns the first CUDA error. The launch plan
+// allocates nothing (the wrapper passes the in-place spill, zeroed),
+// and returns the first CUDA error. The launch plan
 // (cluster size, residency, threads, shared memory) is made and checked
 // in Python (ops/policy_scan.py) before any launch.
 
@@ -103,7 +118,8 @@ constexpr int kMaxCluster = 16;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxAA = 8;    // ServiceAntiAffinity instances
 constexpr int kMaxAff = 8;   // ServiceAffinity labels
-constexpr int kTile = 64;    // pods staged per tile
+constexpr int kTileShift = 6;         // 64 pods staged per tile, resident
+constexpr int kTileShiftInPlace = 2;  // 4 in place, where shared memory holds nothing else
 constexpr int kRows = 4;     // count rows in shared memory: the pod's and the next three
 
 // Runtime spec flags (ops/policy_scan.py FLAG_*).
@@ -142,8 +158,9 @@ struct Layout {
   int npc;        // nodes per CTA
   int ns;         // row stride of the service counts, npc * C
   int row_words;  // words of a packed pod row
-  int resident;   // 1: the slice's columns live in shared memory
-  int f32, words, pol, rows, part, tiles, red, slots, svc, recv, flags, bytes;
+  int tile_shift; // log2 of the pods a tile stages
+  int resident;   // 1: the slice, count rows and zone sums live in shared memory
+  int f32, words, pol, rows, part, tiles, red, slots, svc, zsum, zpart, flags, bytes;
 };
 
 __host__ __device__ inline Layout make_layout(int N, int SW, int PW, int VW, int K, int KA,
@@ -154,19 +171,22 @@ __host__ __device__ inline Layout make_layout(int N, int SW, int PW, int VW, int
   L.ns = L.npc * C;
   L.row_words = round_up(kRowBits + SW + PW + 2 * VW + K + KA, 4);
   L.resident = resident;
+  L.tile_shift = resident ? kTileShift : kTileShiftInPlace;
   const int kept = resident ? L.npc : 0;  // slice columns held here
+  const int zone = resident ? round_up(4 * zone_bins, 16) : 0;
   int o = 0;
   L.f32 = o;    o += 8 * 4 * kept;                                  // caps, fit, used
   L.words = o;  o += 4 * (SW + PW + 2 * VW) * kept;                 // labels, uport, uvol
   L.pol = o;    o += 4 * (n_prio + KA + n_aa) * kept;               // static_prio, aff_vid, aa_zone
-  L.rows = o;   o += kRows * 4 * L.npc;                             // count rows of 4 pods
-  L.part = o;   o += n_aa > 0 ? 4 * L.npc : 0;                      // score before the zones
-  L.tiles = o;  o += 2 * 4 * kTile * L.row_words;                   // pod tiles, 2
+  L.rows = o;   o += kRows * 4 * kept;                              // count rows of 4 pods
+  L.part = o;   o += n_aa > 0 ? 4 * kept : 0;                       // score before the zones
+  L.tiles = o;  o += 2 * 4 * (L.row_words << L.tile_shift);        // pod tiles, 2
   L.red = o;    o += 32 * (8 + 4);                                  // a key and a count per warp
   L.slots = o;  o += 2 * kMaxCluster * 16;                          // Slot[parity][CTA]
-  L.svc = o;    o += 2 * 4 * round_up(SA, 4);                       // anchor, svc_total
-  L.recv = o;   o += round_up(4 * C * zone_bins, 16);               // zone bins[CTA][bin]
-  L.flags = o;  o += round_up(3 * kept + (n_aa > 0 ? L.npc : 0), 16);  // over, sched, policy_ok, feas
+  L.svc = o;    o += resident || C > 1 ? 2 * 4 * round_up(SA, 4) : 0;  // anchor, svc_total
+  L.zsum = o;   o += zone;                                          // zone sums [bin]
+  L.zpart = o;  o += C > 1 ? zone : 0;                              // this CTA's partials [bin]
+  L.flags = o;  o += round_up(3 * kept + (n_aa > 0 ? kept : 0), 16);  // over, sched, policy_ok, feas
   L.bytes = o;
   return L;
 }
@@ -196,6 +216,8 @@ struct PolicyArgs {
   int* counts;      // (S, NS)
   int* anchor;      // (SA,) or null
   float* svc_total; // (SA,) or null
+  int* spill;       // in place with anti-affinity: part (NS), feas (NS bytes in NS words),
+                    // zone sums (2, zone_bins), zeroed; else null
   int* choice;      // (P,) out
   int P, N, S, SW, PW, VW, K, KA, SA, C, flags;
   int w_lr, w_bra, w_spread;
@@ -258,7 +280,10 @@ __device__ __forceinline__ int warp_max_int(int v) { return __reduce_max_sync(0x
 
 // Widths kSW, kPW, kVW, kK > 0 are compile-time constants (the bitset
 // and service-id loops unroll); 0 takes the width from the arguments.
-template <int kSW, int kPW, int kVW, int kK>
+// kResident picks where the slice lives at compile time, so a resident
+// launch's pointers are known to be shared memory and its step carries
+// no branch for the in-place case.
+template <int kSW, int kPW, int kVW, int kK, bool kResident>
 __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const PolicyArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const Layout L = a.L;
@@ -280,7 +305,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
   const int zb = a.zone_bins;
   const int flags = a.flags;
   const bool carry_svc = (flags & kServiceCarry) != 0;
-  const bool resident = L.resident != 0;
+  constexpr bool resident = kResident;
   const int scratch = a.SA - 1;
   const int NPC = L.npc;
   const int start = r * NPC;
@@ -348,25 +373,58 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
     ns_aff = KA;
     ns_aa = n_aa;
   }
-  int* rowbuf = reinterpret_cast<int*>(sm + L.rows);  // [pod % kRows][NPC]
-  int* part = reinterpret_cast<int*>(sm + L.part);    // [NPC], with anti-affinity
-  int* tiles = reinterpret_cast<int*>(sm + L.tiles);  // [tile parity][kTile][row_words]
+  int* rowbuf = reinterpret_cast<int*>(sm + L.rows);  // [pod % kRows][NPC], resident
+  int* tiles = reinterpret_cast<int*>(sm + L.tiles);  // [tile parity][tile][row_words]
+  constexpr int tsh = kResident ? kTileShift : kTileShiftInPlace;  // L.tile_shift
   long long* red = reinterpret_cast<long long*>(sm + L.red);  // one key per warp
   int* red_max = reinterpret_cast<int*>(red + 32);             // one max count per warp
   Slot* slots = reinterpret_cast<Slot*>(sm + L.slots);         // [parity][source CTA]
-  int* anchor = reinterpret_cast<int*>(sm + L.svc);            // [SA], replicated
-  float* svc_total = reinterpret_cast<float*>(anchor + round_up(a.SA, 4));
-  int* recv = reinterpret_cast<int*>(sm + L.recv);             // [source CTA][zone bin]
-  int* mine = recv + r * zb;                                   // this CTA's row
-  unsigned char* feas = sm + L.flags + (resident ? 3 * NPC : 0);  // [NPC], with anti-affinity
+  // The service carry: replicated in shared memory, or the device copy
+  // for a single CTA in place (known at compile time when resident).
+  const bool svc_shared = kResident || C > 1;
+  int* anchor = svc_shared ? reinterpret_cast<int*>(sm + L.svc) : a.anchor;
+  float* svc_total = svc_shared ? reinterpret_cast<float*>(anchor + round_up(a.SA, 4)) : a.svc_total;
+  // With anti-affinity: the score before the zones and the feasibility
+  // of each node of the slice, and the zone sums; in shared memory or
+  // (in place) in the spill.
+  int *part, *zsum, *zpart, *zdev;
+  unsigned char* feas;
+  if (resident) {
+    part = reinterpret_cast<int*>(sm + L.part);
+    feas = sm + L.flags + 3 * NPC;
+    zsum = reinterpret_cast<int*>(sm + L.zsum);
+    zpart = C > 1 ? reinterpret_cast<int*>(sm + L.zpart) : zsum;
+    zdev = nullptr;
+  } else {
+    part = a.spill != nullptr ? a.spill + start : nullptr;
+    feas = a.spill != nullptr ? reinterpret_cast<unsigned char*>(a.spill + L.ns) + start : nullptr;
+    zdev = a.spill != nullptr ? a.spill + 2 * L.ns : nullptr;  // [zone step parity][bin]
+    zsum = zpart = nullptr;
+  }
 
   auto pod_row = [&](int p) -> const int* {
-    return tiles + ((p / kTile) & 1) * kTile * L.row_words + (p % kTile) * L.row_words;
+    return tiles + ((p >> tsh) & 1) * (L.row_words << tsh) + (p & ((1 << tsh) - 1)) * L.row_words;
   };
   auto count_row = [&](int p) { return rowbuf + (p % kRows) * NPC; };
   // JAX clamps a dynamic index into range; the lowering never gives one
   // outside [-1, S).
   auto svc_row = [&](int svc) { return min(max(svc, 0), S - 1); };
+  // The count of pod p's service at node j of the slice (anything when
+  // the pod has no service): the row fetched ahead, or, in place, the
+  // counts in device memory, which only this node's owning thread adds
+  // to and which a block barrier orders before another thread's read.
+  auto count_of = [&](int p, int j) -> int {
+    if (resident) return count_row(p)[j];
+    return __ldcg(a.counts + (size_t)svc_row(pod_row(p)[kRowSvc]) * L.ns + start + j);
+  };
+  // The service carry's slot s, as warp 0 last committed it (past L1
+  // in device memory).
+  auto carry_anchor = [&](int s) {
+    return svc_shared ? anchor[s] : *reinterpret_cast<volatile const int*>(anchor + s);
+  };
+  auto carry_peers = [&](int s) {
+    return svc_shared ? svc_total[s] : *reinterpret_cast<volatile const float*>(svc_total + s);
+  };
   // The pod's entry of the service carry: its service's, or the scratch
   // slot's when it has none.
   auto svc_slot = [&](int svc) { return svc >= 0 ? svc : scratch; };
@@ -388,15 +446,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
     const int pin = pod_row(p)[kRowPin];
     return (flags & kHostname) != 0 && pin != -1 && (pin < 0 || pin >= N);
   };
-  // Pods first .. first + kTile - 1 into their tile buffer.
+  // The tile of pods from `first` into its buffer.
   auto issue_tile = [&](int first) {
-    int* dst = tiles + ((first / kTile) & 1) * kTile * L.row_words;
+    int* dst = tiles + ((first >> tsh) & 1) * (L.row_words << tsh);
     const int* src = a.pod_rows + (size_t)first * L.row_words;
-    const int chunks = min(kTile, a.P - first) * L.row_words / 4;
+    const int chunks = min(1 << tsh, a.P - first) * L.row_words / 4;
     for (int i = tid; i < chunks; i += T) cp_async16(dst + 4 * i, src + 4 * i);
   };
-  // The slice of pod p's service row of the counts, if it has a service.
+  // The slice of pod p's service row of the counts, if it has a service
+  // (resident).
   auto issue_row = [&](int p) {
+    if (!resident) return;
     const int svc = pod_row(p)[kRowSvc];
     if (svc < 0) return;
     int* dst = count_row(p);
@@ -407,7 +467,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
   // pod row landed at step p's first block barrier) and the tile that
   // starts at pod p + 4.
   auto prefetch = [&](int p) {
-    if (p + 4 < a.P && (p + 4) % kTile == 0) issue_tile(p + 4);
+    if (p + 4 < a.P && ((p + 4) & ((1 << tsh) - 1)) == 0) issue_tile(p + 4);
     if (p + 3 < a.P) issue_row(p + 3);
   };
   // A commit's adds to the counts in device memory wait one step: they
@@ -418,16 +478,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
   // owning thread instead. pend_j: the node of the commit still to issue
   // (-1 none), pend_p its pod.
   int pend_j = -1, pend_p = 0;
-  auto flush_commit = [&]() {
-    if (pend_j < 0) return;
-    const int p = pend_p;
-    count_row(p + 3)[pend_j] += adds_to_row(p, p + 3);
+  // Pod p's adds to the counts in device memory at node j of the slice.
+  auto add_counts = [&](int p, int j) {
     const int* ids = pod_row(p) + ids_at;
     for (int k = 0; k < K; ++k) {
       // Once per occurrence of an id (a repeated id adds twice); ids
       // outside [0, S) commit nothing (JAX's scatter mode="drop").
-      if (ids[k] >= 0 && ids[k] < S) atomicAdd(a.counts + (size_t)ids[k] * L.ns + start + pend_j, 1);
+      if (ids[k] >= 0 && ids[k] < S) atomicAdd(a.counts + (size_t)ids[k] * L.ns + start + j, 1);
     }
+  };
+  auto flush_commit = [&]() {
+    if (pend_j < 0) return;
+    count_row(pend_p + 3)[pend_j] += adds_to_row(pend_p, pend_p + 3);
+    add_counts(pend_p, pend_j);
     pend_j = -1;
   };
   // The service carry (solver._commit_services), by warp 0, one lane per
@@ -455,8 +518,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
   auto read_next = [&](int p) {
     if (!carry_svc || p + 1 >= a.P) return;
     const int s = svc_slot(pod_row(p + 1)[kRowSvc]);
-    n_anchor = anchor[s];
-    n_peers = svc_total[s];
+    n_anchor = carry_anchor(s);
+    n_peers = carry_peers(s);
     const int* ids = pod_row(p) + ids_at;
     hits_placed = 0;
     for (int k = 0; k < K; ++k) hits_placed += (ids[k] >= 0 ? ids[k] : scratch) == s;
@@ -503,20 +566,23 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
       for (int i = 0; i < n_aa; ++i) q[(n_prio + KA + i) * NPC + j] = a.aa_zone[(size_t)n * n_aa + i];
     }
   }
-  if (carry_svc) {
+  if (carry_svc && svc_shared) {
     for (int s = tid; s < a.SA; s += T) {
       anchor[s] = a.anchor[s];
       svc_total[s] = a.svc_total[s];
     }
   }
-  for (int b = tid; b < zb; b += T) mine[b] = 0;
+  if (resident) {
+    for (int b = tid; b < zb; b += T) zsum[b] = 0;
+    for (int b = tid; b < zb; b += T) zpart[b] = 0;
+  }
   cp_async_wait_all();
   __syncthreads();
   for (int p = 0; p < min(a.P, 3); ++p) issue_row(p);
   if (carry_svc && a.P > 0) {
     const int s = svc_slot(pod_row(0)[kRowSvc]);
-    s_anchor = anchor[s];
-    s_peers = svc_total[s];
+    s_anchor = carry_anchor(s);
+    s_peers = carry_peers(s);
   }
   cp_async_wait_all();
   // Every CTA of the cluster has started before any stores into another's
@@ -526,7 +592,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
   int m = 0;  // the max count of the current pod's service, over the cluster
   if (first_svc >= 0) {
     int top = INT_MIN;
-    for (int j = tid; j < n_real; j += T) top = max(top, count_row(0)[j]);
+    for (int j = tid; j < n_real; j += T) top = max(top, count_of(0, j));
     top = warp_max_int(top);
     if (lane == 0) red_max[warp] = top;
     __syncthreads();
@@ -537,6 +603,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
   }
 
   unsigned phase = 0;  // cluster steps taken, for the slots' parity
+  unsigned zsteps = 0;  // zone steps taken, for the device zone sums' parity
   for (int p = 0; p < a.P; ++p) {
     const bool has_next = p + 1 < a.P;
     if (unplaceable(p) && (!has_next || unplaceable(p + 1))) {
@@ -567,14 +634,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
     const int* vol_any = port + PW;
     const int* vol_rw = vol_any + VW;
     const int* aff_pin = row + pins_at;
-    const int* counts_row = count_row(p);
     const int next_svc = has_next ? pod_row(p + 1)[kRowSvc] : -1;
-    int* next_row = count_row(p + 1);
     // ServiceAntiAffinity's numServicePods. With no peers every labelled
     // node's zone term is 10, so the zone sums matter only when num > 0:
     // the same in every CTA, whose service carries are equal.
     const int num = svc >= 0 ? __float2int_rz(s_peers) : 0;
     const bool zones = n_aa > 0 && num > 0;
+    // Where this CTA's nodes add their counts: its partials, or the
+    // step's device sums.
+    int* const zadd = resident ? zpart : zdev + (zsteps & 1) * zb;
     // ServiceAffinity: what each affinity label must equal (-1: free).
     // The anchor's row is a node constant of any CTA's slice: read from
     // device memory through the read-only cache.
@@ -650,7 +718,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
         const float d = __fmul_rn(fabsf(__fsub_rn(cf, mf)), 10.0f);
         bra = __float2int_rz(__fadd_rn(__fsub_rn(10.0f, d), 1e-5f));
       }
-      const int count = counts_row[j];
+      const int count = count_of(p, j);
       int spread = 10;
       if (svc >= 0 && m != 0) spread = floor_div(wmul(10, wsub(m, count)), m > 1 ? m : 1);
       int total = wadd(wadd(wmul(lr, a.w_lr), wmul(bra, a.w_bra)), wmul(spread, a.w_spread));
@@ -662,7 +730,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
         if (ok && count != 0) {
           for (int i = 0; i < n_aa; ++i) {
             const int zone = zone_of[i * ws + j * ns_aa];
-            if (zone >= 0 && zone < a.aa_nz[i]) atomicAdd(mine + a.aa_off[i] + zone, count);
+            if (zone >= 0 && zone < a.aa_nz[i]) atomicAdd(zadd + a.aa_off[i] + zone, count);
           }
         }
         part[j] = total;
@@ -674,24 +742,27 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
         const long long key = make_key(ok ? total : -1, n);
         best = key > best ? key : best;
       }
-      if (next_svc >= 0) next_max = max(next_max, next_row[j]);
+      if (next_svc >= 0) next_max = max(next_max, count_of(p + 1, j));
     }
     next_max = warp_max_int(next_max);
     if (lane == 0) red_max[warp] = next_max;
 
     if (zones) {
       cp_async_wait_all();  // pod p + 2's count row and tile
-      __syncthreads();      // this CTA's zone bins are whole
+      __syncthreads();      // this CTA's partials are whole
       flush_commit();
       read_next(p);
-      // This CTA's row of bins into every other CTA's receive array, one
-      // (CTA, bin) pair a thread.
-      for (int i = tid; i < C * zb; i += T) {
-        const int d = i / zb;
-        const int b = i - d * zb;
-        if (d != r) cluster.map_shared_rank(mine, d)[b] = mine[b];
+      if (resident && C > 1) {
+        // Every non-zero partial into every CTA's sums, one (CTA, bin)
+        // pair a thread. Integer adds: the order they land in is moot.
+        for (int i = tid; i < C * zb; i += T) {
+          const int d = i / zb;
+          const int b = i - d * zb;
+          const int v = zpart[b];
+          if (v != 0) atomicAdd(cluster.map_shared_rank(zsum, d) + b, v);
+        }
       }
-      cluster.sync();  // every CTA's bins have reached every CTA
+      cluster.sync();  // every CTA's partials have reached every sum
       // -- phase B: the zone terms from the sums over the cluster --------
       for (int j = tid; j < n_real; j += T) {
         int total = part[j];
@@ -699,8 +770,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
           const int zone = zone_of[i * ws + j * ns_aa];
           // JAX's gather clamps a zone past the vocabulary.
           const int bin = a.aa_off[i] + min(max(zone, 0), a.aa_nz[i] - 1);
-          int count_z = 0;
-          for (int src = 0; src < C; ++src) count_z = wadd(count_z, recv[src * zb + bin]);
+          const int count_z = resident ? zsum[bin] : __ldcg(zadd + bin);
           const int score = zone < 0 ? 0 : floor_div(wmul(10, wsub(num, count_z)), num);
           total = wadd(total, wmul(score, a.aa_w[i]));
         }
@@ -709,8 +779,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
       }
       best = warp_max_key(best);
       if (lane == 0) red[warp] = best;
-      __syncthreads();  // every read of this step's bins is done
-      for (int b = tid; b < zb; b += T) mine[b] = 0;
+      __syncthreads();  // every read of this step's sums and partials is done
+      if (resident) {
+        for (int b = tid; b < zb; b += T) zsum[b] = 0;
+        if (C > 1) {
+          for (int b = tid; b < zb; b += T) zpart[b] = 0;
+        }
+      } else {
+        // The previous zone step's sums, which every CTA read before
+        // this step's first barrier: the next zone step adds into them.
+        int* last = zdev + ((zsteps + 1) & 1) * zb;
+        for (int b = r * T + tid; b < zb; b += C * T) last[b] = 0;
+      }
+      ++zsteps;
     } else {
       best = warp_max_key(best);
       if (lane == 0) red[warp] = best;
@@ -731,7 +812,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
       s.max_count = next_max;
       s.best_count = 0;
       if (next_svc >= 0 && best != LLONG_MIN) {
-        s.best_count = next_row[(int)(0xffffffffu - (unsigned)(best & 0xffffffffLL)) - start];
+        s.best_count = count_of(p + 1, (int)(0xffffffffu - (unsigned)(best & 0xffffffffLL)) - start);
       }
       *cluster.map_shared_rank(slots + (phase & 1) * kMaxCluster + r, lane) = s;
     }
@@ -769,12 +850,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
         uvol_any[w * ws + j * ns_vol] |= vol_any[w];
         uvol_rw[w * ws + j * ns_vol] |= vol_rw[w];
       }
-      // The rows of pods p + 1 and p + 2 have landed; p + 3's is in
-      // flight and gets the adds with the flush.
-      next_row[j] += adds_to_row(p, p + 1);
-      count_row(p + 2)[j] += adds_to_row(p, p + 2);
-      pend_j = j;
-      pend_p = p;
+      if (resident) {
+        // The rows of pods p + 1 and p + 2 have landed; p + 3's is in
+        // flight and gets the adds with the flush.
+        count_row(p + 1)[j] += adds_to_row(p, p + 1);
+        count_row(p + 2)[j] += adds_to_row(p, p + 2);
+        pend_j = j;
+        pend_p = p;
+      } else {
+        add_counts(p, j);
+      }
     }
     prefetch(p);
   }
@@ -800,7 +885,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
   // No CTA leaves while another may still store into its slots; warp
   // 0's last service commit is done.
   cluster.sync();
-  if (r == 0 && carry_svc) {
+  if (r == 0 && carry_svc && svc_shared) {
     for (int s = tid; s < a.SA; s += T) {
       a.anchor[s] = anchor[s];
       a.svc_total[s] = svc_total[s];
@@ -812,9 +897,11 @@ using Kernel = void (*)(PolicyArgs);
 
 // The lowering pads every bitset to a multiple of 2 words and keeps 8
 // service ids per pod, so nearly every launch has these widths.
-Kernel kernel_for(int SW, int PW, int VW, int K) {
-  if (SW == 2 && PW == 2 && VW == 2 && K == 8) return policy_scan_kernel<2, 2, 2, 8>;
-  return policy_scan_kernel<0, 0, 0, 0>;
+Kernel kernel_for(int SW, int PW, int VW, int K, int resident) {
+  if (SW == 2 && PW == 2 && VW == 2 && K == 8) {
+    return resident ? policy_scan_kernel<2, 2, 2, 8, true> : policy_scan_kernel<2, 2, 2, 8, false>;
+  }
+  return resident ? policy_scan_kernel<0, 0, 0, 0, true> : policy_scan_kernel<0, 0, 0, 0, false>;
 }
 
 cudaError_t configure(Kernel kernel, int C, int threads, const Layout& L, cudaLaunchConfig_t* cfg,
@@ -857,7 +944,7 @@ extern "C" int ktt_policy_occupancy(int N, int SW, int PW, int VW, int K, int KA
   cudaLaunchAttribute attr;
   const Layout L =
       make_layout(N, SW, PW, VW, K, KA, n_prio, n_aa, SA, zone_bins, cluster, resident);
-  const Kernel kernel = kernel_for(SW, PW, VW, K);
+  const Kernel kernel = kernel_for(SW, PW, VW, K, resident);
   cudaError_t e = configure(kernel, cluster, threads, L, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(active, kernel, &cfg));
@@ -870,7 +957,7 @@ extern "C" int ktt_policy_launch(
     const void* policy_ok, const void* static_prio, const void* aff_vid, const void* aa_zone,
     void* cpu_fit, void* mem_fit, void* cpu_used, void* mem_used,
     void* pods_used, void* uport, void* uvol_any, void* uvol_rw,
-    void* counts, void* anchor, void* svc_total, void* choice,
+    void* counts, void* anchor, void* svc_total, void* spill, void* choice,
     int P, int N, int S, int SW, int PW, int VW, int K, int KA, int SA,
     int flags, int w_lr, int w_bra, int w_spread,
     int n_aa, const int* aa_w, const int* aa_nz, int cluster, int threads, int resident,
@@ -902,6 +989,7 @@ extern "C" int ktt_policy_launch(
   a.counts = static_cast<int*>(counts);
   a.anchor = static_cast<int*>(anchor);
   a.svc_total = static_cast<float*>(svc_total);
+  a.spill = static_cast<int*>(spill);
   a.choice = static_cast<int*>(choice);
   a.P = P;
   a.N = N;
@@ -930,9 +1018,10 @@ extern "C" int ktt_policy_launch(
   }
   const int n_prio = (flags & kStaticPrio) ? 1 : 0;
   a.L = make_layout(N, SW, PW, VW, K, KA, n_prio, n_aa, a.SA, a.zone_bins, cluster, resident);
+  if (!resident && n_aa > 0 && spill == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  const Kernel kernel = kernel_for(SW, PW, VW, K);
+  const Kernel kernel = kernel_for(SW, PW, VW, K, resident);
   cudaError_t e = configure(kernel, cluster, threads, a.L, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -16,24 +16,30 @@ cluster of C CTAs, each holding its slice of the node axis (constants,
 policy columns, carry) in shared memory, the count rows fetched ahead by
 cp.async, the winner and the next pod's max count chosen through slots
 stored into every CTA by distributed shared memory; the service carry
-(anchor, svc_total) replicated in every CTA; each CTA's zone bins stored
-into a [C][zone_bins] receive array of every CTA.
+(anchor, svc_total) replicated in every CTA; each CTA's partial zone
+bins added by DSMEM atomics into the one [zone_bins] sum array of every
+CTA.
 
 The spec travels as a runtime flag word (`FLAG_*`, the kernel's
 constants) with the weights and up to `MAX_AA` anti-affinity instances,
 so one compiled kernel serves every policy. `launch_plan` is pure
 Python, by the same layout as the kernel's `make_layout`: it takes the
-largest cluster, up to 16 CTAs, whose shared memory holds the slices
-("resident"), else at that size the same kernel reading the slices in
-place from device memory, else a smaller cluster; a zone vocabulary of
-thousands of values lowers C, down to 1. What no cluster can take
-(instances or affinity labels past 8, shared memory) raises ValueError
-before any launch. Nothing falls back to the plain version.
+largest cluster, up to 16 CTAs, whose shared memory holds the slices,
+the count rows and the zone sums ("resident"), else at that size the
+same kernel keeping all of those in device memory ("in place"), which
+needs no shared memory that grows with the nodes or the zone bins,
+else a smaller cluster. A CTA's shared memory does not grow
+with C, so only a service carry too large to replicate lowers C, down
+to 1, where the carry stays in device memory. What the kernel cannot
+take (instances or affinity labels past 8) raises ValueError before any
+launch. Nothing falls back to the plain version.
 
 The wrapper checks device, dtype, shape and contiguity, packs the pod
 columns into one (P, row_words) int32 matrix padded to whole 16-byte
 chunks, converts the service counts between the JAX layout (N, S) f32
-and the kernel's (S, NS) int32, launches on the current stream and
+and the kernel's (S, NS) int32, allocates the in-place spill (the
+scores before the zones, the feasibility, two buffers of zone sums),
+launches on the current stream and
 raises if the launch failed. It never synchronises. CPU tensors go to
 the plain version, the per-pod loop of `ops/solver.py`; no CUDA tensor
 ever does.
@@ -89,8 +95,9 @@ _POLICY_SPEC = {
 
 #: The largest cluster (above 8 the non-portable cluster attribute).
 MAX_CLUSTER = 16
-#: Pods staged into shared memory per tile (the kernel's kTile).
+#: Pods staged into shared memory per tile: resident, and in place.
 TILE = 64
+TILE_IN_PLACE = 4
 #: Count rows held in shared memory: the pod's and the next three (kRows).
 COUNT_ROWS = 4
 
@@ -100,21 +107,27 @@ def smem_bytes(
     zone_bins: int, cluster: int, resident: bool,
 ) -> int:
     """Dynamic shared memory of one CTA: the kernel's `make_layout`.
-    `resident` keeps the slice's columns in shared memory; otherwise
-    they are read in place from device memory."""
+    `resident` keeps the slice's columns, its count rows and the zone
+    sums in shared memory, and stages the pod rows 64 at a time;
+    otherwise those stay in device memory and the pods come 4 at a
+    time. Nothing here grows with the cluster size: with C > 1 the
+    zone partials sit beside the sums, a single CTA adds into its sums;
+    the service carry is held in every CTA, except by a single CTA in
+    place, which works on the device copy."""
     npc = _round_up(-(-N // cluster), 4)
     kept = npc if resident else 0
     row_words = _round_up(_ROW_SCALARS + SW + PW + 2 * VW + K + KA, 4)
+    zone = _round_up(4 * zone_bins, 16) if resident else 0
     return (
         4 * kept * (8 + SW + PW + 2 * VW + n_prio + KA + n_aa)  # f32, bitset and policy columns
-        + 4 * npc * COUNT_ROWS  # count rows
-        + (4 * npc if n_aa else 0)  # score before the zones
-        + 2 * 4 * TILE * row_words  # pod tiles
+        + 4 * kept * COUNT_ROWS  # count rows
+        + (4 * kept if n_aa else 0)  # score before the zones
+        + 2 * 4 * (TILE if resident else TILE_IN_PLACE) * row_words  # pod tiles
         + 32 * (8 + 4)  # a key and a max count per warp
         + 2 * MAX_CLUSTER * 16  # slots: [parity][CTA]
-        + 2 * 4 * _round_up(SA, 4)  # anchor, svc_total
-        + _round_up(4 * cluster * zone_bins, 16)  # zone bins: [CTA][bin]
-        + _round_up(3 * kept + (npc if n_aa else 0), 16)  # over, sched, policy_ok, feasibility
+        + (2 * 4 * _round_up(SA, 4) if resident or cluster > 1 else 0)  # anchor, svc_total
+        + zone * (2 if cluster > 1 else 1)  # zone sums, and the partials
+        + _round_up(3 * kept + (kept if n_aa else 0), 16)  # over, sched, policy_ok, feasibility
     )
 
 
@@ -138,7 +151,8 @@ class LaunchPlan:
     """How one launch is cut: one cluster of `cluster` CTAs of `threads`
     threads, CTA r owning nodes [r * nodes_per_cta, (r + 1) *
     nodes_per_cta), each with `smem_bytes` of dynamic shared memory and
-    its slice's columns held there (`resident`) or read in place; the
+    its slice's columns, count rows and zone sums held there
+    (`resident`) or kept in device memory; the
     service counts have `count_stride` columns, a packed pod row
     `row_words` words, and `zone_bins` is the anti-affinity instances'
     zone vocabularies together."""
@@ -184,11 +198,14 @@ def launch_plan(
 ) -> LaunchPlan:
     """The launch for a node axis of N at these widths under `lspec`,
     with a service carry of SA slots (0: none). By default the largest
-    cluster up to 16 CTAs whose shared memory fits, the slices resident
-    where they fit and read in place where not, and one thread per node
-    of a slice (a multiple of 32, at most 1024); `cluster`, `resident`
-    and `threads` override them for a test or a sweep. Raises ValueError
-    for a launch no cluster can take, before any launch."""
+    cluster up to 16 CTAs whose shared memory fits, resident where it
+    fits and in place where not, and one thread per node of a slice (a
+    multiple of 32, at most 1024); `cluster`, `resident` and `threads`
+    override them for a test or a sweep. In place needs no shared memory
+    that grows with N or the zone bins, and a single CTA none that grows
+    with the services: only pod rows of thousands of words could outgrow
+    it. Raises ValueError, before any launch, for a spec the kernel
+    cannot take, an override that cannot run or such a row."""
     _check_spec(KA, lspec)
     widths = _layout_widths(SW, PW, VW, K, KA, lspec, SA)
     if cluster is not None and not 1 <= int(cluster) <= MAX_CLUSTER:
@@ -206,7 +223,7 @@ def launch_plan(
             T = min(MAX_THREADS, max(32, _round_up(npc, 32))) if threads is None else int(threads)
             if T % 32 or not 32 <= T <= MAX_THREADS:
                 raise ValueError(
-                    f"policy scan kernel: {T} threads per CTA; need a multiple of 32 up to 1024")
+                    f"policy scan kernel: {T} threads per CTA; need a multiple of 32 up to {MAX_THREADS}")
             return LaunchPlan(
                 cluster=C, nodes_per_cta=npc, threads=T, smem_bytes=smem,
                 count_stride=npc * C,
@@ -221,14 +238,14 @@ def launch_plan(
 
 def max_nodes(
     SW: int, PW: int, VW: int, K: int, KA: int, lspec: LoweredSpec, SA: int = 0,
-    cluster: int = MAX_CLUSTER, resident: bool = True,
+    cluster: int = MAX_CLUSTER,
 ) -> int:
-    """The largest node axis a cluster of this size can take, with the
-    slices resident or read in place."""
+    """The largest node axis a cluster of this size holds resident (-1:
+    none). In place it takes any node axis."""
     widths = _layout_widths(SW, PW, VW, K, KA, lspec, SA)
 
     def fits(n):
-        return smem_bytes(n, *widths, cluster, resident) <= SMEM_LIMIT
+        return smem_bytes(n, *widths, cluster, True) <= SMEM_LIMIT
 
     if not fits(0):
         return -1
@@ -244,7 +261,7 @@ def max_nodes(
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ktt_policy_launch.argtypes = (
-        [ptr] * 23 + [i32] * 14
+        [ptr] * 24 + [i32] * 14
         + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, i32, i32, ptr]
     )
     lib.ktt_policy_launch.restype = i32
@@ -364,6 +381,12 @@ def _call(
     counts = torch.zeros((S, plan.count_stride), dtype=torch.int32, device=device)
     counts[:, :N].copy_(nodes["svc_counts"].t())
     choice = torch.empty(P, dtype=torch.int32, device=device)
+    # In place, the scores before the zones, the feasibility and two
+    # buffers of zone sums live in device memory; the sums start at zero.
+    spill = None
+    if not plan.resident and lspec.aa_weights:
+        spill = torch.zeros(2 * plan.count_stride + 2 * plan.zone_bins, dtype=torch.int32,
+                            device=device)
 
     def ptr(d, key):
         return d[key].data_ptr() if key in d else None
@@ -378,7 +401,8 @@ def _call(
     ]
     ptrs += [nodes[k].data_ptr() for k in (
         "cpu_fit", "mem_fit", "cpu_used", "mem_used", "pods_used", "uport", "uvol_any", "uvol_rw")]
-    ptrs += [counts.data_ptr(), ptr(nodes, "anchor"), ptr(nodes, "svc_total"), choice.data_ptr()]
+    ptrs += [counts.data_ptr(), ptr(nodes, "anchor"), ptr(nodes, "svc_total"),
+             None if spill is None else spill.data_ptr(), choice.data_ptr()]
     aa_w = (ctypes.c_int * MAX_AA)(*[int(w) for w in lspec.aa_weights])
     aa_nz = (ctypes.c_int * MAX_AA)(*[int(z) for z in lspec.aa_zones])
     rc = lib.ktt_policy_launch(

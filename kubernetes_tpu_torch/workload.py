@@ -144,14 +144,20 @@ FULL_VOCABULARY_POLICY = {
 }
 
 
-def policy_objects(n_pods: int, n_nodes: int, seed: int = 0):
+def policy_objects(n_pods: int, n_nodes: int, seed: int = 0, host_ports: int = 0):
     """(pending, nodes, assigned, services) for `FULL_VOCABULARY_POLICY`:
     `synthetic_objects`' backlog with node j labelled rack=r{j % 10},
     ssd=true when j % 3 == 0, retiring=soon when j % 17 == 0 and without
     its zone when j % 11 == 0; and n_pods // 200 (at least 8) bound
     service peers, so that anchors and zone counts start non-empty.
+    With `host_ports`, pending pod i also asks for host port
+    9000 + i % host_ports (70 of them need 4-word port bitsets).
     The same seed gives the same objects."""
     pending, nodes, services = synthetic_objects(n_pods, n_nodes, seed)
+    for i, pod in enumerate(pending if host_ports > 0 else ()):
+        container = pod.spec.containers[0]
+        container.ports = list(container.ports or []) + [
+            ContainerPort(container_port=8080, host_port=9000 + i % host_ports)]
     for j, node in enumerate(nodes):
         labels = node.metadata.labels
         labels["rack"] = f"r{j % 10}"

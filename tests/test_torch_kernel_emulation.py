@@ -573,8 +573,9 @@ def test_emulated_policy_crowded_service_carry(emulated_policy, cluster):
     """200 pods of two services on 6 nodes under the full vocabulary:
     every step has peers, so every step exchanges the zone sums (two
     cluster barriers), and the replicated anchor and svc_total must stay
-    equal in every CTA. The receive array has one buffer: the plan
-    counts C x zone_bins words for it, no more."""
+    equal in every CTA. The sums have one buffer, whatever C: the plan
+    counts zone_bins words for them and, with C > 1, as many for the
+    partials."""
     pending, nodes, services = workload.synthetic_objects(200, 6, seed=9)
     for j, node in enumerate(nodes):
         node.metadata.labels["rack"] = f"r{j % 3}"
@@ -586,7 +587,67 @@ def test_emulated_policy_crowded_service_carry(emulated_policy, cluster):
     widths = policy_scan._layout_widths(2, 2, 2, 8, 1, d.lowered, 0)
     one = policy_scan.smem_bytes(6, *widths[:-1], plan.zone_bins, cluster, True)
     none = policy_scan.smem_bytes(6, *widths[:-1], 0, cluster, True)
-    assert one - none == policy_scan._round_up(4 * cluster * plan.zone_bins, 16)
+    assert one - none == policy_scan._round_up(4 * plan.zone_bins, 16) * (2 if cluster > 1 else 1)
+
+
+def _crowded_rack(host_ports=0):
+    """200 pods of two services on 6 nodes, racks r0-r2, under the full
+    vocabulary: every step has peers and exchanges the zone sums."""
+    pending, nodes, services = workload.synthetic_objects(200, 6, seed=9)
+    for j, node in enumerate(nodes):
+        node.metadata.labels["rack"] = f"r{j % 3}"
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    d = device_snapshot(build_snapshot(pending, nodes, services=services, spec=spec), "cpu", 1)
+    return d.pods, d.nodes, d.weights, d.lowered
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_emulated_policy_crowded_service_carry_in_place(emulated_policy, cluster):
+    """The crowded case above in place: the zone sums go through the two
+    device buffers, which must be cleared one zone step late and never
+    while a CTA still reads them; a single CTA commits the service carry
+    in device memory."""
+    pods, nodes, weights, lspec = _crowded_rack()
+    plan, _ = _check_policy_case(emulated_policy, pods, nodes, weights, lspec, 32, cluster, False)
+    assert not plan.resident
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_emulated_policy_runtime_widths(emulated_policy, cluster, resident):
+    """Under the full vocabulary, pods asking for 70 host ports between
+    them (4-word port bitsets) over 40 nodes: the instance that takes
+    its widths from the arguments, with its own strides when the slices
+    stay in device memory."""
+    pending, nodes, assigned, services = workload.policy_objects(160, 40, 7, host_ports=70)
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), "cpu", 1)
+    widths = tuple(d.pods[k].shape[1] for k in ("sel", "port", "vol_any", "svc_ids"))
+    assert widths != (2, 2, 2, 8) and d.pods["port"].shape[1] == 4
+    plan, ref_nodes = _check_policy_case(
+        emulated_policy, d.pods, d.nodes, d.weights, d.lowered, 32, cluster, resident)
+    assert plan.resident == resident
+    assert int(ref_nodes["uport"][:, 2:].ne(0).sum()) > 0, "the upper port words must be used"
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_emulated_policy_hostname_like_zones(emulated_policy, resident):
+    """Anti-affinity on a label with a value per node (a hostname-like
+    vocabulary: 40 values, 48 bins) over 40 nodes in 4 CTAs: nearly
+    every bin is non-zero and held by one node of one CTA."""
+    policy = {"predicates": workload.POLICY_SHAPES["anti_affinity_one"]["predicates"],
+              "priorities": [{"name": "LeastRequestedPriority", "weight": 1},
+                             {"name": "spread-host", "weight": 3,
+                              "argument": {"serviceAntiAffinity": {"label": "host"}}}]}
+    pending, nodes, assigned, services = workload.policy_objects(300, 40, 4)
+    for j, node in enumerate(nodes):
+        node.metadata.labels["host"] = f"h{j}"
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services,
+                                       spec=spec_from_policy(policy)), "cpu", 1)
+    assert d.lowered.aa_zones == (48,)
+    plan, _ = _check_policy_case(emulated_policy, d.pods, d.nodes, d.weights, d.lowered, 32, 4,
+                                 resident)
+    assert plan.resident == resident
 
 
 @pytest.mark.parametrize(

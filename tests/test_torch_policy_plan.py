@@ -2,13 +2,14 @@
 
 `ops/policy_scan.launch_plan` takes the largest cluster, up to 16 CTAs,
 whose per-CTA shared memory holds the node slice, the pod tiles, the
-count rows, the replicated service carry and the [C][zone_bins] receive
-array of the anti-affinity zone sums, by the kernel's own layout
-(`make_layout` in `csrc/policy_scan_kernel.cu`; held equal below through
-the emulation build). Where the slice does not fit, the same kernel
-reads it in place from device memory. These tests pin the main path's
-plan, that a large zone vocabulary lowers the cluster instead of
-raising, and that what no cluster can take raises before any launch.
+count rows, the replicated service carry and the anti-affinity zone
+sums and partials, by the kernel's own layout (`make_layout` in
+`csrc/policy_scan_kernel.cu`; held equal below through the emulation
+build). Where they do not fit, the same kernel keeps all of them in
+device memory ("in place"). These tests pin the main path's plan, that
+a large zone vocabulary no longer costs cluster size, that every shape
+the earlier one-CTA kernel took still plans, and that what the kernel
+cannot take raises before any launch.
 """
 
 import pytest
@@ -50,27 +51,88 @@ def test_full_vocabulary_plan_at_5120_nodes(full_vocabulary):
     # 320 nodes x (8 f32 + 8 words + 3 policy columns + 4 count rows +
     # the score before the zones) x 4 B and 4 flag bytes, 2 tiles x 64 pods
     # x 24 words x 4 B, a key and a count per warp, 2 x 16 slots, the
-    # service carry, 16 CTAs x 16 bins.
+    # service carry, 16 zone sums and 16 partials.
     assert plan.smem_bytes == (320 * (24 * 4 + 4) + 12288 + 384 + 512
-                               + 2 * 4 * -(-S1 // 4) * 4 + 16 * 16 * 4)
+                               + 2 * 4 * -(-S1 // 4) * 4 + 2 * 16 * 4)
     assert launch_plan(5120, **MAIN, lspec=lspec, SA=SA).cluster == 16
-    assert max_nodes(**MAIN, lspec=lspec, SA=SA) == 34240
+    assert max_nodes(**MAIN, lspec=lspec, SA=SA) == 34368
 
 
 def test_large_zone_vocabulary_lowers_the_cluster():
     """A hostname-like anti-affinity label (5,000 values, bucketed to
-    5,008 bins) at 5,120 nodes: 16 CTAs' receive arrays would need 320 KB
-    each, so the plan takes a smaller cluster instead of raising."""
+    5,008 bins) at 5,120 nodes costs no cluster size: a CTA holds one
+    array of sums and one of partials whatever C, so the plan keeps 16
+    CTAs, resident. Five such labels outgrow shared memory and run in
+    place on 16 CTAs. What lowers the cluster now is a service carry too
+    large to replicate: one CTA keeps it in device memory."""
     lspec = LoweredSpec(static_prio=True, service_affinity=True, node_label=True,
                         aa_weights=(2,), aa_zones=(5008,))
     plan = launch_plan(5120, **MAIN, lspec=lspec, SA=SA)
-    assert 1 <= plan.cluster < 16 and plan.zone_bins == 5008
-    assert plan.smem_bytes <= policy_scan.SMEM_LIMIT
-    assert smem_bytes(5120, 2, 2, 2, 8, 1, 1, 1, SA, 5008, plan.cluster + 1, False) > \
-        policy_scan.SMEM_LIMIT
-    # Five such labels still run, on a cluster of one.
+    assert (plan.cluster, plan.resident, plan.zone_bins) == (16, True, 5008)
+    for C in (2, 16):
+        assert smem_bytes(5120, 2, 2, 2, 8, 1, 1, 1, SA, 5008, C, True) - \
+            smem_bytes(5120, 2, 2, 2, 8, 1, 1, 1, SA, 0, C, True) == 2 * 4 * 5008
     five = lspec._replace(aa_weights=(1,) * 5, aa_zones=(5120,) * 5)
-    assert launch_plan(5120, **MAIN, lspec=five, SA=SA).cluster == 1
+    in_place = launch_plan(5120, **MAIN, lspec=five, SA=SA)
+    assert (in_place.cluster, in_place.resident) == (16, False)
+    huge = launch_plan(5120, **MAIN, lspec=lspec, SA=40001)
+    assert (huge.cluster, huge.resident) == (1, False)
+    # A key and a count per warp, the slots, two tiles of 4 pod rows.
+    assert huge.smem_bytes == smem_bytes(5120, 2, 2, 2, 8, 1, 1, 1, 40001, 5008, 1, False) == \
+        384 + 512 + 2 * 4 * 4 * 24
+
+
+def _one_cta_smem(N, n_aa, zone_bins):
+    """The shared memory the earlier one-CTA kernel asked for: a key per
+    warp, the zone bins and, with anti-affinity, a score and a flag per
+    node. It planned every spec whose bytes fit."""
+    r16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    return 32 * 8 + r16(4 * zone_bins) + (r16(4 * N) + r16(N) if n_aa else 0)
+
+
+def _one_cta_edge(n_aa, hostname_like):
+    """The largest node axis the one-CTA kernel took with n_aa
+    instances, each of 16 bins or of a value per node."""
+    def zones(n):
+        return n_aa * (max(16, -(-n // 16) * 16) if hostname_like else 16)
+
+    lo, hi = 1, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if _one_cta_smem(mid, n_aa, zones(mid)) <= policy_scan.SMEM_LIMIT else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("n_aa", [0, 1, 2, 5, 8])
+def test_every_shape_the_one_cta_kernel_took_still_plans(n_aa):
+    """Every node axis, zone vocabulary, affinity width, service count
+    and bitset width that fit the one-CTA kernel's shared memory still
+    plans, up to its edge: one hostname-like instance at 20,480 nodes
+    and at its last node, two of them at 17,000, and any node axis
+    without anti-affinity."""
+    checked = 0
+    for hostname_like in (False, True):
+        edge = _one_cta_edge(n_aa, hostname_like) if n_aa else 4_000_000
+        for N in sorted({1, 100, 5120, 6000, 17_000, 20_480, 25_000, edge, edge + 1}):
+            bins = max(16, -(-N // 16) * 16) if hostname_like else 16
+            lspec = LoweredSpec(static_prio=True, service_affinity=True, node_label=True,
+                                aa_weights=(1,) * n_aa, aa_zones=(bins,) * n_aa)
+            if _one_cta_smem(N, n_aa, n_aa * bins) > policy_scan.SMEM_LIMIT:
+                assert N == edge + 1 or N > edge
+                continue
+            for KA in (0, 1, 8):
+                for slots in (0, 513, 100_001):
+                    for widths in ((2, 2, 2, 8), (4, 8, 4, 16)):
+                        plan = launch_plan(N, *widths, KA, lspec, SA=slots)
+                        assert plan.smem_bytes <= policy_scan.SMEM_LIMIT
+                        assert plan.count_stride >= N
+                        checked += 1
+    assert checked >= 5 * 18
+    if n_aa == 1:
+        one = LoweredSpec(aa_weights=(1,), aa_zones=(20480,))
+        assert _one_cta_smem(20480, 1, 20480) <= policy_scan.SMEM_LIMIT
+        plan = launch_plan(20480, **MAIN, lspec=one, SA=SA)
+        assert (plan.cluster, plan.resident) == (16, False)
 
 
 def test_slices_read_in_place_past_the_resident_limit():
@@ -93,7 +155,9 @@ def test_past_the_limits_raises_before_any_launch(monkeypatch, full_vocabulary):
     monkeypatch.setattr(build, "load", no_build)
     lspec = full_vocabulary.lowered
     cases = [
-        (dict(lspec=lspec._replace(aa_weights=(1,) * 6, aa_zones=(5120,) * 6)), "shared memory"),
+        (dict(lspec=lspec._replace(aa_weights=(1,) * 6, aa_zones=(5120,) * 6), resident=True),
+         "shared memory"),
+        (dict(lspec=lspec, SA=40001, cluster=2), "shared memory"),
         (dict(lspec=lspec._replace(aa_weights=(1,) * 9, aa_zones=(16,) * 9)), "instances"),
         (dict(lspec=lspec, KA=9), "labels"),
         (dict(lspec=lspec, cluster=17), "cluster size"),
@@ -108,9 +172,9 @@ def test_past_the_limits_raises_before_any_launch(monkeypatch, full_vocabulary):
             launch_plan(5120, **args)
     # The wrapper plans before it builds: the same refusal on tensors.
     d = full_vocabulary
-    bad = lspec._replace(aa_weights=(1,) * 6, aa_zones=(5120,) * 6)
-    nodes = dict(d.nodes, aa_zone=d.nodes["aa_zone"].repeat(1, 6).contiguous())
-    with pytest.raises(ValueError, match="shared memory"):
+    bad = lspec._replace(aa_weights=(1,) * 9, aa_zones=(16,) * 9)
+    nodes = dict(d.nodes, aa_zone=d.nodes["aa_zone"].repeat(1, 9).contiguous())
+    with pytest.raises(ValueError, match="instances"):
         policy_scan._call(None, d.pods, nodes, d.weights, bad, None)
 
 

@@ -157,19 +157,24 @@ def test_policy_launch_plan_raises_before_any_launch():
     widths = (5120, 2, 2, 2, 8, 1, 0, 1, 0, 16, 16, True)
     assert plan.smem_bytes == policy_scan.smem_bytes(*widths) <= policy_scan.SMEM_LIMIT
     assert policy_scan.launch_plan(40, 2, 2, 2, 8, 0, LoweredSpec(static_prio=True)).threads == 32
-    # Six hostname-like instances at 5,120 nodes: their bins alone fill
-    # a cluster of one CTA.
+    # Six hostname-like instances at 5,120 nodes, or 60,000 zone bins:
+    # their bins alone fill a CTA's shared memory, so the plan keeps them
+    # in device memory; only a plan forced to hold them resident raises.
     six = LoweredSpec(aa_weights=(1,) * 6, aa_zones=(5120,) * 6)
+    wide = LoweredSpec(aa_weights=(1,), aa_zones=(60000,))
+    for N, lspec in ((5120, six), (100, wide)):
+        assert not policy_scan.launch_plan(N, 2, 2, 2, 8, 0, lspec).resident
     bad = [
         (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,) * 9, aa_zones=(16,) * 9)), "instances"),
         (dict(N=100, KA=9, lspec=LoweredSpec(service_affinity=True)), "labels"),
-        (dict(N=5120, KA=0, lspec=six), "shared memory"),
-        (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,), aa_zones=(60000,))), "shared memory"),
+        (dict(N=5120, KA=0, lspec=six, resident=True), "shared memory"),
+        (dict(N=100, KA=0, lspec=wide, resident=True), "shared memory"),
         (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,), aa_zones=())), "zone sizes"),
     ]
     for kw, match in bad:
         with pytest.raises(ValueError, match=match):
-            policy_scan.launch_plan(kw["N"], 2, 2, 2, 8, kw["KA"], kw["lspec"])
+            policy_scan.launch_plan(kw["N"], 2, 2, 2, 8, kw["KA"], kw["lspec"],
+                                    resident=kw.get("resident"))
     with pytest.raises(ValueError, match="threads"):
         policy_scan.launch_plan(100, 2, 2, 2, 8, 0, one, threads=48)
 
