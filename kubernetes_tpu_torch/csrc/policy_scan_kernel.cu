@@ -89,7 +89,13 @@
 //     JAX's commit does. Without HostName the padding pods are placed;
 //   - the widths the lowering nearly always gives (2-word bitsets, 8
 //     service ids) get their own instances with those loops unrolled;
-//     residency is a template parameter too.
+//     residency is a template parameter too;
+//   - the spec's counts are not bounded by the kernel: the first 8
+//     anti-affinity instances' weights, vocabularies and first bins
+//     travel in the arguments and any further ones in a small device
+//     array; each thread keeps the first 8 affinity requirements of a
+//     step in registers and works out any further one again at each
+//     node. Only shared memory bounds a plan.
 //
 // Parity with the plain version is bit for bit: -fmad=false, no fast
 // math, the _rn intrinsics, floor_div where JAX's `//` floors, and int32
@@ -116,8 +122,8 @@ namespace {
 
 constexpr int kMaxCluster = 16;
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxAA = 8;    // ServiceAntiAffinity instances
-constexpr int kMaxAff = 8;   // ServiceAffinity labels
+constexpr int kMaxAA = 8;    // anti-affinity instances whose terms travel in the arguments
+constexpr int kMaxAff = 8;   // affinity labels whose requirement a thread keeps in registers
 constexpr int kTileShift = 6;         // 64 pods staged per tile, resident
 constexpr int kTileShiftInPlace = 2;  // 4 in place, where shared memory holds nothing else
 constexpr int kRows = 4;     // count rows in shared memory: the pod's and the next three
@@ -225,6 +231,7 @@ struct PolicyArgs {
   int aa_w[kMaxAA];
   int aa_nz[kMaxAA];
   int aa_off[kMaxAA];  // first bin of each instance
+  const int* aa_more;  // instances kMaxAA.. as (w, nz, off) triples in device memory, or null
   int zone_bins;
   Layout L;
 };
@@ -428,6 +435,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
   // The pod's entry of the service carry: its service's, or the scratch
   // slot's when it has none.
   auto svc_slot = [&](int svc) { return svc >= 0 ? svc : scratch; };
+  // Anti-affinity instance i's weight, zone vocabulary and first bin: in
+  // the arguments for the first kMaxAA, past them in device memory.
+  auto aa_w = [&](int i) { return i < kMaxAA ? a.aa_w[i] : __ldg(a.aa_more + 3 * (i - kMaxAA)); };
+  auto aa_nz = [&](int i) {
+    return i < kMaxAA ? a.aa_nz[i] : __ldg(a.aa_more + 3 * (i - kMaxAA) + 1);
+  };
+  auto aa_off = [&](int i) {
+    return i < kMaxAA ? a.aa_off[i] : __ldg(a.aa_more + 3 * (i - kMaxAA) + 2);
+  };
   // How many of pod p's service ids name the service of pod q (0 when
   // q does not exist or has no service): what a commit of pod p adds to
   // the count row pod q reads.
@@ -646,22 +662,26 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
     // ServiceAffinity: what each affinity label must equal (-1: free).
     // The anchor's row is a node constant of any CTA's slice: read from
     // device memory through the read-only cache.
+    // The first kMaxAff requirements are kept in registers; any further
+    // label's is worked out again at each node (need_of).
     int need[kMaxAff];
-    bool anchor_err = false;
+    bool anchor_err = false, anchor_ok = false;
+    int arow = 0;
+    auto need_of = [&](int k) {
+      return aff_pin[k] >= 0 ? aff_pin[k]
+             : anchor_ok     ? __ldg(a.aff_vid + (size_t)arow * KA + k)
+                             : -1;
+    };
     if (flags & kServiceAffinity) {
       bool any_unpinned = false;
       for (int k = 0; k < KA; ++k) any_unpinned |= aff_pin[k] < 0;
       const bool consults = any_unpinned && svc >= 0 && s_peers > 0.0f;
       anchor_err = consults && s_anchor == -2;
-      const bool anchor_ok = consults && s_anchor >= 0;
-      const int arow = min(max(s_anchor, 0), N - 1);
+      anchor_ok = consults && s_anchor >= 0;
+      arow = min(max(s_anchor, 0), N - 1);
 #pragma unroll
       for (int k = 0; k < kMaxAff; ++k) {
-        if (k < KA) {
-          need[k] = aff_pin[k] >= 0 ? aff_pin[k]
-                    : anchor_ok     ? __ldg(a.aff_vid + (size_t)arow * KA + k)
-                                    : -1;
-        }
+        if (k < KA) need[k] = need_of(k);
       }
     }
 
@@ -702,6 +722,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
         for (int k = 0; k < kMaxAff; ++k) {
           if (k < KA) ok &= (need[k] < 0) | (aff[k * ws + j * ns_aff] == need[k]);
         }
+        for (int k = kMaxAff; k < KA; ++k) {
+          const int nk = need_of(k);
+          ok &= (nk < 0) | (aff[k * ws + j * ns_aff] == nk);
+        }
         ok &= !anchor_err;
       }
 
@@ -730,14 +754,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
         if (ok && count != 0) {
           for (int i = 0; i < n_aa; ++i) {
             const int zone = zone_of[i * ws + j * ns_aa];
-            if (zone >= 0 && zone < a.aa_nz[i]) atomicAdd(zadd + a.aa_off[i] + zone, count);
+            if (zone >= 0 && zone < aa_nz(i)) atomicAdd(zadd + aa_off(i) + zone, count);
           }
         }
         part[j] = total;
         feas[j] = ok;
       } else {
         for (int i = 0; i < n_aa; ++i) {
-          total = wadd(total, wmul(zone_of[i * ws + j * ns_aa] < 0 ? 0 : 10, a.aa_w[i]));
+          total = wadd(total, wmul(zone_of[i * ws + j * ns_aa] < 0 ? 0 : 10, aa_w(i)));
         }
         const long long key = make_key(ok ? total : -1, n);
         best = key > best ? key : best;
@@ -769,10 +793,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) policy_scan_kernel(const Polic
         for (int i = 0; i < n_aa; ++i) {
           const int zone = zone_of[i * ws + j * ns_aa];
           // JAX's gather clamps a zone past the vocabulary.
-          const int bin = a.aa_off[i] + min(max(zone, 0), a.aa_nz[i] - 1);
+          const int bin = aa_off(i) + min(max(zone, 0), aa_nz(i) - 1);
           const int count_z = resident ? zsum[bin] : __ldcg(zadd + bin);
           const int score = zone < 0 ? 0 : floor_div(wmul(10, wsub(num, count_z)), num);
-          total = wadd(total, wmul(score, a.aa_w[i]));
+          total = wadd(total, wmul(score, aa_w(i)));
         }
         const long long key = make_key(feas[j] ? total : -1, start + j);
         best = key > best ? key : best;
@@ -960,10 +984,10 @@ extern "C" int ktt_policy_launch(
     void* counts, void* anchor, void* svc_total, void* spill, void* choice,
     int P, int N, int S, int SW, int PW, int VW, int K, int KA, int SA,
     int flags, int w_lr, int w_bra, int w_spread,
-    int n_aa, const int* aa_w, const int* aa_nz, int cluster, int threads, int resident,
-    void* stream) {
-  if (n_aa < 0 || n_aa > kMaxAA || KA < 0 || KA > kMaxAff || S < 1 ||
-      ((flags & kServiceCarry) && SA < 1)) {
+    int n_aa, const int* aa_w, const int* aa_nz, const void* aa_more, int cluster, int threads,
+    int resident, void* stream) {
+  if (n_aa < 0 || KA < 0 || S < 1 || ((flags & kServiceCarry) && SA < 1) ||
+      (n_aa > kMaxAA && aa_more == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PolicyArgs a;
@@ -1007,14 +1031,18 @@ extern "C" int ktt_policy_launch(
   a.w_spread = w_spread;
   a.n_aa = n_aa;
   a.zone_bins = 0;
-  for (int i = 0; i < kMaxAA; ++i) {
-    a.aa_w[i] = i < n_aa ? aa_w[i] : 0;
-    a.aa_nz[i] = i < n_aa ? aa_nz[i] : 0;
-    a.aa_off[i] = a.zone_bins;
-    if (i < n_aa) {
-      if (aa_nz[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
-      a.zone_bins += aa_nz[i];
+  // The first kMaxAA instances travel in the arguments; the wrapper
+  // passes the rest as (w, nz, off) triples in aa_more.
+  a.aa_more = static_cast<const int*>(aa_more);
+  for (int i = 0; i < kMaxAA; ++i) a.aa_w[i] = a.aa_nz[i] = a.aa_off[i] = 0;
+  for (int i = 0; i < n_aa; ++i) {
+    if (aa_nz[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (i < kMaxAA) {
+      a.aa_w[i] = aa_w[i];
+      a.aa_nz[i] = aa_nz[i];
+      a.aa_off[i] = a.zone_bins;
     }
+    a.zone_bins += aa_nz[i];
   }
   const int n_prio = (flags & kStaticPrio) ? 1 : 0;
   a.L = make_layout(N, SW, PW, VW, K, KA, n_prio, n_aa, a.SA, a.zone_bins, cluster, resident);

@@ -50,7 +50,16 @@
 //     reductions, the cluster barrier, the commit), so the widths the
 //     lowering nearly always gives (2-word bitsets, 8 service ids) get
 //     their own instance of the kernel, with every loop over words and
-//     ids unrolled; other widths run the same code with runtime widths.
+//     ids unrolled; other widths run the same code with runtime widths;
+//   - a node axis whose slices do not fit the shared memory of the
+//     cluster runs "in place": the same code with the slice's constants
+//     and carry read and written in device memory by their owning
+//     threads (the only readers, so through L1), and the counts read
+//     through L2 and added at the commit instead of fetched ahead; shared
+//     memory then holds only the pod tiles, the reductions and the slots.
+//     The winner still crosses the cluster through DSMEM, one cluster
+//     barrier a step. Residency is a template parameter, so the resident
+//     instances carry no branch for it.
 //
 // Parity with the plain version is bit for bit. Build with -fmad=false
 // and without fast math; the f32 arithmetic below is spelled with the
@@ -102,22 +111,26 @@ struct Layout {
   int npc;        // nodes per CTA
   int ns;         // row stride of the service counts, npc * C
   int row_words;  // words of a packed pod row
+  int resident;   // 1: the slice and its count rows live in shared memory
   int f32, words, rows, tiles, red, slots, flags, bytes;
 };
 
-__host__ __device__ inline Layout make_layout(int N, int SW, int PW, int VW, int K, int C) {
+__host__ __device__ inline Layout make_layout(int N, int SW, int PW, int VW, int K, int C,
+                                              int resident) {
   Layout L;
   L.npc = round_up((N + C - 1) / C, 4);
   L.ns = L.npc * C;
   L.row_words = round_up(kRowBits + SW + PW + 2 * VW + K, 4);
+  L.resident = resident;
+  const int kept = resident ? L.npc : 0;  // slice columns held here
   int o = 0;
-  L.f32 = o;    o += 8 * 4 * L.npc;                   // caps, fit, used
-  L.words = o;  o += 4 * (SW + PW + 2 * VW) * L.npc;  // labels, uport, uvol
-  L.rows = o;   o += kRows * 4 * L.npc;               // count rows of 4 pods
-  L.tiles = o;  o += 2 * 4 * kTile * L.row_words;     // pod tiles, 2
-  L.red = o;    o += 32 * (8 + 4);                    // a key and a count per warp
-  L.slots = o;  o += 2 * kMaxCluster * 16;            // Slot[parity][CTA]
-  L.flags = o;  o += round_up(2 * L.npc, 16);         // over, sched
+  L.f32 = o;    o += 8 * 4 * kept;                   // caps, fit, used
+  L.words = o;  o += 4 * (SW + PW + 2 * VW) * kept;  // labels, uport, uvol
+  L.rows = o;   o += kRows * 4 * kept;               // count rows of 4 pods
+  L.tiles = o;  o += 2 * 4 * kTile * L.row_words;    // pod tiles, 2
+  L.red = o;    o += 32 * (8 + 4);                   // a key and a count per warp
+  L.slots = o;  o += 2 * kMaxCluster * 16;           // Slot[parity][CTA]
+  L.flags = o;  o += round_up(2 * kept, 16);         // over, sched
   L.bytes = o;
   return L;
 }
@@ -198,7 +211,10 @@ __device__ __forceinline__ int warp_max_int(int v) { return __reduce_max_sync(0x
 
 // Widths kSW, kPW, kVW, kK > 0 are compile-time constants (the bitset
 // and service-id loops unroll); 0 takes the width from the arguments.
-template <int kSW, int kPW, int kVW, int kK>
+// kResident picks where the slice lives at compile time, so a resident
+// launch's pointers are known to be shared memory and its step carries
+// no branch for the in-place case.
+template <int kSW, int kPW, int kVW, int kK, bool kResident>
 __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const Layout L = a.L;
@@ -219,27 +235,61 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
   const int start = r * NPC;
   const int n_real = max(0, min(NPC, N - start));  // nodes of the slice that exist
   const int ids_at = kRowBits + SW + PW + 2 * VW;   // service ids in a pod row
+  constexpr bool resident = kResident;
 
   unsigned char* sm = dyn_smem();
-  float* cpu_cap = reinterpret_cast<float*>(sm + L.f32);
-  float* mem_cap = cpu_cap + NPC;
-  float* pods_cap = mem_cap + NPC;
-  float* cpu_fit = pods_cap + NPC;
-  float* mem_fit = cpu_fit + NPC;
-  float* cpu_used = mem_fit + NPC;
-  float* mem_used = cpu_used + NPC;
-  float* pods_used = mem_used + NPC;
-  int* labels = reinterpret_cast<int*>(sm + L.words);  // word w of node j at [w * NPC + j]
-  int* uport = labels + SW * NPC;
-  int* uvol_any = uport + PW * NPC;
-  int* uvol_rw = uvol_any + VW * NPC;
-  int* rowbuf = reinterpret_cast<int*>(sm + L.rows);  // [pod % kRows][NPC]
+  // The slice's columns: word w of node j of a word column at
+  // [w * ws + j * ns_*], in shared memory or (in place) device memory.
+  const float *cpu_cap, *mem_cap, *pods_cap;
+  float *cpu_fit, *mem_fit, *cpu_used, *mem_used, *pods_used;
+  const int* labels;
+  int *uport, *uvol_any, *uvol_rw;
+  const unsigned char *over, *sched;
+  int ws, ns_sel, ns_port, ns_vol;
+  if (resident) {
+    float* f = reinterpret_cast<float*>(sm + L.f32);
+    cpu_cap = f;
+    mem_cap = f + NPC;
+    pods_cap = f + 2 * NPC;
+    cpu_fit = f + 3 * NPC;
+    mem_fit = f + 4 * NPC;
+    cpu_used = f + 5 * NPC;
+    mem_used = f + 6 * NPC;
+    pods_used = f + 7 * NPC;
+    int* w = reinterpret_cast<int*>(sm + L.words);
+    labels = w;
+    uport = w + SW * NPC;
+    uvol_any = uport + PW * NPC;
+    uvol_rw = uvol_any + VW * NPC;
+    over = sm + L.flags;
+    sched = over + NPC;
+    ws = NPC;
+    ns_sel = ns_port = ns_vol = 1;
+  } else {
+    cpu_cap = a.cpu_cap + start;
+    mem_cap = a.mem_cap + start;
+    pods_cap = a.pods_cap + start;
+    cpu_fit = a.cpu_fit + start;
+    mem_fit = a.mem_fit + start;
+    cpu_used = a.cpu_used + start;
+    mem_used = a.mem_used + start;
+    pods_used = a.pods_used + start;
+    labels = a.labels + (size_t)start * SW;
+    uport = a.uport + (size_t)start * PW;
+    uvol_any = a.uvol_any + (size_t)start * VW;
+    uvol_rw = a.uvol_rw + (size_t)start * VW;
+    over = a.over + start;
+    sched = a.sched + start;
+    ws = 1;
+    ns_sel = SW;
+    ns_port = PW;
+    ns_vol = VW;
+  }
+  int* rowbuf = reinterpret_cast<int*>(sm + L.rows);  // [pod % kRows][NPC], resident
   int* tiles = reinterpret_cast<int*>(sm + L.tiles);  // [tile parity][kTile][row_words]
   long long* red = reinterpret_cast<long long*>(sm + L.red);  // one key per warp
   int* red_max = reinterpret_cast<int*>(red + 32);             // one max count per warp
   Slot* slots = reinterpret_cast<Slot*>(sm + L.slots);         // [parity][source CTA]
-  unsigned char* over = sm + L.flags;
-  unsigned char* sched = over + NPC;
 
   auto pod_row = [&](int p) -> const int* {
     return tiles + ((p / kTile) & 1) * kTile * L.row_words + (p % kTile) * L.row_words;
@@ -248,6 +298,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
   // JAX clamps a dynamic index into range; the lowering never gives one
   // outside [-1, S).
   auto svc_row = [&](int svc) { return min(max(svc, 0), S - 1); };
+  // The count of pod p's service at node j of the slice (anything when
+  // the pod has no service): the row fetched ahead, or, in place, the
+  // counts in device memory, which only this node's owning thread adds
+  // to and which a block barrier orders before another thread's read.
+  auto count_of = [&](int p, int j) -> int {
+    if (resident) return count_row(p)[j];
+    return __ldcg(a.counts + (size_t)svc_row(pod_row(p)[kRowSvc]) * L.ns + start + j);
+  };
   // How many of pod p's service ids name the service of pod q (0 when
   // q does not exist or has no service): what a commit of pod p adds to
   // the count row pod q reads.
@@ -272,8 +330,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
     const int chunks = min(kTile, a.P - first) * L.row_words / 4;
     for (int i = tid; i < chunks; i += T) cp_async16(dst + 4 * i, src + 4 * i);
   };
-  // The slice of pod p's service row of the counts, if it has a service.
+  // The slice of pod p's service row of the counts, if it has a service
+  // (resident).
   auto issue_row = [&](int p) {
+    if (!resident) return;
     const int svc = pod_row(p)[kRowSvc];
     if (svc < 0) return;
     int* dst = count_row(p);
@@ -296,39 +356,47 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
   // owning thread instead. pend_j: the node of the commit still
   // to issue (-1 none), pend_p its pod.
   int pend_j = -1, pend_p = 0;
-  auto flush_commit = [&]() {
-    if (pend_j < 0) return;
-    const int p = pend_p;
-    count_row(p + 3)[pend_j] += adds_to_row(p, p + 3);
+  // Pod p's adds to the counts in device memory at node j of the slice.
+  auto add_counts = [&](int p, int j) {
     const int* ids = pod_row(p) + ids_at;
     for (int k = 0; k < K; ++k) {
       // Once per occurrence of an id (a repeated id adds twice); ids
       // outside [0, S) commit nothing (JAX's scatter mode="drop").
-      if (ids[k] >= 0 && ids[k] < S) atomicAdd(a.counts + (size_t)ids[k] * L.ns + start + pend_j, 1);
+      if (ids[k] >= 0 && ids[k] < S) atomicAdd(a.counts + (size_t)ids[k] * L.ns + start + j, 1);
     }
+  };
+  auto flush_commit = [&]() {
+    if (pend_j < 0) return;
+    count_row(pend_p + 3)[pend_j] += adds_to_row(pend_p, pend_p + 3);
+    add_counts(pend_p, pend_j);
     pend_j = -1;
   };
 
   // -- prologue: the slice into shared memory, the first pods' rows, and
   // the max count of the first pod's service over the whole cluster -----
   if (a.P > 0) issue_tile(0);
-  for (int j = tid; j < n_real; j += T) {
-    const int n = start + j;
-    cpu_cap[j] = a.cpu_cap[n];
-    mem_cap[j] = a.mem_cap[n];
-    pods_cap[j] = a.pods_cap[n];
-    cpu_fit[j] = a.cpu_fit[n];
-    mem_fit[j] = a.mem_fit[n];
-    cpu_used[j] = a.cpu_used[n];
-    mem_used[j] = a.mem_used[n];
-    pods_used[j] = a.pods_used[n];
-    over[j] = a.over[n];
-    sched[j] = a.sched[n];
-    for (int w = 0; w < SW; ++w) labels[w * NPC + j] = a.labels[(size_t)n * SW + w];
-    for (int w = 0; w < PW; ++w) uport[w * NPC + j] = a.uport[(size_t)n * PW + w];
-    for (int w = 0; w < VW; ++w) {
-      uvol_any[w * NPC + j] = a.uvol_any[(size_t)n * VW + w];
-      uvol_rw[w * NPC + j] = a.uvol_rw[(size_t)n * VW + w];
+  if (resident) {
+    float* f = const_cast<float*>(cpu_cap);
+    int* w = const_cast<int*>(labels);
+    unsigned char* b = const_cast<unsigned char*>(over);
+    for (int j = tid; j < n_real; j += T) {
+      const int n = start + j;
+      f[j] = a.cpu_cap[n];
+      f[NPC + j] = a.mem_cap[n];
+      f[2 * NPC + j] = a.pods_cap[n];
+      cpu_fit[j] = a.cpu_fit[n];
+      mem_fit[j] = a.mem_fit[n];
+      cpu_used[j] = a.cpu_used[n];
+      mem_used[j] = a.mem_used[n];
+      pods_used[j] = a.pods_used[n];
+      b[j] = a.over[n];
+      b[NPC + j] = a.sched[n];
+      for (int x = 0; x < SW; ++x) w[x * NPC + j] = a.labels[(size_t)n * SW + x];
+      for (int x = 0; x < PW; ++x) uport[x * NPC + j] = a.uport[(size_t)n * PW + x];
+      for (int x = 0; x < VW; ++x) {
+        uvol_any[x * NPC + j] = a.uvol_any[(size_t)n * VW + x];
+        uvol_rw[x * NPC + j] = a.uvol_rw[(size_t)n * VW + x];
+      }
     }
   }
   cp_async_wait_all();
@@ -340,7 +408,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
   int m = 0;  // the max count of the current pod's service, over the cluster
   if (first_svc >= 0) {
     int part = INT_MIN;
-    for (int j = tid; j < n_real; j += T) part = max(part, count_row(0)[j]);
+    for (int j = tid; j < n_real; j += T) part = max(part, count_of(0, j));
     part = warp_max_int(part);
     if (lane == 0) red_max[warp] = part;
     __syncthreads();
@@ -376,9 +444,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
     const int* port = sel + SW;
     const int* vol_any = port + PW;
     const int* vol_rw = vol_any + VW;
-    const int* counts_row = count_row(p);
     const int next_svc = has_next ? pod_row(p + 1)[kRowSvc] : -1;
-    int* next_row = count_row(p + 1);
 
     long long best = LLONG_MIN;
     int next_max = INT_MIN;  // the slice's max count of the next pod's service
@@ -397,11 +463,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
       bool ok = (sched[j] != 0) & (zero ? zero_ok : nonzero_ok);
       for (int w = 0; w < SW; ++w) {
         const int sw = sel[w];
-        ok &= (sw & labels[w * NPC + j]) == sw;
+        ok &= (sw & labels[w * ws + j * ns_sel]) == sw;
       }
-      for (int w = 0; w < PW; ++w) ok &= (port[w] & uport[w * NPC + j]) == 0;
+      for (int w = 0; w < PW; ++w) ok &= (port[w] & uport[w * ws + j * ns_port]) == 0;
       for (int w = 0; w < VW; ++w) {
-        ok &= ((vol_rw[w] & uvol_any[w * NPC + j]) | (vol_any[w] & uvol_rw[w * NPC + j])) == 0;
+        ok &= ((vol_rw[w] & uvol_any[w * ws + j * ns_vol]) |
+               (vol_any[w] & uvol_rw[w * ws + j * ns_vol])) == 0;
       }
       ok &= (pin == -1) | (pin == n);
 
@@ -421,14 +488,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
       }
       int spread = 10;
       if (svc >= 0 && m != 0) {
-        spread = floor_div(wmul(10, wsub(m, counts_row[j])), m > 1 ? m : 1);
+        spread = floor_div(wmul(10, wsub(m, count_of(p, j))), m > 1 ? m : 1);
       }
       const int total =
           wadd(wadd(wmul(lr, a.w_lr), wmul(bra, a.w_bra)), wmul(spread, a.w_spread));
 
       const long long key = make_key(ok ? total : -1, n);
       best = key > best ? key : best;
-      if (next_svc >= 0) next_max = max(next_max, next_row[j]);
+      if (next_svc >= 0) next_max = max(next_max, count_of(p + 1, j));
     }
 
     // -- select: first max by lowest index, over the cluster -------------
@@ -451,7 +518,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
       mine.max_count = next_max;
       mine.best_count = 0;
       if (next_svc >= 0 && best != LLONG_MIN) {
-        mine.best_count = next_row[(int)(0xffffffffu - (unsigned)(best & 0xffffffffLL)) - start];
+        mine.best_count = count_of(p + 1, (int)(0xffffffffu - (unsigned)(best & 0xffffffffLL)) - start);
       }
       *cluster.map_shared_rank(slots + (phase & 1) * kMaxCluster + r, lane) = mine;
     }
@@ -482,34 +549,40 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
       cpu_used[j] = __fadd_rn(cpu_used[j], cpu);
       mem_used[j] = __fadd_rn(mem_used[j], mem);
       pods_used[j] = __fadd_rn(pods_used[j], 1.0f);
-      for (int w = 0; w < PW; ++w) uport[w * NPC + j] |= port[w];
+      for (int w = 0; w < PW; ++w) uport[w * ws + j * ns_port] |= port[w];
       for (int w = 0; w < VW; ++w) {
-        uvol_any[w * NPC + j] |= vol_any[w];
-        uvol_rw[w * NPC + j] |= vol_rw[w];
+        uvol_any[w * ws + j * ns_vol] |= vol_any[w];
+        uvol_rw[w * ws + j * ns_vol] |= vol_rw[w];
       }
-      // The rows of pods p + 1 and p + 2 have landed; p + 3's is in
-      // flight and gets the adds with the flush.
-      next_row[j] += adds_to_row(p, p + 1);
-      count_row(p + 2)[j] += adds_to_row(p, p + 2);
-      pend_j = j;
-      pend_p = p;
+      if (resident) {
+        // The rows of pods p + 1 and p + 2 have landed; p + 3's is in
+        // flight and gets the adds with the flush.
+        count_row(p + 1)[j] += adds_to_row(p, p + 1);
+        count_row(p + 2)[j] += adds_to_row(p, p + 2);
+        pend_j = j;
+        pend_p = p;
+      } else {
+        add_counts(p, j);
+      }
     }
     prefetch(p);
   }
   flush_commit();
 
   // -- epilogue: the slice's carry back to device memory -----------------
-  for (int j = tid; j < n_real; j += T) {
-    const int n = start + j;
-    a.cpu_fit[n] = cpu_fit[j];
-    a.mem_fit[n] = mem_fit[j];
-    a.cpu_used[n] = cpu_used[j];
-    a.mem_used[n] = mem_used[j];
-    a.pods_used[n] = pods_used[j];
-    for (int w = 0; w < PW; ++w) a.uport[(size_t)n * PW + w] = uport[w * NPC + j];
-    for (int w = 0; w < VW; ++w) {
-      a.uvol_any[(size_t)n * VW + w] = uvol_any[w * NPC + j];
-      a.uvol_rw[(size_t)n * VW + w] = uvol_rw[w * NPC + j];
+  if (resident) {
+    for (int j = tid; j < n_real; j += T) {
+      const int n = start + j;
+      a.cpu_fit[n] = cpu_fit[j];
+      a.mem_fit[n] = mem_fit[j];
+      a.cpu_used[n] = cpu_used[j];
+      a.mem_used[n] = mem_used[j];
+      a.pods_used[n] = pods_used[j];
+      for (int w = 0; w < PW; ++w) a.uport[(size_t)n * PW + w] = uport[w * NPC + j];
+      for (int w = 0; w < VW; ++w) {
+        a.uvol_any[(size_t)n * VW + w] = uvol_any[w * NPC + j];
+        a.uvol_rw[(size_t)n * VW + w] = uvol_rw[w * NPC + j];
+      }
     }
   }
   cluster.sync();  // no CTA leaves while another may still store into its slots
@@ -519,9 +592,11 @@ using Kernel = void (*)(ScanArgs);
 
 // The lowering pads every bitset to a multiple of 2 words and keeps 8
 // service ids per pod, so nearly every launch has these widths.
-Kernel kernel_for(int SW, int PW, int VW, int K) {
-  if (SW == 2 && PW == 2 && VW == 2 && K == 8) return scan_kernel<2, 2, 2, 8>;
-  return scan_kernel<0, 0, 0, 0>;
+Kernel kernel_for(int SW, int PW, int VW, int K, int resident) {
+  if (SW == 2 && PW == 2 && VW == 2 && K == 8) {
+    return resident ? scan_kernel<2, 2, 2, 8, true> : scan_kernel<2, 2, 2, 8, false>;
+  }
+  return resident ? scan_kernel<0, 0, 0, 0, true> : scan_kernel<0, 0, 0, 0, false>;
 }
 
 cudaError_t configure(Kernel kernel, int C, int threads, const Layout& L, cudaLaunchConfig_t* cfg,
@@ -551,17 +626,18 @@ cudaError_t configure(Kernel kernel, int C, int threads, const Layout& L, cudaLa
 }  // namespace
 
 // The dynamic shared memory one CTA of the launch needs.
-extern "C" int ktt_scan_smem_bytes(int N, int SW, int PW, int VW, int K, int cluster) {
-  return make_layout(N, SW, PW, VW, K, cluster).bytes;
+extern "C" int ktt_scan_smem_bytes(int N, int SW, int PW, int VW, int K, int cluster,
+                                   int resident) {
+  return make_layout(N, SW, PW, VW, K, cluster, resident).bytes;
 }
 
 // cudaOccupancyMaxActiveClusters for a launch plan, into *active.
 extern "C" int ktt_scan_occupancy(int N, int SW, int PW, int VW, int K, int cluster,
-                                  int threads, int* active) {
+                                  int resident, int threads, int* active) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  const Layout L = make_layout(N, SW, PW, VW, K, cluster);
-  const Kernel kernel = kernel_for(SW, PW, VW, K);
+  const Layout L = make_layout(N, SW, PW, VW, K, cluster, resident);
+  const Kernel kernel = kernel_for(SW, PW, VW, K, resident);
   cudaError_t e = configure(kernel, cluster, threads, L, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(active, kernel, &cfg));
@@ -575,7 +651,7 @@ extern "C" int ktt_scan_launch(
     void* pods_used, void* uport, void* uvol_any, void* uvol_rw,
     void* counts, void* choice,
     int P, int N, int S, int SW, int PW, int VW, int K,
-    int w_lr, int w_bra, int w_spread, int cluster, int threads, void* stream) {
+    int w_lr, int w_bra, int w_spread, int cluster, int threads, int resident, void* stream) {
   ScanArgs a;
   a.pod_rows = static_cast<const int*>(pod_rows);
   a.cpu_cap = static_cast<const float*>(cpu_cap);
@@ -605,11 +681,11 @@ extern "C" int ktt_scan_launch(
   a.w_lr = w_lr;
   a.w_bra = w_bra;
   a.w_spread = w_spread;
-  a.L = make_layout(N, SW, PW, VW, K, cluster);
+  a.L = make_layout(N, SW, PW, VW, K, cluster, resident);
   if (K > 32) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  const Kernel kernel = kernel_for(SW, PW, VW, K);
+  const Kernel kernel = kernel_for(SW, PW, VW, K, resident);
   cudaError_t e = configure(kernel, cluster, threads, a.L, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   cfg.stream = static_cast<cudaStream_t>(stream);

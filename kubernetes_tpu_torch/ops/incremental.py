@@ -1,7 +1,7 @@
 """Incremental solver session: device-resident cluster state under churn.
 
-The counterpart of `kubernetes_tpu/ops/incremental.py` (scan mode) on
-one torch device. The NODE state (occupancy, bitsets, service counts:
+The counterpart of `kubernetes_tpu/ops/incremental.py` on one torch
+device. The NODE state (occupancy, bitsets, service counts:
 the large, long-lived half of the problem) stays on the device:
 
 - a tick stages only its pending pods and runs the sequential-parity
@@ -23,13 +23,14 @@ scatters to the same widths.
 
 What differs from the JAX session:
 
-- The scan launches over the occupied prefix of the slot axis: the
-  first `n_launch` rows (the highest occupied slot + 1, rounded up to
-  1,024, at most N_cap). Rows past it hold no node (unschedulable, all
-  zero), so no decision changes, and slot recycling and
-  RebuildRequired stay as in JAX. The kernel's launch plan raises
-  ValueError, before any launch, for a prefix past what a cluster's
-  shared memory holds at these widths (27,840 nodes).
+- A tick solves over the occupied prefix of the slot axis: the first
+  `n_launch` rows (the highest occupied slot + 1, rounded up to 1,024,
+  at most N_cap). Rows past it hold no node (unschedulable, all zero),
+  so no decision changes (for the windowed modes the node index, and so
+  the tie hash, is the same on the prefix), and slot recycling and
+  RebuildRequired stay as in JAX. Past 27,840 rows at these widths the
+  scan kernel reads its slices in place instead of from shared
+  memory.
 - The kernel updates the carry in place instead of donating it, and
   everything that touches the device (dirty-row scatter, pod upload,
   launch, readback) is ordered on the device's current stream.
@@ -38,8 +39,11 @@ What differs from the JAX session:
   has completed. `solve_async` starts the choices' copy into pinned
   memory and records an event; `PendingSolve.result()` waits on that
   event alone.
-- Only mode "scan": "wave" and "sinkhorn" raise NotImplementedError.
-  No mesh: the port runs on one card.
+- Modes "wave" and "sinkhorn" run `ops/wave.py` / `ops/sinkhorn.py` on
+  the resident carry, whose wave loop reads one flag back a wave, so
+  their `solve_async` returns once the tick's waves are done; the
+  tick's telemetry lands in `last_stats` at `result()`, as in JAX. No
+  mesh: the port runs on one card.
 """
 
 from __future__ import annotations
@@ -77,7 +81,9 @@ from kubernetes_tpu_torch.ops.matrices import BITSET_KEYS
 from kubernetes_tpu_torch.ops.matrices import pow2_bucket as _bucket
 from kubernetes_tpu_torch.ops.matrices import state_from_numpy
 from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device
+from kubernetes_tpu_torch.ops.sinkhorn import solve_sinkhorn_with_state
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, solve_with_state
+from kubernetes_tpu_torch.ops.wave import solve_waves_with_state
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
 
 Tensors = Dict[str, torch.Tensor]
@@ -164,13 +170,14 @@ class PendingSolve:
     need the tick to be finished: ``solve_async`` resolves an
     outstanding handle itself."""
 
-    __slots__ = ("_session", "pending", "assignment", "event", "_done", "_result")
+    __slots__ = ("_session", "pending", "assignment", "event", "tele", "_done", "_result")
 
-    def __init__(self, session, pending, assignment, event):
+    def __init__(self, session, pending, assignment, event, tele=(None, None, None)):
         self._session = session
         self.pending = pending
         self.assignment = assignment  # host int32 tensor (pinned on a card)
         self.event = event  # recorded after the readback copy; None on the CPU
+        self.tele = tele  # (waves, Sinkhorn iterations, residual), None where not run
         self._done = assignment is None
         self._result: List[Tuple[str, Optional[str]]] = []
 
@@ -250,12 +257,11 @@ class SolverSession:
         device: DeviceLike = None,
         timer: Optional[PhaseTimer] = None,
     ):
-        if mode in ("wave", "sinkhorn"):
-            raise NotImplementedError(
-                f"session mode {mode!r} is not ported yet: ROADMAP queue 1, 'wave/sinkhorn'"
-            )
-        if mode != "scan":
+        # Tick solver: "scan" replays the sequential-parity policy;
+        # "wave" and "sinkhorn" batch each tick's backlog.
+        if mode not in ("scan", "wave", "sinkhorn"):
             raise ValueError(f"unknown session mode {mode!r}")
+        self.mode = mode
         self.device = resolve_device(device)
         self.timer = timer
         nodes = list(nodes)
@@ -295,6 +301,9 @@ class SolverSession:
         self._pending: List[_LoweredPod] = []
         self.dev: Tensors = self._upload_all()
         self._dirty: set = set()
+        # The last resolved tick's telemetry: waves, and for Sinkhorn
+        # sinkhorn_iters and sinkhorn_residual (the JAX session's keys).
+        self.last_stats: Dict[str, float] = {}
         # The (at most one) in-flight tick and the staging buffer sets.
         self._inflight: Optional[PendingSolve] = None
         self._pod_staging = _HostStaging(self.device)
@@ -546,11 +555,19 @@ class SolverSession:
         self._dirty.add(j)
         return True
 
-    def _dispatch(self, pods: Tensors, carry: Tensors) -> torch.Tensor:
-        """Launch one tick's scan over `carry` (updated in place);
-        returns the device choices without waiting for them."""
+    def _dispatch(self, pods: Tensors, carry: Tensors):
+        """Run one tick's solve for the session mode over `carry`
+        (updated in place): (device choices, (waves, iterations,
+        residual)), the telemetry None where the mode has none. The scan
+        returns without waiting for the card."""
+        if self.mode == "wave":
+            choice, _, waves = solve_waves_with_state(pods, carry, DEFAULT_WEIGHTS)
+            return choice, (waves, None, None)
+        if self.mode == "sinkhorn":
+            choice, _, waves, iters, res = solve_sinkhorn_with_state(pods, carry, DEFAULT_WEIGHTS)
+            return choice, (waves, iters, res)
         choice, _ = solve_with_state(pods, carry, DEFAULT_WEIGHTS)
-        return choice
+        return choice, (None, None, None)
 
     def solve_async(self) -> PendingSolve:
         """Pipelined tick: flush the dirty rows, stage the pending pods,
@@ -566,14 +583,14 @@ class SolverSession:
             self._flush_dirty()
             pods = self._pod_arrays(pending)
         with phase(self.timer, "solve"):
-            choice = self._dispatch(pods, self._launch_view())
+            choice, tele = self._dispatch(pods, self._launch_view())
             host, event = choice, None
             if self.device.type == "cuda":
                 host = torch.empty(choice.shape, dtype=choice.dtype, pin_memory=True)
                 host.copy_(choice, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
-        handle = PendingSolve(self, pending, host, event)
+        handle = PendingSolve(self, pending, host, event, tele)
         self._inflight = handle
         return handle
 
@@ -592,6 +609,14 @@ class SolverSession:
             if handle.event is not None:
                 handle.event.synchronize()
             picks = handle.assignment[: len(pending)].tolist()
+            # The telemetry scalars are read after the choices' copy.
+            waves, iters, res = handle.tele
+            self.last_stats = {}
+            if waves is not None:
+                self.last_stats["waves"] = int(waves)
+            if iters is not None:
+                self.last_stats["sinkhorn_iters"] = int(iters)
+                self.last_stats["sinkhorn_residual"] = float(res)
         out: List[Tuple[str, Optional[str]]] = []
         with phase(self.timer, "commit"):
             for lp, j in zip(pending, picks):

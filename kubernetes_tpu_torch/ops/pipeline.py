@@ -1,16 +1,19 @@
 """Pipelined backlog solve: host lowering and upload overlap the scan.
 
-The counterpart of `kubernetes_tpu/ops/pipeline.py` in scan mode. The
-pending backlog is lowered and staged in chunks, and the node carry is
-chained from one chunk's solve to the next. Kernel launches return at
-once, so while the card scans chunk k the host lowers and stages chunk
-k+1 (its copies start from pinned memory and do not block the host),
-and each chunk's choices are copied back into pinned host memory behind
-the next chunk's work. The one wait is the final readback.
+The counterpart of `kubernetes_tpu/ops/pipeline.py`. The pending
+backlog is lowered and staged in chunks, and the node carry is chained
+from one chunk's solve to the next. Kernel launches return at once, so
+while the card scans chunk k the host lowers and stages chunk k+1 (its
+copies start from pinned memory and do not block the host), and each
+chunk's choices are copied back into pinned host memory behind the next
+chunk's work. The one wait is the final readback.
 
-Decisions equal the monolithic solve's bit for bit: chunking changes
-when pod rows reach the device, never the order they are scanned or the
-carry they see.
+In scan mode decisions equal the monolithic solve's bit for bit:
+chunking changes when pod rows reach the device, never the order they
+are scanned or the carry they see. Modes "wave" and "sinkhorn" run the
+windowed solvers (`ops/wave.py`, `ops/sinkhorn.py`) chunk by chunk on
+the same carry; each wave reads one flag back (whether pods remain),
+so there the host waits on the card inside "solve".
 
 `gang_member_counts_device` is the device half of gang acceptance
 (`scheduler/gang.py`), and `explain_matrix` / `explain_backlog` the
@@ -36,7 +39,9 @@ from kubernetes_tpu_torch.ops.matrices import (
     gang_member_counts,
     pow2_bucket,
 )
+from kubernetes_tpu_torch.ops.sinkhorn import solve_sinkhorn_with_state
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, explain_rows, solve_with_state
+from kubernetes_tpu_torch.ops.wave import solve_waves_with_state
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
 
 # The JAX package's chunk: 50k pods in four chunks, each padded to a
@@ -94,15 +99,30 @@ def solve_backlog_pipelined(
     device: DeviceLike = None,
     timer: Optional[PhaseTimer] = None,
 ) -> List[Optional[str]]:
-    """Schedule the backlog; returns node names (None = unschedulable),
-    bit-identical to scheduler.batch.schedule_backlog. Runs on `device`
-    (default: the CUDA card; raises without one). `timer` collects the
-    lower/upload/solve/readback wall seconds."""
-    if mode in ("wave", "sinkhorn"):
-        raise NotImplementedError(
-            f"pipeline mode {mode!r} is not ported yet: ROADMAP queue 1, 'wave/sinkhorn'"
-        )
-    if mode != "scan":
+    """Schedule the backlog; returns node names (None = unschedulable).
+    Runs on `device` (default: the CUDA card; raises without one).
+    `timer` collects the lower/upload/solve/readback wall seconds and,
+    for the windowed modes, `stats`: the waves of all chunks, and for
+    Sinkhorn the total price iterations and the last chunk's residual.
+
+    mode="scan" is bit-identical to scheduler.batch.schedule_backlog;
+    "wave" and "sinkhorn" are the JAX package's windowed solvers (the
+    wave bit-identical to it, Sinkhorn within its rounding), with every
+    capacity, port and volume invariant of the scan."""
+    tele = []
+    if mode == "scan":
+        step = lambda dpods, carry: solve_with_state(dpods, carry, weights)  # noqa: E731
+    elif mode == "wave":
+        def step(dpods, carry):
+            a, c, w = solve_waves_with_state(dpods, carry, weights)
+            tele.append((w, None, None))
+            return a, c
+    elif mode == "sinkhorn":
+        def step(dpods, carry):
+            a, c, w, it, res = solve_sinkhorn_with_state(dpods, carry, weights)
+            tele.append((w, it, res))
+            return a, c
+    else:
         raise ValueError(f"unknown pipeline mode {mode!r}")
     device = resolve_device(device)
     with phase(timer, "lower"):
@@ -119,7 +139,7 @@ def solve_backlog_pipelined(
         with phase(timer, "upload"):
             dpods = device_pods(cols, device)
         with phase(timer, "solve"):
-            assignment, carry = solve_with_state(dpods, carry, weights)
+            assignment, carry = step(dpods, carry)
             outs.append((_to_host_async(assignment), cols.count))
 
     with phase(timer, "readback"):
@@ -131,6 +151,11 @@ def solve_backlog_pipelined(
         for host, count in outs:
             for j in host[:count].tolist():
                 result.append(names[j] if 0 <= j < n_nodes else None)
+        if tele and timer is not None:
+            timer.stats["waves"] = sum(w for w, _, _ in tele)
+            if mode == "sinkhorn":
+                timer.stats["sinkhorn_iters"] = sum(int(it) for _, it, _ in tele)
+                timer.stats["sinkhorn_residual"] = float(tele[-1][2])
         return result
 
 

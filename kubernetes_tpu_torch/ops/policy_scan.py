@@ -21,8 +21,10 @@ bins added by DSMEM atomics into the one [zone_bins] sum array of every
 CTA.
 
 The spec travels as a runtime flag word (`FLAG_*`, the kernel's
-constants) with the weights and up to `MAX_AA` anti-affinity instances,
-so one compiled kernel serves every policy. `launch_plan` is pure
+constants) with the weights and the anti-affinity instances (the first
+`ARG_AA` in the launch arguments, any further ones as (weight, zones,
+first bin) triples in a small device array), so one compiled kernel
+serves every policy. `launch_plan` is pure
 Python, by the same layout as the kernel's `make_layout`: it takes the
 largest cluster, up to 16 CTAs, whose shared memory holds the slices,
 the count rows and the zone sums ("resident"), else at that size the
@@ -30,9 +32,11 @@ same kernel keeping all of those in device memory ("in place"), which
 needs no shared memory that grows with the nodes or the zone bins,
 else a smaller cluster. A CTA's shared memory does not grow
 with C, so only a service carry too large to replicate lowers C, down
-to 1, where the carry stays in device memory. What the kernel cannot
-take (instances or affinity labels past 8) raises ValueError before any
-launch. Nothing falls back to the plain version.
+to 1, where the carry stays in device memory. The kernel takes any number of
+anti-affinity instances and affinity labels; what remains is shared
+memory, and a plan that cannot fit it (pod rows of thousands of words)
+raises ValueError before any launch. Nothing falls back to the plain
+version.
 
 The wrapper checks device, dtype, shape and contiguity, packs the pod
 columns into one (P, row_words) int32 matrix padded to whole 16-byte
@@ -67,9 +71,9 @@ from kubernetes_tpu_torch.ops.scan_kernel import (
 
 Tensors = Dict[str, torch.Tensor]
 
-#: ServiceAntiAffinity instances and ServiceAffinity labels the kernel takes.
-MAX_AA = 8
-MAX_AFF = 8
+#: ServiceAntiAffinity instances whose terms travel in the launch
+#: arguments (the kernel's kMaxAA); the rest go in a device array.
+ARG_AA = 8
 
 FLAG_RESOURCES = 1
 FLAG_PORTS = 2
@@ -175,20 +179,12 @@ def _layout_widths(SW, PW, VW, K, KA, lspec: LoweredSpec, SA: int):
 
 def _check_spec(KA: int, lspec: LoweredSpec) -> None:
     n_aa = len(lspec.aa_weights)
-    if n_aa > MAX_AA:
-        raise ValueError(
-            f"policy scan kernel: {n_aa} ServiceAntiAffinity instances; it takes at most {MAX_AA}"
-        )
     if len(lspec.aa_zones) != n_aa:
         raise ValueError(
             f"policy scan kernel: {n_aa} anti-affinity weights but {len(lspec.aa_zones)} zone sizes"
         )
     if any(int(z) < 1 for z in lspec.aa_zones):
         raise ValueError(f"policy scan kernel: zone vocabulary sizes {lspec.aa_zones} must be >= 1")
-    if KA > MAX_AFF:
-        raise ValueError(
-            f"policy scan kernel: {KA} ServiceAffinity labels; it takes at most {MAX_AFF}"
-        )
 
 
 def launch_plan(
@@ -205,7 +201,8 @@ def launch_plan(
     that grows with N or the zone bins, and a single CTA none that grows
     with the services: only pod rows of thousands of words could outgrow
     it. Raises ValueError, before any launch, for a spec the kernel
-    cannot take, an override that cannot run or such a row."""
+    cannot take, an override that cannot run or such a row. Any number
+    of anti-affinity instances and affinity labels plans."""
     _check_spec(KA, lspec)
     widths = _layout_widths(SW, PW, VW, K, KA, lspec, SA)
     if cluster is not None and not 1 <= int(cluster) <= MAX_CLUSTER:
@@ -262,7 +259,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ktt_policy_launch.argtypes = (
         [ptr] * 24 + [i32] * 14
-        + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, i32, i32, ptr]
+        + [ctypes.POINTER(i32), ctypes.POINTER(i32), ptr, i32, i32, i32, ptr]
     )
     lib.ktt_policy_launch.restype = i32
     lib.ktt_policy_smem_bytes.argtypes = [i32] * 12
@@ -403,11 +400,24 @@ def _call(
         "cpu_fit", "mem_fit", "cpu_used", "mem_used", "pods_used", "uport", "uvol_any", "uvol_rw")]
     ptrs += [counts.data_ptr(), ptr(nodes, "anchor"), ptr(nodes, "svc_total"),
              None if spill is None else spill.data_ptr(), choice.data_ptr()]
-    aa_w = (ctypes.c_int * MAX_AA)(*[int(w) for w in lspec.aa_weights])
-    aa_nz = (ctypes.c_int * MAX_AA)(*[int(z) for z in lspec.aa_zones])
+    weights_aa = [int(w) for w in lspec.aa_weights]
+    zones_aa = [int(z) for z in lspec.aa_zones]
+    n_aa = len(weights_aa)
+    aa_w = (ctypes.c_int * max(n_aa, 1))(*weights_aa)
+    aa_nz = (ctypes.c_int * max(n_aa, 1))(*zones_aa)
+    # Instances past ARG_AA: (weight, zones, first bin) in device memory.
+    aa_more = None
+    if n_aa > ARG_AA:
+        first = [sum(zones_aa[:i]) for i in range(n_aa)]
+        triples = [v for i in range(ARG_AA, n_aa) for v in (weights_aa[i], zones_aa[i], first[i])]
+        aa_more = torch.tensor(triples, dtype=torch.int32)
+        if device.type == "cuda":
+            # From pinned memory, so the copy does not wait for the stream.
+            aa_more = aa_more.pin_memory().to(device, non_blocking=True)
     rc = lib.ktt_policy_launch(
         *ptrs, P, N, S, dims["SW"], dims["PW"], dims["VW"], dims["K"], dims["KA"], dims["SA"],
-        flags_for(lspec, service_carry), w_lr, w_bra, w_spread, dims["I"], aa_w, aa_nz,
+        flags_for(lspec, service_carry), w_lr, w_bra, w_spread, n_aa, aa_w, aa_nz,
+        None if aa_more is None else aa_more.data_ptr(),
         plan.cluster, plan.threads, int(plan.resident), stream,
     )
     if rc != 0:

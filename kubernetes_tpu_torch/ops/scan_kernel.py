@@ -22,12 +22,19 @@ distributed shared memory; after one cluster barrier every CTA picks
 the same winner and the same max count for the next pod.
 
 The launch plan (`launch_plan`) is pure Python: the cluster size, the
-nodes per CTA, the threads per CTA and the dynamic shared memory, by
-the same layout the kernel's `make_layout` uses. A node axis that does
-not fit the shared memory of a 16-CTA cluster raises ValueError before
-any launch: at the main path's widths (2-word bitsets, 8 service ids)
-the limit is 40,384 nodes (`max_nodes`); the Pallas kernel's was 8,192.
-Nothing falls back to another kernel or to the plain version.
+nodes per CTA, the threads per CTA, the residency and the dynamic
+shared memory, by the same layout the kernel's `make_layout` uses. A
+node axis whose slices fit the shared memory of a 16-CTA cluster runs
+resident: at the main path's widths (2-word bitsets, 8 service ids) up
+to 40,384 nodes (`max_nodes`), at the session's 4-word widths 27,840;
+the Pallas kernel's limit was 8,192. Past that the same kernel runs
+"in place": the slices and the carry stay in device memory, read and
+written by their owning threads, and the counts are read through L2;
+the winner still crosses the cluster through distributed shared memory.
+In place needs shared memory only for the pod tiles, so only pod rows
+of hundreds of words could outgrow it: such a plan raises ValueError
+before any launch. Nothing falls back to another kernel or to the
+plain version.
 
 The wrapper checks device, dtype, shape and contiguity, packs the pod
 columns into one (P, row_words) int32 matrix, converts the service
@@ -101,16 +108,20 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def smem_bytes(N: int, SW: int, PW: int, VW: int, K: int, cluster: int) -> int:
-    """Dynamic shared memory of one CTA: the kernel's `make_layout`."""
-    npc = _round_up(-(-N // cluster), 4)
+def smem_bytes(
+    N: int, SW: int, PW: int, VW: int, K: int, cluster: int, resident: bool = True
+) -> int:
+    """Dynamic shared memory of one CTA: the kernel's `make_layout`.
+    `resident` keeps the slice's columns and its count rows in shared
+    memory; in place they stay in device memory."""
+    kept = _round_up(-(-N // cluster), 4) if resident else 0
     row_words = _round_up(_ROW_SCALARS + SW + PW + 2 * VW + K, 4)
     return (
-        4 * npc * (8 + SW + PW + 2 * VW + COUNT_ROWS)  # f32 columns, bitset words, count rows
+        4 * kept * (8 + SW + PW + 2 * VW + COUNT_ROWS)  # f32 columns, bitset words, count rows
         + 2 * 4 * TILE * row_words  # pod tiles
         + 32 * (8 + 4)  # a key and a max count per warp
         + 2 * MAX_CLUSTER * 16  # slots: [parity][CTA]
-        + _round_up(2 * npc, 16)  # over, sched
+        + _round_up(2 * kept, 16)  # over, sched
     )
 
 
@@ -118,8 +129,9 @@ def smem_bytes(N: int, SW: int, PW: int, VW: int, K: int, cluster: int) -> int:
 class LaunchPlan:
     """How one launch is cut: one cluster of `cluster` CTAs of `threads`
     threads, CTA r owning nodes [r * nodes_per_cta, (r + 1) *
-    nodes_per_cta); the service counts have `count_stride` columns and a
-    packed pod row `row_words` words."""
+    nodes_per_cta), its slice held in shared memory (`resident`) or read
+    in place from device memory; the service counts have `count_stride`
+    columns and a packed pod row `row_words` words."""
 
     cluster: int
     nodes_per_cta: int
@@ -127,10 +139,12 @@ class LaunchPlan:
     smem_bytes: int
     count_stride: int
     row_words: int
+    resident: bool = True
 
 
 def max_nodes(SW: int, PW: int, VW: int, K: int, cluster: int = MAX_CLUSTER) -> int:
-    """The largest node axis whose slices fit a cluster's shared memory."""
+    """The largest node axis whose slices fit a cluster's shared memory
+    (resident); in place any node axis plans."""
     lo, hi = 0, 1
     while smem_bytes(hi, SW, PW, VW, K, cluster) <= SMEM_LIMIT:
         lo, hi = hi, hi * 2
@@ -146,12 +160,14 @@ def max_nodes(SW: int, PW: int, VW: int, K: int, cluster: int = MAX_CLUSTER) -> 
 def launch_plan(
     N: int, SW: int, PW: int, VW: int, K: int,
     cluster: Optional[int] = None, threads: Optional[int] = None,
+    resident: Optional[bool] = None,
 ) -> LaunchPlan:
     """The launch for a node axis of N at these widths. By default the
-    largest cluster, 16 CTAs, and one thread per node of a slice (a
-    multiple of 32, at most 1024); `cluster` and `threads` override
-    them for a sweep. Raises ValueError for a plan the card cannot run,
-    before any launch."""
+    largest cluster, 16 CTAs, resident where the slices fit its shared
+    memory and in place where not, and one thread per node of a slice (a
+    multiple of 32, at most 1024); `cluster`, `threads` and `resident`
+    override them for a test or a sweep. Raises ValueError for a plan
+    the card cannot run, before any launch."""
     C = MAX_CLUSTER if cluster is None else int(cluster)
     if not 1 <= C <= MAX_CLUSTER:
         raise ValueError(f"scan kernel: cluster size {C} is outside [1, {MAX_CLUSTER}]")
@@ -161,28 +177,33 @@ def launch_plan(
     T = min(MAX_THREADS, max(32, _round_up(npc, 32))) if threads is None else int(threads)
     if T % 32 or not 32 <= T <= MAX_THREADS:
         raise ValueError(f"scan kernel: {T} threads per CTA; need a multiple of 32 up to 1024")
-    smem = smem_bytes(N, SW, PW, VW, K, C)
+    if resident is None:
+        resident = smem_bytes(N, SW, PW, VW, K, C, True) <= SMEM_LIMIT
+    smem = smem_bytes(N, SW, PW, VW, K, C, resident)
     if smem > SMEM_LIMIT:
+        where = (f"at these widths a cluster of {C} holds at most "
+                 f"{max_nodes(SW, PW, VW, K, C)} nodes resident" if resident
+                 else "the pod rows alone outgrow it")
         raise ValueError(
             f"scan kernel: N={N} nodes need {smem} bytes of shared memory per CTA in a "
-            f"cluster of {C}, over the limit of {SMEM_LIMIT}; at these widths a cluster "
-            f"of {C} holds at most {max_nodes(SW, PW, VW, K, C)} nodes"
+            f"cluster of {C}, over the limit of {SMEM_LIMIT}; {where}"
         )
     return LaunchPlan(
         cluster=C, nodes_per_cta=npc, threads=T, smem_bytes=smem,
         count_stride=npc * C,
         row_words=_round_up(_ROW_SCALARS + SW + PW + 2 * VW + K, 4),
+        resident=bool(resident),
     )
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.ktt_scan_launch.argtypes = (
-        [ctypes.c_void_p] * _N_PTRS + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * _N_PTRS + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     )
     lib.ktt_scan_launch.restype = ctypes.c_int
-    lib.ktt_scan_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.ktt_scan_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.ktt_scan_smem_bytes.restype = ctypes.c_int
-    lib.ktt_scan_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ktt_scan_occupancy.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
     lib.ktt_scan_occupancy.restype = ctypes.c_int
     lib.ktt_error_string.argtypes = [ctypes.c_int]
     lib.ktt_error_string.restype = ctypes.c_char_p
@@ -211,11 +232,11 @@ def _dims(pods: Tensors, nodes: Tensors) -> Dict[str, int]:
     }
 
 
-def plan_for(pods: Tensors, nodes: Tensors, cluster=None, threads=None) -> LaunchPlan:
+def plan_for(pods: Tensors, nodes: Tensors, cluster=None, threads=None, resident=None) -> LaunchPlan:
     """`launch_plan` at the shapes of these tensors."""
     d = _dims(pods, nodes)
     return launch_plan(
-        nodes["cpu_cap"].shape[0], d["SW"], d["PW"], d["VW"], d["K"], cluster, threads
+        nodes["cpu_cap"].shape[0], d["SW"], d["PW"], d["VW"], d["K"], cluster, threads, resident
     )
 
 
@@ -254,7 +275,7 @@ def _call(
         raise ValueError("scan kernel: the service axis must have at least one column")
     if plan is None:
         plan = plan_for(pods, nodes)
-    elif plan != plan_for(pods, nodes, plan.cluster, plan.threads):
+    elif plan != plan_for(pods, nodes, plan.cluster, plan.threads, plan.resident):
         raise ValueError(f"scan kernel: {plan} was made for other shapes")
     w_lr, w_bra, w_spread = (int(w) for w in weights)
     rows = _pod_rows(pods, plan.row_words)
@@ -266,7 +287,7 @@ def _call(
     ptrs += [counts.data_ptr(), choice.data_ptr()]
     rc = lib.ktt_scan_launch(
         *ptrs, P, N, S, dims["SW"], dims["PW"], dims["VW"], dims["K"],
-        w_lr, w_bra, w_spread, plan.cluster, plan.threads, stream,
+        w_lr, w_bra, w_spread, plan.cluster, plan.threads, int(plan.resident), stream,
     )
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: {lib.ktt_error_string(rc).decode()}")
@@ -280,8 +301,8 @@ def occupancy(plan: LaunchPlan, N: int, SW: int, PW: int, VW: int, K: int) -> in
 
     lib = build.load("scan_kernel", _bind)
     active = ctypes.c_int(0)
-    rc = lib.ktt_scan_occupancy(N, SW, PW, VW, K, plan.cluster, plan.threads,
-                                ctypes.byref(active))
+    rc = lib.ktt_scan_occupancy(N, SW, PW, VW, K, plan.cluster, int(plan.resident),
+                                plan.threads, ctypes.byref(active))
     if rc != 0:
         raise RuntimeError(f"scan kernel occupancy query failed: {lib.ktt_error_string(rc).decode()}")
     return active.value

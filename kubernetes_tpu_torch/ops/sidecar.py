@@ -24,12 +24,13 @@ to run.
 
 Server: `python -m kubernetes_tpu_torch.ops.sidecar <socket> [--device cpu]`
 serves on the CUDA card by default and exits non-zero at start without
-one. `mode == "scan"` solves through `ops.solver.solve_assignments`, the
-default spec on the scan kernel and a policy spec on the policy scan
-kernel; "wave" and "sinkhorn" are not ported and answer a structured
-`{"error": "NotImplementedError: ..."}`, which the JAX daemon handles
-as any sidecar error. A bad frame or a failed solve never ends the
-serving loop.
+one. Mode "wave" solves through `ops.wave.wave_assignments` and
+"sinkhorn" through `ops.sinkhorn.sinkhorn_assignments` (default policy,
+a policy spec in the request ignored, as the JAX server does); any
+other mode through `ops.solver.solve_assignments`, the default spec on
+the scan kernel and a policy spec on the policy scan kernel. A bad
+frame or a failed solve (a structured `{"error": ...}` reply) never
+ends the serving loop.
 """
 
 from __future__ import annotations
@@ -368,12 +369,14 @@ def spawn_sidecar(
 
 def _solve_request(req: dict, device) -> dict:
     """One solve request -> its reply: the assignment, and the kernel
-    launches the solve made (a key the JAX package's client ignores). A
-    mode that is not ported, or any failure of the solve, is a
+    launches the solve made (a key the JAX package's client ignores; the
+    windowed modes launch none). Any failure of the solve is a
     structured error."""
     from kubernetes_tpu_torch.ops import policy_scan, scan_kernel
     from kubernetes_tpu_torch.ops.matrices import device_snapshot
+    from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_assignments
     from kubernetes_tpu_torch.ops.solver import solve_assignments
+    from kubernetes_tpu_torch.ops.wave import wave_assignments
 
     counters = {
         "scan_kernel": scan_kernel.scan_with_state,
@@ -381,13 +384,15 @@ def _solve_request(req: dict, device) -> dict:
     }
     try:
         mode = req.get("mode", "scan")
-        if mode in ("wave", "sinkhorn"):
-            raise NotImplementedError(
-                f"sidecar mode {mode!r} is not ported to the CUDA solver; use mode 'scan'"
-            )
         snap = _snapshot_from_payload(req)
         before = {name: fn.launches for name, fn in counters.items()}
-        assignment = solve_assignments(device_snapshot(snap, device))
+        dsnap = device_snapshot(snap, device)
+        if mode == "wave":
+            assignment, _ = wave_assignments(dsnap)
+        elif mode == "sinkhorn":
+            assignment, _ = sinkhorn_assignments(dsnap)
+        else:
+            assignment = solve_assignments(dsnap)
         return {
             "assignment": assignment.tolist(),
             "kernel_launches": {name: fn.launches - before[name] for name, fn in counters.items()},

@@ -5,7 +5,9 @@ without its span tree or metrics registry: a caller makes one
 PhaseTimer, hands it to the entry point, and reads the summed seconds
 of each phase (lower, upload, solve, readback) afterwards. Device work
 is asynchronous, so "solve" measures the launches and the wait for the
-device lands in the phase that synchronises ("readback").
+device lands in the phase that synchronises ("readback"). `stats`
+holds what a solve notes beside the times, as the JAX spans' notes: the
+wave count, and Sinkhorn's total price iterations and last residual.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ class PhaseTimer:
 
     def __init__(self) -> None:
         self.seconds: Dict[str, float] = {}
+        self.stats: Dict[str, float] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:

@@ -252,6 +252,40 @@ POLICY_SHAPES = {
 }
 
 
+def wide_policy(n_aa: int, n_aff: int) -> dict:
+    """A policy with `n_aff` ServiceAffinity labels (zone, then a1, a2,
+    ...) and `n_aa` ServiceAntiAffinity instances (rack, then s1, s2,
+    ..., weights 1 to 3), beside the base predicates and the weighted
+    default priorities: the shapes past the eight instances and eight
+    labels the policy scan kernel keeps in its arguments and registers.
+    `wide_objects` labels the nodes it reads."""
+    predicates = list(_BASE_PREDICATES)
+    if n_aff:
+        labels = ["zone"] + [f"a{k}" for k in range(1, n_aff)]
+        predicates.append({"name": "aff", "argument": {"serviceAffinity": {"labels": labels}}})
+    priorities = [
+        {"name": "LeastRequestedPriority", "weight": 1},
+        {"name": "BalancedResourceAllocation", "weight": 1},
+        {"name": "ServiceSpreadingPriority", "weight": 2},
+    ] + [_anti(f"anti{i}", "rack" if i == 0 else f"s{i}", 1 + i % 3) for i in range(n_aa)]
+    return {"kind": "Policy", "predicates": predicates, "priorities": priorities}
+
+
+def wide_objects(n_pods: int, n_nodes: int, seed: int = 0, n_labels: int = 12):
+    """`policy_objects` with the labels `wide_policy` reads on every
+    node j: a1..a7 = v{(j // 20) % 2} (blocks of nodes), a8.. =
+    w{j % 4}, so that an affinity label past the eighth still decides
+    where a pod fits, and s_k = z{j % (k + 2)}, each instance its own
+    zones."""
+    pending, nodes, assigned, services = policy_objects(n_pods, n_nodes, seed)
+    for j, node in enumerate(nodes):
+        labels = node.metadata.labels
+        for k in range(1, n_labels):
+            labels[f"a{k}"] = f"v{(j // 20) % 2}" if k < 8 else f"w{j % 4}"
+            labels[f"s{k}"] = f"z{j % (k + 2)}"
+    return pending, nodes, assigned, services
+
+
 def policy_cluster(seed: int) -> Tuple[List[Pod], List[Node], List[Pod], List[Service]]:
     """`small_cluster(seed)` with the node labels the policy shapes read
     (rack=r{j % 4}, ssd on j % 3 == 0, retiring on j % 5 == 0) and one

@@ -17,6 +17,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from kubernetes_tpu.models.objects import (
     AWSElasticBlockStoreVolumeSource,
@@ -37,6 +38,17 @@ from kubernetes_tpu_torch.ops import scan_kernel
 from kubernetes_tpu_torch.ops.matrices import state_from_numpy, state_to_numpy
 from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
 from tests.test_incremental import mknode, mkpod
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    several worker processes at once, and W x N tensor operations on
+    every core from each of them would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class Twin:
@@ -212,6 +224,53 @@ class TestSessionBasics:
         assert dict(tw.solve()) == {"default/p": "y"}
 
 
+def _seeded_churn(seed, mode="scan"):
+    """The churn of TestChurnParity.test_seeded_churn on a Twin in `mode`."""
+    pending, nodes, assigned, _ = workload.small_cluster(seed)
+    services = [_svc(f"s{s}", app=f"a{s}") for s in range(4)] + [_svc("web", tier="web")]
+    tw = Twin(nodes[:30], services=services, assigned=assigned, mode=mode)
+    rng = random.Random(seed)
+    names = [n.metadata.name for n in nodes[:30]]
+    pods = list(pending)
+    spare = list(nodes[30:]) + [mknode(f"extra{i}", labels={"zone": "b"}) for i in range(3)]
+    live = [k for k in tw.t._pod_node]
+    for tick in range(5):
+        for _ in range(rng.randint(1, 3)):
+            op = rng.random()
+            if op < 0.3 and spare:
+                node = spare.pop()
+                tw.do("upsert_node", node)
+                names.append(node.metadata.name)
+            elif op < 0.5 and len(names) > 3:
+                gone = names.pop(rng.randrange(len(names)))
+                tw.do("remove_node", gone)
+                live = [k for k in live if k in tw.t._pod_node]
+            elif op < 0.8 and pods:
+                foreign = copy.deepcopy(pods.pop())
+                foreign.metadata.name += "-foreign"
+                foreign.spec.node_name = rng.choice(names + ["ghost"])
+                tw.do("add_assigned", foreign)
+                tw.do("add_assigned", foreign)  # idempotent
+            else:
+                tw.do("upsert_node", mknode(rng.choice(names), cpu_milli=rng.choice([500, 8000])))
+        for key in rng.sample(live, min(len(live), rng.randint(0, 6))):
+            tw.do("delete_assigned", key)
+            live.remove(key)
+        batch = [pods.pop() for _ in range(min(len(pods), rng.randint(0, 30)))]
+        for i, pod in enumerate(batch):
+            if i % 7 == 3:
+                pod.spec.node_name = ""
+                pod.metadata.annotations = {REBALANCE_DEST_ANNOTATION: rng.choice(names + ["ghost"])}
+        tw.add(*batch)
+        results = tw.solve()
+        if mode != "scan" and results:
+            assert tw.t.last_stats == tw.j.last_stats, f"tick {tick}"
+        live += [k for k, d in results if d is not None]
+        for key, _dest in results:
+            tw.do("has_assigned", key)
+    return tw
+
+
 class TestChurnParity:
     def test_churn_replay_matches_jax_and_fresh_solves(self):
         """tests/test_incremental.py::TestChurnParity: after every tick
@@ -256,46 +315,18 @@ class TestChurnParity:
         soft pins, node upsert and remove (with slot recycling), foreign
         pods by add_assigned (some overcommitting), deletes, and ticks
         of up to 100 pods, against a batch solve of the same state."""
-        pending, nodes, assigned, _ = workload.small_cluster(seed)
-        services = [_svc(f"s{s}", app=f"a{s}") for s in range(4)] + [_svc("web", tier="web")]
-        tw = Twin(nodes[:30], services=services, assigned=assigned)
-        rng = random.Random(seed)
-        names = [n.metadata.name for n in nodes[:30]]
-        pods = list(pending)
-        spare = list(nodes[30:]) + [mknode(f"extra{i}", labels={"zone": "b"}) for i in range(3)]
-        live = [k for k in tw.t._pod_node]
-        for tick in range(5):
-            for _ in range(rng.randint(1, 3)):
-                op = rng.random()
-                if op < 0.3 and spare:
-                    node = spare.pop()
-                    tw.do("upsert_node", node)
-                    names.append(node.metadata.name)
-                elif op < 0.5 and len(names) > 3:
-                    gone = names.pop(rng.randrange(len(names)))
-                    tw.do("remove_node", gone)
-                    live = [k for k in live if k in tw.t._pod_node]
-                elif op < 0.8 and pods:
-                    foreign = copy.deepcopy(pods.pop())
-                    foreign.metadata.name += "-foreign"
-                    foreign.spec.node_name = rng.choice(names + ["ghost"])
-                    tw.do("add_assigned", foreign)
-                    tw.do("add_assigned", foreign)  # idempotent
-                else:
-                    tw.do("upsert_node", mknode(rng.choice(names), cpu_milli=rng.choice([500, 8000])))
-            for key in rng.sample(live, min(len(live), rng.randint(0, 6))):
-                tw.do("delete_assigned", key)
-                live.remove(key)
-            batch = [pods.pop() for _ in range(min(len(pods), rng.randint(0, 30)))]
-            for i, pod in enumerate(batch):
-                if i % 7 == 3:
-                    pod.spec.node_name = ""
-                    pod.metadata.annotations = {REBALANCE_DEST_ANNOTATION: rng.choice(names + ["ghost"])}
-            tw.add(*batch)
-            results = tw.solve()
-            live += [k for k, d in results if d is not None]
-            for key, _dest in results:
-                tw.do("has_assigned", key)
+        _seeded_churn(seed)
+
+    @pytest.mark.parametrize("seed", range(4))
+    def test_seeded_churn_wave_mode(self, seed):
+        """The same churn in wave mode: the port's wave on the occupied
+        prefix of the slot axis equals the JAX session's on all of it,
+        results, host mirror and device state, tick by tick, and the
+        telemetry triple too."""
+        tw = _seeded_churn(seed, mode="wave")
+        assert tw.t.last_stats == tw.j.last_stats and set(tw.t.last_stats) <= {"waves"}
+
+
 
     def test_add_assigned_overcommit_marks_the_row(self):
         tw = Twin([mknode("n0", cpu_milli=1000)])
@@ -504,17 +535,72 @@ class TestSessionPipeline:
         tw.solve()
 
     def test_unported_modes_raise(self):
-        for mode in ("wave", "sinkhorn"):
-            with pytest.raises(NotImplementedError, match="wave/sinkhorn"):
-                SolverSession(_cluster(), mode=mode, device="cpu")
+        """Every mode of the JAX session is ported; a mode it does not
+        have raises in both."""
+        for mode in ("scan", "wave", "sinkhorn"):
+            assert SolverSession(_cluster(), mode=mode, device="cpu").mode == mode
         with pytest.raises(ValueError):
             SolverSession(_cluster(), mode="warp", device="cpu")
+        with pytest.raises(ValueError):
+            JSolverSession(_cluster(), mode="warp")
 
     def test_launch_limit_at_session_widths(self):
         """At 4/4/4-word bitsets and 8 service ids a cluster holds
-        27,840 node slots; a larger prefix is refused before any
-        launch, naming the limit."""
+        27,840 node slots resident; a larger prefix runs in place on
+        the same 16 CTAs, and only a plan forced to hold it resident is
+        refused before any launch, naming the limit."""
         assert scan_kernel.max_nodes(4, 4, 4, 8) == 27840
-        assert scan_kernel.launch_plan(27840, 4, 4, 4, 8).cluster == 16
+        plan = scan_kernel.launch_plan(27840, 4, 4, 4, 8)
+        assert (plan.cluster, plan.resident) == (16, True)
+        plan = scan_kernel.launch_plan(28672, 4, 4, 4, 8)
+        assert (plan.cluster, plan.resident) == (16, False)
         with pytest.raises(ValueError, match="27840"):
-            scan_kernel.launch_plan(28672, 4, 4, 4, 8)
+            scan_kernel.launch_plan(28672, 4, 4, 4, 8, resident=True)
+
+
+class TestWindowedSessions:
+    """The session's windowed modes against the JAX session's."""
+
+    def test_wave_on_the_launch_prefix_equals_jax_on_all_slots(self):
+        """2,048 node slots, 40 nodes: the port's wave runs over the
+        first 1,024 rows, JAX's over all 2,048; every tick, the host
+        mirror and the device state are equal."""
+        nodes = [mknode(f"n{j}", cpu_milli=2000, labels={"zone": f"z{j % 3}"}) for j in range(40)]
+        tw = Twin(nodes, services=[_svc("svc", app="a")], node_capacity=2048, mode="wave")
+        assert tw.t.n_launch == 1024 < tw.t.N_cap == 2048
+        for tick in range(3):
+            tw.add(*[mkpod(f"t{tick}p{i}", cpu=300, labels={"app": "a"} if i % 2 else {})
+                     for i in range(60)])
+            results = tw.solve()
+            assert sum(d is not None for _, d in results) > 0
+            assert tw.t.last_stats == tw.j.last_stats and tw.t.last_stats["waves"] >= 1
+            tw.do("delete_assigned", results[0][0])
+
+    @pytest.mark.parametrize("seed", range(3))
+    def test_sinkhorn_session_agrees_with_jax(self, seed):
+        """Sinkhorn is held within its rounding: per tick the port's
+        session names JAX's node for at least 95% of the pods, reports
+        the telemetry triple, and its host mirror equals its device
+        state."""
+        pending, nodes, assigned, _ = workload.small_cluster(seed)
+        services = [_svc(f"s{s}", app=f"a{s}") for s in range(4)]
+        j = JSolverSession(nodes, services=services, assigned=assigned, mode="sinkhorn")
+        t = SolverSession(nodes, services=services, assigned=assigned, mode="sinkhorn",
+                          device="cpu")
+        pods = list(pending)
+        agree = total = 0
+        for tick in range(3):
+            batch = [pods.pop() for _ in range(min(len(pods), 12))]
+            for pod in batch:
+                j.add_pending(pod)
+                t.add_pending(pod)
+            got, want = t.solve(), j.solve()
+            assert [k for k, _ in got] == [k for k, _ in want]
+            agree += sum(a == b for a, b in zip(got, want))
+            total += len(got)
+            if got:
+                assert set(t.last_stats) == {"waves", "sinkhorn_iters", "sinkhorn_residual"}
+            dev = state_to_numpy(t.dev)
+            for k, col in t.h.items():
+                assert np.array_equal(dev[k], col), f"tick {tick}: dev[{k!r}] != h"
+        assert total > 0 and agree / total >= 0.95

@@ -274,8 +274,8 @@ def _state(seed, pad_to=128, repeat_ids=False):
     return d.pods, d.nodes
 
 
-def _check_case(lib, pods, nodes, weights, cluster, threads):
-    plan = scan_kernel.plan_for(pods, nodes, cluster, threads)
+def _check_case(lib, pods, nodes, weights, cluster, threads, resident=None):
+    plan = scan_kernel.plan_for(pods, nodes, cluster, threads, resident)
     got_nodes = {k: v.clone() for k, v in nodes.items()}
     ref_nodes = {k: v.clone() for k, v in nodes.items()}
     # The wrapper's own argument handling, with CPU tensors and no stream.
@@ -284,6 +284,7 @@ def _check_case(lib, pods, nodes, weights, cluster, threads):
     assert torch.equal(got, ref), f"{int((got != ref).sum())} decisions differ"
     for k in CARRY_KEYS:
         assert torch.equal(got_nodes[k], ref_nodes[k]), f"carry field {k} differs"
+    return plan
 
 
 @pytest.mark.parametrize("weights", [(1, 1, 1), (2, 0, 3), (0, 5, 1)])
@@ -416,9 +417,41 @@ def test_emulated_multiword_bitsets(emulated, cluster, n_nodes):
     _check_case(emulated, d.pods, d.nodes, (1, 1, 1), cluster, 32)
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("case", ["ties", "crowded", "unplaceable", "multiword", "repeated_ids"])
+def test_emulated_kernel_in_place(emulated, case, cluster):
+    """The slices read and written in place in device memory, the counts
+    read through L2 and added at the commit: ties across CTAs and tiles,
+    crowded services whose max count every CTA must follow, unplaceable
+    pods between placed ones, 4-word bitsets (the runtime-width
+    instance) and repeated service ids."""
+    if case == "ties":
+        pending, nodes, services = workload.synthetic_objects(300, 45, seed=11)
+        d = device_snapshot(build_snapshot(pending, nodes, services=services), "cpu", 1)
+        pods, nodes = d.pods, d.nodes
+    elif case == "crowded":
+        pending, nodes, services = workload.synthetic_objects(200, 6, seed=9)
+        d = device_snapshot(build_snapshot(pending, nodes, services=services), "cpu", 1)
+        pods, nodes = d.pods, d.nodes
+    elif case == "unplaceable":
+        pods, nodes = _state(2, pad_to=1)
+        pods = {k: v.clone() for k, v in pods.items()}
+        pods["pinned"][1::3] = -2
+        pods["pinned"][2::7] = nodes["cpu_cap"].shape[0] + 3
+    elif case == "multiword":
+        many_pods, many_nodes = _many_ports(9, 90)
+        d = device_snapshot(build_snapshot(many_pods, many_nodes), "cpu", 1)
+        pods, nodes = d.pods, d.nodes
+        assert pods["port"].shape[1] == 4
+    else:
+        pods, nodes = _state(3, repeat_ids=True)
+    plan = _check_case(emulated, pods, nodes, (1, 1, 1), cluster, 32, resident=False)
+    assert not plan.resident
+
+
 @pytest.mark.parametrize(
-    "widths", [(5121, 2, 2, 2, 8, 16), (40, 1, 4, 1, 8, 4), (3, 2, 2, 2, 8, 8),
-               (0, 2, 2, 2, 8, 2)],
+    "widths", [(5121, 2, 2, 2, 8, 16, 1), (40, 1, 4, 1, 8, 4, 1), (3, 2, 2, 2, 8, 8, 1),
+               (0, 2, 2, 2, 8, 2, 1), (50000, 2, 2, 2, 8, 16, 0), (40, 4, 4, 4, 8, 4, 0)],
 )
 def test_emulated_layout_equals_the_plan(emulated, widths):
     """The kernel's shared-memory layout and the Python plan agree."""
@@ -647,6 +680,24 @@ def test_emulated_policy_hostname_like_zones(emulated_policy, resident):
     assert d.lowered.aa_zones == (48,)
     plan, _ = _check_policy_case(emulated_policy, d.pods, d.nodes, d.weights, d.lowered, 32, 4,
                                  resident)
+    assert plan.resident == resident
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("n_aa,n_aff", [(9, 1), (12, 1), (1, 9), (12, 9)])
+def test_emulated_policy_past_eight_instances_and_labels(emulated_policy, n_aa, n_aff, cluster,
+                                                          resident):
+    """Nine and twelve anti-affinity instances (the ninth on take their
+    weights, zones and first bins from device memory) and nine affinity
+    labels (the ninth's requirement worked out again at each node, and
+    it decides where pods fit), resident and in place."""
+    pending, nodes, assigned, services = workload.wide_objects(160, 40, 3)
+    spec = spec_from_policy(workload.wide_policy(n_aa, n_aff))
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services, spec=spec), "cpu", 1)
+    assert len(d.lowered.aa_weights) == n_aa and (n_aff == 1 or d.pods["aff_pin"].shape[1] == n_aff)
+    plan, _ = _check_policy_case(emulated_policy, d.pods, d.nodes, d.weights, d.lowered, 32,
+                                 cluster, resident)
     assert plan.resident == resident
 
 

@@ -59,10 +59,14 @@ def test_pipelined_with_assigned_pods_matches_jax(seed):
 
 
 def test_unported_modes_raise():
+    """Wave and Sinkhorn are ported (held to the JAX package in
+    tests/test_torch_wave.py and tests/test_torch_sinkhorn.py); a mode
+    neither package has still raises."""
     pods, nodes, services = workload.synthetic_objects(4, 2)
+    jpods, jnodes, jservices = _synthetic_objects(4, 2)
     for mode in ("wave", "sinkhorn"):
-        with pytest.raises(NotImplementedError, match="wave/sinkhorn"):
-            solve_backlog_pipelined(pods, nodes, services=services, device="cpu", mode=mode)
+        got = solve_backlog_pipelined(pods, nodes, services=services, device="cpu", mode=mode)
+        assert got == jpipelined(jpods, jnodes, services=jservices, mode=mode)
     with pytest.raises(ValueError):
         solve_backlog_pipelined(pods, nodes, services=services, device="cpu", mode="nope")
 

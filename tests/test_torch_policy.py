@@ -329,3 +329,14 @@ def test_policy_objects_are_deterministic():
     assert "zone" not in nodes[0].metadata.labels and nodes[3].metadata.labels["ssd"] == "true"
     assert nodes[17].metadata.labels["retiring"] == "soon" and nodes[5].metadata.labels["rack"] == "r5"
     assert len(a[2]) == 8 and all(p.spec.node_name for p in a[2])
+
+
+@pytest.mark.parametrize("n_aa,n_aff", [(9, 1), (12, 1), (1, 9), (12, 9)])
+def test_wide_policies_match_xla(n_aa, n_aff):
+    """Nine and twelve anti-affinity instances and nine affinity labels,
+    past what the policy scan kernel keeps in its arguments and
+    registers: the port's names and carry equal the XLA scan's."""
+    pending, nodes, assigned, services = workload.wide_objects(160, 40, seed=3)
+    got = _assert_policy(workload.wide_policy(n_aa, n_aff), pending, nodes, assigned, services,
+                         scalar=False)
+    assert sum(g is not None for g in got) > 40

@@ -158,8 +158,13 @@ def test_past_the_limits_raises_before_any_launch(monkeypatch, full_vocabulary):
         (dict(lspec=lspec._replace(aa_weights=(1,) * 6, aa_zones=(5120,) * 6), resident=True),
          "shared memory"),
         (dict(lspec=lspec, SA=40001, cluster=2), "shared memory"),
-        (dict(lspec=lspec._replace(aa_weights=(1,) * 9, aa_zones=(16,) * 9)), "instances"),
-        (dict(lspec=lspec, KA=9), "labels"),
+        # Nine instances and nine affinity labels plan (below); what
+        # remains is shared memory: nine hostname-like instances held
+        # resident, or pod rows of 8,000 affinity pins, whose two tiles
+        # of 4 rows outgrow it even in place.
+        (dict(lspec=lspec._replace(aa_weights=(1,) * 9, aa_zones=(5120,) * 9), resident=True),
+         "shared memory"),
+        (dict(lspec=lspec, KA=8000), "shared memory"),
         (dict(lspec=lspec, cluster=17), "cluster size"),
         (dict(lspec=lspec, cluster=0), "cluster size"),
         (dict(lspec=lspec, threads=1056), "threads"),
@@ -170,12 +175,16 @@ def test_past_the_limits_raises_before_any_launch(monkeypatch, full_vocabulary):
         args.update(kw)
         with pytest.raises(ValueError, match=match):
             launch_plan(5120, **args)
+    for n_aa, KA in ((9, 1), (12, 1), (1, 9)):
+        nine = lspec._replace(aa_weights=(1,) * n_aa, aa_zones=(16,) * n_aa)
+        plan = launch_plan(5120, **dict(MAIN, KA=KA, SA=SA), lspec=nine)
+        assert (plan.cluster, plan.resident, plan.zone_bins) == (16, True, 16 * n_aa)
     # The wrapper plans before it builds: the same refusal on tensors.
     d = full_vocabulary
-    bad = lspec._replace(aa_weights=(1,) * 9, aa_zones=(16,) * 9)
-    nodes = dict(d.nodes, aa_zone=d.nodes["aa_zone"].repeat(1, 9).contiguous())
-    with pytest.raises(ValueError, match="instances"):
-        policy_scan._call(None, d.pods, nodes, d.weights, bad, None)
+    pods = dict(d.pods, aff_pin=d.pods["aff_pin"].repeat(1, 8000).contiguous())
+    nodes = dict(d.nodes, aff_vid=d.nodes["aff_vid"].repeat(1, 8000).contiguous())
+    with pytest.raises(ValueError, match="shared memory"):
+        policy_scan._call(None, pods, nodes, d.weights, lspec, None)
 
 
 def test_a_plan_made_for_other_shapes_is_rejected(full_vocabulary):

@@ -102,7 +102,24 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/scheduler/gang.py",
         "kubernetes_tpu_torch/ops/policy_scan.py",
         "kubernetes_tpu_torch/ops/sidecar.py",
+        "kubernetes_tpu_torch/ops/wave.py",
+        "kubernetes_tpu_torch/ops/sinkhorn.py",
+        "kubernetes_tpu_torch/ops/oracle.py",
     } <= names
+
+
+def test_windowed_entry_points_raise_without_cuda(no_cuda):
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog_sinkhorn, schedule_backlog_wave
+
+    pods, nodes, services = workload.synthetic_objects(8, 2)
+    for mode in ("wave", "sinkhorn"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solve_backlog_pipelined(pods, nodes, services=services, mode=mode)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SolverSession(nodes, services, mode=mode)
+    for entry in (schedule_backlog_wave, schedule_backlog_sinkhorn):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(pods, nodes, services=services)
 
 
 def _policy_state(seed=4):
@@ -165,8 +182,12 @@ def test_policy_launch_plan_raises_before_any_launch():
     for N, lspec in ((5120, six), (100, wide)):
         assert not policy_scan.launch_plan(N, 2, 2, 2, 8, 0, lspec).resident
     bad = [
-        (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,) * 9, aa_zones=(16,) * 9)), "instances"),
-        (dict(N=100, KA=9, lspec=LoweredSpec(service_affinity=True)), "labels"),
+        # Any number of instances and affinity labels plans; shared
+        # memory is what remains: nine wide instances held resident, or
+        # pod rows of 8,000 affinity pins even in place.
+        (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,) * 9, aa_zones=(60000,) * 9),
+              resident=True), "shared memory"),
+        (dict(N=100, KA=8000, lspec=LoweredSpec(service_affinity=True)), "shared memory"),
         (dict(N=5120, KA=0, lspec=six, resident=True), "shared memory"),
         (dict(N=100, KA=0, lspec=wide, resident=True), "shared memory"),
         (dict(N=100, KA=0, lspec=LoweredSpec(aa_weights=(1,), aa_zones=())), "zone sizes"),

@@ -4,8 +4,10 @@
 CTAs and sizes each CTA's shared memory by the kernel's own layout
 (`make_layout` in `csrc/scan_kernel.cu`; the emulation test holds the
 two equal). These tests pin the figures `PERF.md` reports, that the
-slices cover the nodes exactly once, and that a node axis past the
-shared-memory limit raises before anything is launched.
+slices cover the nodes exactly once, that a node axis past what the
+cluster's shared memory holds runs in place (the slices in device
+memory) while the resident plan below it is unchanged, and that a plan
+the card cannot run raises before anything is launched.
 """
 
 import pytest
@@ -52,11 +54,12 @@ def test_shared_memory_bytes_for_given_widths(N, widths, cluster, expected):
 @pytest.mark.parametrize("N", [0, 1, 3, 7, 16, 37, 128, 5120, 5121, 40384])
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
 def test_slices_cover_every_node_exactly_once(N, cluster):
-    if N > max_nodes(cluster=cluster, **MAIN):
-        with pytest.raises(ValueError, match="shared memory"):
-            launch_plan(N, cluster=cluster, **MAIN)
-        return
     plan = launch_plan(N, cluster=cluster, **MAIN)
+    # Resident up to what the cluster's shared memory holds, in place past it.
+    assert plan.resident == (N <= max_nodes(cluster=cluster, **MAIN))
+    if not plan.resident:
+        with pytest.raises(ValueError, match="shared memory"):
+            launch_plan(N, cluster=cluster, resident=True, **MAIN)
     owned = []
     for r in range(plan.cluster):
         owned += range(r * plan.nodes_per_cta, min((r + 1) * plan.nodes_per_cta, N))
@@ -69,10 +72,13 @@ def test_slices_cover_every_node_exactly_once(N, cluster):
 
 
 def test_node_axis_past_the_limit_raises_before_any_launch():
+    """Past the resident limit the default plan reads the slices in
+    place; a plan made to hold them resident raises, naming the limit."""
     limit = max_nodes(**MAIN)
-    launch_plan(limit, **MAIN)
+    assert launch_plan(limit, **MAIN).resident
+    assert not launch_plan(limit + 1, **MAIN).resident
     with pytest.raises(ValueError, match=rf"N={limit + 1} nodes.*at most {limit} nodes"):
-        launch_plan(limit + 1, **MAIN)
+        launch_plan(limit + 1, resident=True, **MAIN)
     # A smaller cluster holds fewer nodes.
     assert max_nodes(cluster=8, **MAIN) < limit
 
@@ -82,8 +88,9 @@ class _NoLaunch:
         raise AssertionError("the launcher was called for a plan past the limit")
 
 
-def _tensors(N, S, P=4):
-    """Pod and node tensors of the kernel's dtypes, one-word bitsets."""
+def _tensors(N, S, P=4, words=1):
+    """Pod and node tensors of the kernel's dtypes, bitsets of `words`
+    words."""
     pods = {
         "cpu": torch.zeros(P), "mem": torch.zeros(P),
         "zero_req": torch.zeros(P, dtype=torch.bool),
@@ -92,20 +99,29 @@ def _tensors(N, S, P=4):
         "svc_ids": torch.full((P, 8), -1, dtype=torch.int32),
     }
     for k in ("sel", "port", "vol_any", "vol_rw"):
-        pods[k] = torch.zeros((P, 1), dtype=torch.int32)
+        pods[k] = torch.zeros((P, words), dtype=torch.int32)
     nodes = {k: torch.zeros(N) for k in
              ("cpu_cap", "mem_cap", "pods_cap", "cpu_fit", "mem_fit", "cpu_used", "mem_used",
               "pods_used")}
     nodes.update({k: torch.zeros(N, dtype=torch.bool) for k in ("over", "sched")})
-    nodes.update({k: torch.zeros((N, 1), dtype=torch.int32)
+    nodes.update({k: torch.zeros((N, words), dtype=torch.int32)
                   for k in ("labels", "uport", "uvol_any", "uvol_rw")})
     nodes["svc_counts"] = torch.zeros((N, S))
     return pods, nodes
 
 
 def test_wrapper_raises_past_the_limit_without_calling_the_launcher():
-    pods, nodes = _tensors(N=max_nodes(1, 1, 1, 8) + 1, S=16)
+    """A plan held resident past the limit, or pod rows too wide for two
+    tiles even in place, is refused before the launcher is called."""
+    N = max_nodes(1, 1, 1, 8) + 1
+    pods, nodes = _tensors(N=N, S=16)
+    held = LaunchPlan(cluster=16, nodes_per_cta=-(-N // 64) * 4, threads=1024,
+                      smem_bytes=smem_bytes(N, 1, 1, 1, 8, 16), count_stride=-(-N // 64) * 64,
+                      row_words=20, resident=True)
     with pytest.raises(ValueError, match="shared memory"):
+        scan_kernel._call(_NoLaunch(), pods, nodes, (1, 1, 1), None, held)
+    pods, nodes = _tensors(N=64, S=4, words=240)
+    with pytest.raises(ValueError, match="pod rows alone"):
         scan_kernel._call(_NoLaunch(), pods, nodes, (1, 1, 1), None)
 
 
@@ -133,3 +149,33 @@ def test_a_plan_made_for_other_shapes_is_refused():
     stale = launch_plan(5120, 1, 1, 1, 8, cluster=4, threads=64)
     with pytest.raises(ValueError, match="other shapes"):
         scan_kernel._call(_NoLaunch(), pods, nodes, (1, 1, 1), None, stale)
+
+
+@pytest.mark.parametrize("N,widths,limit", [(40385, (2, 2, 2, 8), 40384), (50000, (2, 2, 2, 8), 40384),
+                                            (27841, (4, 4, 4, 8), 27840),
+                                            (65536, (4, 4, 4, 8), 27840)])
+def test_in_place_past_the_resident_limit(N, widths, limit):
+    """Past 40,384 nodes at the main path's widths, and 27,840 at the
+    session's 4-word widths, the plan keeps 16 CTAs and reads the slices
+    in place: shared memory holds the two pod tiles, a key and a count
+    per warp and the slots, whatever N."""
+    assert max_nodes(*widths) == limit
+    plan = launch_plan(N, *widths)
+    npc = (-(-N // 16) + 3) // 4 * 4
+    row_words = -(-(5 + sum(widths[:3]) + widths[2] + widths[3]) // 4) * 4
+    assert plan == LaunchPlan(
+        cluster=16, nodes_per_cta=npc, threads=min(1024, -(-npc // 32) * 32),
+        smem_bytes=2 * 4 * 128 * row_words + 384 + 512, count_stride=16 * npc,
+        row_words=row_words, resident=False,
+    )
+    assert plan.smem_bytes == smem_bytes(N, *widths, 16, False) == smem_bytes(7, *widths, 16, False)
+
+
+@pytest.mark.parametrize("N", [1, 5120, 13312, 27840, 40384])
+def test_resident_plan_unchanged_below_the_limit(N):
+    """Below the limit the default plan is the resident one, by the
+    same layout as before there was an in-place plan."""
+    plan = launch_plan(N, **MAIN)
+    assert plan.resident and plan == launch_plan(N, resident=True, **MAIN)
+    npc = (-(-N // 16) + 3) // 4 * 4
+    assert plan.smem_bytes == 4 * npc * 20 + -(-2 * npc // 16) * 16 + 24576 + 384 + 512

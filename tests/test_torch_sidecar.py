@@ -7,8 +7,10 @@
   --device cpu`) answers the JAX package's `SidecarSolver` with the JAX
   package's `schedule_backlog_tpu` decisions, default and policy spec;
   the JAX `BatchScheduler` binds a backlog through it with no fallback;
-  an unported mode is a structured error; a garbage frame does not kill
-  it; without `--device cpu` and without a card it exits non-zero.
+  modes "wave" and "sinkhorn" answer as the JAX server's do (a policy in
+  a wave request ignored); a failed solve is a structured error; a
+  garbage frame does not kill it; without `--device cpu` and without a
+  card it exits non-zero.
 - The port's client against the JAX package's server gives the same
   decisions.
 
@@ -148,7 +150,9 @@ def test_version_skew_and_bad_magic_fail_clean():
 def port_server():
     """The port's sidecar on the CPU, as a subprocess (its socket in a
     short temporary directory: a unix socket path holds 108 bytes)."""
-    proc, sock_path = sidecar.spawn_sidecar(wait=WAIT_S, device="cpu")
+    # One intra-op thread: the suite's other workers share the cores.
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc, sock_path = sidecar.spawn_sidecar(wait=WAIT_S, device="cpu", env=env)
     try:
         yield sock_path
     finally:
@@ -187,12 +191,41 @@ def test_port_client_reads_the_servers_launch_counts(port_server):
 
 
 def test_unported_mode_is_a_structured_error_and_the_server_survives(port_server):
+    """Every mode the JAX server answers is ported, so what is left to
+    fail is the solve itself: a request without its snapshot comes back
+    as a structured error, for each mode, and the server goes on."""
     client = jsidecar.SidecarSolver(port_server, timeout=WAIT_S)
+    for mode in ("scan", "wave", "sinkhorn"):
+        reply = client._request({"op": "solve", "mode": mode}, WAIT_S)
+        assert reply["error"].startswith("KeyError"), reply
     pending, nodes, assigned, services = random_cluster(2)
-    for mode in ("wave", "sinkhorn"):
-        with pytest.raises(jsidecar.SidecarError, match="NotImplementedError"):
-            client.solve(pending, nodes, assigned, services, mode=mode)
+    assert client.solve(pending, nodes, assigned, services, mode="wave") is not None
     assert client.ping()
+
+
+@pytest.mark.parametrize("mode", ["wave", "sinkhorn"])
+@pytest.mark.parametrize("case", ["default", "policy"])
+def test_jax_client_windowed_modes_from_the_port_server(port_server, mode, case):
+    """The JAX daemon's `--batch-mode wave|sinkhorn --solver-sidecar`
+    request against the port's server: the wave's names equal the JAX
+    package's own wave solve, Sinkhorn's agree on 99% of the pods, and
+    a policy in the request is ignored, as the JAX server ignores it."""
+    from kubernetes_tpu.scheduler.batch import schedule_backlog_sinkhorn, schedule_backlog_wave
+
+    client = jsidecar.SidecarSolver(port_server, timeout=WAIT_S)
+    pending, nodes, assigned, services = workload.policy_objects(300, 24, seed=6)
+    spec = _policy_spec_jax() if case == "policy" else None
+    remote = client.solve(pending, nodes, assigned, services, mode=mode, spec=spec)
+    local = (schedule_backlog_wave if mode == "wave" else schedule_backlog_sinkhorn)(
+        pending, nodes, assigned, services)
+    if mode == "wave":
+        assert remote == local
+    else:
+        assert np.mean([a == b for a, b in zip(remote, local)]) >= 0.99
+    assert sum(r is not None for r in remote) > 100
+    port = sidecar.SidecarSolver(port_server, timeout=WAIT_S)
+    assert port.solve(pending, nodes, assigned, services, mode=mode) == remote
+    assert port.last_kernel_launches == {"scan_kernel": 0, "policy_scan_kernel": 0}
 
 
 def test_garbage_frame_does_not_kill_the_port_server(port_server):
