@@ -107,6 +107,42 @@ exits non-zero and prints no result. Phases, one JSON line each:
               bytes; the default backlog in modes wave and sinkhorn, each
               answer equal to the same solve in this process; a ping
               after a garbage frame still answers;
+  5j. preemption
+              victim selection (plain PyTorch) on
+              workload.preemption_objects(5000, 50000, 1000): a priority
+              burst on a fleet filled to 85-100% of a resource; seed 2 a
+              warm-up and three timed runs (wall, build and solve, ms a
+              preemptor, grants, victims), seed 3 once, each seed's card
+              decisions equal to its CPU run's, one seed-2 solve under
+              torch.profiler (the card's busy share); the card equal to
+              the port's scalar rule on 16 small seeded problems and on
+              200 nodes x 2,000 bound pods x 32 preemptors (the scalar is
+              O(N x V) a preemptor, so not at full size);
+  5k. capacity
+              capacity_report (plain PyTorch) on the occupancy columns of
+              the main path's placement (cluster_columns) and of the
+              churn session after its replay (session_columns), probes
+              DEFAULT_SLICE_SHAPES and the 50k backlog's p50, p90, max:
+              card, CPU and the port's NumPy twin equal on every output,
+              dtypes included; median ms; one call under torch.profiler
+              (its kernels and the card's busy share);
+  5l. rebalance_parity
+              the defrag plan kernel (K2) held to its plain version on
+              the card, exactly, resident and in place: 16 seeded
+              worklists (N 1-300, Q 1-12, sources out of range, dead and
+              forced rows, budgets 0 to D + 3), the consolidation case,
+              no rows, ties across every warp at 300 and 5,000 nodes,
+              and 70 probes (the gain's lanes loop);
+  5m. rebalance
+              utils.rebalance.build_plan on the main path's placement,
+              all 50,000 pods movable: budget 32 (the descheduler's),
+              budget D, and 50 forced (cordoned) nodes at budget D. Per
+              case the wall and its phases (stage, plan, group), K2's ms
+              by CUDA events and its us a row, and every output of K2
+              equal to the port's NumPy twin on the whole worklist, the
+              plan equal to the plan of the twin's rows; K2 held to its
+              plain version on the card on the first 2,048 rows of budget
+              D (the plain loop is a launch sequence a row);
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -122,7 +158,11 @@ exits non-zero and prints no result. Phases, one JSON line each:
               8 and 16 CTAs (each equal to the default plan's result),
               and a split of its step: the scan kernel and the policy
               kernel on the same pods under specs that add the service
-              carry, service affinity and anti-affinity one at a time.
+              carry, service affinity and anti-affinity one at a time;
+              for the defrag plan kernel (K2) its time, the plain
+              version's and the bound on the same first 2,048 rows of
+              budget D, beside its time and bound on the whole worklist,
+              and its launches counted over each of the phases 5j-5m.
 
 Every phase line carries the script's seconds so far (`elapsed_s`).
 Then the card's name and power limit, and last the result line
@@ -235,6 +275,7 @@ def main() -> int:
 
     # -- 5b. churn on the incremental session ------------------------------
     churn = run_churn(torch, device, placed_names)
+    churn_session = churn.pop("session")
     emit("churn", ok=True, card=smi, **churn)
 
     # -- 5c. gangs -----------------------------------------------------------
@@ -256,6 +297,23 @@ def main() -> int:
         emit(mode, ok=True, card=smi, **run_windowed(torch, device, mode, placed_names, scan_placed))
     sidecar_line = run_sidecar(torch, device, placed_names, policy_names)
     emit("sidecar", ok=True, card=smi, **sidecar_line)
+
+    # -- 5j-5m. preemption, the capacity report, the defrag plan ----------------
+    from kubernetes_tpu_torch.ops import rebalance
+
+    # K2 is not on these two paths: their counts are read to show it.
+    k2_launches = {}
+    rebalance.plan_moves.launches = 0
+    emit("preemption", ok=True, card=smi, **run_preemption(torch, device))
+    k2_launches["preemption"] = rebalance.plan_moves.launches
+    rebalance.plan_moves.launches = 0
+    emit("capacity", ok=True, card=smi, **run_capacity(torch, device, placed_names, churn_session))
+    k2_launches["capacity"] = rebalance.plan_moves.launches
+    del churn_session
+    rebalance_parity = check_rebalance_parity(torch, device)
+    emit("rebalance_parity", ok=True, **rebalance_parity)
+    rebalance_line = run_rebalance(torch, device, placed_names)
+    emit("rebalance", ok=True, card=smi, **rebalance_line)
 
     # -- 6. kernels --------------------------------------------------------
     ptxas = "\n".join(str(r["log"]) for r in records if r["name"] == "scan_kernel")
@@ -308,6 +366,27 @@ def main() -> int:
             "timed": policy_timing["timed"],
             "backlog_ms": policy["kernel_ms"],
             "cluster": policy["plan"]["cluster"],
+        },
+        {
+            "name": "rebalance_kernel",
+            "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/rebalance_kernel.cu",
+            "replaces": "kubernetes_tpu/ops/rebalance.py:58 (plan_moves; XLA, not a Pallas kernel)",
+            "launches": sum(rebalance_line["launches"].values()),
+            "launches_by_path": {**{f"rebalance_{k}": v for k, v in rebalance_line["launches"].items()},
+                                 **k2_launches, "rebalance_parity": rebalance_parity["launches"]},
+            "max_abs_err": max(rebalance_parity["max_abs_err"], rebalance_line["k2"]["max_abs_err"]),
+            # ms, plain_ms and bound_ms: the same first rows of case budget_d.
+            "ms": rebalance_line["k2"]["ms"],
+            "plain_ms": rebalance_line["k2"]["plain_ms"],
+            "bound_ms": rebalance_line["k2"]["bound_ms"],
+            "bound_by": rebalance_line["k2"]["bound_by"],
+            # No single PyTorch call computes the sequential plan.
+            "library_ms": None,
+            "rows": rebalance_line["k2"]["rows"],
+            "worklist_ms": rebalance_line["k2"]["worklist_ms"],
+            "worklist_bound_ms": rebalance_line["k2"]["worklist"]["bound_ms"],
+            "us_per_row": rebalance_line["k2"]["us_per_row"],
         },
     ]
     emit("kernel_timing", ok=True, card=smi, **timing, policy_sweep=policy_sweep)
@@ -954,6 +1033,7 @@ def run_churn(torch, device, placed_names):
 
     total = sum(walls)
     return {
+        "session": session,
         "cell": f"{N_NODES} nodes, {len(services)} services, {len(assigned)} assigned pods, "
                 f"{CHURN_RATE} creates + {CHURN_RATE} deletes a tick",
         "nodes": N_NODES, "services": len(services), "assigned": len(assigned),
@@ -1907,6 +1987,412 @@ def run_windowed(torch, device, mode, placed_names, scan_placed):
     }
     if not all(t["placed"] for t in out["session"]["ticks"]):
         fail(mode, "a session tick placed no pod")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 5j-5m: preemption, the capacity report, the defrag plan (K2)
+# ---------------------------------------------------------------------------
+
+PREEMPT_NODES, PREEMPT_BOUND, PREEMPT_PREEMPTORS = 5000, 50000, 1000
+PREEMPT_REPEATS = 3
+PREEMPT_SMALL = 16  # seeded small problems held to the scalar rule
+PREEMPT_MEDIUM = (200, 2000, 32)  # nodes, bound pods, preemptors held to the scalar rule
+CAPACITY_REPEATS = 5
+REBALANCE_FORCED_NODES = 50
+REBALANCE_PLAIN_ROWS = 2048  # rows of case 2 held to the plain version on the card
+REBALANCE_REPEATS = 3
+# 32-bit operations a node of an evaluated row, from K2's arithmetic:
+# liveness 3, free vectors 6, feasibility 5, best-fit key 9, the
+# running minimum 2.
+REBALANCE_OPS_PER_NODE = 25
+
+
+def _decisions(ds):
+    return [(d.key, d.node, d.victims) if d else None for d in ds]
+
+
+def _profile_call(torch, fn):
+    """fn() once under torch.profiler: its host wall (ending in a
+    synchronise), the device time the trace holds (each kernel's own
+    time, summed), the busy share and the kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(device_us(e) for e in rows) / 1e3
+    return out, {"wall_ms": wall * 1e3, "device_ms": device_ms,
+                 "device_busy_share": device_ms / (wall * 1e3),
+                 "kernel_launches": sum(e.count for e in rows)}
+
+
+def run_preemption(torch, device):
+    """Victim selection (plain PyTorch, no hand kernel) on a priority
+    burst over a full fleet, held to its CPU run at full size and to the
+    scalar rule on small and medium problems."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.scheduler.batch import preempt_backlog, preempt_backlog_scalar
+    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    # The scalar rule: 16 small seeded problems and one medium one.
+    small_grants = 0
+    for s in range(PREEMPT_SMALL):
+        objs = workload.random_preemption_problem(s)
+        card = _decisions(preempt_backlog(*objs, device=device))
+        if card != _decisions(preempt_backlog_scalar(*objs)):
+            fail("preemption", f"small problem {s}: the card differs from the scalar rule")
+        if card != _decisions(preempt_backlog(*objs, device="cpu")):
+            fail("preemption", f"small problem {s}: the card differs from the CPU")
+        small_grants += sum(d is not None for d in card)
+    objs = workload.preemption_objects(*PREEMPT_MEDIUM, seed=5)
+    card = _decisions(preempt_backlog(*objs, device=device))
+    t0 = time.perf_counter()
+    scalar = _decisions(preempt_backlog_scalar(*objs))
+    scalar_s = time.perf_counter() - t0
+    if card != scalar:
+        bad = sum(a != b for a, b in zip(card, scalar))
+        fail("preemption", f"medium problem: {bad} decisions differ from the scalar rule")
+    medium_grants = sum(d is not None for d in card)
+    if medium_grants == 0:
+        fail("preemption", "the medium problem granted nothing")
+
+    # Full size: a warm-up and three timed runs on seed 2, one run on
+    # seed 3; each seed's card decisions equal its CPU run's.
+    out, objects_of = {}, {}
+    for seed in (2, 3):
+        t0 = time.perf_counter()
+        objs = objects_of[seed] = workload.preemption_objects(
+            PREEMPT_NODES, PREEMPT_BOUND, PREEMPT_PREEMPTORS, seed)
+        make_s = time.perf_counter() - t0
+        runs = []
+        for r in range(PREEMPT_REPEATS + 1 if seed == 2 else 1):
+            timer = PhaseTimer()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = _decisions(preempt_backlog(*objs, device=device, timer=timer))
+            runs.append({"wall_s": time.perf_counter() - t0, "phases_s": dict(timer.seconds)})
+        t0 = time.perf_counter()
+        cpu = _decisions(preempt_backlog(*objs, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        if card != cpu:
+            bad = sum(a != b for a, b in zip(card, cpu))
+            fail("preemption", f"seed {seed}: {bad} decisions differ between the card and the CPU")
+        grants = [d for d in card if d]
+        if not grants:
+            fail("preemption", f"seed {seed}: nothing granted")
+        timed = runs[1:] if len(runs) > 1 else runs
+        wall = statistics.median(r["wall_s"] for r in timed)
+        out[f"seed{seed}"] = {
+            "objects_s": make_s, "runs": runs, "wall_s_median": wall,
+            "ms_per_preemptor": wall * 1e3 / PREEMPT_PREEMPTORS,
+            "build_s_median": statistics.median(r["phases_s"]["build"] for r in timed),
+            "solve_s_median": statistics.median(r["phases_s"]["solve"] for r in timed),
+            "grants": len(grants), "victims": sum(len(d[2]) for d in grants),
+            "nodes_used": len({d[1] for d in grants}),
+            "cpu_run_s": cpu_s, "equal_to_cpu": True,
+        }
+    # One seed-2 solve under the profiler: the card's share of the solve.
+    from kubernetes_tpu_torch.ops.preemption import build_preemption_problem, solve_preemption
+
+    preemptors, nodes, assigned = objects_of[2]
+    problem = build_preemption_problem(nodes, assigned)
+    _, profiled = _profile_call(torch, lambda: solve_preemption(problem, preemptors, device=device))
+    return {
+        "cell": f"{PREEMPT_NODES} nodes, {PREEMPT_BOUND} bound pods at 85-100% of a resource, "
+                f"{PREEMPT_PREEMPTORS} preemptors",
+        **out,
+        "solve_profiled": profiled,
+        "scalar_checks": {"small_problems": PREEMPT_SMALL, "small_grants": small_grants,
+                          "medium": list(PREEMPT_MEDIUM), "medium_grants": medium_grants,
+                          "medium_scalar_s": scalar_s, "equal": True},
+        "tolerance": "exact: node and victims in eviction order",
+    }
+
+
+def _capacity_equal(phase, tag, got, want):
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu().numpy() if hasattr(g, "cpu") else np.asarray(g)
+        w = w.cpu().numpy() if hasattr(w, "cpu") else np.asarray(w)
+        if g.shape != w.shape or g.dtype != w.dtype or not np.array_equal(g, w):
+            fail(phase, f"{tag}: output {i} differs ({g.dtype} {g.shape} against {w.dtype} {w.shape})")
+
+
+def run_capacity(torch, device, placed_names, session):
+    """The capacity report (plain PyTorch) on the main path's placement
+    and on the churn session's columns: card, CPU and the NumPy twin
+    equal on every output; its median time."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops.capacity import capacity_report, stage, _NODE_DTYPES, _PROBE_DTYPES
+    from kubernetes_tpu_torch.ops.oracle import capacity_report_numpy
+    from kubernetes_tpu_torch.utils.capacity import (
+        COLUMN_KEYS, cluster_columns, probe_arrays, session_columns)
+
+    nodes, _services, assigned = _churn_cluster(placed_names)
+    pending, _, _ = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    probes = workload.backlog_probes(pending)
+    probe = probe_arrays(probes)
+    out = {"probes": [list(p) for p in probes]}
+    for tag, (cols, _names) in (("cluster", cluster_columns(nodes, assigned)),
+                                ("session", session_columns(session))):
+        args = tuple(cols[k] for k in COLUMN_KEYS) + tuple(probe)
+        want = capacity_report_numpy(*args)
+        card = capacity_report(*args, device=device)
+        _capacity_equal("capacity", f"{tag} card against the twin", card, want)
+        _capacity_equal("capacity", f"{tag} CPU against the twin",
+                        capacity_report(*args, device="cpu"), want)
+        walls, events = [], []
+        staged = stage(args[:8], _NODE_DTYPES, device) + stage(args[8:], _PROBE_DTYPES, device)
+        for _ in range(CAPACITY_REPEATS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            capacity_report(*args, device=device)[-1].item()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            capacity_report(*staged, device=device)
+            ev1.record()
+            torch.cuda.synchronize()
+            events.append(ev0.elapsed_time(ev1))
+        _, profiled = _profile_call(torch, lambda: capacity_report(*staged, device=device))
+        out[tag] = {
+            "nodes": int(args[0].shape[0]), "probes": int(args[8].shape[0]),
+            "wall_ms_median": statistics.median(walls[1:]),
+            "device_tensors_ms_median": statistics.median(events[1:]),
+            "profiled": profiled,
+            "frag_score": float(want[8]), "stranded_nodes": int(want[7].sum()),
+            "headroom": [int(x) for x in want[4]], "equal": True,
+        }
+    out["timed"] = ("wall: host clock around capacity_report from the NumPy columns, staging and "
+                    "one read included; device_tensors: CUDA events around it on staged tensors")
+    return out
+
+
+def _k2_vs_plain(torch, device, tag, args, plan=None):
+    """K2 against its plain version on the card, on the same staged
+    tensors: every output bit for bit. Returns the max abs error (0)."""
+    from kubernetes_tpu_torch.ops import rebalance
+    from kubernetes_tpu_torch.ops.capacity import stage
+
+    tensors = stage(args[:-1], rebalance._DTYPES, device)
+    got = rebalance._launch(tensors, int(args[-1]), plan)
+    ref = rebalance.plan_moves_plain(*tensors, args[-1])
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.dtype != r.dtype or g.shape != r.shape or not torch.equal(g, r):
+            fail("rebalance_parity", f"{tag}: output {i} differs from the plain version")
+        if g.numel():
+            err = max(err, float((g.double() - r.double()).abs().max()))
+    return err, ref
+
+
+def check_rebalance_parity(torch, device):
+    """K2 held to its plain version on the card on both residencies."""
+    import numpy as np
+
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops import rebalance
+
+    cases = [(f"seed {s}", workload.random_rebalance_args(s)) for s in range(16)]
+    cases.append(("consolidation", workload.consolidation_args()))
+    empty = list(workload.random_rebalance_args(2))
+    for k in range(8, 13):
+        empty[k] = empty[k][:0]
+    cases.append(("no rows", tuple(empty)))
+    cases.append(("ties across warps, 5,000 nodes", workload.tied_rebalance_args(5000, 256, 256)))
+    cases.append(("ties, 300 nodes", workload.tied_rebalance_args(300, 64, 64)))
+    cases.append(("70 probes", workload.with_random_probes(workload.random_rebalance_args(4), 70)))
+    err, checked, moves = 0.0, 0, 0
+    rebalance.plan_moves.launches = 0
+    for tag, args in cases:
+        N, Q = int(np.asarray(args[0]).shape[0]), int(np.asarray(args[13]).shape[0])
+        for resident in (True, False):
+            e, ref = _k2_vs_plain(torch, device, f"{tag}, resident={resident}", args,
+                                  rebalance.launch_plan(N, Q, resident=resident))
+            err = max(err, e)
+            checked += 1
+        moves += int(ref[3])
+    if moves == 0:
+        fail("rebalance_parity", "no case committed a move")
+    return {"cases": len(cases), "kernel_runs": checked, "launches": rebalance.plan_moves.launches,
+            "moves": moves, "max_abs_err": err,
+            "tolerance": "exact (torch.equal on dest, moved, gain, n_moves and both scores)"}
+
+
+def k2_bound(args, evaluated_rows):
+    """The least time the card could take for one K2 launch on these
+    inputs: each input read and each output written once over the HBM
+    rate, against the 32-bit operations of the evaluated rows over every
+    node (and the two scores' probe fits) over the f32 rate."""
+    N, D, Q = len(args[0]), len(args[8]), len(args[13])
+    nbytes = N * (6 * 4 + 2) + D * (3 * 4 + 2) + Q * (3 * 4 + 1) + D * (2 * 4 + 1) + 4 + 8
+    nops = evaluated_rows * N * REBALANCE_OPS_PER_NODE + 2 * N * Q * 12
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": nops, "evaluated_rows": evaluated_rows,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _evaluated_rows(pod_live, moved, n_moves, budget):
+    """Rows K2 evaluates: the live rows up to the one that spends the
+    budget (all live rows when it is never spent)."""
+    import numpy as np
+
+    if budget <= 0:
+        return 0
+    if int(n_moves) >= budget:
+        last = int(np.nonzero(moved)[0][budget - 1])
+        return int(pod_live[: last + 1].sum())
+    return int(pod_live.sum())
+
+
+def _k2_ms(torch, tensors, budget, reps=REBALANCE_REPEATS):
+    from kubernetes_tpu_torch.ops import rebalance
+
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        rebalance._launch(tensors, budget)
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+    return statistics.median(times[1:]), times[1:]
+
+
+def run_rebalance(torch, device, placed_names):
+    """build_plan on the main path's placement, all 50,000 pods movable,
+    in three cases, each held to the NumPy twin; K2 timed by CUDA events
+    and held to its plain version on the first rows of case 2."""
+    import numpy as np
+
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops import rebalance
+    from kubernetes_tpu_torch.ops.capacity import stage
+    from kubernetes_tpu_torch.ops.oracle import plan_moves_numpy
+    from kubernetes_tpu_torch.utils.capacity import COLUMN_KEYS, cluster_columns, probe_arrays
+    from kubernetes_tpu_torch.utils.rebalance import (
+        DEFAULT_MOVE_BUDGET, build_plan, group_plan, stage_rows)
+    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    nodes, _services, assigned = _churn_cluster(placed_names)
+    cols, names = cluster_columns(nodes, assigned)
+    pending, _, _ = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    probes = workload.backlog_probes(pending)
+    probe = probe_arrays(probes)
+    D = len(assigned)
+    forced = names[:: len(names) // REBALANCE_FORCED_NODES][:REBALANCE_FORCED_NODES]
+    cases = (("default_budget", DEFAULT_MOVE_BUDGET, ()), ("budget_d", D, ()),
+             ("forced", D, tuple(forced)))
+    out = {"cell": f"{len(nodes)} nodes, {D} movable pods, {len(probes)} probes",
+           "probes": [list(p) for p in probes]}
+    launches = {}
+    for tag, budget, forced_nodes in cases:
+        timer = PhaseTimer()
+        rebalance.plan_moves.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = build_plan(cols, names, assigned, probes, budget, forced_nodes, device=device,
+                          timer=timer)
+        wall = time.perf_counter() - t0
+        launches[tag] = rebalance.plan_moves.launches
+        if launches[tag] != 1:
+            fail("rebalance", f"{tag}: build_plan launched K2 {launches[tag]} times, not once")
+
+        rows, *row_arrays = stage_rows(cols, names, assigned, forced_nodes)
+        args = tuple(cols[k] for k in COLUMN_KEYS) + tuple(row_arrays) + tuple(probe) + (
+            np.int32(budget),)
+        tensors = stage(args[:-1], rebalance._DTYPES, device)
+        k2 = [t.cpu().numpy() for t in rebalance._launch(tensors, budget)]
+        t0 = time.perf_counter()
+        twin = plan_moves_numpy(*args)
+        twin_s = time.perf_counter() - t0
+        for i, (g, w) in enumerate(zip(k2, twin)):
+            w = np.asarray(w)
+            if g.shape != w.shape or g.dtype != w.dtype or not np.array_equal(g, w):
+                fail("rebalance", f"{tag}: K2's output {i} differs from the NumPy twin")
+        if plan != group_plan(rows, names, row_arrays[4], *twin[:3], budget, twin[4], twin[5]):
+            fail("rebalance", f"{tag}: the plan differs from the plan of the twin's rows")
+        ms, ms_all = _k2_ms(torch, tensors, budget)
+        evaluated = _evaluated_rows(row_arrays[3], k2[1], k2[3], budget)
+        out[tag] = {
+            "budget": budget, "forced_nodes": len(forced_nodes), "wall_s": wall,
+            "phases_s": dict(timer.seconds), "k2_ms": ms, "k2_ms_all": ms_all,
+            "evaluated_rows": evaluated,
+            "us_per_row": ms * 1e3 / max(evaluated, 1),
+            "n_moves": int(k2[3]), "planned_moves": len(plan["moves"]),
+            "score_before": float(twin[4]), "score_after": float(twin[5]),
+            "twin_s": twin_s, "equal_to_twin": True,
+        }
+        if tag == "budget_d":
+            full_args, full_tensors = args, tensors
+    if out["forced"]["n_moves"] == 0 or any(out[t]["n_moves"] > b for t, b, _ in cases):
+        fail("rebalance", "the forced drain moved nothing, or a case moved past its budget")
+
+    # K2 against its plain version on the card, the first rows of case 2:
+    # both timed, and bounded, on those rows.
+    prefix = tuple(a[:REBALANCE_PLAIN_ROWS] if 8 <= k < 13 else a for k, a in enumerate(full_args))
+    err, ref = _k2_vs_plain(torch, device, f"first {REBALANCE_PLAIN_ROWS} rows of budget D", prefix)
+    pt = stage(prefix[:-1], rebalance._DTYPES, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rebalance.plan_moves_plain(*pt, prefix[-1])[-1].item()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms_prefix, _ = _k2_ms(torch, pt, int(prefix[-1]))
+    bound = k2_bound(prefix, _evaluated_rows(prefix[11], ref[1].cpu().numpy(), ref[3], int(prefix[-1])))
+    lp = rebalance.launch_plan(len(full_args[0]), len(full_args[13]))
+
+    # Where a row's time goes: the same rows against the first n nodes
+    # (sources past n read as none), and other thread counts and the
+    # carry in place at 5,000 nodes, each run's outputs equal to the
+    # default plan's.
+    rows_d = out["budget_d"]["evaluated_rows"]
+    by_nodes = {}
+    for n in (256, 1024, 2048):
+        cut = tuple(a[:n] if k < 8 else a for k, a in enumerate(full_args))
+        t, _ = _k2_ms(torch, stage(cut[:-1], rebalance._DTYPES, device), int(cut[-1]), 1)
+        by_nodes[n] = t * 1e3 / rows_d
+    by_nodes[len(full_args[0])] = out["budget_d"]["us_per_row"]
+    want = [t.cpu() for t in rebalance._launch(full_tensors, int(full_args[-1]))]
+    sweep = []
+    for threads, resident in ((256, True), (512, True), (1024, False)):
+        cfg = rebalance.launch_plan(len(full_args[0]), len(full_args[13]), threads, resident)
+        got = [t.cpu() for t in rebalance._launch(full_tensors, int(full_args[-1]), cfg)]
+        if any(not torch.equal(g, w) for g, w in zip(got, want)):
+            fail("rebalance", f"K2 at {threads} threads, resident={resident} differs")
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        rebalance._launch(full_tensors, int(full_args[-1]), cfg)
+        ev1.record()
+        torch.cuda.synchronize()
+        sweep.append({"threads": threads, "resident": resident,
+                      "us_per_row": ev0.elapsed_time(ev1) * 1e3 / rows_d})
+    out["k2"] = {
+        "plan": {"threads": lp.threads, "resident": lp.resident, "smem_bytes": lp.smem_bytes},
+        "rows": REBALANCE_PLAIN_ROWS, "ms": ms_prefix, "plain_ms": plain_ms, "max_abs_err": err,
+        **bound,
+        "worklist_ms": out["budget_d"]["k2_ms"], "us_per_row": out["budget_d"]["us_per_row"],
+        "worklist": k2_bound(full_args, out["budget_d"]["evaluated_rows"]),
+        "us_per_row_by_nodes": by_nodes, "sweep": sweep,
+        "timed": "ms: CUDA events around the wrapper's launch on the first `rows` rows of case "
+                 "budget_d; plain_ms: host clock around the plain loop on the same rows, ending in "
+                 "a read; worklist_ms: CUDA events around the launch on the whole worklist",
+    }
+    out["launches"] = launches
     return out
 
 

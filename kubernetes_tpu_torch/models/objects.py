@@ -1,12 +1,13 @@
 """Typed API objects: the kinds the batch scheduler's lowering reads.
 
 A copy of the subset of `kubernetes_tpu/models/objects.py` that
-`models/columnar.py`, the incremental session and the gang solver
-consume (reference: pkg/api/types.go): ObjectMeta,
-Pod with its spec, containers, ports, resources and the exclusive-disk
-volume sources, Node with its status and conditions, and Service. The
-lowering reads these objects by attribute only, so the JAX package's
-objects of the same shape lower identically.
+`models/columnar.py`, the incremental session, the gang solver,
+preemption and the defrag planner consume (reference:
+pkg/api/types.go): ObjectMeta, Pod with its spec, containers, ports,
+resources and the exclusive-disk volume sources, Node with its status
+and conditions, and Service. The lowering reads these objects by
+attribute only, so the JAX package's objects of the same shape lower
+identically.
 """
 
 from __future__ import annotations
@@ -29,6 +30,12 @@ REBALANCE_DEST_ANNOTATION = "rebalance.kubernetes-tpu.io/destination"
 # The pod label naming the PodGroup (same namespace) a pod belongs to;
 # the gang solver places a group's pods all-or-nothing.
 POD_GROUP_LABEL = "pod-group.kubernetes-tpu.io/name"
+
+
+# Preemption policies (reference: core.PreemptionPolicy). The empty
+# string on a pod means PREEMPT_LOWER_PRIORITY.
+PREEMPT_LOWER_PRIORITY = "PreemptLowerPriority"
+PREEMPT_NEVER = "Never"
 
 
 @dataclass
@@ -106,6 +113,11 @@ class PodSpec:
     containers: List[Container] = field(default_factory=list)
     node_selector: Dict[str, str] = field(default_factory=dict)
     node_name: str = ""
+    # Resolved scheduling priority (None = unresolved, read as 0) and
+    # whether the pod may evict lower-priority pods ("" reads as
+    # PreemptLowerPriority).
+    priority: Optional[int] = None
+    preemption_policy: str = ""
 
 
 @dataclass
@@ -122,6 +134,30 @@ class Pod:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: PodSpec = field(default_factory=PodSpec)
     status: PodStatus = field(default_factory=PodStatus)
+
+
+def pod_priority(pod: Pod) -> int:
+    """Resolved scheduling priority (0 = unset/best-effort)."""
+    return pod.spec.priority or 0
+
+
+def pod_full_key(pod: Pod) -> str:
+    """Canonical 'namespace/name' pod key with the empty namespace
+    defaulted: the key preemption decisions and the gang preemption
+    guard compare."""
+    return f"{pod.metadata.namespace or 'default'}/{pod.metadata.name}"
+
+
+def pod_can_preempt(pod: Pod) -> bool:
+    """Whether this pod may evict others (its own policy, not its
+    victims'). Unset policy = PreemptLowerPriority."""
+    return (pod.spec.preemption_policy or PREEMPT_LOWER_PRIORITY) != PREEMPT_NEVER
+
+
+def pod_is_terminating(pod: Pod) -> bool:
+    """Graceful delete in flight: still occupies its node, no longer a
+    preemption victim or a movable pod."""
+    return bool(pod.metadata.deletion_timestamp)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ The counterpart of `kubernetes_tpu/scheduler/batch.py`'s
 `schedule_backlog_sinkhorn` and `schedule_backlog_gang_tpu`: lower the
 whole backlog, stage it, run the sequential-parity solve (or a windowed
 one), map indices back to node names; with gangs, wrap that in the
-all-or-nothing acceptance loop.
+all-or-nothing acceptance loop. `preempt_backlog` is the counterpart of
+`preempt_backlog_tpu` (victim selection on the card), and
+`preempt_backlog_scalar` the port's own copy of the reference's scalar
+rule, the yardstick it is held to.
 """
 
 from __future__ import annotations
@@ -15,10 +18,28 @@ from typing import List, Optional, Sequence
 
 from kubernetes_tpu_torch import DeviceLike, resolve_device
 from kubernetes_tpu_torch.models.algspec import AlgorithmSpec
-from kubernetes_tpu_torch.models.columnar import build_snapshot
-from kubernetes_tpu_torch.models.objects import Node, Pod, Service
+from kubernetes_tpu_torch.models.columnar import (
+    build_snapshot,
+    mem_to_mib_ceil,
+    node_is_ready,
+    pod_resource_limits,
+)
+from kubernetes_tpu_torch.models.objects import (
+    Node,
+    Pod,
+    Service,
+    pod_can_preempt,
+    pod_full_key,
+    pod_is_terminating,
+    pod_priority,
+)
 from kubernetes_tpu_torch.ops.matrices import device_snapshot
 from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device
+from kubernetes_tpu_torch.ops.preemption import (
+    PreemptionDecision,
+    build_preemption_problem,
+    solve_preemption,
+)
 from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_assignments
 from kubernetes_tpu_torch.ops.solver import solve_assignments
 from kubernetes_tpu_torch.ops.wave import wave_assignments
@@ -127,3 +148,108 @@ def schedule_backlog_gang(
         counts_fn=partial(gang_member_counts_device, device=device),
         timer=timer,
     )
+
+
+def preempt_backlog(
+    preemptors: Sequence[Pod],
+    nodes: Sequence[Node],
+    assigned: Sequence[Pod] = (),
+    device: DeviceLike = None,
+    timer: Optional[PhaseTimer] = None,
+) -> List[Optional[PreemptionDecision]]:
+    """Victim selection on `device` (default: the CUDA card; raises
+    without one): decisions aligned with `preemptors`, the same as
+    `preempt_backlog_scalar`'s. Phases: `build` (the host lowering) and
+    `solve` (the launches and the one readback)."""
+    device = resolve_device(device)
+    with phase(timer, "build"):
+        problem = build_preemption_problem(nodes, assigned)
+    with phase(timer, "solve"):
+        return solve_preemption(problem, preemptors, device=device)
+
+
+def preempt_backlog_scalar(
+    preemptors: Sequence[Pod],
+    nodes: Sequence[Node],
+    assigned: Sequence[Pod] = (),
+) -> List[Optional[PreemptionDecision]]:
+    """Scalar victim selection, the preemption yardstick: the canonical
+    rule of `ops/preemption.py` written independently in Python floats.
+    Per node, victims are the shortest (priority asc, arrival asc) prefix
+    of strictly dominated live pods whose freed cpu, memory and slots
+    fit the preemptor; nodes rank by (max victim priority, count, node
+    index); preemptors run highest priority first, each grant charging
+    the node state the next one sees. O(N x V) a preemptor."""
+    INF = float("inf")
+    nodes = list(nodes)
+    index = {n.metadata.name: j for j, n in enumerate(nodes)}
+    free = []  # per node [cpu, mem, pods]
+    for node in nodes:
+        cap = node.status.capacity or {}
+        cpu = cap.get("cpu").milli_value() if cap.get("cpu") else 0
+        mem = cap.get("memory").value() // (1024**2) if cap.get("memory") else 0
+        pods = cap.get("pods").value() if cap.get("pods") else 0
+        free.append([cpu or INF, mem or INF, pods or INF])
+    victims = []  # [prio, arrival_idx, node_j, cpu, mem, key, alive]
+    for i, pod in enumerate(assigned):
+        j = index.get(pod.spec.node_name, -1)
+        if j < 0:
+            continue
+        cpu, mem = pod_resource_limits(pod)
+        cpu, mem = float(cpu), float(mem_to_mib_ceil(mem))
+        free[j][0] -= cpu
+        free[j][1] -= mem
+        free[j][2] -= 1
+        if pod.status.phase in ("Succeeded", "Failed") or pod_is_terminating(pod):
+            continue
+        victims.append([pod_priority(pod), i, j, cpu, mem, pod_full_key(pod), True])
+    out: List[Optional[PreemptionDecision]] = [None] * len(preemptors)
+    for i in sorted(range(len(preemptors)), key=lambda t: (-pod_priority(preemptors[t]), t)):
+        pod = preemptors[i]
+        prio = pod_priority(pod)
+        if prio <= 0 or not pod_can_preempt(pod):
+            continue
+        cpu, mem = pod_resource_limits(pod)
+        cpu, mem = float(cpu), float(mem_to_mib_ceil(mem))
+        sel = pod.spec.node_selector or {}
+        best = None
+        for j, node in enumerate(nodes):
+            if not node_is_ready(node) or node.spec.unschedulable:
+                continue
+            labels = node.metadata.labels or {}
+            if any(labels.get(k) != v for k, v in sel.items()):
+                continue
+            f_cpu, f_mem, f_pods = free[j]
+            if f_cpu >= cpu and f_mem >= mem and f_pods >= 1:
+                continue  # fits without eviction: not a preemption case
+            prefix = []
+            for v in sorted(
+                (v for v in victims if v[6] and v[2] == j and v[0] < prio),
+                key=lambda v: (v[0], v[1]),
+            ):
+                prefix.append(v)
+                f_cpu += v[3]
+                f_mem += v[4]
+                f_pods += 1
+                if f_cpu >= cpu and f_mem >= mem and f_pods >= 1:
+                    score = (prefix[-1][0], len(prefix), j)
+                    if best is None or score < best[0]:
+                        best = (score, j, list(prefix))
+                    break
+        if best is None:
+            continue
+        _, j, prefix = best
+        for v in prefix:
+            v[6] = False
+            free[j][0] += v[3]
+            free[j][1] += v[4]
+            free[j][2] += 1
+        free[j][0] -= cpu
+        free[j][1] -= mem
+        free[j][2] -= 1
+        out[i] = PreemptionDecision(
+            key=pod_full_key(pod),
+            node=nodes[j].metadata.name,
+            victims=tuple(v[5] for v in prefix),
+        )
+    return out

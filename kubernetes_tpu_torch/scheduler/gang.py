@@ -17,8 +17,8 @@ phase `gang_accept` of an optional PhaseTimer.
   keeps the sequential decisions of every path equal: downstream
   choices depend on the whole committed prefix.
 
-`drop_partial_gang_preemptions` is not here: it belongs with
-preemption, which the port does not have yet.
+`drop_partial_gang_preemptions` guards preemption grants: a gang
+member preempts for the whole gang or not at all.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL, Pod
+from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL, Pod, pod_full_key
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
 
 
@@ -168,3 +168,55 @@ def gang_solve(
     accepted = [g for gi, g in enumerate(groups) if gi not in rejected]
     denied = [g for gi, g in enumerate(groups) if gi in rejected]
     return destinations, accepted, denied
+
+
+def drop_partial_gang_preemptions(
+    unbound: Sequence[Pod],
+    candidates: Sequence[Pod],
+    decisions: Sequence[Optional[object]],
+    covered_keys: frozenset = frozenset(),
+    groups: Sequence[GangGroup] = (),
+) -> Tuple[List[Optional[object]], List[str]]:
+    """A preemptor that belongs to a PodGroup preempts for the whole
+    gang or not at all, so that no victim dies for a gang the
+    all-or-nothing solve then refuses. A gang's grants stand only if
+
+    - every unbound member visible this tick got a grant this pass or
+      already holds a nomination (`covered_keys`); a member left out of
+      `candidates` vetoes too;
+    - where `groups` names the gang, grants, covered and already-bound
+      members together reach its minMember (members in backoff are not
+      in `unbound`).
+
+    `decisions` aligns with `candidates`. Returns the filtered decisions
+    and the dropped gangs' keys."""
+    need: Dict[str, set] = {}
+    for pod in unbound:
+        name = pod_group_name(pod)
+        if name:
+            key = group_key(pod.metadata.namespace or "default", name)
+            need.setdefault(key, set()).add(pod_full_key(pod))
+    if not need:
+        return list(decisions), []
+    granted = {
+        pod_full_key(c): i
+        for i, (c, d) in enumerate(zip(candidates, decisions))
+        if d is not None
+    }
+    floor_of = {g.key: (g.min_member, g.bound) for g in groups}
+    out = list(decisions)
+    dropped: List[str] = []
+    for gkey, keys in sorted(need.items()):
+        ok_count = sum(1 for k in keys if k in granted or k in covered_keys)
+        min_member, bound = floor_of.get(gkey, (0, 0))
+        if ok_count == len(keys) and ok_count + bound >= min_member:
+            continue
+        had_any = False
+        for k in keys:
+            i = granted.get(k)
+            if i is not None:
+                out[i] = None
+                had_any = True
+        if had_any:
+            dropped.append(gkey)
+    return out, dropped

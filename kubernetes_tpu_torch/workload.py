@@ -11,7 +11,11 @@ cluster that exercises every predicate and commit path of the solver at
 a few dozen pods and nodes. `churn_replay` drives an incremental session through
 BASELINE config 5, continuous pod creates and deletes (the tick loop of
 `bench.py`'s `_churn_figure`), with pods of `synthetic_objects`'
-distribution.
+distribution. `preemption_objects` is a priority burst landing on a full
+fleet; `random_capacity_args` and `random_rebalance_args` are the
+seeded column generators of the JAX package's capacity and defrag
+parity tests, and `backlog_probes` the capacity plane's probe set of a
+backlog.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import random
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from kubernetes_tpu_torch.models.objects import (
     AWSElasticBlockStoreVolumeSource,
@@ -33,12 +39,15 @@ from kubernetes_tpu_torch.models.objects import (
     ObjectMeta,
     Pod,
     PodSpec,
+    PodStatus,
     ResourceRequirements,
     Service,
     ServiceSpec,
     Volume,
 )
+from kubernetes_tpu_torch.models.columnar import mem_to_mib_ceil, pod_resource_limits
 from kubernetes_tpu_torch.models.quantity import Quantity, parse_quantity
+from kubernetes_tpu_torch.utils.capacity import DEFAULT_SLICE_SHAPES, probe_set
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer
 
 Objects = Tuple[List[Pod], List[Node], List[Service]]
@@ -525,3 +534,241 @@ def churn_replay(
     finally:
         session.timer = saved_timer
     return records
+
+
+BOUND_PRIORITIES = (0, 10, 100, 1000)
+PREEMPTOR_PRIORITIES = (100, 1000, 10000)
+
+
+def _limits_pod(name: str, cpu: int, mem_mib: int, priority: int) -> Pod:
+    return Pod(
+        metadata=ObjectMeta(name=name, namespace="default"),
+        spec=PodSpec(
+            containers=[Container(name="c", image="app", resources=ResourceRequirements(limits={
+                "cpu": Quantity.from_milli(cpu), "memory": parse_quantity(f"{mem_mib}Mi")}))],
+            priority=priority,
+        ),
+        status=PodStatus(phase="Running"),
+    )
+
+
+def preemption_objects(n_nodes: int, n_bound: int, n_preemptors: int, seed: int = 0):
+    """(preemptors, nodes, bound) for a priority burst on a full fleet.
+
+    Nodes: `synthetic_objects`' nodes (8/16/32 cores, 16/32/64 GiB, 110
+    pods, four zones). Bound pods: `n_bound`, dealt round robin over the
+    nodes, at priorities from BOUND_PRIORITIES; each node's pods split
+    85-100% of one resource (cpu or memory, drawn per node) and 30-80%
+    of the other, in integral milli-cores and MiB; 2% are Terminating
+    or terminal. Preemptors: `n_preemptors` at priorities from
+    PREEMPTOR_PRIORITIES, asking 2-8 cores and 4-16 GiB, more than most
+    nodes have free; 10% carry a zone nodeSelector and 5% have
+    PreemptionPolicy Never."""
+    rng = random.Random(seed)
+    _, nodes, _ = synthetic_objects(0, n_nodes, seed)
+    per_node = [[] for _ in range(n_nodes)]
+    for i in range(n_bound):
+        per_node[i % n_nodes].append(i)
+    bound: List[Optional[Pod]] = [None] * n_bound
+    for j, node in enumerate(nodes):
+        ids = per_node[j]
+        if not ids:
+            continue
+        cap_cpu = node.status.capacity["cpu"].milli_value()
+        cap_mem = node.status.capacity["memory"].value() // (1024 * 1024)
+        full, part = rng.uniform(0.85, 1.0), rng.uniform(0.3, 0.8)
+        cpu_frac, mem_frac = (full, part) if rng.random() < 0.5 else (part, full)
+        weights = [rng.uniform(0.2, 1.0) for _ in ids]
+        total = sum(weights)
+        for w, i in zip(weights, ids):
+            cpu = max(1, int(cap_cpu * cpu_frac * w / total))
+            mem = max(1, int(cap_mem * mem_frac * w / total))
+            pod = _limits_pod(f"b{i}", cpu, mem, rng.choice(BOUND_PRIORITIES))
+            pod.spec.node_name = node.metadata.name
+            r = rng.random()
+            if r < 0.01:
+                pod.metadata.deletion_timestamp = "2026-01-01T00:00:00Z"
+            elif r < 0.02:
+                pod.status.phase = rng.choice(["Succeeded", "Failed"])
+            bound[i] = pod
+    preemptors = []
+    for i in range(n_preemptors):
+        pod = _limits_pod(f"q{i}", rng.choice([2000, 4000, 8000]), rng.choice([4096, 8192, 16384]),
+                          rng.choice(PREEMPTOR_PRIORITIES))
+        pod.status.phase = "Pending"
+        if rng.random() < 0.1:
+            pod.spec.node_selector = {"zone": rng.choice(ZONES)}
+        if rng.random() < 0.05:
+            pod.spec.preemption_policy = "Never"
+        preemptors.append(pod)
+    return preemptors, nodes, [p for p in bound if p is not None]
+
+
+def backlog_probes(pods: Sequence[Pod]):
+    """The capacity plane's probes for a backlog: DEFAULT_SLICE_SHAPES
+    and the p50, p90 and max of the pods' (cpu milli, mem MiB) shapes."""
+    shapes = []
+    for p in pods:
+        cpu, mem = pod_resource_limits(p)
+        shapes.append((float(cpu), float(mem_to_mib_ceil(mem))))
+    return probe_set(DEFAULT_SLICE_SHAPES, shapes)
+
+
+def random_capacity_args(seed: int):
+    """Random occupancy columns and probe shapes for the capacity report
+    (the generator of the JAX package's capacity parity tests): integral
+    milli-cpu and MiB columns, dead and overcommitted nodes, dead and
+    zero-request probes."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 300))
+    q = int(rng.integers(1, 12))
+    cpu_cap = rng.choice([0.0, 1000.0, 2000.0, 4000.0, 8000.0], n).astype(np.float32)
+    mem_cap = rng.choice([0.0, 1024.0, 4096.0, 8192.0], n).astype(np.float32)
+    pods_cap = rng.choice([0.0, 3.0, 10.0, 40.0, 110.0], n).astype(np.float32)
+    cpu_fit = np.floor(cpu_cap * rng.random(n) * 1.2).astype(np.float32)
+    mem_fit = np.floor(mem_cap * rng.random(n) * 1.2).astype(np.float32)
+    pods_used = np.floor(pods_cap * rng.random(n)).astype(np.float32)
+    over = rng.random(n) < 0.1
+    sched = rng.random(n) > 0.15
+    probe_cpu = rng.choice([0.0, 50.0, 100.0, 250.0, 500.0, 2000.0], q).astype(np.float32)
+    probe_mem = rng.choice([0.0, 16.0, 64.0, 256.0, 2048.0], q).astype(np.float32)
+    probe_min = rng.integers(1, 9, q).astype(np.int32)
+    probe_live = rng.random(q) > 0.2
+    return (
+        cpu_cap, mem_cap, pods_cap, cpu_fit, mem_fit, pods_used, over,
+        sched, probe_cpu, probe_mem, probe_min, probe_live,
+    )
+
+
+def random_rebalance_args(seed: int):
+    """`random_capacity_args(seed)` plus a movable worklist and a budget
+    for the defrag plan (the generator of the JAX package's defrag
+    parity tests): N from 1 to 300, Q from 1 to 12, sources out of range
+    (-2 to N + 1), dead and forced rows, budgets 0 to D + 3."""
+    (
+        cpu_cap, mem_cap, pods_cap, cpu_fit, mem_fit, pods_used, over,
+        sched, probe_cpu, probe_mem, probe_min, probe_live,
+    ) = random_capacity_args(seed)
+    rng = np.random.default_rng(seed + 7919)
+    n = cpu_cap.shape[0]
+    d = int(rng.integers(1, 80))
+    pod_cpu = rng.choice([0.0, 50.0, 100.0, 250.0, 600.0, 2000.0], d).astype(np.float32)
+    pod_mem = rng.choice([0.0, 16.0, 64.0, 512.0, 2048.0], d).astype(np.float32)
+    pod_node = rng.integers(-2, n + 2, d).astype(np.int32)
+    pod_live = rng.random(d) > 0.2
+    pod_force = rng.random(d) < 0.15
+    move_budget = np.int32(rng.integers(0, d + 4))
+    return (
+        cpu_cap, mem_cap, pods_cap, cpu_fit, mem_fit, pods_used, over,
+        sched, pod_cpu, pod_mem, pod_node, pod_live, pod_force,
+        probe_cpu, probe_mem, probe_min, probe_live, move_budget,
+    )
+
+
+def tied_rebalance_args(n: int, d: int, budget: int, src: Optional[Sequence[int]] = None):
+    """n identical half-full nodes and d identical forced rows (sources
+    `src`, else row i on node i mod n): every feasible node ties on the
+    best-fit key, so the lowest index must win across threads and
+    warps."""
+    ones = np.ones(n, np.float32)
+    pod_node = np.arange(d, dtype=np.int32) % n if src is None else np.asarray(src, np.int32)
+    return (ones * 4000.0, ones * 8192.0, ones * 40.0, ones * 2000.0, ones * 4096.0, ones * 10.0,
+            np.zeros(n, bool), np.ones(n, bool),
+            np.full(d, 250.0, np.float32), np.full(d, 512.0, np.float32),
+            pod_node, np.ones(d, bool), np.ones(d, bool),
+            np.asarray([300.0, 1000.0], np.float32), np.asarray([256.0, 1024.0], np.float32),
+            np.ones(2, np.int32), np.ones(2, bool), np.int32(budget))
+
+
+def with_random_probes(args, q: int, seed: int = 0):
+    """Defrag plan arguments `args` with q random probes in place of
+    theirs (a fifth of them dead)."""
+    rng = np.random.default_rng(seed)
+    probes = (rng.choice([0.0, 100.0, 250.0, 500.0, 2000.0], q).astype(np.float32),
+              rng.choice([0.0, 64.0, 256.0, 2048.0], q).astype(np.float32),
+              np.ones(q, np.int32), rng.random(q) > 0.2)
+    return tuple(args[:13]) + probes + tuple(args[17:])
+
+
+def consolidation_args():
+    """The canonical defrag case: three 500m pods spread over three
+    1000m nodes leave 500m shards a 700m probe cannot use; pairing two
+    up frees a node."""
+    ones = np.ones(4, np.float32)
+    return (
+        ones * 1000.0, ones * 1024.0, ones * 40.0,
+        np.asarray([500.0, 500.0, 500.0, 0.0], np.float32),
+        np.asarray([64.0, 64.0, 64.0, 0.0], np.float32),
+        np.asarray([1.0, 1.0, 1.0, 0.0], np.float32),
+        np.zeros(4, bool), np.ones(4, bool),
+        np.asarray([500.0] * 3 + [0.0], np.float32),
+        np.asarray([64.0] * 3 + [0.0], np.float32),
+        np.asarray([0, 1, 2, -1], np.int32),
+        np.asarray([True, True, True, False]),
+        np.zeros(4, bool),
+        np.asarray([700.0], np.float32),
+        np.asarray([256.0], np.float32),
+        np.asarray([1], np.int32),
+        np.asarray([True]),
+        np.int32(8),
+    )
+
+
+def _limits(cpu: int, mem_mib: int) -> Dict[str, Quantity]:
+    limits = {}
+    if cpu:
+        limits["cpu"] = Quantity.from_milli(cpu)
+    if mem_mib:
+        limits["memory"] = parse_quantity(f"{mem_mib}Mi")
+    return limits
+
+
+def random_preemption_problem(seed: int):
+    """(preemptors, nodes, assigned) of one small preemption fuzz case
+    (the generator of the JAX package's preemption parity tests, drawing
+    the same stream): 1-8 nodes, some not ready, in zones a and b; up to
+    24 bound pods at priorities 0-100, some Terminating or terminal;
+    1-5 preemptors, some with a zone selector or PreemptionPolicy Never."""
+    rng = random.Random(seed)
+    N = rng.randint(1, 8)
+    nodes = []
+    for j in range(N):
+        cpu = rng.choice([1000, 2000, 4000])
+        mem = rng.choice([1024, 2048, 4096])
+        pods = rng.randint(2, 8)
+        labels = {"zone": rng.choice(["a", "b"])}
+        ready = rng.random() > 0.1
+        nodes.append(Node(
+            metadata=ObjectMeta(name=f"n{j}", labels=labels),
+            status=NodeStatus(
+                capacity={"cpu": Quantity.from_milli(cpu), "memory": parse_quantity(f"{mem}Mi"),
+                          "pods": Quantity.from_int(pods)},
+                conditions=[NodeCondition(type="Ready", status="True" if ready else "False")],
+            ),
+        ))
+    assigned = []
+    for i in range(rng.randint(0, 24)):
+        limits = _limits(rng.choice([0, 100, 300, 500, 900]), rng.choice([0, 64, 256, 512]))
+        p = Pod(metadata=ObjectMeta(name=f"a{i}", namespace="default"),
+                spec=PodSpec(containers=[Container(name="c", image="x",
+                                                   resources=ResourceRequirements(limits=limits))]))
+        p.spec.node_name = f"n{rng.randrange(N)}"
+        p.spec.priority = rng.choice([0, 0, 5, 10, 50, 100])
+        if rng.random() < 0.1:
+            p.metadata.deletion_timestamp = "2026-01-01T00:00:00Z"
+        if rng.random() < 0.1:
+            p.status.phase = rng.choice(["Succeeded", "Failed"])
+        assigned.append(p)
+    preemptors = []
+    for i in range(rng.randint(1, 5)):
+        limits = _limits(rng.choice([200, 600, 1200, 2500]), rng.choice([128, 512, 1024]))
+        selector = {"zone": rng.choice(["a", "b"])} if rng.random() < 0.3 else {}
+        p = Pod(metadata=ObjectMeta(name=f"p{i}", namespace="default"),
+                spec=PodSpec(containers=[Container(name="c", image="x",
+                                                   resources=ResourceRequirements(limits=limits))],
+                             node_selector=selector))
+        p.spec.priority = rng.choice([0, 20, 60, 200])
+        if rng.random() < 0.15:
+            p.spec.preemption_policy = "Never"
+        preemptors.append(p)
+    return preemptors, nodes, assigned

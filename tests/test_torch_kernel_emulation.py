@@ -1,24 +1,26 @@
 """The CUDA kernels' sources, run on the CPU, equal their plain versions.
 
-There is no CUDA compiler here, so `csrc/scan_kernel.cu` and
-`csrc/policy_scan_kernel.cu` are compiled as they stand with the host
-C++ compiler, against small headers that stand in for the CUDA ones: a
+There is no CUDA compiler here, so `csrc/scan_kernel.cu`,
+`csrc/policy_scan_kernel.cu` and `csrc/rebalance_kernel.cu` are
+compiled as they stand with the host C++ compiler, against small headers that stand in for the CUDA ones: a
 launch (`cudaLaunchKernelEx` with a cluster attribute) runs every
 thread of every CTA of the cluster as a std::thread; `__syncthreads` is
 a barrier per CTA and the cluster barrier one over the whole cluster
 (barriers whose waiters yield, since the threads outnumber the cores);
 each CTA has its own dynamic shared-memory arena, and `map_shared_rank`
-points into another CTA's; warp reductions go through a barrier per
-warp; atomics are std::atomic_ref; the asynchronous copies of
+points into another CTA's; warp votes and reductions (max, min, add)
+go through a barrier per warp; atomics are std::atomic_ref; the asynchronous copies of
 `csrc/scan_async.cuh` are plain copies; the `_rn` float intrinsics are
 plain IEEE operations (with FMA contraction off, as nvcc's -fmad=false).
 The wrappers' own argument handling (`scan_kernel._call`,
-`policy_scan._call`) drives the emulated launchers with CPU tensors, and
+`policy_scan._call`, `rebalance._call`) drives the emulated launchers with CPU tensors, and
 the decisions and carry (for the policy kernel the service carry too)
 must equal the plain loop's bit for bit.
 
 This checks each kernel's slicing, selection across CTAs, commit and
-count bookkeeping on clusters of 1, 2, 4 and 8 CTAs, and for the policy
+count bookkeeping on clusters of 1, 2, 4 and 8 CTAs; for the defrag
+plan kernel its winner slots, the source's carry and the commits by
+each node's owner on one block; and for the policy
 kernel the replicated service carry, the zone sums exchanged between
 CTAs, and slices read in place from device memory. Its barriers are
 sequentially consistent, so it cannot show a missing fence or a stale
@@ -30,13 +32,15 @@ import ctypes
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
 from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.models.columnar import build_snapshot
 from kubernetes_tpu_torch.models.algspec import spec_from_policy
-from kubernetes_tpu_torch.ops import build, policy_scan, scan_kernel
+from kubernetes_tpu_torch.ops import build, policy_scan, rebalance, scan_kernel
+from kubernetes_tpu_torch.ops.capacity import stage
 from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, POLICY_CARRY_KEYS, device_snapshot
 
 CUDA_RUNTIME_H = r"""
@@ -138,6 +142,28 @@ template <class T> T __reduce_max_sync(unsigned, T v) {
   warp.arrive_and_wait();
   T r = v;
   for (int l = t & ~31; l < (t & ~31) + 32; ++l) r = std::max(r, (T)b.lanes[l]);
+  warp.arrive_and_wait();
+  return r;
+}
+template <class T> T __reduce_min_sync(unsigned, T v) {
+  EmuBlock& b = emu_block();
+  const int t = threadIdx.x;
+  EmuBarrier& warp = *b.warps[t / 32];
+  b.lanes[t] = (long long)v;
+  warp.arrive_and_wait();
+  T r = v;
+  for (int l = t & ~31; l < (t & ~31) + 32; ++l) r = std::min(r, (T)b.lanes[l]);
+  warp.arrive_and_wait();
+  return r;
+}
+template <class T> T __reduce_add_sync(unsigned, T v) {
+  EmuBlock& b = emu_block();
+  const int t = threadIdx.x;
+  EmuBarrier& warp = *b.warps[t / 32];
+  b.lanes[t] = (long long)v;
+  warp.arrive_and_wait();
+  T r = 0;
+  for (int l = t & ~31; l < (t & ~31) + 32; ++l) r += (T)b.lanes[l];
   warp.arrive_and_wait();
   return r;
 }
@@ -710,3 +736,103 @@ def test_emulated_policy_past_eight_instances_and_labels(emulated_policy, n_aa, 
 def test_emulated_policy_layout_equals_the_plan(emulated_policy, widths):
     """The kernel's shared-memory layout and the Python plan agree."""
     assert emulated_policy.ktt_policy_smem_bytes(*widths) == policy_scan.smem_bytes(*widths)
+
+
+# ---------------------------------------------------------------------------
+# The defrag plan kernel (K2): one block.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def emulated_rebalance(tmp_path_factory):
+    """The defrag plan kernel's source compiled against the emulation
+    headers."""
+    handle = _compile_emulated(tmp_path_factory, "rebalance_kernel")
+    rebalance._bind(handle)
+    return handle
+
+
+def _check_plan(lib, args, threads=None, resident=None):
+    """The emulated kernel, through the wrapper's own argument handling,
+    against the plain loop: every output bit for bit. Returns the plan
+    and the plain outputs."""
+    tensors = stage(args[:-1], rebalance._DTYPES, torch.device("cpu"))
+    plan = rebalance.launch_plan(tensors[0].shape[0], tensors[13].shape[0], threads, resident)
+    got = rebalance._call(lib, tensors, int(args[-1]), None, plan)
+    ref = rebalance.plan_moves_plain(*tensors, args[-1])
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == r.dtype and g.shape == r.shape, f"output {i}"
+        assert torch.equal(g, r), f"output {i} differs"
+    return plan, ref
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("seed", range(8))
+def test_emulated_rebalance_64_threads(emulated_rebalance, seed, resident):
+    """Seeded worklists on two warps: N from 1 to 300 (several nodes a
+    thread), sources out of range, dead and forced rows, budgets from 0
+    to D + 3; the carry in shared memory or in the device scratch."""
+    plan, _ = _check_plan(emulated_rebalance, workload.random_rebalance_args(seed), 64, resident)
+    assert plan.resident == resident
+
+
+@pytest.mark.parametrize("seed", range(8, 12))
+def test_emulated_rebalance_full_block(emulated_rebalance, seed):
+    """The wrapper's own plan: one thread a node, up to ten warps."""
+    args = workload.random_rebalance_args(seed)
+    plan, _ = _check_plan(emulated_rebalance, args)
+    assert plan.threads == min(1024, max(32, -(-args[0].shape[0] // 32) * 32))
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("threads", [32, 64, 128])
+def test_emulated_rebalance_ties_across_warps(emulated_rebalance, threads, resident):
+    """200 identical nodes, forced rows: every feasible node ties, and
+    the winner (the lowest index) moves as the carry fills."""
+    _, ref = _check_plan(emulated_rebalance, workload.tied_rebalance_args(200, 40, 40), threads, resident)
+    dest = ref[0].numpy()
+    assert int(ref[3]) == 40 and dest[0] == 1 and len(set(dest.tolist())) > 1
+
+
+@pytest.mark.parametrize("case", ["no_rows", "one_node", "budget_zero", "invalid_src",
+                                  "consolidation", "many_probes", "probes_26000"])
+def test_emulated_rebalance_edges(emulated_rebalance, case):
+    """D = 0 (only the scores), N = 1 (no destination but the source),
+    budget 0, sources of -2, -1, N and N + 5, the consolidation case,
+    70 probes (three per lane in the gain), and 26,000 probes (no
+    shared memory holds them; the kernel never stages them there)."""
+    if case == "probes_26000":
+        args = workload.with_random_probes(workload.tied_rebalance_args(10, 6, 6), 26000)
+        plan, _ = _check_plan(emulated_rebalance, args, 32)
+        assert plan.resident and plan.smem_bytes == rebalance.smem_bytes(10, True)
+        return
+    if case == "many_probes":
+        args = workload.with_random_probes(workload.random_rebalance_args(4), 70)
+    elif case == "no_rows":
+        args = list(workload.random_rebalance_args(2))
+        for k in range(8, 13):
+            args[k] = args[k][:0]
+        args = tuple(args)
+    elif case == "one_node":
+        args = workload.tied_rebalance_args(1, 5, 5, src=[0, -1, 0, 1, 0])
+    elif case == "budget_zero":
+        args = workload.tied_rebalance_args(50, 10, 0)
+    elif case == "invalid_src":
+        args = workload.tied_rebalance_args(60, 8, 8, src=[-2, -1, 60, 65, 3, 59, 60, -1])
+    else:
+        args = workload.consolidation_args()
+    for resident in (True, False):
+        _, ref = _check_plan(emulated_rebalance, args, 32, resident)
+    if case == "one_node":
+        assert int(ref[3]) == 2  # the rows without a valid source move to node 0
+    if case == "budget_zero":
+        assert int(ref[3]) == 0 and not bool(ref[1].any())
+
+
+@pytest.mark.parametrize("widths", [(5000, 1), (5000, 0), (1, 1), (19000, 0), (19000, 1),
+                                    (300, 1)])
+def test_emulated_rebalance_layout_equals_the_plan(emulated_rebalance, widths):
+    """The kernel's shared-memory layout and the Python plan agree."""
+    N, resident = widths
+    assert emulated_rebalance.ktt_rebalance_smem_bytes(N, resident) == \
+        rebalance.smem_bytes(N, bool(resident))

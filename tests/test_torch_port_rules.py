@@ -105,7 +105,58 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/ops/wave.py",
         "kubernetes_tpu_torch/ops/sinkhorn.py",
         "kubernetes_tpu_torch/ops/oracle.py",
+        "kubernetes_tpu_torch/ops/preemption.py",
+        "kubernetes_tpu_torch/ops/capacity.py",
+        "kubernetes_tpu_torch/ops/rebalance.py",
+        "kubernetes_tpu_torch/utils/capacity.py",
+        "kubernetes_tpu_torch/utils/rebalance.py",
     } <= names
+
+
+def test_preemption_capacity_and_rebalance_entry_points_raise_without_cuda(no_cuda):
+    from kubernetes_tpu_torch.ops.capacity import capacity_report
+    from kubernetes_tpu_torch.ops.preemption import build_preemption_problem, solve_preemption
+    from kubernetes_tpu_torch.ops.rebalance import plan_moves
+    from kubernetes_tpu_torch.scheduler.batch import preempt_backlog
+    from kubernetes_tpu_torch.utils.rebalance import build_plan, fragment_score
+
+    preemptors, nodes, assigned = workload.preemption_objects(4, 20, 3, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preempt_backlog(preemptors, nodes, assigned)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_preemption(build_preemption_problem(nodes, assigned), preemptors)
+    args = workload.random_rebalance_args(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plan_moves(*args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        capacity_report(*args[:8], *args[13:17])
+    cols = dict(zip(("cpu_cap", "mem_cap", "pods_cap", "cpu_fit", "mem_fit", "pods_used",
+                     "over", "sched"), args[:8]))
+    probes = [("q", 500.0, 256.0, 1)]
+    names = [f"n{j}" for j in range(len(args[0]))]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_plan(cols, names, assigned, probes)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fragment_score(cols, probes)
+
+
+def test_rebalance_wrapper_routes_cpu_tensors_to_the_plain_version(monkeypatch):
+    from kubernetes_tpu_torch.ops import rebalance
+
+    def no_launch(*args, **kwargs):
+        raise AssertionError("the CUDA launch path was taken for CPU tensors")
+
+    monkeypatch.setattr(rebalance, "_launch", no_launch)
+    before = rebalance.plan_moves.launches
+    out = rebalance.plan_moves(*workload.random_rebalance_args(2), device="cpu")
+    assert out[0].device.type == "cpu" and rebalance.plan_moves.launches == before
+
+
+def test_rebalance_wrapper_rejects_other_devices():
+    from kubernetes_tpu_torch.ops import rebalance
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        rebalance.plan_moves(*workload.random_rebalance_args(2), device="meta")
 
 
 def test_windowed_entry_points_raise_without_cuda(no_cuda):
@@ -265,7 +316,7 @@ def test_build_keys_libraries_by_source_hash(tmp_path, monkeypatch):
 
 
 def test_build_names_every_kernel_source():
-    assert build.kernel_names() == ["policy_scan_kernel", "scan_kernel"]
+    assert build.kernel_names() == ["policy_scan_kernel", "rebalance_kernel", "scan_kernel"]
 
 
 def test_each_kernel_is_keyed_by_its_own_source(tmp_path, monkeypatch):
