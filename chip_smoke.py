@@ -128,21 +128,32 @@ exits non-zero and prints no result. Phases, one JSON line each:
               (its kernels and the card's busy share);
   5l. rebalance_parity
               the defrag plan kernel (K2) held to its plain version on
-              the card, exactly, resident and in place: 16 seeded
-              worklists (N 1-300, Q 1-12, sources out of range, dead and
-              forced rows, budgets 0 to D + 3), the consolidation case,
-              no rows, ties across every warp at 300 and 5,000 nodes,
-              and 70 probes (the gain's lanes loop);
+              the card, exactly, on clusters of 1, 2, 4, 8 and 16 CTAs
+              (every size its plan chooses), at the default K and at
+              K = 1, resident and in place: 16 seeded worklists (N 1-300,
+              Q 1-12, sources out of range, dead and forced rows, budgets
+              0 to D + 3), the consolidation case, no rows, ties across
+              every warp at 300 and 5,000 nodes, and 70 probes (the
+              gain's lanes loop);
   5m. rebalance
-              utils.rebalance.build_plan on the main path's placement,
-              all 50,000 pods movable: budget 32 (the descheduler's),
-              budget D, and 50 forced (cordoned) nodes at budget D. Per
-              case the wall and its phases (stage, plan, group), K2's ms
-              by CUDA events and its us a row, and every output of K2
-              equal to the port's NumPy twin on the whole worklist, the
-              plan equal to the plan of the twin's rows; K2 held to its
-              plain version on the card on the first 2,048 rows of budget
-              D (the plain loop is a launch sequence a row);
+              utils.rebalance.build_plan on five worklists: the main
+              path's placement, all 50,000 pods movable, at budget 32
+              (the descheduler's), at budget D, with 50 forced
+              (cordoned) nodes and with every node forced (every row
+              commits: the dense case), all at budget D but the first;
+              and a full fleet (preemption_objects(5000, 50000, 0,
+              seed=2), 48,998 movable pods) at budget D. Per case the
+              wall and its phases (stage, plan, group), K2's ms by CUDA
+              events and its us a row, its commits, windows, rows
+              screened and the screen/resolve split of its cycles (the
+              kernel's stats), and every output of K2 equal to the
+              port's NumPy twin on the whole worklist, the plan equal to
+              the plan of the twin's rows; K2 held to its plain version
+              on the card on the first 2,048 rows of budget D (the plain
+              loop is a launch sequence a row); K2 on budget D, 50
+              forced nodes and the full fleet on clusters of 4, 8 and 16
+              CTAs, K from 1 to 32 and windows of up to 2,048 rows, each
+              equal to the default plan's outputs;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -161,8 +172,9 @@ exits non-zero and prints no result. Phases, one JSON line each:
               carry, service affinity and anti-affinity one at a time;
               for the defrag plan kernel (K2) its time, the plain
               version's and the bound on the same first 2,048 rows of
-              budget D, beside its time and bound on the whole worklist,
-              and its launches counted over each of the phases 5j-5m.
+              budget D, beside its time and bound on each of phase 5m's
+              worklists, and its launches counted over each of the
+              phases 5j-5m.
 
 Every phase line carries the script's seconds so far (`elapsed_s`).
 Then the card's name and power limit, and last the result line
@@ -387,6 +399,8 @@ def main() -> int:
             "worklist_ms": rebalance_line["k2"]["worklist_ms"],
             "worklist_bound_ms": rebalance_line["k2"]["worklist"]["bound_ms"],
             "us_per_row": rebalance_line["k2"]["us_per_row"],
+            "worklists": rebalance_line["k2"]["worklists"],
+            "plan": rebalance_line["k2"]["plan"],
         },
     ]
     emit("kernel_timing", ok=True, card=smi, **timing, policy_sweep=policy_sweep)
@@ -2000,6 +2014,10 @@ PREEMPT_SMALL = 16  # seeded small problems held to the scalar rule
 PREEMPT_MEDIUM = (200, 2000, 32)  # nodes, bound pods, preemptors held to the scalar rule
 CAPACITY_REPEATS = 5
 REBALANCE_FORCED_NODES = 50
+REBALANCE_CLUSTERS = (1, 2, 4, 8, 16)  # every cluster size K2's plan can choose
+# (cluster, K, largest window; None: the plan's one row a warp)
+REBALANCE_SWEEP = ((16, 1, None), (16, 4, None), (16, 16, None), (16, 32, None), (8, 8, None),
+                   (4, 8, None), (16, 8, 2048))
 REBALANCE_PLAIN_ROWS = 2048  # rows of case 2 held to the plain version on the card
 REBALANCE_REPEATS = 3
 # 32-bit operations a node of an evaluated row, from K2's arithmetic:
@@ -2178,27 +2196,31 @@ def run_capacity(torch, device, placed_names, session):
     return out
 
 
-def _k2_vs_plain(torch, device, tag, args, plan=None):
-    """K2 against its plain version on the card, on the same staged
-    tensors: every output bit for bit. Returns the max abs error (0)."""
+def _k2_vs_plain(torch, device, tag, args, plans=(None,)):
+    """K2 at each of `plans` (None: the default plan) against its plain
+    version on the card, on the same staged tensors: every output bit
+    for bit. Returns the max abs error (0) and the plain outputs."""
     from kubernetes_tpu_torch.ops import rebalance
     from kubernetes_tpu_torch.ops.capacity import stage
 
     tensors = stage(args[:-1], rebalance._DTYPES, device)
-    got = rebalance._launch(tensors, int(args[-1]), plan)
     ref = rebalance.plan_moves_plain(*tensors, args[-1])
-    torch.cuda.synchronize()
     err = 0.0
-    for i, (g, r) in enumerate(zip(got, ref)):
-        if g.dtype != r.dtype or g.shape != r.shape or not torch.equal(g, r):
-            fail("rebalance_parity", f"{tag}: output {i} differs from the plain version")
-        if g.numel():
-            err = max(err, float((g.double() - r.double()).abs().max()))
+    for plan in plans:
+        got = rebalance._launch(tensors, int(args[-1]), plan)
+        torch.cuda.synchronize()
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if g.dtype != r.dtype or g.shape != r.shape or not torch.equal(g, r):
+                fail("rebalance_parity", f"{tag}, {plan}: output {i} differs from the plain version")
+            if g.numel():
+                err = max(err, float((g.double() - r.double()).abs().max()))
     return err, ref
 
 
 def check_rebalance_parity(torch, device):
-    """K2 held to its plain version on the card on both residencies."""
+    """K2 held to its plain version on the card: every case at every
+    cluster size the plan can choose (1, 2, 4, 8 and 16 CTAs), at the
+    default K and at K = 1, resident and in place."""
     import numpy as np
 
     from kubernetes_tpu_torch import workload
@@ -2216,16 +2238,17 @@ def check_rebalance_parity(torch, device):
     err, checked, moves = 0.0, 0, 0
     rebalance.plan_moves.launches = 0
     for tag, args in cases:
-        N, Q = int(np.asarray(args[0]).shape[0]), int(np.asarray(args[13]).shape[0])
-        for resident in (True, False):
-            e, ref = _k2_vs_plain(torch, device, f"{tag}, resident={resident}", args,
-                                  rebalance.launch_plan(N, Q, resident=resident))
-            err = max(err, e)
-            checked += 1
+        N, D, Q = (int(np.asarray(args[i]).shape[0]) for i in (0, 8, 13))
+        plans = [rebalance.launch_plan(N, D, Q, cluster=c, k=k, resident=resident)
+                 for c in REBALANCE_CLUSTERS for k in (None, 1) for resident in (True, False)]
+        e, ref = _k2_vs_plain(torch, device, tag, args, plans)
+        err = max(err, e)
+        checked += len(plans)
         moves += int(ref[3])
     if moves == 0:
         fail("rebalance_parity", "no case committed a move")
     return {"cases": len(cases), "kernel_runs": checked, "launches": rebalance.plan_moves.launches,
+            "clusters": list(REBALANCE_CLUSTERS), "k": [rebalance.DEFAULT_K, 1],
             "moves": moves, "max_abs_err": err,
             "tolerance": "exact (torch.equal on dest, moved, gain, n_moves and both scores)"}
 
@@ -2258,7 +2281,10 @@ def _evaluated_rows(pod_live, moved, n_moves, budget):
     return int(pod_live.sum())
 
 
-def _k2_ms(torch, tensors, budget, reps=REBALANCE_REPEATS):
+def _k2_ms(torch, tensors, budget, reps=REBALANCE_REPEATS, plan=None):
+    """Median CUDA-event milliseconds of `reps` K2 launches after a
+    warm-up, all the times, and the last launch's stats (read here, off
+    the timed launches)."""
     from kubernetes_tpu_torch.ops import rebalance
 
     times = []
@@ -2266,55 +2292,87 @@ def _k2_ms(torch, tensors, budget, reps=REBALANCE_REPEATS):
         torch.cuda.synchronize()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
-        rebalance._launch(tensors, budget)
+        rebalance._launch(tensors, budget, plan)
         ev1.record()
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1))
-    return statistics.median(times[1:]), times[1:]
+    return statistics.median(times[1:]), times[1:], _k2_stats(rebalance.plan_moves.last_stats)
 
 
-def run_rebalance(torch, device, placed_names):
-    """build_plan on the main path's placement, all 50,000 pods movable,
-    in three cases, each held to the NumPy twin; K2 timed by CUDA events
-    and held to its plain version on the first rows of case 2."""
-    import numpy as np
-
-    from kubernetes_tpu_torch import workload
+def _k2_stats(stats):
+    """K2's stats tensor as a dict, with the screen's and the resolve's
+    shares of CTA 0's cycles."""
     from kubernetes_tpu_torch.ops import rebalance
-    from kubernetes_tpu_torch.ops.capacity import stage
-    from kubernetes_tpu_torch.ops.oracle import plan_moves_numpy
-    from kubernetes_tpu_torch.utils.capacity import COLUMN_KEYS, cluster_columns, probe_arrays
-    from kubernetes_tpu_torch.utils.rebalance import (
-        DEFAULT_MOVE_BUDGET, build_plan, group_plan, stage_rows)
-    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    out = dict(zip(rebalance.STATS, (int(v) for v in stats.cpu().tolist())))
+    total = max(out["total_cycles"], 1)
+    out["screen_share"] = out["screen_cycles"] / total
+    out["resolve_share"] = out["resolve_cycles"] / total
+    return out
+
+
+def _rebalance_cases(placed_names):
+    """The defrag plan's five worklists, as (tag, columns, node names,
+    pods, probes, budget, forced nodes): the main path's placement, all
+    50,000 pods movable, at budget 32 (the descheduler's), at budget D,
+    with 50 forced (cordoned) nodes, and with every node forced (every
+    row commits: the dense case); and a full fleet
+    (preemption_objects(5000, 50000, 0, seed=2)) at budget D. The probes
+    are the 50k backlog's."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.utils.capacity import cluster_columns
+    from kubernetes_tpu_torch.utils.rebalance import DEFAULT_MOVE_BUDGET, movable_pods
 
     nodes, _services, assigned = _churn_cluster(placed_names)
     cols, names = cluster_columns(nodes, assigned)
     pending, _, _ = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
     probes = workload.backlog_probes(pending)
-    probe = probe_arrays(probes)
     D = len(assigned)
     forced = names[:: len(names) // REBALANCE_FORCED_NODES][:REBALANCE_FORCED_NODES]
-    cases = (("default_budget", DEFAULT_MOVE_BUDGET, ()), ("budget_d", D, ()),
-             ("forced", D, tuple(forced)))
-    out = {"cell": f"{len(nodes)} nodes, {D} movable pods, {len(probes)} probes",
-           "probes": [list(p) for p in probes]}
-    launches = {}
-    for tag, budget, forced_nodes in cases:
+    _, fleet_nodes, bound = workload.preemption_objects(N_NODES, N_PODS, 0, seed=2)
+    fleet_cols, fleet_names = cluster_columns(fleet_nodes, bound)
+    main = (cols, names, assigned, probes)
+    return (("default_budget", *main, DEFAULT_MOVE_BUDGET, ()), ("budget_d", *main, D, ()),
+            ("forced", *main, D, tuple(forced)), ("forced_all", *main, D, tuple(names)),
+            ("full_fleet", fleet_cols, fleet_names, bound, probes, len(movable_pods(bound)), ()))
+
+
+def run_rebalance(torch, device, placed_names):
+    """build_plan on five worklists (the main path's placement at budget
+    32, at budget D, with 50 and with every node forced; a full fleet),
+    each held in full to the NumPy twin; K2 timed by CUDA events with its
+    commits, windows, rows screened and screen/resolve split, and held to
+    its plain version on the first rows of budget D; K2 swept over the
+    cluster size, K and the largest window."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import rebalance
+    from kubernetes_tpu_torch.ops.capacity import stage
+    from kubernetes_tpu_torch.ops.oracle import plan_moves_numpy
+    from kubernetes_tpu_torch.utils.capacity import COLUMN_KEYS, probe_arrays
+    from kubernetes_tpu_torch.utils.rebalance import build_plan, group_plan, stage_rows
+    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    cases = _rebalance_cases(placed_names)
+    out = {"cell": f"{N_NODES} nodes, {N_PODS} movable pods (main path's placement) or "
+                   f"{len(cases[-1][3])} (full fleet), {len(cases[0][4])} probes",
+           "probes": [list(p) for p in cases[0][4]]}
+    launches, staged = {}, {}
+    for tag, cols, names, pods, probes, budget, forced_nodes in cases:
         timer = PhaseTimer()
         rebalance.plan_moves.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plan = build_plan(cols, names, assigned, probes, budget, forced_nodes, device=device,
+        plan = build_plan(cols, names, pods, probes, budget, forced_nodes, device=device,
                           timer=timer)
         wall = time.perf_counter() - t0
         launches[tag] = rebalance.plan_moves.launches
         if launches[tag] != 1:
             fail("rebalance", f"{tag}: build_plan launched K2 {launches[tag]} times, not once")
 
-        rows, *row_arrays = stage_rows(cols, names, assigned, forced_nodes)
-        args = tuple(cols[k] for k in COLUMN_KEYS) + tuple(row_arrays) + tuple(probe) + (
-            np.int32(budget),)
+        rows, *row_arrays = stage_rows(cols, names, pods, forced_nodes)
+        args = tuple(cols[k] for k in COLUMN_KEYS) + tuple(row_arrays) + tuple(
+            probe_arrays(probes)) + (np.int32(budget),)
         tensors = stage(args[:-1], rebalance._DTYPES, device)
         k2 = [t.cpu().numpy() for t in rebalance._launch(tensors, budget)]
         t0 = time.perf_counter()
@@ -2326,21 +2384,22 @@ def run_rebalance(torch, device, placed_names):
                 fail("rebalance", f"{tag}: K2's output {i} differs from the NumPy twin")
         if plan != group_plan(rows, names, row_arrays[4], *twin[:3], budget, twin[4], twin[5]):
             fail("rebalance", f"{tag}: the plan differs from the plan of the twin's rows")
-        ms, ms_all = _k2_ms(torch, tensors, budget)
+        ms, ms_all, stats = _k2_ms(torch, tensors, budget)
         evaluated = _evaluated_rows(row_arrays[3], k2[1], k2[3], budget)
         out[tag] = {
-            "budget": budget, "forced_nodes": len(forced_nodes), "wall_s": wall,
-            "phases_s": dict(timer.seconds), "k2_ms": ms, "k2_ms_all": ms_all,
-            "evaluated_rows": evaluated,
-            "us_per_row": ms * 1e3 / max(evaluated, 1),
-            "n_moves": int(k2[3]), "planned_moves": len(plan["moves"]),
+            "budget": budget, "forced_nodes": len(forced_nodes), "rows": len(rows),
+            "wall_s": wall, "phases_s": dict(timer.seconds), "k2_ms": ms, "k2_ms_all": ms_all,
+            "evaluated_rows": evaluated, "us_per_row": ms * 1e3 / max(evaluated, 1),
+            "n_moves": int(k2[3]), "planned_moves": len(plan["moves"]) if plan else 0,
+            "stats": stats, "bound": k2_bound(args, evaluated),
             "score_before": float(twin[4]), "score_after": float(twin[5]),
             "twin_s": twin_s, "equal_to_twin": True,
         }
-        if tag == "budget_d":
-            full_args, full_tensors = args, tensors
-    if out["forced"]["n_moves"] == 0 or any(out[t]["n_moves"] > b for t, b, _ in cases):
-        fail("rebalance", "the forced drain moved nothing, or a case moved past its budget")
+        staged[tag] = (args, tensors)
+    if (out["forced"]["n_moves"] == 0 or out["forced_all"]["n_moves"] == 0
+            or any(out[c[0]]["n_moves"] > c[5] for c in cases)):
+        fail("rebalance", "a forced drain moved nothing, or a case moved past its budget")
+    full_args, full_tensors = staged["budget_d"]
 
     # K2 against its plain version on the card, the first rows of case 2:
     # both timed, and bounded, on those rows.
@@ -2351,46 +2410,57 @@ def run_rebalance(torch, device, placed_names):
     t0 = time.perf_counter()
     rebalance.plan_moves_plain(*pt, prefix[-1])[-1].item()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    ms_prefix, _ = _k2_ms(torch, pt, int(prefix[-1]))
+    ms_prefix, _, _ = _k2_ms(torch, pt, int(prefix[-1]))
     bound = k2_bound(prefix, _evaluated_rows(prefix[11], ref[1].cpu().numpy(), ref[3], int(prefix[-1])))
-    lp = rebalance.launch_plan(len(full_args[0]), len(full_args[13]))
+    lp = rebalance.launch_plan(len(full_args[0]), len(full_args[8]), len(full_args[13]))
 
-    # Where a row's time goes: the same rows against the first n nodes
-    # (sources past n read as none), and other thread counts and the
-    # carry in place at 5,000 nodes, each run's outputs equal to the
-    # default plan's.
+    # Where a row's time goes: budget D's rows against the first n nodes
+    # (sources past n read as none); and the cluster size, K and the
+    # largest window swept on budget D, 50 forced nodes and the full
+    # fleet, each run's outputs equal to the default plan's.
     rows_d = out["budget_d"]["evaluated_rows"]
     by_nodes = {}
     for n in (256, 1024, 2048):
         cut = tuple(a[:n] if k < 8 else a for k, a in enumerate(full_args))
-        t, _ = _k2_ms(torch, stage(cut[:-1], rebalance._DTYPES, device), int(cut[-1]), 1)
+        t, _, _ = _k2_ms(torch, stage(cut[:-1], rebalance._DTYPES, device), int(cut[-1]), 1)
         by_nodes[n] = t * 1e3 / rows_d
     by_nodes[len(full_args[0])] = out["budget_d"]["us_per_row"]
-    want = [t.cpu() for t in rebalance._launch(full_tensors, int(full_args[-1]))]
     sweep = []
-    for threads, resident in ((256, True), (512, True), (1024, False)):
-        cfg = rebalance.launch_plan(len(full_args[0]), len(full_args[13]), threads, resident)
-        got = [t.cpu() for t in rebalance._launch(full_tensors, int(full_args[-1]), cfg)]
-        if any(not torch.equal(g, w) for g, w in zip(got, want)):
-            fail("rebalance", f"K2 at {threads} threads, resident={resident} differs")
-        torch.cuda.synchronize()
-        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        rebalance._launch(full_tensors, int(full_args[-1]), cfg)
-        ev1.record()
-        torch.cuda.synchronize()
-        sweep.append({"threads": threads, "resident": resident,
-                      "us_per_row": ev0.elapsed_time(ev1) * 1e3 / rows_d})
+    for tag in ("budget_d", "forced", "full_fleet"):
+        args, tensors = staged[tag]
+        want = [t.cpu() for t in rebalance._launch(tensors, int(args[-1]))]
+        for cluster, k, max_rows in REBALANCE_SWEEP:
+            cfg = rebalance.launch_plan(len(args[0]), len(args[8]), len(args[13]), cluster=cluster,
+                                        k=k, max_rows=max_rows)
+            got = [t.cpu() for t in rebalance._launch(tensors, int(args[-1]), cfg)]
+            if any(not torch.equal(g, w) for g, w in zip(got, want)):
+                fail("rebalance", f"{tag}: K2 on {cluster} CTAs at K = {k}, windows to "
+                                  f"{cfg.max_rows} differs")
+            ms, _, stats = _k2_ms(torch, tensors, int(args[-1]), 1, cfg)
+            sweep.append({"worklist": tag, "cluster": cluster, "k": k, "max_rows": cfg.max_rows,
+                          "ms": ms, "us_per_row": ms * 1e3 / out[tag]["evaluated_rows"],
+                          "stats": stats})
     out["k2"] = {
-        "plan": {"threads": lp.threads, "resident": lp.resident, "smem_bytes": lp.smem_bytes},
+        "plan": {"cluster": lp.cluster, "threads": lp.threads, "k": lp.k,
+                 "first_rows": lp.first_rows, "max_rows": lp.max_rows, "resident": lp.resident,
+                 "smem_bytes": lp.smem_bytes, "scratch_bytes": lp.scratch_bytes},
         "rows": REBALANCE_PLAIN_ROWS, "ms": ms_prefix, "plain_ms": plain_ms, "max_abs_err": err,
         **bound,
         "worklist_ms": out["budget_d"]["k2_ms"], "us_per_row": out["budget_d"]["us_per_row"],
-        "worklist": k2_bound(full_args, out["budget_d"]["evaluated_rows"]),
+        "worklist": out["budget_d"]["bound"],
+        "worklists": {c[0]: {"ms": out[c[0]]["k2_ms"], "us_per_row": out[c[0]]["us_per_row"],
+                             "bound_ms": out[c[0]]["bound"]["bound_ms"],
+                             "commits": out[c[0]]["n_moves"],
+                             "windows": out[c[0]]["stats"]["windows"],
+                             "rows_screened": out[c[0]]["stats"]["rows_screened"],
+                             "screen_share": out[c[0]]["stats"]["screen_share"],
+                             "resolve_share": out[c[0]]["stats"]["resolve_share"]}
+                      for c in cases},
         "us_per_row_by_nodes": by_nodes, "sweep": sweep,
         "timed": "ms: CUDA events around the wrapper's launch on the first `rows` rows of case "
                  "budget_d; plain_ms: host clock around the plain loop on the same rows, ending in "
-                 "a read; worklist_ms: CUDA events around the launch on the whole worklist",
+                 "a read; worklist_ms and worklists: CUDA events around the launch on each whole "
+                 "worklist; shares: of CTA 0's clock64 cycles (kernel stats)",
     }
     out["launches"] = launches
     return out

@@ -4,7 +4,7 @@
     python3 kubernetes_tpu_torch/scan_timing.py [--root DIR] [--reps N] [--kernel scan|rebalance]
 
 Imports `kubernetes_tpu_torch` from DIR (default: the checkout that
-holds this file), builds the kernel and prints one JSON line: the median
+holds this file), builds the kernel and prints one JSON line per input: the median
 CUDA-event milliseconds of N launches after a warm-up, a checksum of the
 outputs (equal checksums: equal decisions), and the card's name and
 power limit.
@@ -13,10 +13,13 @@ power limit.
              (`synthetic_objects(50000, 5000, seed=2)`: 13,312 pods
              padded, 5,120 nodes), each launch from a fresh copy of the
              node carry;
-  rebalance  K2 on a full fleet (`preemption_objects(5000, 50000, 0,
-             seed=2)`: 5,000 nodes, 50,000 bound pods, all movable) with
-             the 50k backlog's probes, at budget D (every live row
-             evaluated).
+  rebalance  K2 on five worklists, one line each: the main path's
+             placement (the 50k x 5k backlog, seed 2, as
+             solve_backlog_pipelined places it; 50,000 movable pods) at
+             budget 32, at budget D, with 50 forced nodes and with every
+             node forced (every row forced), and a full fleet
+             (`preemption_objects(5000, 50000, 0, seed=2)`: 5,000 nodes,
+             48,998 movable pods) at budget D; the 50k backlog's probes.
 
 It uses only entry points every version of the port that has the kernel
 has, so two checkouts are compared on one card by running it in turns in
@@ -71,30 +74,69 @@ def _time_scan(torch, device, reps):
                          "times": times, "choice_checksum": checksum}
 
 
-def _time_rebalance(torch, device, reps):
+def _rebalance_worklists(torch, device):
+    """The defrag plan's worklists, as (name, plan_moves arguments) with
+    NumPy columns: the main path's placement (the 50k x 5k backlog,
+    seed 2, as solve_backlog_pipelined places it, all pods movable) at
+    budget 32, at budget D, with 50 forced (cordoned) nodes and with
+    every node forced; and a full fleet (preemption_objects(5000, 50000,
+    0, seed=2)) at budget D. The probes are the 50k backlog's."""
     import numpy as np
 
     from kubernetes_tpu_torch import workload
-    from kubernetes_tpu_torch.ops import rebalance
-    from kubernetes_tpu_torch.ops.capacity import stage
+    from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
     from kubernetes_tpu_torch.utils.capacity import COLUMN_KEYS, cluster_columns, probe_arrays
     from kubernetes_tpu_torch.utils.rebalance import stage_rows
 
-    _, nodes, bound = workload.preemption_objects(5000, 50000, 0, seed=2)
-    cols, names = cluster_columns(nodes, bound)
-    _, *row_arrays = stage_rows(cols, names, bound, ())
-    pending, _, _ = workload.synthetic_objects(50000, 5000, seed=2)
-    probe = probe_arrays(workload.backlog_probes(pending))
-    args = tuple(cols[k] for k in COLUMN_KEYS) + tuple(row_arrays) + tuple(probe)
-    tensors = stage(args, rebalance._DTYPES, device)
-    budget = len(row_arrays[0])
-    times, out = _events_ms(torch, lambda: rebalance.plan_moves(*tensors, budget, device=device), reps)
-    dest, moved, gain, n_moves, before, after = (t.cpu().numpy() for t in out)
-    checksum = int((dest.astype(np.int64) * np.arange(1, len(dest) + 1)).sum()
-                   + gain.astype(np.int64).sum())
-    return rebalance, {"rows": budget, "nodes": len(names), "probes": int(len(probe[0])),
-                       "times": times, "n_moves": int(n_moves), "moved": int(moved.sum()),
-                       "scores": [float(before), float(after)], "plan_checksum": checksum}
+    pending, nodes, services = workload.synthetic_objects(50000, 5000, seed=2)
+    probe = tuple(probe_arrays(workload.backlog_probes(pending)))
+    names = solve_backlog_pipelined(pending, nodes, services=services, device=device)
+    assigned = []
+    for pod, name in zip(pending, names):
+        if name is not None:
+            pod.spec.node_name = name
+            pod.status.phase = "Running"
+            assigned.append(pod)
+    cols, node_names = cluster_columns(nodes, assigned)
+    forced50 = node_names[:: len(node_names) // 50][:50]
+    out = []
+    for tag, budget, forced in (("main_budget_32", 32, ()), ("main_budget_d", None, ()),
+                                ("main_forced_50", None, forced50),
+                                ("main_forced_all", None, node_names)):
+        _, *rows = stage_rows(cols, node_names, assigned, forced)
+        d = len(rows[0])
+        out.append((tag, tuple(cols[k] for k in COLUMN_KEYS) + tuple(rows) + probe
+                    + (np.int32(d if budget is None else budget),)))
+    _, fleet_nodes, bound = workload.preemption_objects(5000, 50000, 0, seed=2)
+    cols, node_names = cluster_columns(fleet_nodes, bound)
+    _, *rows = stage_rows(cols, node_names, bound, ())
+    out.append(("full_fleet", tuple(cols[k] for k in COLUMN_KEYS) + tuple(rows) + probe
+                + (np.int32(len(rows[0])),)))
+    return out
+
+
+def _time_rebalance(torch, device, reps):
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import rebalance
+    from kubernetes_tpu_torch.ops.capacity import stage
+
+    results = []
+    for tag, args in _rebalance_worklists(torch, device):
+        tensors = stage(args[:-1], rebalance._DTYPES, device)
+        budget = int(args[-1])
+        times, out = _events_ms(torch, lambda: rebalance.plan_moves(*tensors, budget, device=device),
+                                reps)
+        dest, moved, gain, n_moves, before, after = (t.cpu().numpy() for t in out)
+        checksum = int((dest.astype(np.int64) * np.arange(1, len(dest) + 1)).sum()
+                       + gain.astype(np.int64).sum())
+        live = int(np.asarray(args[11]).sum())
+        results.append({"worklist": tag, "rows": len(dest), "live_rows": live,
+                        "nodes": int(len(args[0])), "probes": int(len(args[13])), "budget": budget,
+                        "times": times, "us_per_row": statistics.median(times) * 1e3 / max(live, 1),
+                        "n_moves": int(n_moves), "moved": int(moved.sum()),
+                        "scores": [float(before), float(after)], "plan_checksum": checksum})
+    return rebalance, results
 
 
 def main(argv=None) -> int:
@@ -116,15 +158,16 @@ def main(argv=None) -> int:
     if not os.path.abspath(module.__file__).startswith(root + os.sep):
         print(f"scan_timing: imported {module.__file__}, not from {root}", file=sys.stderr)
         return 3
-    times = result.pop("times")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(json.dumps({
-        "root": root, "kernel": args.kernel, "card": smi, **result,
-        "ms_median": statistics.median(times), "ms": times,
-    }), flush=True)
+    for one in result if isinstance(result, list) else [result]:
+        times = one.pop("times")
+        print(json.dumps({
+            "root": root, "kernel": args.kernel, "card": smi, **one,
+            "ms_median": statistics.median(times), "ms": times,
+        }), flush=True)
     return 0
 
 

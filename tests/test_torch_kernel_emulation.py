@@ -8,8 +8,9 @@ thread of every CTA of the cluster as a std::thread; `__syncthreads` is
 a barrier per CTA and the cluster barrier one over the whole cluster
 (barriers whose waiters yield, since the threads outnumber the cores);
 each CTA has its own dynamic shared-memory arena, and `map_shared_rank`
-points into another CTA's; warp votes and reductions (max, min, add)
-go through a barrier per warp; atomics are std::atomic_ref; the asynchronous copies of
+points into another CTA's; warp votes, shuffles and reductions (max,
+min, add) go through a barrier per warp, as does `__syncwarp`; atomics
+are std::atomic_ref; the asynchronous copies of
 `csrc/scan_async.cuh` are plain copies; the `_rn` float intrinsics are
 plain IEEE operations (with FMA contraction off, as nvcc's -fmad=false).
 The wrappers' own argument handling (`scan_kernel._call`,
@@ -19,13 +20,16 @@ must equal the plain loop's bit for bit.
 
 This checks each kernel's slicing, selection across CTAs, commit and
 count bookkeeping on clusters of 1, 2, 4 and 8 CTAs; for the defrag
-plan kernel its winner slots, the source's carry and the commits by
-each node's owner on one block; and for the policy
+plan kernel its windows on 1, 2 and 4 CTAs (the screen's lists and
+chunk merges, the records written into CTA 0 through DSMEM, the
+resolve's touched set, windows that end early and restart at K = 1
+and 2, the gains left to after the chain); and for the policy
 kernel the replicated service carry, the zone sums exchanged between
 CTAs, and slices read in place from device memory. Its barriers are
 sequentially consistent, so it cannot show a missing fence or a stale
 L1 line: the repeated runs on the card in `chip_smoke.py` look for
-those. An emulated launch runs at most 256 OS threads.
+those. An emulated launch runs at most 256 OS threads, but for the
+defrag plan kernel's default plan (1,024).
 """
 
 import ctypes
@@ -48,6 +52,7 @@ CUDA_RUNTIME_H = r"""
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <climits>
 #include <cmath>
 #include <cstddef>
@@ -134,6 +139,7 @@ inline unsigned __ballot_sync(unsigned, bool v) {
   return r;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline bool __any_sync(unsigned m, bool v) { return __ballot_sync(m, v) != 0; }
 template <class T> T __reduce_max_sync(unsigned, T v) {
   EmuBlock& b = emu_block();
   const int t = threadIdx.x;
@@ -167,6 +173,42 @@ template <class T> T __reduce_add_sync(unsigned, T v) {
   warp.arrive_and_wait();
   return r;
 }
+// A shuffle: every lane stores its value, then reads lane src(lane)'s.
+template <class T, class F> T emu_shuffle(T v, F src) {
+  static_assert(sizeof(T) <= sizeof(long long));
+  EmuBlock& b = emu_block();
+  const int t = threadIdx.x, base = t & ~31;
+  EmuBarrier& warp = *b.warps[t / 32];
+  long long bits = 0;
+  std::memcpy(&bits, &v, sizeof v);
+  b.lanes[t] = bits;
+  warp.arrive_and_wait();
+  T r;
+  bits = b.lanes[base + src(t & 31)];
+  std::memcpy(&r, &bits, sizeof r);
+  warp.arrive_and_wait();
+  return r;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  return emu_shuffle(v, [&](int l) { return (l & ~(width - 1)) + (src & (width - 1)); });
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int mask, int width = 32) {
+  return emu_shuffle(v, [&](int l) {
+    const int o = l ^ mask;
+    return (o & ~(width - 1)) == (l & ~(width - 1)) ? o : l;
+  });
+}
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
+  return emu_shuffle(v, [&](int l) { return (l & (width - 1)) >= (int)delta ? l - (int)delta : l; });
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_block().warps[threadIdx.x / 32]->arrive_and_wait();
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline long long clock64() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+      std::chrono::steady_clock::now().time_since_epoch()).count();
+}
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 inline int atomicCAS(int* p, int expected, int v) {
@@ -186,6 +228,7 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __frcp_rn(float a) { return 1.0f / a; }
 inline float __int2float_rn(int i) { return (float)i; }
 inline int __float2int_rz(float f) { return (int)f; }
 inline float __int_as_float(int i) {
@@ -739,7 +782,7 @@ def test_emulated_policy_layout_equals_the_plan(emulated_policy, widths):
 
 
 # ---------------------------------------------------------------------------
-# The defrag plan kernel (K2): one block.
+# The defrag plan kernel (K2): screen in parallel, resolve in order.
 # ---------------------------------------------------------------------------
 
 
@@ -752,44 +795,53 @@ def emulated_rebalance(tmp_path_factory):
     return handle
 
 
-def _check_plan(lib, args, threads=None, resident=None):
+def _check_plan(lib, args, **plan):
     """The emulated kernel, through the wrapper's own argument handling,
-    against the plain loop: every output bit for bit. Returns the plan
-    and the plain outputs."""
+    against the plain loop: every output bit for bit. `plan` forces
+    launch_plan's choices. Returns the plan, the plain outputs and the
+    kernel's stats."""
     tensors = stage(args[:-1], rebalance._DTYPES, torch.device("cpu"))
-    plan = rebalance.launch_plan(tensors[0].shape[0], tensors[13].shape[0], threads, resident)
-    got = rebalance._call(lib, tensors, int(args[-1]), None, plan)
+    lp = rebalance.launch_plan(tensors[0].shape[0], tensors[8].shape[0], tensors[13].shape[0],
+                               **plan)
+    got = rebalance._call(lib, tensors, int(args[-1]), None, lp)
     ref = rebalance.plan_moves_plain(*tensors, args[-1])
     for i, (g, r) in enumerate(zip(got, ref)):
         assert g.dtype == r.dtype and g.shape == r.shape, f"output {i}"
         assert torch.equal(g, r), f"output {i} differs"
-    return plan, ref
+    stats = dict(zip(rebalance.STATS, rebalance.plan_moves.last_stats.tolist()))
+    return lp, ref, stats
 
 
 @pytest.mark.parametrize("resident", [True, False])
 @pytest.mark.parametrize("seed", range(8))
 def test_emulated_rebalance_64_threads(emulated_rebalance, seed, resident):
-    """Seeded worklists on two warps: N from 1 to 300 (several nodes a
-    thread), sources out of range, dead and forced rows, budgets from 0
-    to D + 3; the carry in shared memory or in the device scratch."""
-    plan, _ = _check_plan(emulated_rebalance, workload.random_rebalance_args(seed), 64, resident)
+    """Seeded worklists on two CTAs of two warps: N from 1 to 300 (several
+    nodes a lane), sources out of range, dead and forced rows, budgets
+    from 0 to D + 3; the carry in shared memory or in the device scratch;
+    first windows of 1 to 8 rows, so that windows restart."""
+    plan, _, _ = _check_plan(emulated_rebalance, workload.random_rebalance_args(seed), cluster=2,
+                             threads=64, first_rows=1 + seed, resident=resident)
     assert plan.resident == resident
 
 
 @pytest.mark.parametrize("seed", range(8, 12))
 def test_emulated_rebalance_full_block(emulated_rebalance, seed):
-    """The wrapper's own plan: one thread a node, up to ten warps."""
+    """The wrapper's own plan: one CTA of 1,024 threads for these sizes,
+    K = 8, windows of at most 32 rows (one a warp; at most D)."""
     args = workload.random_rebalance_args(seed)
-    plan, _ = _check_plan(emulated_rebalance, args)
-    assert plan.threads == min(1024, max(32, -(-args[0].shape[0] // 32) * 32))
+    plan, _, _ = _check_plan(emulated_rebalance, args)
+    assert (plan.cluster, plan.threads, plan.k) == (1, 1024, rebalance.DEFAULT_K)
+    assert plan.first_rows == plan.max_rows == min(32, len(args[8]))
 
 
 @pytest.mark.parametrize("resident", [True, False])
 @pytest.mark.parametrize("threads", [32, 64, 128])
 def test_emulated_rebalance_ties_across_warps(emulated_rebalance, threads, resident):
     """200 identical nodes, forced rows: every feasible node ties, and
-    the winner (the lowest index) moves as the carry fills."""
-    _, ref = _check_plan(emulated_rebalance, workload.tied_rebalance_args(200, 40, 40), threads, resident)
+    the winner (the lowest index) moves as the carry fills, across the
+    warps of two CTAs and the warps that merge a row's chunks."""
+    _, ref, _ = _check_plan(emulated_rebalance, workload.tied_rebalance_args(200, 40, 40),
+                            cluster=2, threads=threads, first_rows=4, resident=resident)
     dest = ref[0].numpy()
     assert int(ref[3]) == 40 and dest[0] == 1 and len(set(dest.tolist())) > 1
 
@@ -803,8 +855,8 @@ def test_emulated_rebalance_edges(emulated_rebalance, case):
     shared memory holds them; the kernel never stages them there)."""
     if case == "probes_26000":
         args = workload.with_random_probes(workload.tied_rebalance_args(10, 6, 6), 26000)
-        plan, _ = _check_plan(emulated_rebalance, args, 32)
-        assert plan.resident and plan.smem_bytes == rebalance.smem_bytes(10, True)
+        plan, _, _ = _check_plan(emulated_rebalance, args, threads=32)
+        assert plan.resident and plan.smem_bytes == rebalance.smem_bytes(10, plan.max_rows, True)
         return
     if case == "many_probes":
         args = workload.with_random_probes(workload.random_rebalance_args(4), 70)
@@ -822,17 +874,152 @@ def test_emulated_rebalance_edges(emulated_rebalance, case):
     else:
         args = workload.consolidation_args()
     for resident in (True, False):
-        _, ref = _check_plan(emulated_rebalance, args, 32, resident)
+        _, ref, _ = _check_plan(emulated_rebalance, args, cluster=2, threads=32, first_rows=2,
+                                resident=resident)
     if case == "one_node":
         assert int(ref[3]) == 2  # the rows without a valid source move to node 0
     if case == "budget_zero":
         assert int(ref[3]) == 0 and not bool(ref[1].any())
 
 
-@pytest.mark.parametrize("widths", [(5000, 1), (5000, 0), (1, 1), (19000, 0), (19000, 1),
-                                    (300, 1)])
+@pytest.mark.parametrize("widths", [(5000, 3411, 1), (5000, 4096, 0), (1, 1, 1), (19000, 4096, 0),
+                                    (9185, 256, 1), (300, 79, 1)])
 def test_emulated_rebalance_layout_equals_the_plan(emulated_rebalance, widths):
-    """The kernel's shared-memory layout and the Python plan agree."""
-    N, resident = widths
-    assert emulated_rebalance.ktt_rebalance_smem_bytes(N, resident) == \
-        rebalance.smem_bytes(N, bool(resident))
+    """The kernel's shared-memory and scratch layouts and the Python plan
+    agree."""
+    N, rows, resident = widths
+    assert emulated_rebalance.ktt_rebalance_smem_bytes(N, rows, resident) == \
+        rebalance.smem_bytes(N, rows, bool(resident))
+    for k, warps in ((1, 2), (8, 512), (32, 16)):
+        assert emulated_rebalance.ktt_rebalance_scratch_bytes(N, k, rows, warps, resident) == \
+            rebalance.scratch_bytes(N, k, rows, warps, bool(resident))
+
+
+# -- the window's restart paths, at K = 1 and 2 ------------------------------
+
+
+def _columns(cpu_cap, mem_cap, pods_cap, cpu_fit, mem_fit, pods_used, live=None):
+    n = len(cpu_cap)
+    f = lambda v: np.asarray(v, np.float32)
+    live = np.ones(n, bool) if live is None else np.asarray(live, bool)
+    return (f(cpu_cap), f(mem_cap), f(pods_cap), f(cpu_fit), f(mem_fit), f(pods_used),
+            np.zeros(n, bool), live)
+
+
+def _rows(cpu, mem, src, live=None, force=None, budget=None):
+    d = len(cpu)
+    return (np.asarray(cpu, np.float32), np.asarray(mem, np.float32), np.asarray(src, np.int32),
+            np.ones(d, bool) if live is None else np.asarray(live, bool),
+            np.ones(d, bool) if force is None else np.asarray(force, bool)), \
+        np.int32(d if budget is None else budget)
+
+
+_PROBES = (np.asarray([250.0, 1000.0, 0.0], np.float32), np.asarray([64.0, 512.0, 256.0], np.float32),
+           np.ones(3, np.int32), np.ones(3, bool))
+
+
+def _dense(seed, n=48, d=96, dead_every=0, budget=None):
+    """n roomy nodes, d small forced rows: every row is feasible and
+    commits (budget permitting); dead_every > 0 makes every such row
+    dead."""
+    rng = np.random.default_rng(seed)
+    cols = _columns(np.full(n, 4000), np.full(n, 8192), np.full(n, 110),
+                    rng.integers(0, 2000, n), rng.integers(0, 4096, n), rng.integers(0, 50, n))
+    live = None if not dead_every else np.arange(d) % dead_every != 1
+    rows, b = _rows(rng.choice([50.0, 100.0, 250.0], d), rng.choice([16.0, 64.0], d),
+                    rng.integers(0, n, d), live=live, budget=budget)
+    return cols + rows + _PROBES + (b,)
+
+
+def _freed_source():
+    """Node 0 is full; row 0 moves its pod away, and row 1's pod then fits
+    node 0 exactly: a source that becomes a later row's destination, and
+    a node infeasible at the window's start that a commit makes
+    feasible."""
+    cols = _columns(np.full(6, 1000), np.full(6, 1024), np.full(6, 40),
+                    [1000, 400, 300, 200, 100, 0], [512] * 6, [10] * 6)
+    rows, b = _rows([500, 500, 100, 250, 250, 100], [64] * 6, [0, 5, 4, 3, 0, 2])
+    return cols + rows + _PROBES + (b,)
+
+
+def _slot_freed():
+    """Node 0 has no pod slot left until row 0 moves a pod off it; then
+    its 200 free millicores make it the tightest fit of the later small
+    rows."""
+    cols = _columns(np.full(8, 4000), np.full(8, 8192), np.full(8, 10),
+                    [3900, 3000, 3500, 2500, 3700, 2000, 3000, 3800], [100] * 8,
+                    [10, 3, 2, 4, 1, 5, 6, 2])
+    rows, b = _rows([100, 50, 50, 50, 50, 50, 50, 50], [16] * 8, [0, 1, 2, 3, 4, 5, 6, 7])
+    return cols + rows + _PROBES + (b,)
+
+
+def _few_feasible():
+    """Only one node (or none) is feasible for most rows: node 2 is full
+    and node 3 is not live, so a row on node 0 or 1 has one destination,
+    fewer than K = 2."""
+    cols = _columns([1000, 1000, 1000, 1000], [1024] * 4, [40] * 4, [0, 100, 1000, 0],
+                    [0] * 4, [1] * 4, live=[1, 1, 1, 0])
+    rows, b = _rows([100, 200, 100, 300, 50, 900, 100], [8] * 7, [0, 1, 1, 0, 2, 0, 1])
+    return cols + rows + _PROBES + (b,)
+
+
+_RESTART_CASES = {
+    "dense_forced": lambda: _dense(0),
+    "ties": lambda: workload.tied_rebalance_args(120, 48, 48),
+    "freed_source": _freed_source,
+    "slot_freed": _slot_freed,
+    "budget_mid_window": lambda: _dense(1, budget=7),
+    "dead_rows": lambda: _dense(2, dead_every=3),
+    "few_feasible": _few_feasible,
+    "nodes_below_threads": lambda: workload.tied_rebalance_args(5, 30, 30),
+    "in_place": lambda: _dense(3),
+}
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(_RESTART_CASES))
+def test_emulated_rebalance_windows_restart(emulated_rebalance, case, cluster, k):
+    """K = 1 or 2, a first window of 2 to 4 rows and windows of up to 64
+    on 1, 2 and 4 CTAs of two warps: lists run out of untouched pairs,
+    windows end early and the
+    next screen starts at the row that could not be resolved; every output
+    equal to the plain loop's. The cases: every row forced and feasible;
+    ties on every node (the K pairs all in S at once); a source that
+    becomes a later row's destination, infeasible at the window's start;
+    a pod slot a commit frees; the budget spent inside a window; dead rows
+    inside a window; fewer feasible nodes than K; fewer nodes than the
+    cluster's threads; and the carry in place."""
+    args = _RESTART_CASES[case]()
+    plan, ref, stats = _check_plan(emulated_rebalance, args, cluster=cluster, threads=64, k=k,
+                                   first_rows=2 + cluster % 3, max_rows=64,
+                                   resident=case != "in_place")
+    assert plan.resident == (case != "in_place")
+    moves = int(ref[3])
+    if case in ("dense_forced", "dead_rows", "in_place"):
+        assert bool(ref[1][np.asarray(args[11])].all()) and moves == int(np.asarray(args[11]).sum())
+    if case == "budget_mid_window":
+        assert moves == 7 and stats["rows_screened"] < len(args[8])
+    if case == "freed_source":
+        assert int(ref[0][1]) == 0  # row 1 lands on row 0's source
+    if case == "slot_freed":
+        assert 0 in ref[0][1:].tolist()
+    if case in ("dense_forced", "ties", "in_place"):
+        assert stats["early_ends"] > 0 and stats["windows"] > 1
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("probes", [2, 70])
+def test_emulated_rebalance_deferred_gains(emulated_rebalance, probes, resident):
+    """Forced rows shuffling pods among three nodes: S never fills, so
+    one window takes all 200 commits, and the gains of forced commits,
+    worked out after the serial chain from the carry logged at each
+    commit, fill their log three times over (a lane a commit for 2
+    probes, the warp a commit for 70)."""
+    args = workload.tied_rebalance_args(3, 200, 200)
+    if probes == 70:
+        args = workload.with_random_probes(args, 70)
+    _, ref, stats = _check_plan(emulated_rebalance, args, cluster=2, threads=64, k=8,
+                                first_rows=256, max_rows=256, resident=resident)
+    assert int(ref[3]) == 200 and stats["windows"] == 1
+    assert stats["resolve_gains"] > 3 * rebalance.DEFER_CAP

@@ -6,8 +6,8 @@ package's NumPy twin and the port's twin, on every output with its
 shape and dtype (`np.array_equal`, no tolerance). `build_plan` and
 `fragment_score` equal the JAX package's on its own fixtures, except
 that errors propagate where JAX returns None. `launch_plan`, K2's
-launch plan, is checked here against its rules; the emulation tests
-hold it to the kernel's layout."""
+launch plan (cluster, K, windows, residency), is checked here against
+its rules; the emulation tests hold it to the kernel's layout."""
 
 import numpy as np
 import pytest
@@ -93,26 +93,71 @@ def test_plain_version_is_what_the_cpu_runs(monkeypatch):
 # -- launch_plan -------------------------------------------------------------
 
 
-def test_launch_plan_rules():
-    plan = rebalance.launch_plan(5000, 6)
-    assert (plan.threads, plan.resident) == (1024, True)
-    assert plan.smem_bytes == rebalance.smem_bytes(5000, True) <= rebalance.SMEM_LIMIT
-    assert rebalance.launch_plan(1, 1).threads == 32
-    assert rebalance.launch_plan(300, 12).threads == 320
-    cap = rebalance.max_nodes()
-    assert rebalance.launch_plan(cap, 6).resident
-    assert not rebalance.launch_plan(cap + 1, 6).resident
-    assert rebalance.launch_plan(cap + 1, 6).smem_bytes < 4096
-    # Any node and probe count plans: past shared memory the carry stays
-    # in device memory, and the probes never take shared memory.
-    assert rebalance.launch_plan(10, 40000) == rebalance.launch_plan(10, 1)
-    assert rebalance.launch_plan(50000, 6).smem_bytes <= rebalance.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        rebalance.launch_plan(cap + 1, 6, resident=True)
-    with pytest.raises(ValueError, match="threads"):
-        rebalance.launch_plan(100, 6, threads=48)
-    with pytest.raises(ValueError, match="N >= 1"):
-        rebalance.launch_plan(0, 6)
+@pytest.mark.parametrize("rule", ["main_path", "cluster_by_work", "residency", "windows",
+                                  "any_shape", "forced", "refused"])
+def test_launch_plan_rules(rule):
+    """K2's plan: the cluster from the work, K, the first and largest
+    windows, the residency cutover, and the shared memory and scratch
+    formulas (the emulation tests hold those to the kernel's own)."""
+    R = rebalance
+    if rule == "main_path":
+        plan = R.launch_plan(5000, 50000, 6)
+        assert (plan.cluster, plan.threads, plan.k, plan.first_rows, plan.resident) == (
+            16, 1024, R.DEFAULT_K, R.FIRST_ROWS, True)
+        # The largest window: one row a warp of the cluster.
+        assert plan.max_rows == 16 * 32
+        assert plan.smem_bytes == R.smem_bytes(5000, plan.max_rows, True) <= R.SMEM_LIMIT
+        assert plan.scratch_bytes == R.scratch_bytes(5000, plan.k, plan.max_rows, 16 * 32, True)
+    elif rule == "cluster_by_work":
+        # One CTA for each 2^21 node-row evaluations, a power of two up to 16.
+        assert R.launch_plan(300, 79, 12).cluster == 1
+        assert R.launch_plan(5000, 256, 6).cluster == 1
+        assert R.launch_plan(5000, 1000, 6).cluster == 4
+        assert R.launch_plan(5000, 3000, 6).cluster == 8
+        assert R.launch_plan(5000, 50000, 6).cluster == 16
+        assert R.launch_plan(1, 0, 1).cluster == 1
+    elif rule == "residency":
+        cap = R.max_nodes()
+        assert R.launch_plan(cap, 50000, 6).resident
+        assert R.smem_bytes(cap + 1, R.MIN_ROWS, True) > R.SMEM_LIMIT
+        lp = R.launch_plan(cap + 1, 50000, 6)
+        assert not lp.resident and lp.smem_bytes == R.FIXED_BYTES + R.RECORD_BYTES * lp.max_rows
+        # A short worklist keeps the carry resident past the cutover.
+        assert R.launch_plan(cap + 1, 10, 6).resident
+    elif rule == "windows":
+        assert (R.launch_plan(100, 10, 3).first_rows, R.launch_plan(100, 10, 3).max_rows) == (10, 10)
+        assert (R.launch_plan(100, 100, 3).first_rows, R.launch_plan(100, 100, 3).max_rows) == (32, 32)
+        assert R.launch_plan(100, 9000, 3, cluster=4, threads=256).max_rows == 32
+        assert R.launch_plan(100, 10, 3, first_rows=64).first_rows == 10
+        assert (R.launch_plan(100, 0, 3).first_rows, R.launch_plan(100, 0, 3).max_rows) == (1, 1)
+        lp = R.launch_plan(100, 9000, 3, first_rows=2, max_rows=64)
+        assert (lp.first_rows, lp.max_rows) == (2, 64)
+        assert lp.smem_bytes == R.smem_bytes(100, 64, True)
+    elif rule == "any_shape":
+        # Any node and probe count plans: past shared memory the carry
+        # stays in device memory, and the probes never take shared memory.
+        assert R.launch_plan(10, 6, 40000) == R.launch_plan(10, 6, 1)
+        assert R.launch_plan(50000, 50000, 6).smem_bytes <= R.SMEM_LIMIT
+        assert R.launch_plan(2_000_000, 50000, 6).smem_bytes <= R.SMEM_LIMIT
+    elif rule == "forced":
+        lp = R.launch_plan(300, 79, 12, cluster=4, threads=64, k=1, first_rows=2, resident=False)
+        assert (lp.cluster, lp.threads, lp.k, lp.first_rows, lp.resident) == (4, 64, 1, 2, False)
+        assert lp.scratch_bytes == R.scratch_bytes(300, 1, lp.max_rows, 8, False)
+    else:
+        cap = R.max_nodes()
+        with pytest.raises(ValueError, match="shared memory"):
+            R.launch_plan(R.max_nodes(1) + 1, 50000, 6, resident=True)
+        with pytest.raises(ValueError, match="threads"):
+            R.launch_plan(100, 10, 6, threads=48)
+        with pytest.raises(ValueError, match="cluster"):
+            R.launch_plan(100, 10, 6, cluster=17)
+        with pytest.raises(ValueError, match="K = 33"):
+            R.launch_plan(100, 10, 6, k=33)
+        with pytest.raises(ValueError, match="first window"):
+            R.launch_plan(100, 10, 6, first_rows=0)
+        with pytest.raises(ValueError, match="N >= 1"):
+            R.launch_plan(0, 10, 6)
+        assert cap < R.max_nodes(1)
 
 
 # -- build_plan and fragment_score against the JAX package's fixtures -----
