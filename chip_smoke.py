@@ -8,8 +8,9 @@ and needs one card; without CUDA, or without the package beside it, it
 exits non-zero and prints no result. Phases, one JSON line each:
 
   1. device   the card, its power limit, torch and CUDA versions;
-  2. build    nvcc of every kernel under kubernetes_tpu_torch/csrc/,
-              all sources at once;
+  2. build    nvcc of every kernel under kubernetes_tpu_torch/csrc/ and
+              g++ of the host lowering helper (csrc/columnar.cc), all
+              sources at once;
   3. parity   each kernel held against its plain PyTorch version on the
               card, exactly (torch.equal on the decisions and all nine
               carry fields): seeded small clusters, non-default weights,
@@ -32,9 +33,19 @@ exits non-zero and prints no result. Phases, one JSON line each:
               30,000 nodes (past the session's 27,840);
   5. main     solve_backlog_pipelined on synthetic_objects(50000, 5000,
               seed=2+r): a warm-up and three timed runs, with the phase
-              times, pods placed and kernel launches of each; then
+              times, pods placed and kernel launches of each (the
+              kernel ledger's launch count equal to the wrapper's); then
               schedule_backlog once. Every run's names must equal the
-              plain version's where phase 3 checked them;
+              plain version's where phase 3 checked them. Device memory
+              in use and at peak after the runs, and `lower` split into
+              its steps (lower_split: vocabularies, pod
+              columns, node columns and the assigned sweep within them,
+              service seeds, the rest; least of three rounds);
+  5a. native  the g++ helper on every call the lowering makes for the
+              backlog's pod columns and for the node columns of the
+              churn session's 50,000 assigned pods: each output equal to
+              the NumPy version's exactly; g++'s seconds, each helper's
+              ms against NumPy's;
   5b. churn   BASELINE config 5 on the incremental SolverSession: the
               5,000 nodes and 500 services of that backlog, its pods as
               the first main run placed them as the assigned pods,
@@ -50,8 +61,10 @@ exits non-zero and prints no result. Phases, one JSON line each:
               next tick's deltas land) and must give the same results.
               Last, solve_gang on one more tick with groups, against the
               same tick on the replayed session with the plain version
-              in place of the kernel; and the kernel timed at the
-              session's shape;
+              in place of the kernel; the kernel timed at the session's
+              shape; the duty cycle and overlap of both runs' timed
+              ticks (the pipelined run's into observe_tick); and one
+              more tick's solve under torch.profiler (busy share);
   5c. gang    schedule_backlog_gang on seeded small clusters with groups
               on the card against device="cpu" (destinations, accepted
               and rejected keys), then on the 50k x 5k backlog in groups
@@ -106,7 +119,10 @@ exits non-zero and prints no result. Phases, one JSON line each:
               in-process schedule_backlog's; round-trip seconds and frame
               bytes; the default backlog in modes wave and sinkhorn, each
               answer equal to the same solve in this process; a ping
-              after a garbage frame still answers;
+              after a garbage frame still answers; then one default
+              pair against the port's server on a thread of this
+              process, with the server's spans of each trip (recv,
+              decode, upload, solve, send) from its trace buffer;
   5j. preemption
               victim selection (plain PyTorch) on
               workload.preemption_objects(5000, 50000, 1000): a priority
@@ -154,6 +170,17 @@ exits non-zero and prints no result. Phases, one JSON line each:
               forced nodes and the full fleet on clusters of 4, 8 and 16
               CTAs, K from 1 to 32 and windows of up to 2,048 rows, each
               equal to the default plan's outputs;
+  5n. telemetry
+              the kernel ledger's rows (calls, builds and their seconds,
+              cost per shape); two more default backlog runs under
+              torch.profiler (the card's busy share, and whether the
+              trace saw every K1 launch the ledger counted) with their
+              h2d and d2h bytes (d2h exactly the padded choices); one
+              more with CUDA events around each K1 launch (K1's share
+              of the wall, read without the profiler); device memory
+              after the main path; the churn ticks' duty cycle and
+              overlap and the profiled tick's busy share; the series as
+              the metrics registry holds them;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -180,10 +207,23 @@ Every phase line carries the script's seconds so far (`elapsed_s`).
 Then the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}. Any failure ends the run with a non-zero
 exit before the result line.
+
+    python3 chip_smoke.py --host-timing [--root DIR] [--runs N]
+
+times only the host work around the card, with the package imported
+from DIR (default: this checkout), through the same functions the
+phases above use: the backlog (phase 5's runs) and the policy backlog
+(phase 5e's), each with the collector on and then off, `lower_split` of
+the default backlog, the policy backlog and the churn cluster's
+assigned pods alone, and the churn ticks' phases (phase 5b's
+synchronous replay). One JSON line a measurement. Two checkouts are
+compared by running it in turns in one command (A B B A).
 """
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import os
 import shutil
@@ -233,7 +273,15 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--host-timing", action="store_true",
+                        help="time the host work around the card only")
+    parser.add_argument("--root", default=REPO, help="checkout to import the port from")
+    parser.add_argument("--runs", type=int, default=MAIN_REPEATS)
+    args = parser.parse_args(argv)
+    if args.host_timing:
+        return host_timing(os.path.abspath(args.root), args.runs)
     sys.path.insert(0, REPO)
     import torch
 
@@ -265,7 +313,7 @@ def main() -> int:
     emit(
         "build", ok=True, seconds=time.perf_counter() - t0,
         kernels=[
-            {"name": r["name"], "seconds": r["seconds"], "built": r["built"],
+            {"name": r["name"], "tool": r["tool"], "seconds": r["seconds"], "built": r["built"],
              "ptxas": [l for l in str(r["log"]).splitlines() if "ptxas" in l][-4:]}
             for r in records
         ],
@@ -283,7 +331,10 @@ def main() -> int:
     # -- 5. main path ------------------------------------------------------
     main_result = run_main_path(torch, device, parity["reference"])
     placed_names = main_result.pop("first_names")
-    emit("main", ok=True, **main_result)
+    emit("main", ok=True, card=smi, **main_result)
+
+    # -- 5a. the host lowering helper ----------------------------------------
+    emit("native", ok=True, card=smi, **run_native(records, placed_names))
 
     # -- 5b. churn on the incremental session ------------------------------
     churn = run_churn(torch, device, placed_names)
@@ -326,6 +377,10 @@ def main() -> int:
     emit("rebalance_parity", ok=True, **rebalance_parity)
     rebalance_line = run_rebalance(torch, device, placed_names)
     emit("rebalance", ok=True, card=smi, **rebalance_line)
+
+    # -- 5n. the telemetry plane -------------------------------------------------
+    emit("telemetry", ok=True, card=smi, **run_telemetry(torch, device, main_result, churn,
+                                                         placed_names))
 
     # -- 6. kernels --------------------------------------------------------
     ptxas = "\n".join(str(r["log"]) for r in records if r["name"] == "scan_kernel")
@@ -410,6 +465,304 @@ def main() -> int:
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
     }), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Host timing, shared by the phases and by --host-timing
+# ---------------------------------------------------------------------------
+
+_SWEEP = ("greedy_fit", "or_rows_by_index")
+
+
+class GcPauses:
+    """Python's garbage-collector passes while in the block, by
+    generation, with their wall seconds (a pause lands in whichever
+    phase it falls into)."""
+
+    def __init__(self):
+        self.pauses, self._t0 = [], 0.0
+
+    def _on_gc(self, stage, info):
+        if stage == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.pauses.append((info["generation"], time.perf_counter() - self._t0))
+
+    def __enter__(self):
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._on_gc)
+
+    def summary(self):
+        return {
+            "passes": len(self.pauses),
+            "gen2_passes": sum(g == 2 for g, _ in self.pauses),
+            "total_s": sum(t for _, t in self.pauses),
+            "max_s": max((t for _, t in self.pauses), default=0.0),
+        }
+
+
+def lower_split(pending, nodes, assigned=(), services=(), spec=None, repeats=3) -> dict:
+    """The columnar lowering's steps timed one after another on the host
+    clock with the garbage collector off: `vocabularies` (the
+    SnapshotBuilder's construction: the vocabulary passes and the
+    selector table), `pod_columns` (the whole backlog in one call),
+    `node_columns` (with `assigned_sweep`, the seconds inside its
+    greedy_fit and or_rows_by_index calls, and `assigned_pack`, inside
+    its pack_bitsets calls), `service_seeds` (policy specs with service
+    affinity or anti-affinity only), and `rest`: a whole `build_snapshot`
+    on the same objects less those steps. Each is the least of `repeats`
+    rounds, after one untimed `build_snapshot` (first-use costs: loading
+    the helper). `gc_pass_s` is one full collector pass after a round,
+    with the lowered objects alive: what a pass that lands in a lowering
+    costs at this heap. Works on any checkout: the helpers are timed
+    where its lowering calls them (the native module, or the columnar
+    module's own NumPy functions)."""
+    from kubernetes_tpu_torch.models import columnar
+
+    holder = getattr(columnar, "native", columnar)
+    names = _SWEEP + ("pack_bitsets",)
+    saved = {name: getattr(holder, name) for name in names}
+    columnar.build_snapshot(pending, nodes, assigned, services, spec=spec)
+    rounds = []
+    for _ in range(repeats):
+        out, inside = {}, {name: 0.0 for name in names}
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    inside[name] += time.perf_counter() - t
+            return call
+
+        gc.collect()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            builder = columnar.SnapshotBuilder(pending, nodes, assigned, services, spec=spec)
+            out["vocabularies_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            builder.pod_columns()
+            out["pod_columns_s"] = time.perf_counter() - t0
+            for name, fn in saved.items():
+                setattr(holder, name, timed(name, fn))
+            try:
+                t0 = time.perf_counter()
+                builder.node_columns()
+                out["node_columns_s"] = time.perf_counter() - t0
+            finally:
+                for name, fn in saved.items():
+                    setattr(holder, name, fn)
+            out["assigned_sweep_s"] = sum(inside[n] for n in _SWEEP)
+            out["assigned_pack_s"] = inside["pack_bitsets"]
+            out["service_seeds_s"] = 0.0
+            lowered = getattr(builder, "_lowered_partial", None)
+            if spec is not None and lowered is not None and (
+                    lowered.service_affinity or lowered.aa_weights):
+                t0 = time.perf_counter()
+                builder._service_seeds()
+                out["service_seeds_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            snap = columnar.build_snapshot(pending, nodes, assigned, services, spec=spec)
+            out["build_snapshot_s"] = time.perf_counter() - t0
+        finally:
+            gc.enable()
+        t0 = time.perf_counter()
+        gc.collect()
+        out["gc_pass_s"] = time.perf_counter() - t0
+        del builder, snap
+        rounds.append(out)
+    best = {k: min(r[k] for r in rounds) for k in rounds[0]}
+    steps = ("vocabularies_s", "pod_columns_s", "node_columns_s", "service_seeds_s")
+    best["rest_s"] = best["build_snapshot_s"] - sum(best[k] for k in steps)
+    best["native"] = holder is not columnar
+    return best
+
+
+def time_backlog(torch, device, runs, check=None, gc_off=False):
+    """solve_backlog_pipelined on synthetic_objects(N_PODS, N_NODES,
+    seed=2+r): a warm-up and `runs` timed runs, each with its wall,
+    phases, scan kernel launches, pods placed and the collector's passes
+    (`gc_off`: the collector disabled around the call). `check(r, names,
+    launches)` runs after each run and returns more fields for its
+    record. Returns (records, the warm-up's names)."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops import scan_kernel
+    from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
+    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    records, first = [], None
+    for r in range(runs + 1):
+        pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2 + r)
+        timer = PhaseTimer()
+        torch.cuda.synchronize()
+        scan_kernel.scan_with_state.launches = 0
+        with _collector(gc_off) as pauses:
+            t0 = time.perf_counter()
+            names = solve_backlog_pipelined(pending, nodes, services=services, device=device,
+                                            timer=timer)
+            wall = time.perf_counter() - t0
+        launches = scan_kernel.scan_with_state.launches
+        first = names if r == 0 else first
+        records.append({"run": "warmup" if r == 0 else f"timed{r}", "seed": 2 + r,
+                        "wall_s": wall, "placed": sum(n is not None for n in names),
+                        "pods_per_s": N_PODS / wall, "launches": launches,
+                        "phases_s": timer.seconds, "gc": pauses.summary(),
+                        **(check(r, names, launches) if check else {})})
+    return records, first
+
+
+def time_policy(torch, device, runs, check=None, gc_off=False):
+    """schedule_backlog(spec=FULL_VOCABULARY_POLICY) on
+    policy_objects(N_PODS, N_NODES, seed=2): a warm-up and `runs` timed
+    runs, each with its wall, phases, policy kernel launches, pods
+    placed and the collector's passes (`gc_off` as in time_backlog).
+    `check(r, names, launches)` as in time_backlog. Returns (records,
+    the warm-up's names, the objects, the spec, the objects' seconds)."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+    from kubernetes_tpu_torch.ops import policy_scan
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
+    t0 = time.perf_counter()
+    objs = workload.policy_objects(N_PODS, N_NODES, seed=2)
+    objects_s = time.perf_counter() - t0
+    records, first = [], None
+    for r in range(runs + 1):
+        timer = PhaseTimer()
+        torch.cuda.synchronize()
+        policy_scan.policy_scan_with_state.launches = 0
+        with _collector(gc_off) as pauses:
+            t0 = time.perf_counter()
+            names = schedule_backlog(*objs, device=device, timer=timer, spec=spec)
+            wall = time.perf_counter() - t0
+        launches = policy_scan.policy_scan_with_state.launches
+        first = names if r == 0 else first
+        records.append({"run": "warmup" if r == 0 else f"timed{r}", "wall_s": wall,
+                        "placed": sum(n is not None for n in names), "launches": launches,
+                        "phases_s": timer.seconds, "gc": pauses.summary(),
+                        **(check(r, names, launches) if check else {})})
+    return records, first, objs, spec, objects_s
+
+
+class _collector(GcPauses):
+    """GcPauses, with the collector disabled in the block when `off`."""
+
+    def __init__(self, off):
+        super().__init__()
+        self._off = off
+
+    def __enter__(self):
+        if self._off:
+            gc.disable()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        if self._off:
+            gc.enable()
+
+
+def wall_stats(records):
+    """Median wall of the timed records, and of the walls less their
+    collector passes."""
+    timed = records[1:]
+    return {"wall_s_median": statistics.median(r["wall_s"] for r in timed),
+            "wall_less_gc_s_median": statistics.median(r["wall_s"] - r["gc"]["total_s"]
+                                                       for r in timed)}
+
+
+def _churn_cluster(placed_names):
+    """The 50k x 5k backlog's nodes and services, and its pods as the
+    first main run placed them, bound and Running (unplaced ones left
+    out)."""
+    from kubernetes_tpu_torch import workload
+
+    pods, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    assigned = []
+    for pod, name in zip(pods, placed_names):
+        if name is not None:
+            pod.spec.node_name = name
+            pod.status.phase = "Running"
+            assigned.append(pod)
+    return nodes, services, assigned
+
+
+def _replay(services, assigned):
+    """workload.churn_replay's arguments for BASELINE config 5 on the
+    churn cluster."""
+    return dict(live=[f"default/{p.metadata.name}" for p in assigned],
+                ticks=CHURN_WARMUP + CHURN_TICKS, rate=CHURN_RATE, seed=7,
+                n_services=len(services), first_index=N_PODS)
+
+
+def tick_stats(timed):
+    """The timed ticks' wall p50 and p99, and each phase's median and p99."""
+    walls = [r.wall_s for r in timed]
+    phases = sorted({p for r in timed for p in r.phases_s})
+    return {
+        "tick_p50_s": _percentile(walls, 50), "tick_p99_s": _percentile(walls, 99),
+        "phase_median_s": {p: statistics.median(r.phases_s.get(p, 0.0) for r in timed)
+                           for p in phases},
+        "phase_p99_s": {p: _percentile([r.phases_s.get(p, 0.0) for r in timed], 99)
+                        for p in phases},
+    }
+
+
+def host_timing(root, runs) -> int:
+    """--host-timing: the host work around the card of the package in
+    `root`, one JSON line a measurement, each with the card's name and
+    power limit: the backlog and the policy backlog (time_backlog and
+    time_policy, `runs` timed runs with the collector on, then with it
+    off), `lower_split` of the default backlog, the policy backlog and
+    the churn cluster's assigned pods alone, and the churn ticks' phases
+    (BASELINE config 5, as phase 5b's synchronous run). Host times vary
+    between calls, so two checkouts are compared by running this in turns
+    in one command (A B B A)."""
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
+        return 2
+    import kubernetes_tpu_torch
+    from kubernetes_tpu_torch import workload
+
+    if not os.path.abspath(kubernetes_tpu_torch.__file__).startswith(root + os.sep):
+        print(f"chip_smoke: imported {kubernetes_tpu_torch.__file__}, not from {root}",
+              file=sys.stderr)
+        return 3
+    device = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+
+    def out(what, **fields):
+        print(json.dumps({"root": root, "what": what, "card": smi, **fields}), flush=True)
+
+    first = None
+    for gc_off in (False, True):
+        records, names = time_backlog(torch, device, runs, gc_off=gc_off)
+        first = first or names
+        out("backlog", gc_off=gc_off, **wall_stats(records), runs=records)
+    for gc_off in (False, True):
+        records, _names, objs, spec, _ = time_policy(torch, device, runs, gc_off=gc_off)
+        out("policy", gc_off=gc_off, **wall_stats(records), runs=records)
+    pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    out("lower", cell="main", **lower_split(pending, nodes, (), services))
+    out("lower", cell="policy", **lower_split(*objs, spec))
+    cnodes, cservices, cassigned = _churn_cluster(first)
+    out("lower", cell="assigned", assigned=len(cassigned),
+        **lower_split([], cnodes, cassigned, cservices))
+    session, build_s, _, _ = _new_session(torch, device, cnodes, cservices, cassigned)
+    records = workload.churn_replay(session, **_replay(cservices, cassigned))
+    out("churn", session_build_s=build_s, **tick_stats(records[CHURN_WARMUP:]),
+        delete_s=[r.phases_s.get("delete", 0.0) for r in records[CHURN_WARMUP:]])
     return 0
 
 
@@ -724,41 +1077,32 @@ def check_parity_in_place(torch, device, chunk_state):
 
 def run_main_path(torch, device, reference):
     from kubernetes_tpu_torch import workload
-    from kubernetes_tpu_torch.ops import scan_kernel
-    from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
+    from kubernetes_tpu_torch.ops import ledger, scan_kernel
     from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+    from kubernetes_tpu_torch.utils import sli
     from kubernetes_tpu_torch.utils.tracing import PhaseTimer
 
-    runs = []
-    first_names = None
-    for r in range(MAIN_REPEATS + 1):
-        pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2 + r)
-        timer = PhaseTimer()
-        torch.cuda.synchronize()
-        scan_kernel.scan_with_state.launches = 0
-        t0 = time.perf_counter()
-        names = solve_backlog_pipelined(pending, nodes, services=services, device=device, timer=timer)
-        wall = time.perf_counter() - t0
-        launches = scan_kernel.scan_with_state.launches
+    node_names = {f"n{j}" for j in range(N_NODES)}  # synthetic_objects' node names
+    calls = [ledger.DEFAULT.calls("scan_kernel")]
+
+    def check(r, names, launches):
         if launches == 0:
             fail("main", "solve_backlog_pipelined launched no scan kernel")
-        node_names = {n.metadata.name for n in nodes}
+        ledger_calls = ledger.DEFAULT.calls("scan_kernel") - calls[-1]
+        calls.append(ledger.DEFAULT.calls("scan_kernel"))
+        if ledger_calls != launches:
+            fail("main", f"the kernel ledger counted {ledger_calls} launches, the wrapper {launches}")
         if len(names) != N_PODS or any(n is not None and n not in node_names for n in names):
             fail("main", "result has the wrong length or unknown node names")
-        placed = sum(n is not None for n in names)
-        if placed == 0:
+        if not any(n is not None for n in names):
             fail("main", "no pod placed")
-        if r == 0:
-            first_names = names
-            if names[: len(reference)] != reference:
-                bad = sum(a != b for a, b in zip(names, reference))
-                fail("main", f"{bad} names differ from the plain version's")
-        runs.append({
-            "run": "warmup" if r == 0 else f"timed{r}",
-            "seed": 2 + r, "wall_s": wall, "placed": placed,
-            "pods_per_s": N_PODS / wall, "launches": launches,
-            "phases_s": timer.seconds,
-        })
+        if r == 0 and names[: len(reference)] != reference:
+            bad = sum(a != b for a, b in zip(names, reference))
+            fail("main", f"{bad} names differ from the plain version's")
+        return {"ledger_calls": ledger_calls}
+
+    torch.cuda.reset_peak_memory_stats()
+    runs, first_names = time_backlog(torch, device, MAIN_REPEATS, check)
 
     pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
     timer = PhaseTimer()
@@ -772,12 +1116,20 @@ def run_main_path(torch, device, reference):
     if names != first_names:
         fail("main", "schedule_backlog disagrees with solve_backlog_pipelined")
 
-    timed = [x["wall_s"] for x in runs[1:]]
+    torch.cuda.synchronize()
+    sli.observe_device_telemetry()
+    memory = {kind: sli.DEVICE_MEMORY.value(kind=kind) for kind in ("in_use", "peak", "limit")}
+    pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    split = lower_split(pending, nodes, (), services)
+
+    walls = wall_stats(runs)
     return {
         "backlog": f"{N_PODS} pods x {N_NODES} nodes, {N_PODS // 100} services",
+        "lower_split": split,
+        "device_memory_bytes": memory,
         "runs": runs,
-        "wall_s_median": statistics.median(timed),
-        "pods_per_s_median": N_PODS / statistics.median(timed),
+        **walls,
+        "pods_per_s_median": N_PODS / walls["wall_s_median"],
         "launches_last_run": runs[-1]["launches"],
         "checked_against_plain": len(reference),
         "schedule_backlog": {"wall_s": wall, "launches": batch_launches,
@@ -787,24 +1139,107 @@ def run_main_path(torch, device, reference):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5b: churn on the incremental session (BASELINE config 5)
+# Phase 5a: the host lowering helper (g++) against its NumPy versions
 # ---------------------------------------------------------------------------
 
+NATIVE_HELPERS = ("pack_bitsets", "or_rows_by_index", "greedy_fit")
+NATIVE_REPEATS = 3
+# greedy_fit's arguments written in place (the NumPy version's too).
+_IN_PLACE = {"pack_bitsets": (), "or_rows_by_index": (2,), "greedy_fit": (5, 6, 7, 8, 9, 10)}
 
-def _churn_cluster(placed_names):
-    """The 50k x 5k backlog's nodes and services, and its pods as the
-    first main run placed them, bound and Running (unplaced ones left
-    out)."""
-    from kubernetes_tpu_torch import workload
 
-    pods, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
-    assigned = []
-    for pod, name in zip(pods, placed_names):
-        if name is not None:
-            pod.spec.node_name = name
-            pod.status.phase = "Running"
-            assigned.append(pod)
-    return nodes, services, assigned
+def _helper_calls(build):
+    """Every call the columnar lowering makes to the native helpers while
+    `build()` runs, with copies of the arguments it was given."""
+    import types
+
+    import numpy as np
+
+    from kubernetes_tpu_torch import native
+    from kubernetes_tpu_torch.models import columnar
+
+    calls = []
+
+    def recorder(name):
+        fn = getattr(native, name)
+
+        def call(*args):
+            calls.append((name, tuple(np.copy(a) if isinstance(a, np.ndarray) else a for a in args)))
+            return fn(*args)
+        return call
+
+    saved = columnar.native
+    columnar.native = types.SimpleNamespace(**{n: recorder(n) for n in NATIVE_HELPERS})
+    try:
+        build()
+    finally:
+        columnar.native = saved
+    return calls
+
+
+def _run_helper(fn, name, args):
+    """One helper call on fresh copies of its in-place arguments: (the
+    outputs, seconds)."""
+    import numpy as np
+
+    args = tuple(np.copy(a) if i in _IN_PLACE[name] else a for i, a in enumerate(args))
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds = time.perf_counter() - t0
+    return ([out] if name == "pack_bitsets" else [args[i] for i in _IN_PLACE[name]]), seconds
+
+
+def run_native(build_records, placed_names):
+    """The g++ helper on the 50k x 5k backlog's pod columns and on the
+    churn session's 50,000 assigned pods (their node columns): every call
+    the lowering makes, replayed through the helper and through the NumPy
+    version, each output equal exactly; the helper's and NumPy's ms."""
+    import numpy as np
+
+    from kubernetes_tpu_torch import native, workload
+    from kubernetes_tpu_torch.models import columnar
+
+    pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    cnodes, cservices, assigned = _churn_cluster(placed_names)
+    cases = {
+        "backlog_pod_columns": _helper_calls(
+            lambda: columnar.SnapshotBuilder(pending, nodes, (), services).pod_columns()),
+        "assigned_node_columns": _helper_calls(
+            lambda: columnar.SnapshotBuilder([], cnodes, assigned, cservices).node_columns()),
+    }
+    out = {"gxx": [{k: r[k] for k in ("name", "seconds", "built")}
+                   for r in build_records if r.get("tool") == "g++"],
+           "library": native.ensure_built(), "assigned_pods": len(assigned)}
+    if not out["gxx"]:
+        fail("native", "the build phase built no host helper with g++")
+    for tag, calls in cases.items():
+        rows = {}
+        for name, args in calls:
+            got, _ = _run_helper(getattr(native, name), name, args)
+            want, _ = _run_helper(getattr(columnar, name), name, args)
+            for g, w in zip(got, want):
+                if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+                    fail("native", f"{tag}: {name} differs from the NumPy version")
+            native_s = min(_run_helper(getattr(native, name), name, args)[1]
+                           for _ in range(NATIVE_REPEATS))
+            numpy_s = min(_run_helper(getattr(columnar, name), name, args)[1]
+                          for _ in range(NATIVE_REPEATS))
+            row = rows.setdefault(name, {"calls": 0, "native_ms": 0.0, "numpy_ms": 0.0})
+            row["calls"] += 1
+            row["native_ms"] += native_s * 1e3
+            row["numpy_ms"] += numpy_s * 1e3
+        if tag == "assigned_node_columns" and set(rows) != set(NATIVE_HELPERS):
+            fail("native", f"the assigned sweep called {sorted(rows)}, not every helper")
+        out[tag] = rows
+    out["tolerance"] = "exact (dtype, shape, numpy array_equal)"
+    out["timed"] = (f"host clock, least of {NATIVE_REPEATS} runs of each recorded call on fresh "
+                    "copies of its in-place arguments, summed over the calls")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: churn on the incremental session (BASELINE config 5)
+# ---------------------------------------------------------------------------
 
 
 def _new_session(torch, device, nodes, services, assigned):
@@ -872,40 +1307,6 @@ class _Recorder:
         return [a.elapsed_time(b) for a, b in self.events]
 
 
-class _GcPauses:
-    """Python's garbage-collector passes while in the block, by
-    generation, with their wall seconds (a pause shows up in whichever
-    tick phase it falls into)."""
-
-    def __init__(self):
-        self.pauses, self._t0 = [], 0.0
-
-    def _on_gc(self, stage, info):
-        if stage == "start":
-            self._t0 = time.perf_counter()
-        else:
-            self.pauses.append((info["generation"], time.perf_counter() - self._t0))
-
-    def __enter__(self):
-        import gc
-
-        gc.callbacks.append(self._on_gc)
-        return self
-
-    def __exit__(self, *exc):
-        import gc
-
-        gc.callbacks.remove(self._on_gc)
-
-    def summary(self):
-        return {
-            "passes": len(self.pauses),
-            "gen2_passes": sum(g == 2 for g, _ in self.pauses),
-            "total_s": sum(t for _, t in self.pauses),
-            "max_s": max((t for _, t in self.pauses), default=0.0),
-        }
-
-
 def _held_to_plain(torch, captured, tag):
     """The kernel's choices and carry of one tick against the plain
     version on clones of that tick's inputs; returns the plain ms."""
@@ -964,27 +1365,71 @@ def _check_session_gangs(results, gangs, rejected):
             fail("churn", f"accepted group {g.key} has {placed} + {g.bound} < {g.min_member}")
 
 
+def _record_handles(session):
+    """The PendingSolve of every tick the session launches, in order."""
+    handles = []
+    launch = session.solve_async
+
+    def solve_async():
+        handle = launch()
+        handles.append(handle)
+        return handle
+    session.solve_async = solve_async
+    return handles
+
+
+def _duty(handles, observe):
+    """The duty cycle and overlap of the timed ticks, as the JAX
+    incremental daemon works them out (`_observe_device_profile`): the
+    in-flight window (launch to result()) over the period since the
+    previous tick resolved, and 1 - blocked / in flight. With `observe`,
+    each tick also goes to `utils.profiler.observe_tick`."""
+    from kubernetes_tpu_torch.utils import profiler
+
+    duty, overlap, busy = [], [], 0.0
+    for k in range(CHURN_WARMUP, len(handles)):
+        h, prev = handles[k], handles[k - 1]
+        device_s = h.resolved_mono - h.dispatched_mono
+        wall_s = h.resolved_mono - prev.resolved_mono
+        if device_s <= 0 or wall_s <= 0:
+            continue
+        if observe:
+            profiler.observe_tick(device_s, wall_s, h.block_s)
+        busy += device_s
+        duty.append(min(1.0, device_s / wall_s))
+        overlap.append(min(1.0, max(0.0, 1.0 - h.block_s / device_s)))
+    if not duty:
+        fail("churn", "no timed tick had an in-flight window")
+    return {"ticks": len(duty), "duty_median": statistics.median(duty), "duty_max": max(duty),
+            "overlap_median": statistics.median(overlap), "busy_s": busy,
+            "definition": "in-flight window (launch to result()) over the resolve-to-resolve "
+                          "period; overlap 1 - blocked / in flight"}
+
+
 def run_churn(torch, device, placed_names):
+    import random
+
     from kubernetes_tpu_torch import workload
     from kubernetes_tpu_torch.ops import scan_kernel
+    from kubernetes_tpu_torch.utils import profiler
 
     nodes, services, assigned = _churn_cluster(placed_names)
-    live = [f"default/{p.metadata.name}" for p in assigned]
     ticks = CHURN_WARMUP + CHURN_TICKS
-    replay = dict(live=live, ticks=ticks, rate=CHURN_RATE, seed=7,
-                  n_services=len(services), first_index=N_PODS)
+    replay = _replay(services, assigned)
 
     # The synchronous run, timed.
     session, build_s, prewarm_s, warmed = _new_session(torch, device, nodes, services, assigned)
     checked_rows = []
     rec = _Recorder(torch, session, [CHURN_WARMUP - 1 + t for t in CHURN_CHECKED])
-    gc_pauses = _GcPauses()
+    handles = _record_handles(session)
+    gc_pauses = GcPauses()
     scan_kernel.scan_with_state.launches = 0
     with gc_pauses:
         records = workload.churn_replay(
             session, **replay,
             on_result=lambda k, _r: checked_rows.append(_mirror_check(torch, session, f"tick {k}")),
         )
+    duty = _duty(handles[:ticks], observe=False)
     launches = scan_kernel.scan_with_state.launches
     if launches != ticks:
         fail("churn", f"{ticks} ticks launched the scan kernel {launches} times")
@@ -998,7 +1443,6 @@ def run_churn(torch, device, placed_names):
     scheduled = sum(d is not None for r in timed for _k, d in r.results)
     if scheduled == 0:
         fail("churn", "no pod placed in the timed ticks")
-    phases = sorted({p for r in timed for p in r.phases_s})
 
     # The kernel at the session's shape: the last tick's inputs.
     (pods, carry), _choice, _after = rec.captured[ticks - 1]
@@ -1009,11 +1453,13 @@ def run_churn(torch, device, placed_names):
     # The same operations with a tick in flight while the next tick's
     # creates and deletes land.
     session_p, build_p, _, _ = _new_session(torch, device, nodes, services, assigned)
+    handles_p = _record_handles(session_p)
     scan_kernel.scan_with_state.launches = 0
     records_p = workload.churn_replay(
         session_p, **replay, pipelined=True,
         on_result=lambda k, _r: _mirror_check(torch, session_p, f"pipelined tick {k}"),
     )
+    duty_p = _duty(handles_p[:ticks], observe=True)
     launches_p = scan_kernel.scan_with_state.launches
     if launches_p != ticks:
         fail("churn", f"{ticks} pipelined ticks launched the scan kernel {launches_p} times")
@@ -1045,6 +1491,22 @@ def run_churn(torch, device, placed_names):
     session.solve()  # flush the released rows
     _mirror_check(torch, session, "after solve_gang")
 
+    # One more tick of creates and deletes, its solve under torch.profiler.
+    rng = random.Random(11)
+    for pod in workload.churn_pods(rng, first + CHURN_RATE, CHURN_RATE, len(services)):
+        session.add_pending(pod)
+    for key in rng.sample(sorted(session._pod_node), CHURN_RATE):
+        session.delete_assigned(key)
+    launched = scan_kernel.scan_with_state.launches
+    tick_results, tick_profile = profiler.profile_call(session.solve)
+    launched = scan_kernel.scan_with_state.launches - launched
+    seen = sum(k["calls"] for k in tick_profile["top_kernels"] if "scan_kernel" in k["kernel"])
+    tick_profile.update(scan_kernel_launched=launched, scan_kernel_in_trace=seen,
+                        trace_complete=seen == launched)
+    if not any(d is not None for _k, d in tick_results):
+        fail("churn", "the profiled tick placed no pod")
+    _mirror_check(torch, session, "after the profiled tick")
+
     total = sum(walls)
     return {
         "session": session,
@@ -1055,8 +1517,7 @@ def run_churn(torch, device, placed_names):
         "session_build_s": build_s, "prewarm_s": prewarm_s, "prewarm_launches": warmed,
         "ticks_timed": len(timed), "ticks_per_s": len(timed) / total,
         "scheduled_pods_per_s": scheduled / total, "scheduled": scheduled,
-        "tick_p50_s": _percentile(walls, 50), "tick_p99_s": _percentile(walls, 99),
-        "phase_median_s": {p: statistics.median(r.phases_s.get(p, 0.0) for r in timed) for p in phases},
+        **tick_stats(timed),
         "kernel_ms_median": statistics.median(kernel_ms[CHURN_WARMUP:]),
         "gc_during_replay": gc_pauses.summary(),
         "launches": launches,
@@ -1072,7 +1533,9 @@ def run_churn(torch, device, placed_names):
             "held_to_plain_ticks": list(CHURN_CHECKED), "plain_ms": plain_ms,
             "tolerance": "exact (torch.equal, numpy array_equal)",
         },
+        "duty": duty, "profiled_tick": tick_profile,
         "pipelined": {"session_build_s": build_p, "ticks_per_s": len(walls_p) / sum(walls_p),
+                      "duty": duty_p,
                       "scheduled_pods_per_s": scheduled / sum(walls_p),
                       "tick_p50_s": _percentile(walls_p, 50), "tick_p99_s": _percentile(walls_p, 99),
                       "launches": launches_p, "equal_to_synchronous": True},
@@ -1347,42 +1810,15 @@ def check_policy_parity(torch, device):
 
 def policy_kernel_bound(torch, pods, carry, lspec):
     """The least time the card could take for one policy scan launch on
-    these inputs: the larger of the bytes it must move over the HBM rate
-    and the operations it must do over the f32 rate."""
-    P, N = pods["cpu"].shape[0], carry["cpu_cap"].shape[0]
-    SW, PW = pods["sel"].shape[1], pods["port"].shape[1]
-    VW, K = pods["vol_any"].shape[1], pods["svc_ids"].shape[1]
-    S = carry["svc_counts"].shape[1]
-    KA = pods["aff_pin"].shape[1] if lspec.service_affinity else 0
-    I = len(lspec.aa_weights)
-    SA = carry["anchor"].shape[0] if "anchor" in carry else 0
-    # Bytes: every input read once, every output written once. Pods:
-    # cpu, mem, pinned, svc (4 B), zero_req (1 B), bitset words, service
-    # ids and affinity pins (4 B each); node constants with the policy
-    # columns (policy_ok 1 B, static_prio, aff_vid, aa_zone 4 B each);
-    # the carry in and out (the service carry included); the choices.
-    pod_bytes = P * (4 * 4 + 1 + 4 * (SW + PW + 2 * VW + K + KA))
-    const_bytes = N * (3 * 4 + 2 + 4 * SW + 1 + 4 + 4 * KA + 4 * I)
-    carry_bytes = N * (5 * 4 + 4 * (PW + 2 * VW) + 4 * S) + 8 * SA
-    nbytes = pod_bytes + const_bytes + 2 * carry_bytes + 4 * P
-    # Operations per (pod, node) pair, counted from the plain version's
-    # arithmetic: the scan kernel's count (kernel_bound), plus the label
-    # mask 1, static priority 1, 3 per affinity label, and per
-    # anti-affinity instance 10 (zone test and sum, the zone's count,
-    # the score's division and select, the weighted add). Only pods some
-    # node could take need pairs.
-    ops_per_pair = 13 + 2 + 4 + 12 + 14 + 4 + 5 + 3 + 2 * SW + 2 * PW + 4 * VW
-    ops_per_pair += 2 + 3 * KA + 10 * I
+    these inputs: `policy_scan.cost` over the pods some node could take
+    (under HostName; every pod without it)."""
+    from kubernetes_tpu_torch.ops import policy_scan
+
+    d = policy_scan._dims(pods, carry, lspec)
     pin = pods["pinned"]
-    placeable = int(((pin == -1) | ((pin >= 0) & (pin < N))).sum().item()) if lspec.hostname else P
-    nops = placeable * N * ops_per_pair
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_OPS_PER_S * 1e3
-    return {
-        "bytes": nbytes, "ops": nops, "placeable_pods": placeable,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-    }
+    placeable = (int(((pin == -1) | ((pin >= 0) & (pin < d["N"]))).sum().item())
+                 if lspec.hostname else d["P"])
+    return _bound(policy_scan.cost(**d, placeable=placeable), placeable_pods=placeable)
 
 
 def _policy_time_ms(torch, pods, carry, weights, lspec, reps, plan=None):
@@ -1404,46 +1840,32 @@ def _policy_time_ms(torch, pods, carry, weights, lspec, reps, plan=None):
 
 
 def run_policy(torch, device):
-    from kubernetes_tpu_torch import workload
-    from kubernetes_tpu_torch.models.algspec import spec_from_policy
     from kubernetes_tpu_torch.models.columnar import build_snapshot
     from kubernetes_tpu_torch.ops import policy_scan, scan_kernel
     from kubernetes_tpu_torch.ops.matrices import device_snapshot
-    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
-    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
 
-    spec = spec_from_policy(workload.FULL_VOCABULARY_POLICY)
-    t0 = time.perf_counter()
-    pending, nodes, assigned, services = workload.policy_objects(N_PODS, N_NODES, seed=2)
-    objects_s = time.perf_counter() - t0
-    runs, names = [], None
-    for r in range(POLICY_REPEATS + 1):
-        timer = PhaseTimer()
-        torch.cuda.synchronize()
-        policy_scan.policy_scan_with_state.launches = 0
-        scan_kernel.scan_with_state.launches = 0
-        t0 = time.perf_counter()
-        got = schedule_backlog(pending, nodes, assigned, services, device=device, timer=timer,
-                               spec=spec)
-        wall = time.perf_counter() - t0
-        launches = policy_scan.policy_scan_with_state.launches
+    node_names = {f"n{j}" for j in range(N_NODES)}  # policy_objects' node names
+    first = []
+
+    def check(r, got, launches):
         if launches != 1 or scan_kernel.scan_with_state.launches:
             fail("policy", f"the policy backlog made {launches} policy kernel launches and "
                            f"{scan_kernel.scan_with_state.launches} scan kernel launches, expected 1 and 0")
-        node_names = {n.metadata.name for n in nodes}
         if len(got) != N_PODS or any(n is not None and n not in node_names for n in got):
             fail("policy", "result has the wrong length or unknown node names")
-        if names is None:
-            names = got
-        elif got != names:
-            fail("policy", f"run {r}: {sum(a != b for a, b in zip(got, names))} decisions differ "
-                           "from the first run's")
-        runs.append({"run": "warmup" if r == 0 else f"timed{r}", "wall_s": wall,
-                     "placed": sum(n is not None for n in got), "launches": launches,
-                     "phases_s": timer.seconds})
+        if first and got != first[0]:
+            fail("policy", f"run {r}: {sum(a != b for a, b in zip(got, first[0]))} decisions "
+                           "differ from the first run's")
+        first.append(got)
+        return {}
+
+    scan_kernel.scan_with_state.launches = 0
+    runs, names, objs, spec, objects_s = time_policy(torch, device, POLICY_REPEATS, check)
+    pending, nodes, assigned, services = objs
     placed = runs[-1]["placed"]
     if placed == 0:
         fail("policy", "no pod placed")
+    split = lower_split(pending, nodes, assigned, services, spec)
 
     # The kernel alone on the whole backlog, and the first POLICY_CHECKED
     # pods against the plain version, decisions and carry.
@@ -1470,15 +1892,16 @@ def run_policy(torch, device):
     plan = policy_scan.plan_for(d.pods, d.nodes, d.lowered)
     if plan.cluster < 2:
         fail("policy", f"the policy backlog's plan is a cluster of {plan.cluster} CTA")
-    timed = [x["wall_s"] for x in runs[1:]]
+    walls = wall_stats(runs)
     return {
         "backlog": f"{N_PODS} pods x {N_NODES} nodes, {len(services)} services, "
                    f"{len(assigned)} bound peers, FULL_VOCABULARY_POLICY",
         "lowered": str(d.lowered), "weights": list(d.weights),
         "objects_s": objects_s,
+        "lower_split": split,
         "runs": runs,
-        "wall_s_median": statistics.median(timed),
-        "pods_per_s_median": N_PODS / statistics.median(timed),
+        **walls,
+        "pods_per_s_median": N_PODS / walls["wall_s_median"],
         "placed": placed,
         "launches_last_run": runs[-1]["launches"],
         "identical_runs": len(runs),
@@ -1611,12 +2034,14 @@ def run_explain(torch, device):
 
     pending, nodes, assigned, services = workload.policy_objects(N_PODS, N_NODES, seed=2)
     pods = pending[:EXPLAIN_PODS]
-    times = []
+    times, gc_s = [], []
     for _ in range(3):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = explain_backlog(pods, nodes, assigned, services, device=device)
-        times.append(time.perf_counter() - t0)
+        with GcPauses() as pauses:
+            t0 = time.perf_counter()
+            got = explain_backlog(pods, nodes, assigned, services, device=device)
+            times.append(time.perf_counter() - t0)
+        gc_s.append(pauses.summary()["total_s"])
     t0 = time.perf_counter()
     ref = explain_backlog(pods, nodes, assigned, services, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -1626,7 +2051,7 @@ def run_explain(torch, device):
     return {
         "pods": len(pods), "nodes": len(nodes),
         "ms_median": statistics.median(times[1:]) * 1e3, "ms_all": [t * 1e3 for t in times],
-        "cpu_ms": cpu_s * 1e3,
+        "gc_ms_all": [t * 1e3 for t in gc_s], "cpu_ms": cpu_s * 1e3,
         "feasible_nodes_median": statistics.median(e["feasibleNodes"] for e in got),
         "equal_to_cpu": True,
         "timed": "explain_backlog wall (lowering, staging, the batched readback, the per-pod "
@@ -1642,6 +2067,82 @@ def _stop_process(proc):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=10)
+
+
+def _span_seconds(span):
+    """A recorded span's duration and its children's, by name."""
+    return {"s": span["duration_s"],
+            **{c["name"]: _span_seconds(c) if c.get("children") else c["duration_s"]
+               for c in span.get("children", ())}}
+
+
+def _sidecar_pair_in_thread(objs, expected):
+    """The port's server on a thread of this process, sent the default
+    backlog twice by the port's client: each trip's wall on the client
+    and the server's spans of it (recv, decode, upload, solve, send) from
+    `utils.tracing.DEFAULT_BUFFER`, and the client's own lowering timed
+    apart. The gap between two trips shows in whichever part it is."""
+    import tempfile
+    import threading
+
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops import sidecar
+    from kubernetes_tpu_torch.utils import tracing
+
+    sock_dir = tempfile.mkdtemp(prefix="ktt-sidecar-")
+    sock_path = os.path.join(sock_dir, "solver.sock")
+    stop = threading.Event()
+    server = threading.Thread(target=sidecar.serve, args=(sock_path, None, stop), daemon=True)
+    server.start()
+    try:
+        client = sidecar.SidecarSolver(sock_path, timeout=SIDECAR_WAIT_S)
+        deadline = time.monotonic() + SIDECAR_WAIT_S
+        while not (os.path.exists(sock_path) and client.ping()):
+            if time.monotonic() > deadline or not server.is_alive():
+                fail("sidecar", "the server on a thread never answered a ping")
+            time.sleep(0.05)
+        tracing.DEFAULT_BUFFER.clear()
+        trips = []
+        for trip in (1, 2):
+            t0 = time.perf_counter()
+            build_snapshot(*objs)
+            lower_s = time.perf_counter() - t0
+            with GcPauses() as pauses:
+                t0 = time.perf_counter()
+                got = client.solve(*objs)
+                wall = time.perf_counter() - t0
+            if got != expected:
+                fail("sidecar", f"in-thread trip {trip}: {sum(a != b for a, b in zip(got, expected))} "
+                                "decisions differ from in-process schedule_backlog")
+            trips.append({"trip": trip, "wall_s": wall, "client_lowering_alone_s": lower_s,
+                          "gc_in_trip": pauses.summary()})
+        # The server records a trace once its reply is sent, which the
+        # client may see first: wait for the second.
+        deadline = time.monotonic() + 10
+        while True:
+            solves = [t for t in tracing.DEFAULT_BUFFER.to_dicts(limit=16)["traces"]
+                      if any(c["name"] == "decode" for c in t["spans"][0].get("children", ()))]
+            if len(solves) >= 2 or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        if len(solves) != 2:
+            fail("sidecar", f"the server recorded {len(solves)} solve traces for 2 trips")
+        for trip, t in zip(trips, reversed(solves)):
+            trip["server_spans"] = _span_seconds(t["spans"][0])
+        return {"trips": trips, "equal_to_in_process": True,
+                "timed": "wall: client clock around SidecarSolver.solve (its lowering, the frame "
+                         "both ways, the server); client_lowering_alone: build_snapshot of the "
+                         "same objects just before; server_spans: the server thread's trace of "
+                         "the request (recv: the frame in, decode, upload, solve ending in the "
+                         "read, send); gc_in_trip: the collector's passes during the trip (this "
+                         "process's, so the client's and the server thread's). Both threads share "
+                         "one interpreter, so a span can end after the client has its reply"}
+    finally:
+        stop.set()
+        server.join(timeout=10)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        if server.is_alive():
+            fail("sidecar", "the server thread did not stop")
 
 
 def run_sidecar(torch, device, default_names, policy_names):
@@ -1676,14 +2177,16 @@ def run_sidecar(torch, device, default_names, policy_names):
             snap = build_snapshot(*objs, spec=spec_)
             header, arrays = sidecar._encode({"op": "solve", "mode": "scan",
                                               **sidecar._snapshot_payload(snap)})
-            walls = []
+            walls, client_gc = [], []
             # The server counts each solve's launches from 0 and returns
             # them with the reply.
             want = {"scan_kernel": int(spec_ is None), "policy_scan_kernel": int(spec_ is not None)}
             for _ in range(2):
-                t0 = time.perf_counter()
-                got = client.solve(*objs, spec=spec_)
-                walls.append(time.perf_counter() - t0)
+                with GcPauses() as pauses:
+                    t0 = time.perf_counter()
+                    got = client.solve(*objs, spec=spec_)
+                    walls.append(time.perf_counter() - t0)
+                client_gc.append(pauses.summary()["total_s"])
                 if got != expected:
                     bad = sum(a != b for a, b in zip(got, expected))
                     fail("sidecar", f"{tag}: {bad} decisions differ from in-process schedule_backlog")
@@ -1691,6 +2194,7 @@ def run_sidecar(torch, device, default_names, policy_names):
                     fail("sidecar", f"{tag}: the server's solve launched "
                                     f"{client.last_kernel_launches}, expected {want}")
             out[tag] = {"round_trip_s": walls, "round_trip_s_min": min(walls),
+                        "client_gc_s": client_gc,
                         "request_frame_bytes": 18 + len(header) + sum(a.nbytes for a in arrays),
                         "kernel_launches": client.last_kernel_launches,
                         "equal_to_in_process": True}
@@ -1720,6 +2224,7 @@ def run_sidecar(torch, device, default_names, policy_names):
         if not client.ping():
             fail("sidecar", "the server did not answer a ping after a garbage frame")
         out["alive_after_garbage"] = True
+        out["in_process_server"] = _sidecar_pair_in_thread(cases["default"][0], default_names)
         out["timed"] = ("SidecarSolver.solve wall: client-side lowering, the frame both ways, the "
                         "server's staging, solve and readback")
         return out
@@ -1871,43 +2376,24 @@ def _prices_card_vs_cpu(torch, device, snap):
 
 def _profile_windowed(torch, device, mode):
     """The first pipeline chunk of the 50k x 5k backlog (12,544 pods on
-    its fresh node carry) solved once under torch.profiler: the host
-    wall, the device time the trace holds (the sum of each operation's
-    own device time), their ratio as the device's busy share, and the
+    its fresh node carry) solved once under torch.profiler
+    (`utils.profiler.profile_call`): the host wall, the device time the
+    trace holds, their ratio as the device's busy share, and the
     operations that hold most of the device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from kubernetes_tpu_torch import workload
     from kubernetes_tpu_torch.models.columnar import SnapshotBuilder
     from kubernetes_tpu_torch.ops.matrices import device_nodes, device_pods
     from kubernetes_tpu_torch.ops.pipeline import DEFAULT_CHUNK
+    from kubernetes_tpu_torch.utils import profiler
 
     pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
     builder = SnapshotBuilder(pending, nodes, (), services)
     carry = device_nodes(builder.node_columns(), device)
     pods = device_pods(builder.pod_columns(0, DEFAULT_CHUNK), device)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, waves, _, _ = _windowed_with_state(mode, pods, carry)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    # The kernels' own rows: an operator's row repeats its kernels' time.
-    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  key=device_us, reverse=True)
-    device_ms = sum(device_us(e) for e in rows) / 1e3
+    (_, waves, _, _), prof = profiler.profile_call(lambda: _windowed_with_state(mode, pods, carry))
     return {
-        "chunk_pods": DEFAULT_CHUNK, "waves": waves, "wall_ms": wall * 1e3,
-        "wall_ms_per_wave": wall * 1e3 / max(waves, 1), "device_ms": device_ms,
-        "device_busy_share": device_ms / (wall * 1e3),
-        "kernel_launches": sum(e.count for e in rows),
-        "top_kernels": [{"kernel": e.key[:120], "device_ms": device_us(e) / 1e3, "calls": e.count}
-                        for e in rows[:10]],
+        "chunk_pods": DEFAULT_CHUNK, "waves": waves, **prof,
+        "wall_ms_per_wave": prof["wall_ms"] / max(waves, 1),
         "timed": "host clock around one chunk's solve ending in a synchronise, under the profiler",
     }
 
@@ -2020,37 +2506,10 @@ REBALANCE_SWEEP = ((16, 1, None), (16, 4, None), (16, 16, None), (16, 32, None),
                    (4, 8, None), (16, 8, 2048))
 REBALANCE_PLAIN_ROWS = 2048  # rows of case 2 held to the plain version on the card
 REBALANCE_REPEATS = 3
-# 32-bit operations a node of an evaluated row, from K2's arithmetic:
-# liveness 3, free vectors 6, feasibility 5, best-fit key 9, the
-# running minimum 2.
-REBALANCE_OPS_PER_NODE = 25
 
 
 def _decisions(ds):
     return [(d.key, d.node, d.victims) if d else None for d in ds]
-
-
-def _profile_call(torch, fn):
-    """fn() once under torch.profiler: its host wall (ending in a
-    synchronise), the device time the trace holds (each kernel's own
-    time, summed), the busy share and the kernel launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(device_us(e) for e in rows) / 1e3
-    return out, {"wall_ms": wall * 1e3, "device_ms": device_ms,
-                 "device_busy_share": device_ms / (wall * 1e3),
-                 "kernel_launches": sum(e.count for e in rows)}
 
 
 def run_preemption(torch, device):
@@ -2120,10 +2579,11 @@ def run_preemption(torch, device):
         }
     # One seed-2 solve under the profiler: the card's share of the solve.
     from kubernetes_tpu_torch.ops.preemption import build_preemption_problem, solve_preemption
+    from kubernetes_tpu_torch.utils import profiler
 
     preemptors, nodes, assigned = objects_of[2]
     problem = build_preemption_problem(nodes, assigned)
-    _, profiled = _profile_call(torch, lambda: solve_preemption(problem, preemptors, device=device))
+    _, profiled = profiler.profile_call(lambda: solve_preemption(problem, preemptors, device=device))
     return {
         "cell": f"{PREEMPT_NODES} nodes, {PREEMPT_BOUND} bound pods at 85-100% of a resource, "
                 f"{PREEMPT_PREEMPTORS} preemptors",
@@ -2153,8 +2613,9 @@ def run_capacity(torch, device, placed_names, session):
     from kubernetes_tpu_torch import workload
     from kubernetes_tpu_torch.ops.capacity import capacity_report, stage, _NODE_DTYPES, _PROBE_DTYPES
     from kubernetes_tpu_torch.ops.oracle import capacity_report_numpy
+    from kubernetes_tpu_torch.utils import profiler
     from kubernetes_tpu_torch.utils.capacity import (
-        COLUMN_KEYS, cluster_columns, probe_arrays, session_columns)
+        COLUMN_KEYS, cluster_columns, probe_arrays, sample, session_columns)
 
     nodes, _services, assigned = _churn_cluster(placed_names)
     pending, _, _ = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
@@ -2165,7 +2626,7 @@ def run_capacity(torch, device, placed_names, session):
                                 ("session", session_columns(session))):
         args = tuple(cols[k] for k in COLUMN_KEYS) + tuple(probe)
         want = capacity_report_numpy(*args)
-        card = capacity_report(*args, device=device)
+        card = sample(cols, probes, device=device)
         _capacity_equal("capacity", f"{tag} card against the twin", card, want)
         _capacity_equal("capacity", f"{tag} CPU against the twin",
                         capacity_report(*args, device="cpu"), want)
@@ -2182,7 +2643,7 @@ def run_capacity(torch, device, placed_names, session):
             ev1.record()
             torch.cuda.synchronize()
             events.append(ev0.elapsed_time(ev1))
-        _, profiled = _profile_call(torch, lambda: capacity_report(*staged, device=device))
+        _, profiled = profiler.profile_call(lambda: capacity_report(*staged, device=device))
         out[tag] = {
             "nodes": int(args[0].shape[0]), "probes": int(args[8].shape[0]),
             "wall_ms_median": statistics.median(walls[1:]),
@@ -2255,17 +2716,11 @@ def check_rebalance_parity(torch, device):
 
 def k2_bound(args, evaluated_rows):
     """The least time the card could take for one K2 launch on these
-    inputs: each input read and each output written once over the HBM
-    rate, against the 32-bit operations of the evaluated rows over every
-    node (and the two scores' probe fits) over the f32 rate."""
+    inputs: `rebalance.cost` over the evaluated rows."""
+    from kubernetes_tpu_torch.ops import rebalance
+
     N, D, Q = len(args[0]), len(args[8]), len(args[13])
-    nbytes = N * (6 * 4 + 2) + D * (3 * 4 + 2) + Q * (3 * 4 + 1) + D * (2 * 4 + 1) + 4 + 8
-    nops = evaluated_rows * N * REBALANCE_OPS_PER_NODE + 2 * N * Q * 12
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_OPS_PER_S * 1e3
-    return {"bytes": nbytes, "ops": nops, "evaluated_rows": evaluated_rows,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    return _bound(rebalance.cost(N, D, Q, evaluated_rows), evaluated_rows=evaluated_rows)
 
 
 def _evaluated_rows(pod_live, moved, n_moves, budget):
@@ -2350,7 +2805,8 @@ def run_rebalance(torch, device, placed_names):
     from kubernetes_tpu_torch.ops.capacity import stage
     from kubernetes_tpu_torch.ops.oracle import plan_moves_numpy
     from kubernetes_tpu_torch.utils.capacity import COLUMN_KEYS, probe_arrays
-    from kubernetes_tpu_torch.utils.rebalance import build_plan, group_plan, stage_rows
+    from kubernetes_tpu_torch.utils.rebalance import (
+        build_plan, group_plan, stage_rows)
     from kubernetes_tpu_torch.utils.tracing import PhaseTimer
 
     cases = _rebalance_cases(placed_names)
@@ -2467,6 +2923,140 @@ def run_rebalance(torch, device, placed_names):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5n: the telemetry plane
+# ---------------------------------------------------------------------------
+
+LEDGER_TOP_SHAPES = 4  # shape rows printed a ledger row, by calls
+TELEMETRY_PROFILED_RUNS = 2  # default backlog runs under torch.profiler
+
+
+def run_telemetry(torch, device, main_result, churn, first_names):
+    """The kernel ledger's rows; default backlog runs under torch.profiler
+    with their transfer bytes (h2d, d2h) and the card's busy share, and
+    one with CUDA events around each K1 launch (K1's busy share); device
+    memory after the main path; the churn ticks' duty cycle and overlap,
+    and the profiled churn tick's busy share; the build pair and a few
+    series as the registry holds them."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops import ledger
+    from kubernetes_tpu_torch.ops.matrices import _pod_axis_bucket
+    from kubernetes_tpu_torch.ops.pipeline import DEFAULT_CHUNK, solve_backlog_pipelined
+    from kubernetes_tpu_torch.utils import capacity, metrics, profiler, rebalance, sli, tracing
+
+    pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    profiled = []
+    for _ in range(TELEMETRY_PROFILED_RUNS):
+        before = {d: sli.TRANSFER_BYTES.value(direction=d) for d in ("h2d", "d2h")}
+        calls0 = ledger.DEFAULT.calls("scan_kernel")
+        names, prof = profiler.profile_call(
+            lambda: solve_backlog_pipelined(pending, nodes, services=services, device=device))
+        moved = {d: sli.TRANSFER_BYTES.value(direction=d) - before[d] for d in before}
+        if names != first_names:
+            fail("telemetry", "the profiled backlog run disagrees with the main path's first run")
+        # The busy share holds only when the trace saw every launch the
+        # ledger counted.
+        seen = sum(k["calls"] for k in prof["top_kernels"] if "scan_kernel" in k["kernel"])
+        launched = ledger.DEFAULT.calls("scan_kernel") - calls0
+        prof.update(scan_kernel_launched=launched, scan_kernel_in_trace=seen,
+                    trace_complete=seen == launched)
+        profiled.append(prof)
+    chunks = [min(DEFAULT_CHUNK, N_PODS - s) for s in range(0, N_PODS, DEFAULT_CHUNK)]
+    k1_events = _k1_events_run(torch, device, (pending, nodes, services), first_names, len(chunks))
+    want_d2h = 4 * sum(_pod_axis_bucket(c, 128) for c in chunks)
+    if moved["d2h"] != want_d2h or moved["h2d"] <= 0:
+        fail("telemetry", f"the backlog moved {moved}, expected d2h {want_d2h} and some h2d")
+
+    rows = ledger.DEFAULT.rows()
+    for kernel in ("scan_kernel", "policy_scan_kernel", "rebalance_kernel"):
+        row = next((r for r in rows if (r["kernel"], r["impl"]) == (kernel, "cuda")), None)
+        if row is None or row["calls"] == 0 or not all(
+                x.get("cost_status") == "ok" and x["bytes_accessed"] > 0 for x in row["shapes"]):
+            fail("telemetry", f"the kernel ledger has no launches or no cost rows for {kernel}")
+    sli.observe_device_telemetry()
+
+    def hist(h, **labels):
+        return {"count": h.count(**labels), "p50": h.quantile(0.5, **labels),
+                "p99": h.quantile(0.99, **labels)}
+
+    return {
+        "ledger": [
+            {**{k: r[k] for k in ("kernel", "impl", "calls", "compiles", "compile_seconds")},
+             "shapes": len(r["shapes"]),
+             "top_shapes": [{k: x.get(k) for k in ("signature", "calls", "flops", "bytes_accessed",
+                                                   "arithmetic_intensity")}
+                            for x in sorted(r["shapes"], key=lambda x: -x["calls"])[:LEDGER_TOP_SHAPES]]}
+            for r in rows
+        ],
+        "ledger_summary": ledger.DEFAULT.summary(rows),
+        "backlog_transfer_bytes": moved,
+        "backlog_profiled": profiled,
+        "backlog_k1_events": k1_events,
+        "device_memory_after_main": main_result["device_memory_bytes"],
+        "churn_duty": {"synchronous": churn["duty"], "pipelined": churn["pipelined"]["duty"]},
+        "churn_tick_profiled": churn["profiled_tick"],
+        "series": {
+            "scheduler_device_duty_cycle": hist(profiler.DUTY_CYCLE),
+            "scheduler_overlap_efficiency": hist(profiler.OVERLAP),
+            "scheduler_device_busy_seconds_total": profiler.DEVICE_BUSY.value(),
+            "scheduler_phase_seconds": {p[0]: hist(tracing.PHASE_SECONDS, phase=p[0])
+                                        for p in tracing.PHASE_SECONDS.label_values()},
+            "solver_device_transfer_bytes_total": {d: sli.TRANSFER_BYTES.value(direction=d)
+                                                   for d in ("h2d", "d2h")},
+            "solver_xla_compile_cache_entries": sli.XLA_CACHE_ENTRIES.value(),
+            "solver_xla_compiles_total": sli.XLA_COMPILES.value(),
+            "device_memory_bytes": {k: sli.DEVICE_MEMORY.value(kind=k)
+                                    for k in ("in_use", "peak", "limit")},
+            "cluster_fragmentation_score": hist(capacity.FRAG_SCORE),
+            "rebalance_moves_total": {"planned": rebalance.MOVES.value(outcome="planned")},
+            "registered": len(metrics.DEFAULT.all()),
+        },
+        "timed": "backlog_profiled: solve_backlog_pipelined (seed 2) under torch.profiler, "
+                 "busy share = the kernels' own device time in the trace over the host wall "
+                 "(it holds only when trace_complete: the trace saw every K1 launch the "
+                 "ledger counted); backlog_k1_events: one more such run, CUDA events around "
+                 "each K1 launch, K1's share of the host wall; transfer bytes: the last "
+                 "profiled run",
+    }
+
+
+def _k1_events_run(torch, device, objs, first_names, chunks):
+    """solve_backlog_pipelined once with CUDA events recorded around each
+    K1 launch: each launch's device ms, their sum over the host wall (the
+    card's busy share from K1 alone, read without the profiler), and the
+    collector's passes during the run."""
+    from kubernetes_tpu_torch.ops import scan_kernel
+    from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
+
+    pending, nodes, services = objs
+    events, launch = [], scan_kernel._launch
+
+    def timed_launch(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = launch(*args, **kwargs)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    scan_kernel._launch = timed_launch
+    try:
+        torch.cuda.synchronize()
+        with GcPauses() as pauses:
+            t0 = time.perf_counter()
+            names = solve_backlog_pipelined(pending, nodes, services=services, device=device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        scan_kernel._launch = launch
+    if names != first_names:
+        fail("telemetry", "the K1-timed backlog run disagrees with the main path's first run")
+    k1_ms = [a.elapsed_time(b) for a, b in events]
+    if len(k1_ms) != chunks:
+        fail("telemetry", f"the K1-timed backlog run launched K1 {len(k1_ms)} times, not {chunks}")
+    return {"wall_ms": wall_ms, "k1_ms": k1_ms, "k1_busy_share": sum(k1_ms) / wall_ms,
+            "gc": pauses.summary()}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: kernel time and bound at the main path's shape
 # ---------------------------------------------------------------------------
 
@@ -2505,39 +3095,30 @@ def _ptxas_figures(log: str):
     )
 
 
+def _bound(cost, **extra):
+    """The bound of one launch from its bytes and 32-bit operations
+    (the kernel module's `cost`): the larger of bytes over the HBM rate
+    and operations over the f32 rate."""
+    bytes_ms = cost["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = cost["flops"] / F32_OPS_PER_S * 1e3
+    return {"bytes": cost["bytes_accessed"], "ops": cost["flops"], **extra,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def kernel_bound(torch, pods, carry):
     """The least time the card could take for one scan launch on these
-    inputs: the larger of the bytes it must move over the HBM rate and
-    the operations it must do over the f32 rate."""
+    inputs: `scan_kernel.cost` over the pods some node could take (the
+    padding rows, pinned to -2, need no pair)."""
+    from kubernetes_tpu_torch.ops import scan_kernel
+
     P, N = pods["cpu"].shape[0], carry["cpu_cap"].shape[0]
-    SW, PW = pods["sel"].shape[1], pods["port"].shape[1]
-    VW, K = pods["vol_any"].shape[1], pods["svc_ids"].shape[1]
-    S = carry["svc_counts"].shape[1]
-    # Bytes: every input read once, every output written once. Pods:
-    # cpu, mem, pinned, svc (4 B), zero_req (1 B), bitset words and
-    # service ids (4 B each); node constants; the carry in and out;
-    # the choices.
-    pod_bytes = P * (4 * 4 + 1 + 4 * (SW + PW + 2 * VW + K))
-    const_bytes = N * (3 * 4 + 2 + 4 * SW)
-    carry_bytes = N * (5 * 4 + 4 * (PW + 2 * VW) + 4 * S)
-    nbytes = pod_bytes + const_bytes + 2 * carry_bytes + 4 * P
-    # Operations per (pod, node) pair, counted from the plain version's
-    # arithmetic: resources and pod-count predicates 13, hostname 2,
-    # selector 2 per word, ports 2 per word, disk 4 per word; casts 4;
-    # LeastRequested 12; BalancedResourceAllocation 14; spreading 4;
-    # weighted sum 5; key and max 3. All 32-bit, taken at the f32 rate.
-    # Pods that no node can take (the padding) need no pair at all.
-    ops_per_pair = 13 + 2 + 4 + 12 + 14 + 4 + 5 + 3 + 2 * SW + 2 * PW + 4 * VW
     pin = pods["pinned"]
     placeable = int(((pin == -1) | ((pin >= 0) & (pin < N))).sum().item())
-    nops = placeable * N * ops_per_pair
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_OPS_PER_S * 1e3
-    return {
-        "bytes": nbytes, "ops": nops, "placeable_pods": placeable,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-    }
+    cost = scan_kernel.cost(P, N, carry["svc_counts"].shape[1], pods["sel"].shape[1],
+                            pods["port"].shape[1], pods["vol_any"].shape[1],
+                            pods["svc_ids"].shape[1], placeable)
+    return _bound(cost, placeable_pods=placeable)
 
 
 def time_kernel(torch, device, chunk_state, chunk_result, ptxas):

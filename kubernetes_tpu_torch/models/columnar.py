@@ -8,10 +8,14 @@ ops over these arrays. Semantics mirror the scalar oracle
 (kubernetes_tpu.scheduler.predicates/priorities) bit for bit wherever
 integers allow.
 
-A copy of `kubernetes_tpu/models/columnar.py` for the PyTorch port,
-with the JAX package's optional ctypes helper replaced by the NumPy
-helpers below. Objects are read by attribute only, so the JAX package's
-API objects lower here exactly as the port's own do.
+A copy of `kubernetes_tpu/models/columnar.py` for the PyTorch port.
+As there, the per-row packing and the assigned-pod sweep run in the
+C++ host helper (`kubernetes_tpu_torch/native.py`, built with g++ at
+first use; it raises where the JAX package would fall back). The NumPy
+`pack_bitsets`, `or_rows_by_index` and `greedy_fit` below are their
+plain versions, which the tests hold the helper to. Objects are read by
+attribute only, so the JAX package's API objects lower here exactly as
+the port's own do.
 
 Design notes:
 - Resources are lowered once, host-side, to integer-valued float32
@@ -47,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from kubernetes_tpu_torch import native
 from kubernetes_tpu_torch.models.algspec import (
     AlgorithmSpec,
     LoweredSpec,
@@ -624,9 +629,9 @@ class SnapshotBuilder:
             mem_mib=mem_req,
             zero_req=zero_req,
             selector_id=self._pod_sel_rows[start:stop],
-            port_bits=pack_bitsets(port_id_lists, self.PW),
-            vol_any_bits=pack_bitsets(vol_any_lists, self.VW),
-            vol_rw_bits=pack_bitsets(vol_rw_lists, self.VW),
+            port_bits=native.pack_bitsets(port_id_lists, self.PW),
+            vol_any_bits=native.pack_bitsets(vol_any_lists, self.VW),
+            vol_rw_bits=native.pack_bitsets(vol_rw_lists, self.VW),
             pinned_node=pinned,
             service_id=service_id,
             svc_topk=svc_topk,
@@ -694,19 +699,19 @@ class SnapshotBuilder:
             a_vol_rw_lists.append(
                 [self.vol_vocab.id(v) for v, rw in vols if rw]
             )
-        greedy_fit(
+        native.greedy_fit(
             a_idx, a_cpu, a_mem, cpu_cap, mem_cap,
             cpu_fit_used, mem_fit_used, overcommitted, cpu_used, mem_used,
             pods_used,
         )
-        or_rows_by_index(
-            a_idx, pack_bitsets(a_port_lists, PW), used_port_bits
+        native.or_rows_by_index(
+            a_idx, native.pack_bitsets(a_port_lists, PW), used_port_bits
         )
-        or_rows_by_index(
-            a_idx, pack_bitsets(a_vol_any_lists, VW), used_vol_any
+        native.or_rows_by_index(
+            a_idx, native.pack_bitsets(a_vol_any_lists, VW), used_vol_any
         )
-        or_rows_by_index(
-            a_idx, pack_bitsets(a_vol_rw_lists, VW), used_vol_rw
+        native.or_rows_by_index(
+            a_idx, native.pack_bitsets(a_vol_rw_lists, VW), used_vol_rw
         )
 
         # Spreading counts: every pod (phase-unfiltered) contributes to

@@ -2,7 +2,8 @@
 solvers (wave, Sinkhorn), the pipeline and the explain readback, the
 incremental session, the solver sidecar, preemption (`preemption`), the
 capacity report (`capacity`), the defrag plan and its kernel K2
-(`rebalance`), and the NumPy oracle."""
+(`rebalance`), the kernel ledger (`ledger`), the builds (`build`), and
+the NumPy oracle."""
 
 from kubernetes_tpu_torch.ops.capacity import capacity_report  # noqa: F401
 from kubernetes_tpu_torch.ops.incremental import (  # noqa: F401

@@ -48,6 +48,7 @@ What differs from the JAX session:
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -84,7 +85,8 @@ from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device
 from kubernetes_tpu_torch.ops.sinkhorn import solve_sinkhorn_with_state
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, solve_with_state
 from kubernetes_tpu_torch.ops.wave import solve_waves_with_state
-from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
+from kubernetes_tpu_torch.utils import flightrecorder, sli
+from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -170,14 +172,26 @@ class PendingSolve:
     need the tick to be finished: ``solve_async`` resolves an
     outstanding handle itself."""
 
-    __slots__ = ("_session", "pending", "assignment", "event", "tele", "_done", "_result")
+    __slots__ = (
+        "_session", "pending", "assignment", "event", "tele",
+        "dispatch_s", "block_s", "dispatched_mono", "resolved_mono",
+        "_done", "_result",
+    )
 
-    def __init__(self, session, pending, assignment, event, tele=(None, None, None)):
+    def __init__(self, session, pending, assignment, event, tele=(None, None, None),
+                 dispatch_s=0.0):
         self._session = session
         self.pending = pending
         self.assignment = assignment  # host int32 tensor (pinned on a card)
         self.event = event  # recorded after the readback copy; None on the CPU
         self.tele = tele  # (waves, Sinkhorn iterations, residual), None where not run
+        self.dispatch_s = dispatch_s  # host seconds of the flush, staging and launch
+        # Duty-cycle accounting (utils/profiler.py): the in-flight window
+        # is dispatched_mono -> resolved_mono; block_s of it is host time
+        # spent blocked in result(), the readback and the commits.
+        self.block_s = 0.0
+        self.dispatched_mono = time.monotonic()
+        self.resolved_mono = 0.0
         self._done = assignment is None
         self._result: List[Tuple[str, Optional[str]]] = []
 
@@ -219,6 +233,23 @@ class _LoweredPod:
     # Soft pin (a rebalance nomination, not spec.nodeName): an unknown
     # destination resolves to unpinned (-1) instead of infeasible (-2).
     pin_soft: bool = False
+    # The port and volume ids as bit masks (bit i = id i): a node row's
+    # bitsets are the OR of its pods' masks.
+    port_mask: int = 0
+    vol_any_mask: int = 0
+    vol_rw_mask: int = 0
+
+
+def _mask(ids: Sequence[int]) -> int:
+    m = 0
+    for i in ids:
+        m |= 1 << i
+    return m
+
+
+def _words(mask: int, words: int) -> np.ndarray:
+    """A bit mask as `words` u32 bitset words (the layout of `bitset`)."""
+    return np.array([(mask >> (32 * w)) & 0xFFFFFFFF for w in range(words)], np.uint32)
 
 
 class SolverSession:
@@ -283,6 +314,8 @@ class SolverSession:
         self._assigned: List[List[_LoweredPod]] = [[] for _ in range(self.N_cap)]
         self._pod_node: Dict[str, int] = {}
         self._node_specs: List[Optional[Node]] = [None] * self.N_cap
+        # Per slot, the node's constant columns (`_node_constants`).
+        self._node_const: List[Optional[Dict[str, object]]] = [None] * self.N_cap
 
         self.h = self._empty_node_columns()
         for node in nodes:
@@ -353,6 +386,9 @@ class SolverSession:
             pinned_name=pinned_name,
             pin_soft=pin_soft,
             svc=first,
+            port_mask=_mask(port_ids),
+            vol_any_mask=_mask(vol_any),
+            vol_rw_mask=_mask(vol_rw),
         )
 
     # -- node columns (host mirror) -----------------------------------
@@ -388,54 +424,83 @@ class SolverSession:
             self.node_names[j] = name
             self.node_index[name] = j
         self._node_specs[j] = node
+        self._node_const[j] = None  # worked out again at the next recompute
         return j
 
-    def _recompute_node_row(self, j: int) -> None:
-        """Rebuild slot j's full row from spec + assigned pods (the
-        only non-monotonic operation: deletes can't be expressed as
-        bitset increments)."""
-        node = self._node_specs[j]
-        h = self.h
-        for k in h:
-            h[k][j] = 0
-        if node is None:
-            return
+    def _node_constants(self, node: Node) -> Dict[str, object]:
+        """The part of a node's row that its pods do not change:
+        capacities, the label bitset and readiness, kept per slot from
+        the node's first recompute until it is upserted or removed, so a
+        pod delete rebuilds only the occupancy part. (Worked out at the
+        recompute, not at admission, so label ids are handed out in the
+        order they always were.)"""
         cap = node.status.capacity or {}
-        if RESOURCE_CPU in cap:
-            h["cpu_cap"][j] = cap[RESOURCE_CPU].milli_value()
-        if RESOURCE_MEMORY in cap:
-            h["mem_cap"][j] = cap[RESOURCE_MEMORY].value() // MIB
-        if RESOURCE_PODS in cap:
-            h["pods_cap"][j] = cap[RESOURCE_PODS].value()
-        h["labels"][j] = bitset(
+        const: Dict[str, object] = {
+            "cpu_cap": np.float32(cap[RESOURCE_CPU].milli_value() if RESOURCE_CPU in cap else 0),
+            "mem_cap": np.float32(cap[RESOURCE_MEMORY].value() // MIB if RESOURCE_MEMORY in cap else 0),
+            "pods_cap": np.float32(cap[RESOURCE_PODS].value() if RESOURCE_PODS in cap else 0),
+        }
+        const["labels"] = bitset(
             [
                 self._vocab_id(self.label_vocab, self.LW, f"{k}={v}")
                 for k, v in (node.metadata.labels or {}).items()
             ],
             self.LW,
         )
-        h["sched"][j] = node_is_ready(node)
-        for lp in self._assigned[j]:
-            # Greedy-fit order = arrival order (reference semantics).
-            fits_cpu = h["cpu_cap"][j] == 0 or (
-                h["cpu_fit"][j] + lp.cpu <= h["cpu_cap"][j]
-            )
-            fits_mem = h["mem_cap"][j] == 0 or (
-                h["mem_fit"][j] + lp.mem_mib <= h["mem_cap"][j]
-            )
+        const["sched"] = node_is_ready(node)
+        return const
+
+    def _recompute_node_row(self, j: int) -> None:
+        """Rebuild slot j's row: the node's cached constants, then the
+        occupancy of its assigned pods in arrival order (the greedy fit
+        of the reference's MapPodsToMachines), summed in f32 one add at a
+        time as the full recompute does. Deletes can't be expressed as
+        bitset increments, so the occupancy is recomputed whole."""
+        h = self.h
+        for k in h:
+            h[k][j] = 0
+        node = self._node_specs[j]
+        if node is None:
+            return
+        const = self._node_const[j]
+        if const is None:
+            const = self._node_const[j] = self._node_constants(node)
+        for k, v in const.items():
+            h[k][j] = v
+        pods = self._assigned[j]
+        if not pods:
+            return
+        cap_c, cap_m = const["cpu_cap"], const["mem_cap"]
+        zero = np.float32(0.0)
+        fit_c = fit_m = used_c = used_m = n = zero
+        over = False
+        port = vol_any = vol_rw = 0
+        svc: Dict[int, int] = {}
+        for lp in pods:
+            # np.float32 + float stays f32 (NEP 50): one rounding an add.
+            fits_cpu = cap_c == 0 or fit_c + lp.cpu <= cap_c
+            fits_mem = cap_m == 0 or fit_m + lp.mem_mib <= cap_m
             if fits_cpu and fits_mem:
-                h["cpu_fit"][j] += lp.cpu
-                h["mem_fit"][j] += lp.mem_mib
+                fit_c = fit_c + lp.cpu
+                fit_m = fit_m + lp.mem_mib
             else:
-                h["over"][j] = True
-            h["cpu_used"][j] += lp.cpu
-            h["mem_used"][j] += lp.mem_mib
-            h["pods_used"][j] += 1
-            h["uport"][j] |= bitset(lp.port_ids, self.PW)
-            h["uvol_any"][j] |= bitset(lp.vol_any_ids, self.VW)
-            h["uvol_rw"][j] |= bitset(lp.vol_rw_ids, self.VW)
-            if len(lp.svc_topk):
-                h["svc_counts"][j, lp.svc_topk] += 1.0
+                over = True
+            used_c = used_c + lp.cpu
+            used_m = used_m + lp.mem_mib
+            n = n + 1
+            port |= lp.port_mask
+            vol_any |= lp.vol_any_mask
+            vol_rw |= lp.vol_rw_mask
+            for sid in lp.svc_topk.tolist():
+                svc[sid] = svc.get(sid, 0) + 1
+        h["cpu_fit"][j], h["mem_fit"][j], h["over"][j] = fit_c, fit_m, over
+        h["cpu_used"][j], h["mem_used"][j], h["pods_used"][j] = used_c, used_m, n
+        for key, mask, words in (("uport", port, self.PW), ("uvol_any", vol_any, self.VW),
+                                 ("uvol_rw", vol_rw, self.VW)):
+            if mask:
+                h[key][j] = _words(mask, words)
+        if svc:
+            h["svc_counts"][j, list(svc)] = list(svc.values())
 
     def _apply_commit_host(self, j: int, lp: _LoweredPod) -> None:
         """Mirror of the device commit: keeps the host rows equal to
@@ -446,9 +511,12 @@ class SolverSession:
         h["cpu_used"][j] += lp.cpu
         h["mem_used"][j] += lp.mem_mib
         h["pods_used"][j] += 1
-        h["uport"][j] |= bitset(lp.port_ids, self.PW)
-        h["uvol_any"][j] |= bitset(lp.vol_any_ids, self.VW)
-        h["uvol_rw"][j] |= bitset(lp.vol_rw_ids, self.VW)
+        if lp.port_mask:
+            h["uport"][j] |= _words(lp.port_mask, self.PW)
+        if lp.vol_any_mask:
+            h["uvol_any"][j] |= _words(lp.vol_any_mask, self.VW)
+        if lp.vol_rw_mask:
+            h["uvol_rw"][j] |= _words(lp.vol_rw_mask, self.VW)
         if len(lp.svc_topk):
             h["svc_counts"][j, lp.svc_topk] += 1.0
 
@@ -456,6 +524,7 @@ class SolverSession:
 
     def _upload_all(self) -> Tensors:
         """The whole host mirror as fresh device tensors."""
+        sli.note_transfer("h2d", sli.nbytes_of(self.h))
         return state_from_numpy({}, self.h, self.device)[1]
 
     def _scatter_rows(self, dev: Tensors, idx: List[int]) -> None:
@@ -484,6 +553,7 @@ class SolverSession:
         # Bucket the scatter width: pad by repeating the last index (an
         # identical row, so the order of duplicate writes is harmless).
         width = _bucket(len(idx), minimum=8)
+        sli.note_transfer("h2d", width * sum(col[:1].nbytes for col in self.h.values()))
         self._scatter_rows(self.dev, idx + [idx[-1]] * (width - len(idx)))
 
     @property
@@ -579,18 +649,24 @@ class SolverSession:
         if not pending:
             self._flush_dirty()
             return PendingSolve(self, [], None, None)
-        with phase(self.timer, "upload"):
-            self._flush_dirty()
-            pods = self._pod_arrays(pending)
-        with phase(self.timer, "solve"):
-            choice, tele = self._dispatch(pods, self._launch_view())
-            host, event = choice, None
-            if self.device.type == "cuda":
-                host = torch.empty(choice.shape, dtype=choice.dtype, pin_memory=True)
-                host.copy_(choice, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-        handle = PendingSolve(self, pending, host, event, tele)
+        t0 = time.monotonic()
+        # "upload" is the dirty-row scatter and this tick's pod staging,
+        # "solve" the launch, "readback" the wait for the choices (so it
+        # holds the device time). "lower" (`_lower_pod`) is the caller's,
+        # at add_pending, as in the JAX session.
+        with timing(self.timer):
+            with phase("upload", dirty=len(self._dirty), pods=len(pending)):
+                self._flush_dirty()
+                pods = self._pod_arrays(pending)
+            with phase("solve", mode=self.mode, incremental=True):
+                choice, tele = self._dispatch(pods, self._launch_view())
+                host, event = choice, None
+                if self.device.type == "cuda":
+                    host = torch.empty(choice.shape, dtype=choice.dtype, pin_memory=True)
+                    host.copy_(choice, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(self.device))
+        handle = PendingSolve(self, pending, host, event, tele, time.monotonic() - t0)
         self._inflight = handle
         return handle
 
@@ -604,29 +680,38 @@ class SolverSession:
         PendingSolve.result()."""
         if self._inflight is handle:
             self._inflight = None
+        t0 = time.monotonic()
         pending = handle.pending
-        with phase(self.timer, "readback"):
-            if handle.event is not None:
-                handle.event.synchronize()
-            picks = handle.assignment[: len(pending)].tolist()
-            # The telemetry scalars are read after the choices' copy.
-            waves, iters, res = handle.tele
-            self.last_stats = {}
-            if waves is not None:
-                self.last_stats["waves"] = int(waves)
-            if iters is not None:
-                self.last_stats["sinkhorn_iters"] = int(iters)
-                self.last_stats["sinkhorn_residual"] = float(res)
         out: List[Tuple[str, Optional[str]]] = []
-        with phase(self.timer, "commit"):
-            for lp, j in zip(pending, picks):
-                if j < 0 or j >= self.N_cap or self.node_names[j] is None:
-                    out.append((lp.key, None))
-                    continue
-                self._assigned[j].append(lp)
-                self._pod_node[lp.key] = j
-                self._apply_commit_host(j, lp)
-                out.append((lp.key, self.node_names[j]))
+        with timing(self.timer):
+            with phase("readback"):
+                if handle.event is not None:
+                    handle.event.synchronize()
+                sli.note_transfer("d2h", sli.nbytes_of({"a": handle.assignment}))
+                picks = handle.assignment[: len(pending)].tolist()
+                # The telemetry scalars are read after the choices' copy.
+                waves, iters, res = handle.tele
+                self.last_stats = {}
+                if waves is not None:
+                    self.last_stats["waves"] = int(waves)
+                if iters is not None:
+                    self.last_stats["sinkhorn_iters"] = int(iters)
+                    self.last_stats["sinkhorn_residual"] = float(res)
+                    flightrecorder.observe_solve_telemetry(
+                        "sinkhorn", int(iters), residual=float(res))
+                elif waves is not None:
+                    flightrecorder.observe_solve_telemetry("wave", int(waves))
+            with phase("commit"):
+                for lp, j in zip(pending, picks):
+                    if j < 0 or j >= self.N_cap or self.node_names[j] is None:
+                        out.append((lp.key, None))
+                        continue
+                    self._assigned[j].append(lp)
+                    self._pod_node[lp.key] = j
+                    self._apply_commit_host(j, lp)
+                    out.append((lp.key, self.node_names[j]))
+        handle.resolved_mono = time.monotonic()
+        handle.block_s = handle.resolved_mono - t0
         handle._result = out
         handle._done = True
 
@@ -766,6 +851,7 @@ class SolverSession:
                 arr["pinned"][i] = -1
             arr["svc"][i] = lp.svc
             arr["svc_ids"][i, : len(lp.svc_topk)] = lp.svc_topk
+        sli.note_transfer("h2d", sli.nbytes_of(arr))
         if reuse:
             return self._pod_staging.upload(turn, host)
         return {k: t.to(self.device) for k, t in host.items()}

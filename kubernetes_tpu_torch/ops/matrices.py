@@ -27,6 +27,7 @@ import torch
 from kubernetes_tpu_torch import DeviceLike, resolve_device
 from kubernetes_tpu_torch.models.algspec import DEFAULT_LOWERED, LoweredSpec
 from kubernetes_tpu_torch.models.columnar import Snapshot
+from kubernetes_tpu_torch.utils import sli
 
 #: Keys whose columns are u32 bitset words on the host.
 BITSET_KEYS = frozenset(
@@ -114,18 +115,23 @@ def _put(arrs: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.T
     pinned memory without blocking the host, so staging the next chunk
     overlaps the kernel still running on the stream. All-zero leaves (a
     fresh backlog's svc_counts is N x S f32, about 10 MB at 5k x 500)
-    are made on the device instead of copied."""
+    are made on the device instead of copied. The bytes that do move
+    are noted as the h2d transfer (`utils/sli.py`), as the JAX
+    package's `_put_tree` notes them."""
     out = {}
+    moved = 0
     for key, arr in arrs.items():
         if arr.size > 4096 and not arr.any():
             t = _as_tensor(key, arr[:0])
             out[key] = torch.zeros(arr.shape, dtype=t.dtype, device=device)
             continue
+        moved += arr.nbytes
         t = _as_tensor(key, arr)
         if device.type == "cuda":
             out[key] = t.pin_memory().to(device, non_blocking=True)
         else:
             out[key] = t.to(device)
+    sli.note_transfer("h2d", moved)
     return out
 
 

@@ -42,7 +42,8 @@ from kubernetes_tpu_torch.ops.matrices import (
 from kubernetes_tpu_torch.ops.sinkhorn import solve_sinkhorn_with_state
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, explain_rows, solve_with_state
 from kubernetes_tpu_torch.ops.wave import solve_waves_with_state
-from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
+from kubernetes_tpu_torch.utils import flightrecorder, sli
+from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
 
 # The JAX package's chunk: 50k pods in four chunks, each padded to a
 # 13,312-pod bucket.
@@ -125,38 +126,51 @@ def solve_backlog_pipelined(
     else:
         raise ValueError(f"unknown pipeline mode {mode!r}")
     device = resolve_device(device)
-    with phase(timer, "lower"):
-        builder = SnapshotBuilder(pending, nodes, assigned, services)
-    with phase(timer, "upload"):
-        carry = device_nodes(builder.node_columns(), device)
-    P = len(builder.pending)
-    outs = []
-    for start in range(0, max(P, 1), chunk):
-        with phase(timer, "lower"):
-            cols = builder.pod_columns(start, min(start + chunk, P))
-        # Full chunks share one padded shape; the tail pads to its own
-        # bucket.
-        with phase(timer, "upload"):
-            dpods = device_pods(cols, device)
-        with phase(timer, "solve"):
-            assignment, carry = step(dpods, carry)
-            outs.append((_to_host_async(assignment), cols.count))
+    # Phases wrap whole host segments, never per-pod work: a few clock
+    # reads a chunk. Launches return at once, so a chunk's "solve"
+    # measures its launches and the device time drains into "readback".
+    with timing(timer):
+        with phase("lower", pods=len(pending)):
+            builder = SnapshotBuilder(pending, nodes, assigned, services)
+        with phase("upload"):
+            carry = device_nodes(builder.node_columns(), device)
+        P = len(builder.pending)
+        outs = []
+        for ci, start in enumerate(range(0, max(P, 1), chunk)):
+            with phase("lower", chunk=ci):
+                cols = builder.pod_columns(start, min(start + chunk, P))
+            # Full chunks share one padded shape; the tail pads to its own
+            # bucket.
+            with phase("upload", chunk=ci):
+                dpods = device_pods(cols, device)
+            with phase("solve", chunk=ci):
+                assignment, carry = step(dpods, carry)
+                outs.append((_to_host_async(assignment), cols.count))
 
-    with phase(timer, "readback"):
-        if device.type == "cuda":
-            torch.cuda.current_stream(device).synchronize()
-        names = [n.metadata.name for n in builder.nodes]
-        n_nodes = len(names)
-        result: List[Optional[str]] = []
-        for host, count in outs:
-            for j in host[:count].tolist():
-                result.append(names[j] if 0 <= j < n_nodes else None)
-        if tele and timer is not None:
-            timer.stats["waves"] = sum(w for w, _, _ in tele)
-            if mode == "sinkhorn":
-                timer.stats["sinkhorn_iters"] = sum(int(it) for _, it, _ in tele)
-                timer.stats["sinkhorn_residual"] = float(tele[-1][2])
-        return result
+        with phase("readback"):
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+            names = [n.metadata.name for n in builder.nodes]
+            n_nodes = len(names)
+            result: List[Optional[str]] = []
+            for host, count in outs:
+                for j in host[:count].tolist():
+                    result.append(names[j] if 0 <= j < n_nodes else None)
+            sli.note_transfer("d2h", sum(sli.nbytes_of({"a": host}) for host, _ in outs))
+            if tele:
+                waves = sum(int(w) for w, _, _ in tele)
+                if timer is not None:
+                    timer.stats["waves"] = waves
+                if mode == "sinkhorn":
+                    iters = sum(int(it) for _, it, _ in tele)
+                    residual = float(tele[-1][2])
+                    flightrecorder.observe_solve_telemetry("sinkhorn", iters, residual=residual)
+                    if timer is not None:
+                        timer.stats["sinkhorn_iters"] = iters
+                        timer.stats["sinkhorn_residual"] = residual
+                else:
+                    flightrecorder.observe_solve_telemetry("wave", waves)
+            return result
 
 
 # -- explain readback ---------------------------------------------------

@@ -58,6 +58,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from kubernetes_tpu_torch.models.algspec import LoweredSpec
+from kubernetes_tpu_torch.ops import ledger
 # The base columns, their checks and the packed row's scalars are the
 # scan kernel's.
 from kubernetes_tpu_torch.ops.scan_kernel import (
@@ -449,6 +450,33 @@ def occupancy(plan: LaunchPlan, pods: Tensors, nodes: Tensors, lspec: LoweredSpe
     return active.value
 
 
+def cost(P: int, N: int, S: int, SW: int, PW: int, VW: int, K: int, KA: int, I: int, SA: int,
+         placeable: Optional[int] = None) -> Dict[str, int]:
+    """What one launch must do, the count PERF.md's bound uses: the scan
+    kernel's bytes plus the affinity pins, the policy columns (policy_ok
+    1 B, static_prio, aff_vid, aa_zone 4 B each) and the service carry
+    in and out; its 32-bit operations a (pod, node) pair plus the label
+    mask 1, the static priority 1, 3 an affinity label and 10 an
+    anti-affinity instance (zone test and sum, the zone's count, the
+    score's division and select, the weighted add), over the
+    `placeable` pods (default: all P rows)."""
+    placeable = P if placeable is None else placeable
+    pod_bytes = P * (4 * 4 + 1 + 4 * (SW + PW + 2 * VW + K + KA))
+    const_bytes = N * (3 * 4 + 2 + 4 * SW + 1 + 4 + 4 * KA + 4 * I)
+    carry_bytes = N * (5 * 4 + 4 * (PW + 2 * VW) + 4 * S) + 8 * SA
+    ops_per_pair = 13 + 2 + 4 + 12 + 14 + 4 + 5 + 3 + 2 * SW + 2 * PW + 4 * VW
+    ops_per_pair += 2 + 3 * KA + 10 * I
+    return {"flops": placeable * N * ops_per_pair,
+            "bytes_accessed": pod_bytes + const_bytes + 2 * carry_bytes + 4 * P}
+
+
+def _note(impl: str, pods: Tensors, nodes: Tensors, lspec: LoweredSpec) -> None:
+    """One call into the kernel ledger, keyed by the launch's shapes."""
+    d = _dims(pods, nodes, lspec)
+    sig = "P={P},N={N},S={S},SW={SW},PW={PW},VW={VW},K={K},KA={KA},I={I},SA={SA}".format(**d)
+    ledger.DEFAULT.note_call("policy_scan_kernel", impl, sig, lambda: cost(**d))
+
+
 def _launch(pods: Tensors, nodes: Tensors, weights, lspec: LoweredSpec, plan=None):
     lib = _load()
     device = pods["cpu"].device
@@ -456,6 +484,7 @@ def _launch(pods: Tensors, nodes: Tensors, weights, lspec: LoweredSpec, plan=Non
         stream = torch.cuda.current_stream(device).cuda_stream
         choice = _call(lib, pods, nodes, weights, lspec, stream, plan)
     policy_scan_with_state.launches += 1
+    _note("cuda", pods, nodes, lspec)
     return choice, nodes
 
 
@@ -481,6 +510,7 @@ def policy_scan_with_state(
     if device.type == "cuda":
         return _launch(pods, nodes, weights, lspec)
     if device.type == "cpu":
+        _note("plain", pods, nodes, lspec)
         return plain_policy_scan_with_state(pods, nodes, weights, lspec)
     raise ValueError(f"policy scan kernel: unsupported device {device}")
 

@@ -66,6 +66,7 @@ from typing import Optional
 import torch
 
 from kubernetes_tpu_torch import DeviceLike, resolve_device
+from kubernetes_tpu_torch.ops import ledger
 from kubernetes_tpu_torch.ops.capacity import (
     BIG_FIT,
     FIT_CAP,
@@ -274,6 +275,32 @@ def _call(lib: ctypes.CDLL, args, budget: int, stream, plan: Optional[LaunchPlan
     return dest, moved, gain, n_moves, scores[0], scores[1]
 
 
+#: 32-bit operations to evaluate one (row, node) pair (the bound's count).
+OPS_PER_NODE = 25
+
+
+def cost(N: int, D: int, Q: int, evaluated_rows: Optional[int] = None) -> dict:
+    """What one launch must do, the count PERF.md's bound uses:
+    `bytes_accessed` reads each input and writes each output once (the
+    eight node columns, the five row columns, the four probe columns,
+    the three row outputs, the move count and the two scores), and
+    `flops` counts OPS_PER_NODE 32-bit operations for each evaluated row
+    against every node plus the two scores' probe fits (12 a node a
+    probe each). `evaluated_rows` defaults to all D rows, the most the
+    data can ask; the live rows up to the one that spends the budget is
+    what a given plan needs."""
+    evaluated_rows = D if evaluated_rows is None else evaluated_rows
+    nbytes = N * (6 * 4 + 2) + D * (3 * 4 + 2) + Q * (3 * 4 + 1) + D * (2 * 4 + 1) + 4 + 8
+    return {"flops": evaluated_rows * N * OPS_PER_NODE + 2 * N * Q * 12, "bytes_accessed": nbytes}
+
+
+def _note(impl: str, args) -> None:
+    """One call into the kernel ledger, keyed by the plan's shapes."""
+    N, D, Q = args[0].shape[0], args[8].shape[0], args[13].shape[0]
+    ledger.DEFAULT.note_call("rebalance_kernel", impl, f"N={N},D={D},Q={Q}",
+                             lambda: cost(N, D, Q))
+
+
 def _launch(args, budget: int, plan: Optional[LaunchPlan] = None):
     from kubernetes_tpu_torch.ops import build
 
@@ -283,6 +310,7 @@ def _launch(args, budget: int, plan: Optional[LaunchPlan] = None):
         stream = torch.cuda.current_stream(device).cuda_stream
         out = _call(lib, args, budget, stream, plan)
     plan_moves.launches += 1
+    _note("cuda", args)
     return out
 
 
@@ -395,6 +423,7 @@ def plan_moves(cpu_cap, mem_cap, pods_cap, cpu_fit, mem_fit, pods_used, over, sc
     if device.type == "cuda":
         return _launch(args, _budget(move_budget))
     if device.type == "cpu":
+        _note("plain", args)
         return plan_moves_plain(*args, move_budget)
     raise ValueError(f"rebalance kernel: unsupported device {device}")
 

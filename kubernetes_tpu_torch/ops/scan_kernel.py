@@ -53,6 +53,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from kubernetes_tpu_torch.ops import ledger
+
 Tensors = Dict[str, torch.Tensor]
 
 #: Dynamic shared memory one block may use on Hopper (227 KB).
@@ -232,6 +234,35 @@ def _dims(pods: Tensors, nodes: Tensors) -> Dict[str, int]:
     }
 
 
+def cost(P: int, N: int, S: int, SW: int, PW: int, VW: int, K: int,
+         placeable: Optional[int] = None) -> Dict[str, int]:
+    """What one launch must do, the count PERF.md's bound uses:
+    `bytes_accessed` reads every input once and writes every output once
+    (pods: cpu, mem, pinned, svc 4 B, zero_req 1 B, bitset words and
+    service ids 4 B each; the node constants; the carry in and out; the
+    choices), and `flops` counts the 32-bit operations of each (pod,
+    node) pair from the plain version's arithmetic (resources and pod
+    count 13, hostname 2, selector 2 a word, ports 2 a word, disk 4 a
+    word, casts 4, LeastRequested 12, BalancedResourceAllocation 14,
+    spreading 4, weighted sum 5, key and max 3) over the `placeable`
+    pods (default: all P rows, the most the data can ask)."""
+    placeable = P if placeable is None else placeable
+    pod_bytes = P * (4 * 4 + 1 + 4 * (SW + PW + 2 * VW + K))
+    const_bytes = N * (3 * 4 + 2 + 4 * SW)
+    carry_bytes = N * (5 * 4 + 4 * (PW + 2 * VW) + 4 * S)
+    ops_per_pair = 13 + 2 + 4 + 12 + 14 + 4 + 5 + 3 + 2 * SW + 2 * PW + 4 * VW
+    return {"flops": placeable * N * ops_per_pair,
+            "bytes_accessed": pod_bytes + const_bytes + 2 * carry_bytes + 4 * P}
+
+
+def _note(impl: str, pods: Tensors, nodes: Tensors) -> None:
+    """One call into the kernel ledger, keyed by the launch's shapes."""
+    d = _dims(pods, nodes)
+    d["P"], d["N"] = pods["cpu"].shape[0], nodes["cpu_cap"].shape[0]
+    sig = "P={P},N={N},S={S},SW={SW},PW={PW},VW={VW},K={K}".format(**d)
+    ledger.DEFAULT.note_call("scan_kernel", impl, sig, lambda: cost(**d))
+
+
 def plan_for(pods: Tensors, nodes: Tensors, cluster=None, threads=None, resident=None) -> LaunchPlan:
     """`launch_plan` at the shapes of these tensors."""
     d = _dims(pods, nodes)
@@ -317,6 +348,7 @@ def _launch(pods: Tensors, nodes: Tensors, weights, plan=None) -> Tuple[torch.Te
         stream = torch.cuda.current_stream(device).cuda_stream
         choice = _call(lib, pods, nodes, weights, stream, plan)
     scan_with_state.launches += 1
+    _note("cuda", pods, nodes)
     return choice, nodes
 
 
@@ -336,6 +368,7 @@ def scan_with_state(pods: Tensors, nodes: Tensors, weights=(1, 1, 1)) -> Tuple[t
     if device.type == "cuda":
         return _launch(pods, nodes, weights)
     if device.type == "cpu":
+        _note("plain", pods, nodes)
         return plain_scan_with_state(pods, nodes, weights)
     raise ValueError(f"scan kernel: unsupported device {device}")
 

@@ -30,7 +30,9 @@ a policy spec in the request ignored, as the JAX server does); any
 other mode through `ops.solver.solve_assignments`, the default spec on
 the scan kernel and a policy spec on the policy scan kernel. A bad
 frame or a failed solve (a structured `{"error": ...}` reply) never
-ends the serving loop.
+ends the serving loop. Each request is recorded as one trace of the
+server's spans (`utils/tracing.py` DEFAULT_BUFFER); `serve(...,
+stop=event)` runs the loop on a thread until the event is set.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import List, Optional, Sequence
 
@@ -56,6 +59,7 @@ from kubernetes_tpu_torch.models.columnar import (
     Vocab,
     build_snapshot,
 )
+from kubernetes_tpu_torch.utils.tracing import phase, span, trace
 
 
 class SidecarError(Exception):
@@ -384,15 +388,19 @@ def _solve_request(req: dict, device) -> dict:
     }
     try:
         mode = req.get("mode", "scan")
-        snap = _snapshot_from_payload(req)
+        with span("decode"):
+            snap = _snapshot_from_payload(req)
         before = {name: fn.launches for name, fn in counters.items()}
-        dsnap = device_snapshot(snap, device)
+        with phase("upload"):
+            dsnap = device_snapshot(snap, device)
         if mode == "wave":
             assignment, _ = wave_assignments(dsnap)
         elif mode == "sinkhorn":
             assignment, _ = sinkhorn_assignments(dsnap)
         else:
-            assignment = solve_assignments(dsnap)
+            # solve_assignments reads the choices back: the device time.
+            with phase("solve", mode="scan"):
+                assignment = solve_assignments(dsnap)
         return {
             "assignment": assignment.tolist(),
             "kernel_launches": {name: fn.launches - before[name] for name, fn in counters.items()},
@@ -401,9 +409,14 @@ def _solve_request(req: dict, device) -> dict:
         return {"error": f"{type(e).__name__}: {e}"}
 
 
-def serve(sock_path: str, device=None) -> None:
+def serve(sock_path: str, device=None, stop: Optional[threading.Event] = None) -> None:
     """Sidecar main loop: owns the device (default: the CUDA card; raises
-    without one) and solves snapshots, one connection at a time.
+    without one) and solves snapshots, one connection at a time, until
+    `stop` is set (None: forever).
+
+    Each request is one trace in `utils.tracing.DEFAULT_BUFFER`: spans
+    `recv` (the frame in), `decode`, phases `upload` and `solve`, and
+    `send` (the reply out).
 
     Per-connection containment: a garbage frame, a client that hangs up
     mid-reply, or a failed solve never ends this loop; a dead sidecar
@@ -419,20 +432,33 @@ def serve(sock_path: str, device=None) -> None:
     server.bind(sock_path)
     os.chmod(sock_path, 0o600)  # same-user boundary
     server.listen(4)
-    while True:
-        conn, _ = server.accept()
-        try:
-            req = _recv_msg(conn)
-            if not isinstance(req, dict):
-                _send_msg(conn, {"error": "request must be a dict"})
-            elif req.get("op") == "ping":
-                _send_msg(conn, {"ok": True})
-            else:
-                _send_msg(conn, _solve_request(req, device))
-        except Exception:
-            pass  # bad frame / client hung up mid-reply; next client
-        finally:
-            conn.close()
+    if stop is not None:
+        server.settimeout(0.2)  # wake to look at `stop`
+    try:
+        while stop is None or not stop.is_set():
+            try:
+                conn, _ = server.accept()
+            except socket.timeout:
+                continue
+            conn.settimeout(None)
+            try:
+                with trace("sidecar_request"):
+                    with span("recv"):
+                        req = _recv_msg(conn)
+                    if not isinstance(req, dict):
+                        reply = {"error": "request must be a dict"}
+                    elif req.get("op") == "ping":
+                        reply = {"ok": True}
+                    else:
+                        reply = _solve_request(req, device)
+                    with span("send"):
+                        _send_msg(conn, reply)
+            except Exception:
+                pass  # bad frame / client hung up mid-reply; next client
+            finally:
+                conn.close()
+    finally:
+        server.close()
 
 
 def main(argv=None) -> int:

@@ -28,14 +28,15 @@ priced argmax may go the other way; placements stay valid.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from kubernetes_tpu_torch.ops.matrices import DeviceSnapshot
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS
 from kubernetes_tpu_torch.ops.wave import Tensors, _scratch_carry, _tie_hash, run_windowed, strip_assignments
-from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
+from kubernetes_tpu_torch.utils import flightrecorder
+from kubernetes_tpu_torch.utils.tracing import phase
 
 _NEG = -1e30
 
@@ -98,12 +99,21 @@ def _choose(eps, iters, price_cap, tol):
     return functools.partial(_priced_choose, eps=eps, iters=iters, price_cap=price_cap, tol=tol)
 
 
-def sinkhorn_assignments(dsnap: DeviceSnapshot, timer: Optional[PhaseTimer] = None, **kw):
+def sinkhorn_assignments(dsnap: DeviceSnapshot, **kw):
     """Run the Sinkhorn wave solver on a staged snapshot and strip
-    padding: (i32[n_pods] with -1 = unschedulable, wave count)."""
-    with phase(timer, "solve"):
-        out, waves, _, _ = solve_sinkhorn_stats(dsnap.pods, dsnap.nodes, **kw)
-        return strip_assignments(dsnap, out), waves
+    padding: (i32[n_pods] with -1 = unschedulable, wave count). The
+    convergence telemetry (total price iterations and the last residual)
+    goes to `scheduler_solve_iterations` / `scheduler_sinkhorn_residual`
+    and onto the solve span."""
+    with phase("solve", solver="sinkhorn") as sp:
+        out, waves, titers, residual = solve_sinkhorn_stats(dsnap.pods, dsnap.nodes, **kw)
+        stripped = strip_assignments(dsnap, out)
+        waves = int(waves)
+        titers = int(titers)
+        residual = float(residual)
+        sp.note(waves=waves, sinkhorn_iters=titers, sinkhorn_residual=round(residual, 4))
+    flightrecorder.observe_solve_telemetry("sinkhorn", titers, residual=residual)
+    return stripped, waves
 
 
 def solve_sinkhorn_stats(

@@ -50,6 +50,7 @@ import torch
 from kubernetes_tpu_torch.models.algspec import DEFAULT_LOWERED, LoweredSpec
 from kubernetes_tpu_torch.ops import policy_scan, scan_kernel
 from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, POLICY_CARRY_KEYS, DeviceSnapshot
+from kubernetes_tpu_torch.utils import sli
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -403,6 +404,7 @@ def solve_assignments(
     if weights is None:
         weights = dsnap.weights
     out = solve(dsnap.pods, dsnap.nodes, weights, dsnap.lowered).cpu().numpy()
+    sli.note_transfer("d2h", out.nbytes)
     out = out[: dsnap.n_pods]
     # Padding nodes are never schedulable; clamp so no phantom index
     # can leak.

@@ -35,14 +35,15 @@ stay valid.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, DeviceSnapshot
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, _feasible, _scores
-from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
+from kubernetes_tpu_torch.utils import flightrecorder
+from kubernetes_tpu_torch.utils.tracing import phase
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -57,13 +58,18 @@ def strip_assignments(dsnap: DeviceSnapshot, out: torch.Tensor) -> np.ndarray:
     return np.where(a >= dsnap.n_nodes, -1, a)
 
 
-def wave_assignments(dsnap: DeviceSnapshot, timer: Optional[PhaseTimer] = None, **kw):
+def wave_assignments(dsnap: DeviceSnapshot, **kw):
     """Run the wave solver on a staged snapshot and strip padding:
     (i32[n_pods] with -1 = unschedulable, wave count). The strip reads
-    the result back, so the "solve" phase holds the device time."""
-    with phase(timer, "solve"):
+    the result back, so the "solve" phase holds the device time; its
+    span carries the wave count."""
+    with phase("solve", solver="wave") as sp:
         out, waves = solve_waves(dsnap.pods, dsnap.nodes, **kw)
-        return strip_assignments(dsnap, out), waves
+        stripped = strip_assignments(dsnap, out)
+        waves = int(waves)
+        sp.note(waves=waves)
+    flightrecorder.observe_solve_telemetry("wave", waves)
+    return stripped, waves
 
 
 def _window_rows(pods: Tensors, idx: torch.Tensor) -> Tensors:

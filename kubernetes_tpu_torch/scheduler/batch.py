@@ -44,7 +44,7 @@ from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_assignments
 from kubernetes_tpu_torch.ops.solver import solve_assignments
 from kubernetes_tpu_torch.ops.wave import wave_assignments
 from kubernetes_tpu_torch.scheduler.gang import gang_solve
-from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
+from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
 
 
 def schedule_backlog(
@@ -62,34 +62,36 @@ def schedule_backlog(
     lowers the configured predicate/priority set (UnloweredPolicyError
     when it cannot) and solves it on the policy scan kernel."""
     device = resolve_device(device)
-    with phase(timer, "lower"):
-        snap = build_snapshot(
-            pending, nodes, assigned_pods=assigned, services=services, spec=spec
-        )
-    with phase(timer, "upload"):
-        dsnap = device_snapshot(snap, device)
-    with phase(timer, "solve"):
-        # solve_assignments copies the result to the host, so this phase
-        # includes the device time.
-        assignment = solve_assignments(dsnap)
-    with phase(timer, "readback"):
-        names = snap.nodes.names
-        return [names[i] if i >= 0 else None for i in assignment]
+    with timing(timer):
+        with phase("lower", pods=len(pending)):
+            snap = build_snapshot(
+                pending, nodes, assigned_pods=assigned, services=services, spec=spec
+            )
+        with phase("upload"):
+            dsnap = device_snapshot(snap, device)
+        with phase("solve", mode="scan"):
+            # solve_assignments copies the result to the host, so this
+            # phase includes the device time.
+            assignment = solve_assignments(dsnap)
+        with phase("readback"):
+            names = snap.nodes.names
+            return [names[i] if i >= 0 else None for i in assignment]
 
 
 def _schedule_windowed(solve, pending, nodes, assigned, services, device, timer):
     device = resolve_device(device)
-    with phase(timer, "lower"):
-        snap = build_snapshot(pending, nodes, assigned_pods=assigned, services=services)
-    with phase(timer, "upload"):
-        dsnap = device_snapshot(snap, device)
-    # The solver opens "solve" itself and reads the result back in it.
-    assignment, waves = solve(dsnap, timer)
-    if timer is not None:
-        timer.stats["waves"] = waves
-    with phase(timer, "readback"):
-        names = snap.nodes.names
-        return [names[i] if i >= 0 else None for i in assignment]
+    with timing(timer):
+        with phase("lower", pods=len(pending)):
+            snap = build_snapshot(pending, nodes, assigned_pods=assigned, services=services)
+        with phase("upload"):
+            dsnap = device_snapshot(snap, device)
+        # The solver opens "solve" itself and reads the result back in it.
+        assignment, waves = solve(dsnap)
+        if timer is not None:
+            timer.stats["waves"] = waves
+        with phase("readback"):
+            names = snap.nodes.names
+            return [names[i] if i >= 0 else None for i in assignment]
 
 
 def schedule_backlog_wave(
@@ -162,10 +164,11 @@ def preempt_backlog(
     `preempt_backlog_scalar`'s. Phases: `build` (the host lowering) and
     `solve` (the launches and the one readback)."""
     device = resolve_device(device)
-    with phase(timer, "build"):
-        problem = build_preemption_problem(nodes, assigned)
-    with phase(timer, "solve"):
-        return solve_preemption(problem, preemptors, device=device)
+    with timing(timer):
+        with phase("build"):
+            problem = build_preemption_problem(nodes, assigned)
+        with phase("solve"):
+            return solve_preemption(problem, preemptors, device=device)
 
 
 def preempt_backlog_scalar(

@@ -1,9 +1,10 @@
 """Gang scheduling: PodGroup partitioning and all-or-nothing acceptance.
 
-The counterpart of `kubernetes_tpu/scheduler/gang.py`, without its
-metrics registry and span tree: group outcomes are the returned
-accepted and rejected lists, and the acceptance reduction is timed as
-phase `gang_accept` of an optional PhaseTimer.
+The counterpart of `kubernetes_tpu/scheduler/gang.py`, with its span
+tree: `gang_solve` runs under a `gang` span and times each round's
+acceptance reduction as phase `gang_accept` (also into an optional
+PhaseTimer). Group outcomes are the returned accepted and rejected
+lists; the JAX outcome counter waits for the daemon that reads it.
 
 - pods join a group through the POD_GROUP_LABEL label naming a PodGroup
   in their namespace;
@@ -29,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL, Pod, pod_full_key
-from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
+from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, span, timing
 
 
 def pod_group_name(pod: Pod) -> str:
@@ -141,30 +142,31 @@ def gang_solve(
             group_ids[i] = gi
     destinations: List[Optional[str]] = [None] * n
     rejected: set = set()
-    while True:
-        active = [i for i in range(n) if group_ids[i] not in rejected]
-        dests = (
-            solver([pending[i] for i in active], nodes, assigned, services)
-            if active
-            else []
-        )
-        destinations = [None] * n
-        for i, d in zip(active, dests):
-            destinations[i] = d
-        with phase(timer, "gang_accept"):
-            placed = np.fromiter(
-                (d is not None for d in destinations), bool, count=n
+    with timing(timer), span("gang", groups=len(groups), pods=n):
+        while True:
+            active = [i for i in range(n) if group_ids[i] not in rejected]
+            dests = (
+                solver([pending[i] for i in active], nodes, assigned, services)
+                if active
+                else []
             )
-            counts = counts_fn(placed, group_ids, len(groups))
-        newly = [
-            gi
-            for gi, g in enumerate(groups)
-            if gi not in rejected
-            and int(counts[gi]) + g.bound < g.min_member
-        ]
-        if not newly:
-            break
-        rejected.update(newly)
+            destinations = [None] * n
+            for i, d in zip(active, dests):
+                destinations[i] = d
+            with phase("gang_accept", groups=len(groups)):
+                placed = np.fromiter(
+                    (d is not None for d in destinations), bool, count=n
+                )
+                counts = counts_fn(placed, group_ids, len(groups))
+            newly = [
+                gi
+                for gi, g in enumerate(groups)
+                if gi not in rejected
+                and int(counts[gi]) + g.bound < g.min_member
+            ]
+            if not newly:
+                break
+            rejected.update(newly)
     accepted = [g for gi, g in enumerate(groups) if gi not in rejected]
     denied = [g for gi, g in enumerate(groups) if gi in rejected]
     return destinations, accepted, denied

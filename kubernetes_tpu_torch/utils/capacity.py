@@ -1,9 +1,9 @@
 """The capacity plane's host half: the probe set and the occupancy
 columns.
 
-The counterpart of the column builders and the probe assembly of
-`kubernetes_tpu/utils/capacity.py` (its `CapacityMonitor`, with the
-metric series, the snapshot and the trend ring, is not ported):
+The counterpart of the column builders, the probe assembly and the
+report's metric series of `kubernetes_tpu/utils/capacity.py` (its
+`CapacityMonitor`'s snapshot and trend ring wait for the daemon):
 
 - `probe_set`: the configured slice shapes plus the p50, p90 and max of
   the recent backlog shapes (requests ceiled so the columns stay
@@ -14,7 +14,14 @@ metric series, the snapshot and the trend ring, is not ported):
   host mirror (`session.h`);
 - `cluster_columns`: the same columns from object lists, for a caller
   that keeps no session. Terminal-phase and Terminating pods do not
-  charge their node.
+  charge their node;
+- `sample`: the capacity report of a set of columns, observed into
+  the JAX series (`cluster_fragmentation_score`,
+  `slice_alloc_success_rate`, `cluster_headroom_pods{shape}`,
+  `node_utilization_ratio{resource}`) as the monitor's sample feeds
+  them. The backlog series (`scheduler_backlog_pressure`,
+  `capacity_zero_headroom_ticks_total`) need the scheduler's FIFO and
+  wait for the daemon.
 
 The columns are NumPy arrays, so either package's capacity report and
 planner take them.
@@ -26,9 +33,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from kubernetes_tpu_torch import DeviceLike, native
 from kubernetes_tpu_torch.models.columnar import (
     MIB,
-    greedy_fit,
     mem_to_mib_ceil,
     node_is_ready,
     pod_resource_limits,
@@ -39,9 +46,38 @@ from kubernetes_tpu_torch.models.objects import (
     RESOURCE_PODS,
     pod_is_terminating,
 )
+from kubernetes_tpu_torch.ops.capacity import capacity_report
+from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils.profiler import RATIO_BUCKETS
 
 Probe = Tuple[str, float, float, int]
 
+FRAG_SCORE = metrics.DEFAULT.histogram(
+    "cluster_fragmentation_score",
+    "Capacity-weighted stranded fraction of aggregate free capacity "
+    "across the probe-shape set (0 = perfectly packable, 1 = every "
+    "free byte stranded)",
+    buckets=RATIO_BUCKETS,
+)
+NODE_UTIL = metrics.DEFAULT.histogram(
+    "node_utilization_ratio",
+    "Per-live-node charged/capacity ratio, one observation per node "
+    "per refresh",
+    labels=("resource",),
+    buckets=RATIO_BUCKETS,
+)
+HEADROOM = metrics.DEFAULT.gauge(
+    "cluster_headroom_pods",
+    "Pods of each probe shape that still fit cluster-wide (greedy "
+    "per-node integral fit, mask-reduced over live nodes)",
+    labels=("shape",),
+)
+SLICE_ALLOC = metrics.DEFAULT.histogram(
+    "slice_alloc_success_rate",
+    "Per-sample fraction of live probe shapes whose all-or-nothing "
+    "gang bound (headroom >= minMember) is satisfiable right now",
+    buckets=RATIO_BUCKETS,
+)
 #: Default slice probes (cpu milli, mem MiB, minMember): a single small
 #: pod, a mid gang, and an 8-member accelerator slice shape.
 DEFAULT_SLICE_SHAPES: Tuple[Probe, ...] = (
@@ -134,8 +170,8 @@ def cluster_columns(nodes, assigned) -> Tuple[Dict[str, np.ndarray], List[str]]:
     cpu_used = np.zeros(n, np.float32)
     mem_used = np.zeros(n, np.float32)
     pods_used = np.zeros(n, np.float32)
-    greedy_fit(a_idx, a_cpu, a_mem, cpu_cap, mem_cap, cpu_fit, mem_fit, over,
-               cpu_used, mem_used, pods_used)
+    native.greedy_fit(a_idx, a_cpu, a_mem, cpu_cap, mem_cap, cpu_fit, mem_fit, over,
+                      cpu_used, mem_used, pods_used)
     cols = {
         "cpu_cap": cpu_cap,
         "mem_cap": mem_cap,
@@ -147,3 +183,27 @@ def cluster_columns(nodes, assigned) -> Tuple[Dict[str, np.ndarray], List[str]]:
         "sched": sched,
     }
     return cols, names
+
+
+
+def sample(cols: Dict[str, np.ndarray], probes: Sequence[Probe], device: DeviceLike = None):
+    """`ops.capacity.capacity_report` of `cols` under `probes` on
+    `device` (default: the CUDA card; raises without one), observed into
+    the series as the JAX monitor's sample feeds them: headroom per
+    probe, the score, the share of allocatable probes, and every live
+    node's utilisation by resource. Returns the report's tuple."""
+    report = capacity_report(*(cols[k] for k in COLUMN_KEYS), *probe_arrays(probes),
+                             device=device)
+    util_cpu, util_mem, util_pods, _fit, headroom, _frag, slice_ok, _stranded, score = (
+        r.cpu().numpy() for r in report[:9])
+    n_ok = 0
+    for i, (name, _cpu, _mem, _minm) in enumerate(probes):
+        n_ok += bool(slice_ok[i])
+        HEADROOM.set(float(headroom[i]), shape=name)
+    FRAG_SCORE.observe(float(score))
+    SLICE_ALLOC.observe(n_ok / len(probes) if probes else 0.0)
+    live = np.flatnonzero(np.asarray(cols["sched"]) & ~np.asarray(cols["over"]))
+    for resource, ratios in (("cpu", util_cpu), ("mem", util_mem), ("pods", util_pods)):
+        for v in ratios[live]:
+            NODE_UTIL.observe(float(v), resource=resource)
+    return report

@@ -2,8 +2,11 @@
 gang-atomic, budget-clipped grouping.
 
 The counterpart of `movable_pods`, `build_plan` and `fragment_score` of
-`kubernetes_tpu/utils/rebalance.py` (its `RebalanceMonitor`, with the
-metric series and the snapshot, is not ported). `build_plan` stages the
+`kubernetes_tpu/utils/rebalance.py`, with the one series the port
+produces: `rebalance_moves_total{outcome="planned"}`, counted by
+`build_plan` (the other outcomes, the cycle histograms and its
+`RebalanceMonitor` wait for the descheduler daemon that executes
+moves). `build_plan` stages the
 movable pods largest first (best-fit-decreasing, the order the plan
 expects), runs `ops/rebalance.py plan_moves` (K2 on the card) against
 the occupancy columns, then drops every gang whose movable members were
@@ -37,7 +40,15 @@ from kubernetes_tpu_torch.models.objects import (
 )
 from kubernetes_tpu_torch.ops.rebalance import plan_moves
 from kubernetes_tpu_torch.utils.capacity import COLUMN_KEYS, probe_arrays
-from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase
+from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
+
+MOVES = metrics.DEFAULT.counter(
+    "rebalance_moves_total",
+    "Descheduler move pipeline by outcome: planned/evicted/rebound/"
+    "failed/stranded",
+    ("outcome",),
+)
 
 #: The JAX package pads the movable worklist to pow2 buckets >= this.
 POD_BUCKET_MIN = 8
@@ -183,19 +194,23 @@ def build_plan(
     budget is not positive. Errors raise."""
     device = resolve_device(device)
     move_budget = int(move_budget)
-    with phase(timer, "stage"):
-        rows, pod_cpu, pod_mem, pod_node, pod_live, pod_force = stage_rows(
-            cols, node_names, pods, forced_nodes)
-        if not rows or move_budget <= 0:
-            return None
-        probe = probe_arrays(probes)
-    with phase(timer, "plan"):
-        out = plan_moves(*_node_columns(cols), pod_cpu, pod_mem, pod_node, pod_live, pod_force,
-                         *probe, move_budget, device=device)
-        dest, moved, gain, _n, before, after = (t.cpu().numpy() for t in out)
-    with phase(timer, "group"):
-        return group_plan(rows, node_names, pod_force, dest, moved, gain, move_budget,
-                          before, after)
+    with timing(timer):
+        with phase("stage"):
+            rows, pod_cpu, pod_mem, pod_node, pod_live, pod_force = stage_rows(
+                cols, node_names, pods, forced_nodes)
+            if not rows or move_budget <= 0:
+                return None
+            probe = probe_arrays(probes)
+        with phase("plan"):
+            out = plan_moves(*_node_columns(cols), pod_cpu, pod_mem, pod_node, pod_live,
+                             pod_force, *probe, move_budget, device=device)
+            dest, moved, gain, _n, before, after = (t.cpu().numpy() for t in out)
+        with phase("group"):
+            plan = group_plan(rows, node_names, pod_force, dest, moved, gain, move_budget,
+                              before, after)
+    if plan and plan["moves"]:
+        MOVES.inc(len(plan["moves"]), outcome="planned")
+    return plan
 
 
 def fragment_score(cols: Dict[str, np.ndarray], probes: Sequence[Tuple[str, float, float, int]],
@@ -209,3 +224,4 @@ def fragment_score(cols: Dict[str, np.ndarray], probes: Sequence[Tuple[str, floa
                      np.zeros(0, bool), np.zeros(0, bool), *probe_arrays(probes), 0,
                      device=device)
     return float(out[4])
+

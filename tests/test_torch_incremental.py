@@ -604,3 +604,109 @@ class TestWindowedSessions:
             for k, col in t.h.items():
                 assert np.array_equal(dev[k], col), f"tick {tick}: dev[{k!r}] != h"
         assert total > 0 and agree / total >= 0.95
+
+
+def _full_recompute(session, j):
+    """Slot j's row recomputed whole from the node's spec and its pods,
+    as the session did before it kept each node's constant part: every
+    column zeroed, the capacities, labels and readiness read again from
+    the spec, then the greedy fit in arrival order with the bitsets
+    OR-ed and the service counts added pod by pod. Returns the row of
+    every column."""
+    from kubernetes_tpu_torch.models.columnar import MIB, bitset, node_is_ready
+    from kubernetes_tpu_torch.models.objects import RESOURCE_CPU, RESOURCE_MEMORY, RESOURCE_PODS
+
+    h = {k: np.array(v[j : j + 1]) for k, v in session.h.items()}
+    for k in h:
+        h[k][0] = 0
+    node = session._node_specs[j]
+    if node is None:
+        return h
+    cap = node.status.capacity or {}
+    if RESOURCE_CPU in cap:
+        h["cpu_cap"][0] = cap[RESOURCE_CPU].milli_value()
+    if RESOURCE_MEMORY in cap:
+        h["mem_cap"][0] = cap[RESOURCE_MEMORY].value() // MIB
+    if RESOURCE_PODS in cap:
+        h["pods_cap"][0] = cap[RESOURCE_PODS].value()
+    h["labels"][0] = bitset(
+        [session._vocab_id(session.label_vocab, session.LW, f"{k}={v}")
+         for k, v in (node.metadata.labels or {}).items()],
+        session.LW,
+    )
+    h["sched"][0] = node_is_ready(node)
+    for lp in session._assigned[j]:
+        fits_cpu = h["cpu_cap"][0] == 0 or h["cpu_fit"][0] + lp.cpu <= h["cpu_cap"][0]
+        fits_mem = h["mem_cap"][0] == 0 or h["mem_fit"][0] + lp.mem_mib <= h["mem_cap"][0]
+        if fits_cpu and fits_mem:
+            h["cpu_fit"][0] += lp.cpu
+            h["mem_fit"][0] += lp.mem_mib
+        else:
+            h["over"][0] = True
+        h["cpu_used"][0] += lp.cpu
+        h["mem_used"][0] += lp.mem_mib
+        h["pods_used"][0] += 1
+        h["uport"][0] |= bitset(lp.port_ids, session.PW)
+        h["uvol_any"][0] |= bitset(lp.vol_any_ids, session.VW)
+        h["uvol_rw"][0] |= bitset(lp.vol_rw_ids, session.VW)
+        if len(lp.svc_topk):
+            h["svc_counts"][0, lp.svc_topk] += 1.0
+    return h
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_row_recompute_equals_the_full_recompute(seed):
+    """Seeded creates (ticks, foreign pods with ports and volumes),
+    deletes, node upserts (capacity and label changes) and removals on
+    one session: after every operation, every row the operation rebuilt
+    equals the full recompute of that row bit for bit, and so does every
+    slot at the end."""
+    pending, nodes, assigned, _ = workload.small_cluster(seed)
+    services = [_svc(f"s{s}", app=f"a{s}") for s in range(4)] + [_svc("web", tier="web")]
+    session = SolverSession(nodes[:30], services=services, assigned=assigned, device="cpu")
+    rng = random.Random(100 + seed)
+    names = [n.metadata.name for n in nodes[:30]]
+    pods = list(pending)
+    checked = 0
+
+    def check(rows):
+        nonlocal checked
+        for j in rows:
+            want = _full_recompute(session, j)
+            for k, col in session.h.items():
+                assert col[j : j + 1].dtype == want[k].dtype
+                assert np.array_equal(col[j : j + 1], want[k]), f"slot {j}, column {k}"
+            checked += 1
+
+    for _ in range(40):
+        op = rng.random()
+        live = sorted(session._pod_node)
+        if op < 0.35 and live:
+            key = rng.choice(live)
+            j = session._pod_node[key]
+            session.delete_assigned(key)
+            check([j])
+        elif op < 0.55 and pods:
+            foreign = copy.deepcopy(pods.pop())
+            foreign.metadata.name += "-foreign"
+            foreign.spec.node_name = rng.choice(names)
+            session.add_assigned(foreign)
+            check([session.node_index[foreign.spec.node_name]])
+        elif op < 0.7:
+            name = rng.choice(names)
+            session.upsert_node(mknode(name, cpu_milli=rng.choice([500, 2000, 8000]),
+                                       labels={"zone": rng.choice("ab")}))
+            check([session.node_index[name]])
+        elif op < 0.75 and len(names) > 5:
+            gone = names.pop(rng.randrange(len(names)))
+            j = session.node_index[gone]
+            session.remove_node(gone)
+            check([j])
+        else:
+            for pod in [pods.pop() for _ in range(min(len(pods), 8))]:
+                session.add_pending(pod)
+            touched = {j for _k, d in session.solve() if d is not None
+                       for j in [session.node_index[d]]}
+            check(sorted(touched))
+    check([j for j in range(session.N_cap) if session.node_names[j] is not None])
+    assert checked > 30

@@ -110,6 +110,13 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/ops/rebalance.py",
         "kubernetes_tpu_torch/utils/capacity.py",
         "kubernetes_tpu_torch/utils/rebalance.py",
+        "kubernetes_tpu_torch/native.py",
+        "kubernetes_tpu_torch/ops/ledger.py",
+        "kubernetes_tpu_torch/utils/metrics.py",
+        "kubernetes_tpu_torch/utils/tracing.py",
+        "kubernetes_tpu_torch/utils/sli.py",
+        "kubernetes_tpu_torch/utils/profiler.py",
+        "kubernetes_tpu_torch/utils/flightrecorder.py",
     } <= names
 
 
@@ -118,6 +125,7 @@ def test_preemption_capacity_and_rebalance_entry_points_raise_without_cuda(no_cu
     from kubernetes_tpu_torch.ops.preemption import build_preemption_problem, solve_preemption
     from kubernetes_tpu_torch.ops.rebalance import plan_moves
     from kubernetes_tpu_torch.scheduler.batch import preempt_backlog
+    from kubernetes_tpu_torch.utils.capacity import sample as capacity_sample
     from kubernetes_tpu_torch.utils.rebalance import build_plan, fragment_score
 
     preemptors, nodes, assigned = workload.preemption_objects(4, 20, 3, seed=1)
@@ -138,6 +146,8 @@ def test_preemption_capacity_and_rebalance_entry_points_raise_without_cuda(no_cu
         build_plan(cols, names, assigned, probes)
     with pytest.raises(RuntimeError, match="CUDA"):
         fragment_score(cols, probes)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        capacity_sample(cols, probes)
 
 
 def test_rebalance_wrapper_routes_cpu_tensors_to_the_plain_version(monkeypatch):
