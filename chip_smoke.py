@@ -63,8 +63,9 @@ exits non-zero and prints no result. Phases, one JSON line each:
               same tick on the replayed session with the plain version
               in place of the kernel; the kernel timed at the session's
               shape; the duty cycle and overlap of both runs' timed
-              ticks (the pipelined run's into observe_tick); and one
-              more tick's solve under torch.profiler (busy share);
+              ticks (this phase's own figure: the registry's series are
+              the daemon's, phase 5o); and one more tick's solve under
+              torch.profiler (busy share);
   5c. gang    schedule_backlog_gang on seeded small clusters with groups
               on the card against device="cpu" (destinations, accepted
               and rejected keys), then on the 50k x 5k backlog in groups
@@ -180,7 +181,40 @@ exits non-zero and prints no result. Phases, one JSON line each:
               of the wall, read without the profiler); device memory
               after the main path; the churn ticks' duty cycle and
               overlap and the profiled tick's busy share; the series as
-              the metrics registry holds them;
+              the metrics registry holds them (no daemon has fed the
+              duty and overlap series yet: their count is 0);
+  5o. daemon  the port's scheduler daemon against the repo's apiserver,
+              started for each of four legs as a child process
+              (`python -m kubernetes_tpu.cmd.hyperkube apiserver`, store
+              in memory; nothing of it is imported here) on 5,000 nodes
+              of the JAX package's churn drill: daemon_parity, 1,024
+              pending pods (a nodeSelector on every eighth) created over
+              HTTP, one schedule_batch() of a daemon that was not
+              started, its bindings read back by LIST equal to
+              schedule_backlog's and the plain K1 version's on the same
+              pods; daemon_parity_wide, the same with a hostname label
+              on every node (5,004 label tokens) and a disk of its own
+              on every tenth pod, which the session's vocabularies are
+              sized for (pod rows of 224 words, K1 in place);
+              daemon_drill, the pod-to-bind drill (bench.py's
+              shape): the daemon started with its own HTTP transport,
+              a spawned load generator creating 1,000 pods/s from two
+              paced threads and deleting down to a cushion of 200 bound
+              pods, 6 s warm-up, a 10 s window, up to 10 s for the
+              window's pods to bind (latency: create call start to the
+              binding on the generator's own watch), the collector
+              frozen before the window; daemon_churn, the same after
+              50,000 pods were created and bound round-robin, the
+              deleter taking the oldest first. Each drill prints bound
+              pods/s, latency p50/p99/max, the window's unbound pods,
+              ticks and pods a tick, K1 launches and ms a tick, duty
+              cycle and overlap, phase seconds, bind_bulk latency,
+              informer staleness, the apiserver's CPU seconds beside
+              this process's, and the collector's passes; it fails on a
+              pod bound twice, an invalid final placement (the port's
+              oracle, every bound pod counted), a session that differs
+              from one rebuilt from the LIST, a device error, or a pod
+              still unbound 30 s after the window;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -204,7 +238,8 @@ exits non-zero and prints no result. Phases, one JSON line each:
               phases 5j-5m.
 
 Every phase line carries the script's seconds so far (`elapsed_s`).
-Then the card's name and power limit, and last the result line
+The run fails if any module of the JAX package was loaded into this
+process. Then the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}. Any failure ends the run with a non-zero
 exit before the result line.
 
@@ -218,6 +253,13 @@ the default backlog, the policy backlog and the churn cluster's
 assigned pods alone, and the churn ticks' phases (phase 5b's
 synchronous replay). One JSON line a measurement. Two checkouts are
 compared by running it in turns in one command (A B B A).
+
+    python3 chip_smoke.py --daemon
+
+builds the kernels and runs phase 5o alone (four lines, no result
+line). Each drill line carries the process's thread switch interval;
+`python3 -c "import sys; sys.setswitchinterval(S); import chip_smoke;
+chip_smoke.main(['--daemon'])"` runs it at another.
 """
 
 from __future__ import annotations
@@ -279,6 +321,8 @@ def main(argv=None) -> int:
                         help="time the host work around the card only")
     parser.add_argument("--root", default=REPO, help="checkout to import the port from")
     parser.add_argument("--runs", type=int, default=MAIN_REPEATS)
+    parser.add_argument("--daemon", action="store_true",
+                        help="build, then run only phase 5o (the scheduler daemon)")
     args = parser.parse_args(argv)
     if args.host_timing:
         return host_timing(os.path.abspath(args.root), args.runs)
@@ -318,6 +362,11 @@ def main(argv=None) -> int:
             for r in records
         ],
     )
+
+    if args.daemon:
+        run_daemon(torch, device, smi)
+        print(smi, flush=True)
+        return 0
 
     # -- 3. parity ---------------------------------------------------------
     parity = check_parity(torch, device)
@@ -382,6 +431,9 @@ def main(argv=None) -> int:
     emit("telemetry", ok=True, card=smi, **run_telemetry(torch, device, main_result, churn,
                                                          placed_names))
 
+    # -- 5o. the scheduler daemon against the repo's apiserver --------------------
+    daemon = run_daemon(torch, device, smi)
+
     # -- 6. kernels --------------------------------------------------------
     ptxas = "\n".join(str(r["log"]) for r in records if r["name"] == "scan_kernel")
     timing = time_kernel(torch, device, parity["chunk_state"], parity["chunk_result"], ptxas)
@@ -400,6 +452,10 @@ def main(argv=None) -> int:
                 "gang_50k": gang["backlog"]["launches"],
                 "sidecar_default": sidecar_line["default"]["kernel_launches"]["scan_kernel"],
                 "parity_in_place": parity_in_place["launches"],
+                "daemon_parity": daemon["daemon_parity"]["launches"],
+                "daemon_parity_wide": daemon["daemon_parity_wide"]["launches"],
+                "daemon_drill": daemon["daemon_drill"]["wrapper_launches"],
+                "daemon_churn": daemon["daemon_churn"]["wrapper_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -459,6 +515,9 @@ def main(argv=None) -> int:
         },
     ]
     emit("kernel_timing", ok=True, card=smi, **timing, policy_sweep=policy_sweep)
+    jax_package = sorted(m for m in sys.modules if m == "kubernetes_tpu" or m.startswith("kubernetes_tpu."))
+    if jax_package:
+        fail("end", f"modules of the JAX package were loaded: {jax_package[:5]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -1258,7 +1317,7 @@ def _new_session(torch, device, nodes, services, assigned):
     return session, build_s, time.perf_counter() - t0, warmed
 
 
-def _mirror_check(torch, session, what):
+def _mirror_check(torch, session, what, phase="churn"):
     """Device rows equal the host mirror, exactly, on every row with no
     pending delta (all fifteen columns, the nine carry fields among
     them)."""
@@ -1272,7 +1331,7 @@ def _mirror_check(torch, session, what):
     for key, col in session.h.items():
         if not np.array_equal(dev[key][clean], col[clean]):
             bad = int((dev[key][clean] != col[clean]).reshape(int(clean.sum()), -1).any(1).sum())
-            fail("churn", f"{what}: device column {key} differs from the host mirror on {bad} rows")
+            fail(phase, f"{what}: device column {key} differs from the host mirror on {bad} rows")
     return int(clean.sum())
 
 
@@ -1378,14 +1437,12 @@ def _record_handles(session):
     return handles
 
 
-def _duty(handles, observe):
-    """The duty cycle and overlap of the timed ticks, as the JAX
-    incremental daemon works them out (`_observe_device_profile`): the
-    in-flight window (launch to result()) over the period since the
-    previous tick resolved, and 1 - blocked / in flight. With `observe`,
-    each tick also goes to `utils.profiler.observe_tick`."""
-    from kubernetes_tpu_torch.utils import profiler
-
+def _duty(handles):
+    """The duty cycle and overlap of the timed ticks, as the incremental
+    daemon works them out (`_observe_device_profile`): the in-flight
+    window (launch to result()) over the period since the previous tick
+    resolved, and 1 - blocked / in flight. The registry's series are the
+    daemon's own (phase 5o); this session-only figure stays out of them."""
     duty, overlap, busy = [], [], 0.0
     for k in range(CHURN_WARMUP, len(handles)):
         h, prev = handles[k], handles[k - 1]
@@ -1393,8 +1450,6 @@ def _duty(handles, observe):
         wall_s = h.resolved_mono - prev.resolved_mono
         if device_s <= 0 or wall_s <= 0:
             continue
-        if observe:
-            profiler.observe_tick(device_s, wall_s, h.block_s)
         busy += device_s
         duty.append(min(1.0, device_s / wall_s))
         overlap.append(min(1.0, max(0.0, 1.0 - h.block_s / device_s)))
@@ -1429,7 +1484,7 @@ def run_churn(torch, device, placed_names):
             session, **replay,
             on_result=lambda k, _r: checked_rows.append(_mirror_check(torch, session, f"tick {k}")),
         )
-    duty = _duty(handles[:ticks], observe=False)
+    duty = _duty(handles[:ticks])
     launches = scan_kernel.scan_with_state.launches
     if launches != ticks:
         fail("churn", f"{ticks} ticks launched the scan kernel {launches} times")
@@ -1459,7 +1514,7 @@ def run_churn(torch, device, placed_names):
         session_p, **replay, pipelined=True,
         on_result=lambda k, _r: _mirror_check(torch, session_p, f"pipelined tick {k}"),
     )
-    duty_p = _duty(handles_p[:ticks], observe=True)
+    duty_p = _duty(handles_p[:ticks])
     launches_p = scan_kernel.scan_with_state.launches
     if launches_p != ticks:
         fail("churn", f"{ticks} pipelined ticks launched the scan kernel {launches_p} times")
@@ -3024,36 +3079,739 @@ def _k1_events_run(torch, device, objs, first_names, chunks):
     K1 launch: each launch's device ms, their sum over the host wall (the
     card's busy share from K1 alone, read without the profiler), and the
     collector's passes during the run."""
-    from kubernetes_tpu_torch.ops import scan_kernel
     from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
 
     pending, nodes, services = objs
-    events, launch = [], scan_kernel._launch
-
-    def timed_launch(*args, **kwargs):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = launch(*args, **kwargs)
-        ev[1].record()
-        events.append(ev)
-        return out
-
-    scan_kernel._launch = timed_launch
-    try:
-        torch.cuda.synchronize()
-        with GcPauses() as pauses:
-            t0 = time.perf_counter()
-            names = solve_backlog_pipelined(pending, nodes, services=services, device=device)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        scan_kernel._launch = launch
+    torch.cuda.synchronize()
+    with _K1Events(torch) as k1, GcPauses() as pauses:
+        t0 = time.perf_counter()
+        names = solve_backlog_pipelined(pending, nodes, services=services, device=device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
     if names != first_names:
         fail("telemetry", "the K1-timed backlog run disagrees with the main path's first run")
-    k1_ms = [a.elapsed_time(b) for a, b in events]
+    k1_ms = [a.elapsed_time(b) for a, b in k1.events]
     if len(k1_ms) != chunks:
         fail("telemetry", f"the K1-timed backlog run launched K1 {len(k1_ms)} times, not {chunks}")
     return {"wall_ms": wall_ms, "k1_ms": k1_ms, "k1_busy_share": sum(k1_ms) / wall_ms,
             "gc": pauses.summary()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5o: the scheduler daemon against the repo's apiserver
+# ---------------------------------------------------------------------------
+
+DAEMON_NODES = 5000
+DAEMON_PARITY_PODS = 1024
+DAEMON_SELECTOR_EVERY = 8  # every eighth parity pod carries a nodeSelector
+# daemon_parity_wide: every node carries its hostname label (5,004 label
+# tokens) and every tenth pod mounts a disk of its own (103 volumes);
+# the session's vocabularies are sized from them, its pod rows 224
+# words, the most K1's two 128-pod tiles hold.
+DAEMON_VOLUME_EVERY = 10
+DRILL_RATE = 1000  # creates a second, and deletes a second
+DRILL_CREATORS = 2
+DRILL_WARMUP_S = 6.0
+DRILL_WINDOW_S = 10.0
+DRILL_DRAIN_S = 10.0  # the window's pods' time to bind, for the latencies
+DRILL_LOST_S = 30.0  # after the window: a pod still unbound then is lost
+DRILL_CUSHION = 200  # bound pods the drill's deleter leaves alone
+CHURN_PRELOAD = 50000  # BASELINE config 5's pods, bound round-robin before the daemon starts
+PRELOAD_BATCH = 5000
+APISERVER_UP_S = 30.0
+APISERVER_INFLIGHT = 800
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ControlPlane:
+    """The repo's apiserver as a child process (`python -m
+    kubernetes_tpu.cmd.hyperkube apiserver`, store in memory): the
+    cluster's control plane, which the port's scheduler reaches over
+    HTTP like any client. Nothing of it is imported here. Up when
+    /healthz answers (at most APISERVER_UP_S); stopped with its whole
+    process group."""
+
+    def __init__(self, phase):
+        import tempfile
+
+        self.phase = phase
+        self.port = _free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.cmd = [sys.executable, "-m", "kubernetes_tpu.cmd.hyperkube", "apiserver",
+                    "--port", str(self.port), "--max-requests-inflight", str(APISERVER_INFLIGHT)]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+        self._log = tempfile.TemporaryFile()
+        self.proc = subprocess.Popen(self.cmd, cwd=REPO, env=env, stdin=subprocess.DEVNULL,
+                                     stdout=self._log, stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+
+    def __enter__(self):
+        import http.client
+
+        deadline = time.monotonic() + APISERVER_UP_S
+        while True:
+            if self.proc.poll() is not None:
+                self.stop()
+                fail(self.phase, f"the apiserver exited with {self.proc.returncode}: {self.tail()}")
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=2)
+                conn.request("GET", "/healthz")
+                if conn.getresponse().status == 200:
+                    conn.close()
+                    return self
+                conn.close()
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                self.stop()
+                fail(self.phase, f"the apiserver did not answer /healthz in {APISERVER_UP_S} s: "
+                                 f"{self.tail()}")
+            time.sleep(0.1)
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def tail(self, n=2000):
+        self._log.seek(0)
+        return self._log.read().decode(errors="replace")[-n:]
+
+    def cpu_seconds(self):
+        """User + system seconds of the child so far (/proc/<pid>/stat)."""
+        with open(f"/proc/{self.proc.pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+    def stop(self):
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGTERM)
+                self.proc.wait(timeout=10)
+            except (ProcessLookupError, subprocess.TimeoutExpired):
+                try:
+                    os.killpg(self.proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                self.proc.wait(timeout=10)
+
+
+def _daemon_node_wire(j, hostname=False):
+    """bench.py's churn node (8/16/32 cpus, 16/32/64 Gi, 110 pods), with
+    a zone label for the parity leg's selectors and, with `hostname`,
+    the hostname label every kubelet-registered node carries."""
+    labels = {"zone": f"z{j % 4}"}
+    if hostname:
+        labels["kubernetes.io/hostname"] = f"n{j}"
+    return {"kind": "Node",
+            "metadata": {"name": f"n{j}", "labels": labels},
+            "status": {"capacity": {"cpu": str((8, 16, 32)[j % 3]),
+                                    "memory": f"{(16, 32, 64)[j % 3]}Gi", "pods": "110"},
+                       "conditions": [{"type": "Ready", "status": "True"}]}}
+
+
+def _daemon_pod_wire(name, zone=None, selector=None, disk=None):
+    """bench.py's churn pod: cpu 100/250/500m and memory 64/128/256Mi
+    by the name's crc32, so every process makes the same pod; `zone` or
+    `selector` gives it a nodeSelector, `disk` a GCE PD mounted
+    read-write."""
+    import zlib
+
+    h = zlib.crc32(name.encode())
+    spec = {"containers": [{"name": "c", "image": "app", "resources": {"limits": {
+        "cpu": f"{(100, 250, 500)[h % 3]}m", "memory": f"{(64, 128, 256)[h // 3 % 3]}Mi"}}}]}
+    if zone is not None:
+        spec["nodeSelector"] = {"zone": zone}
+    if selector is not None:
+        spec["nodeSelector"] = selector
+    if disk is not None:
+        spec["volumes"] = [{"name": "data", "gcePersistentDisk": {"pdName": disk}}]
+    return {"kind": "Pod", "metadata": {"name": name, "namespace": "default"}, "spec": spec}
+
+
+def _bulk(phase, call, items, batch=PRELOAD_BATCH, **kw):
+    """A bulk verb over `items` in batches; every item must succeed."""
+    for s in range(0, len(items), batch):
+        results = call(items[s:s + batch], **kw)
+        bad = [r for r in results if r.get("status") != "Success"]
+        if len(results) != len(items[s:s + batch]) or bad:
+            fail(phase, f"bulk call failed on {len(bad)} items: {bad[:2]}")
+
+
+def _cluster(phase, client, pods=0, hostname=False):
+    """The drill's nodes and, with `pods`, that many pods bound round-robin
+    (pod i on node i mod DAEMON_NODES). Returns the pods' names."""
+    _bulk(phase, lambda xs: client.create_bulk("nodes", xs),
+          [_daemon_node_wire(j, hostname) for j in range(DAEMON_NODES)])
+    names = [f"pre{i}" for i in range(pods)]
+    _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
+          [_daemon_pod_wire(n) for n in names])
+    _bulk(phase, lambda xs: client.bind_bulk(xs, namespace="default"),
+          [(n, f"n{i % DAEMON_NODES}") for i, n in enumerate(names)])
+    return names
+
+
+def _wait(phase, what, cond, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(phase, f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def _listed(client):
+    """(pod name -> node name or None, typed pods, typed nodes) by LIST."""
+    pods, _ = client.list("pods", namespace="default")
+    nodes, _ = client.list("nodes")
+    return {p.metadata.name: p.spec.node_name or None for p in pods}, pods, nodes
+
+
+def _plain_session(torch, device, nodes, assigned=(), pending=()):
+    """A session as the daemon builds one (vocabularies sized over the
+    nodes and pods), with K1's plain version in place of the kernel."""
+    from kubernetes_tpu_torch.ops import SolverSession, scan_kernel
+    from kubernetes_tpu_torch.ops.incremental import vocab_widths
+
+    lw, pw, vw = vocab_widths(nodes, [*assigned, *pending])
+    session = SolverSession(nodes, assigned=assigned, node_capacity=max(64, int(len(nodes) * 1.25)),
+                            label_words=lw, port_words=pw, vol_words=vw, device=device)
+    session._dispatch = lambda pods, carry: (
+        scan_kernel.plain_scan_with_state(pods, carry, (1, 1, 1))[0], (None, None, None))
+    return session
+
+
+def _parity_pod(i, wide):
+    """Parity pod i: every eighth selects a zone or, `wide`, a host;
+    `wide`, every tenth mounts a disk of its own."""
+    sel = i % DAEMON_SELECTOR_EVERY == 0
+    if not wide:
+        return _daemon_pod_wire(f"d{i}", f"z{(i // DAEMON_SELECTOR_EVERY) % 4}" if sel else None)
+    return _daemon_pod_wire(
+        f"d{i}", selector={"kubernetes.io/hostname": f"n{i * 37 % DAEMON_NODES}"} if sel else None,
+        disk=f"pd-{i}" if i % DAEMON_VOLUME_EVERY == 3 else None)
+
+
+def run_daemon_parity(torch, device, wide=False):
+    """1,024 pending pods over HTTP, then one schedule_batch() of a
+    non-started daemon on the card: its bindings, read back by LIST,
+    equal schedule_backlog's on the same objects and the plain K1
+    version's, pod for pod. `wide` (leg daemon_parity_wide): hostname
+    labels on every node and a disk on every tenth pod, past the 128
+    tokens a vocabulary of a default session."""
+    import copy
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.ops import ledger, scan_kernel
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+    from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler, SchedulerConfig
+
+    phase = "daemon_parity_wide" if wide else "daemon_parity"
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _cluster(phase, client, hostname=wide)
+        pods = [_parity_pod(i, wide) for i in range(DAEMON_PARITY_PODS)]
+        _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"), pods)
+        cfg = SchedulerConfig(Client(HTTPTransport(cp.url))).start()
+        try:
+            if not cfg.wait_for_sync(60):
+                fail(phase, "the daemon's caches did not sync")
+            _wait(phase, "the pending pods in the queue",
+                  lambda: len(cfg.pod_queue) == DAEMON_PARITY_PODS)
+            q = cfg.pod_queue
+            order = [q._items[k] for k in q._queue if k in q._items]  # the drain order
+            pending = copy.deepcopy(order)
+            nodes = cfg.nodes.store.list()
+            daemon = IncrementalBatchScheduler(cfg, max_batch=DAEMON_PARITY_PODS, device=device)
+            scan_kernel.scan_with_state.launches = 0
+            calls0 = ledger.DEFAULT.calls("scan_kernel")
+            t0 = time.perf_counter()
+            with _K1Events(torch) as k1:
+                took = daemon.schedule_batch(timeout=1.0)
+            tick_s = time.perf_counter() - t0
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            k1_ms = [a.elapsed_time(b) for a, b in k1.events]
+            launches = scan_kernel.scan_with_state.launches
+            ledger_launches = ledger.DEFAULT.calls("scan_kernel") - calls0
+            widths = (daemon._session.LW, daemon._session.PW, daemon._session.VW)
+            daemon.stop()
+        finally:
+            cfg.stop()
+        bound, _, _ = _listed(client)
+        command = cp.cmd
+    got = [bound[p.metadata.name] for p in pending]
+    backlog = schedule_backlog(pending, nodes, device=device)
+    plain = _plain_session(torch, device, nodes, pending=pending)
+    for pod in pending:
+        plain.add_pending(pod)
+    plain_names = [n for _, n in plain.solve()]
+    for ref, tag in ((backlog, "schedule_backlog"), (plain_names, "the plain K1 version")):
+        diff = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+        if diff or len(ref) != len(got):
+            i = diff[0] if diff else 0
+            fail(phase, f"the daemon's bindings differ from {tag} on {len(diff)} of {len(got)} "
+                        f"pods; first {pending[i].metadata.name}: {got[i]} != {ref[i]}")
+    if took != DAEMON_PARITY_PODS or launches != 1 or daemon.device_errors:
+        fail(phase, f"the tick took {took} pods with {launches} K1 launches and "
+                    f"{daemon.device_errors} errors")
+    return {
+        "apiserver": " ".join(command), "nodes": DAEMON_NODES, "pods": len(got),
+        "placed": sum(n is not None for n in got), "with_selector": sum(
+            bool(p.spec.node_selector) for p in pending),
+        "with_volume": sum(bool(p.spec.volumes) for p in pending),
+        "session_words": dict(zip(("labels", "ports", "volumes"), widths)),
+        "equal_to_schedule_backlog": True, "equal_to_plain": True, "tick_s": tick_s,
+        "k1_ms": k1_ms, "launches": launches, "ledger_launches": ledger_launches,
+        "tolerance": "exact (node name per pod)",
+    }
+
+
+def _drill_load(url, rate, creators, warmup_s, window_s, drain_s, lost_s, cushion, preload, conn):
+    """The load generator's process: paced creators and a deleter over a
+    lean keep-alive socket writer, and a watch (the port's client) on
+    bound pods timestamping when each binding becomes visible. Sends
+    "start" and "end" around the window, then the result: the window's
+    latencies (create call start to binding visible), the pods created
+    in it, those still unbound after `drain_s`, the pods (of the whole
+    run) still unbound `lost_s` after the window, and pods seen bound to
+    two nodes. Creates and deletes stop with the window. `preload`
+    names bound pods the deleter takes first, oldest first."""
+    import json as _json
+    import socket
+    import threading
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+
+    host, port = url.split("//")[1].split(":")
+    path = "/api/v1/namespaces/default/pods"
+    lock, stop = threading.Lock(), threading.Event()
+    t_create, t_call, t_bound, node_of, double = {}, {}, {}, {}, []
+    bound_q = list(preload)
+    errors = []
+
+    class Lean:
+        """Keep-alive HTTP/1.1 requests written straight to a socket
+        (the stdlib client's parsing would make the load generator the
+        bottleneck); reads status and Content-Length bodies only."""
+
+        def __init__(self):
+            self.sock, self.buf = None, b""
+
+        def request(self, verb, target, body=b""):
+            head = (f"{verb} {target} HTTP/1.1\r\nHost: a\r\nContent-Length: {len(body)}\r\n"
+                    + ("Content-Type: application/json\r\n" if body else "") + "\r\n").encode()
+            for attempt in (0, 1):
+                if self.sock is None:
+                    self.sock = socket.create_connection((host, int(port)))
+                    self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                    self.buf = b""
+                try:
+                    self.sock.sendall(head + body)
+                    return self._status()
+                except OSError:
+                    self.sock = None  # a stale keep-alive: one retry
+                    if attempt:
+                        raise
+            return 0
+
+        def _status(self):
+            while b"\r\n\r\n" not in self.buf:
+                chunk = self.sock.recv(65536)
+                if not chunk:
+                    raise OSError("connection closed")
+                self.buf += chunk
+            head, self.buf = self.buf.split(b"\r\n\r\n", 1)
+            lines = head.split(b"\r\n")
+            clen = next((int(ln[15:]) for ln in lines[1:]
+                         if ln[:15].lower() == b"content-length:"), 0)
+            while len(self.buf) < clen:
+                chunk = self.sock.recv(65536)
+                if not chunk:
+                    raise OSError("connection closed")
+                self.buf += chunk
+            self.buf = self.buf[clen:]
+            return int(lines[0].split(b" ", 2)[1])
+
+    def watcher(version):
+        stream = Client(HTTPTransport(url)).watch("pods", namespace="default", since=version,
+                                                  field_selector="spec.nodeName!=")
+        try:
+            while not done.is_set():
+                ev = stream.next(timeout=0.2)
+                if ev is None:
+                    if stream.closed:
+                        errors.append("the watch closed")
+                        return
+                    continue
+                name = ev.object.get("metadata", {}).get("name")
+                node = ev.object.get("spec", {}).get("nodeName")
+                if not name or not node:
+                    continue
+                now = time.perf_counter()
+                with lock:
+                    if node_of.setdefault(name, node) != node:
+                        double.append(name)
+                    if name not in t_bound:
+                        t_bound[name] = now
+                        bound_q.append(name)
+        finally:
+            stream.close()
+
+    seq = [0]
+
+    def creator():
+        c, interval, next_t = Lean(), creators / rate, time.perf_counter()
+        while not stop.is_set():
+            with lock:
+                seq[0] += 1
+                name = f"c{seq[0]}"
+            body = _json.dumps(_daemon_pod_wire(name)).encode()
+            t0 = time.perf_counter()
+            with lock:
+                t_create[name] = t0
+            try:
+                status = c.request("POST", path, body)
+                if status >= 400 and status != 409:  # 409: our own resend raced the create
+                    raise RuntimeError(f"create {name}: HTTP {status}")
+                with lock:
+                    t_call[name] = time.perf_counter() - t0
+            except Exception as e:
+                errors.append(repr(e))
+                with lock:
+                    t_create.pop(name, None)
+                return
+            next_t += interval
+            delay = next_t - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            elif delay < -2.0:
+                next_t = time.perf_counter()  # fell behind: re-anchor
+
+    def deleter():
+        c, interval, next_t = Lean(), 1.0 / rate, time.perf_counter()
+        while not stop.is_set():
+            name = None
+            with lock:
+                if len(bound_q) > cushion:
+                    name = bound_q.pop(0)
+            if name is not None:
+                try:
+                    c.request("DELETE", f"{path}/{name}")
+                except Exception as e:
+                    errors.append(repr(e))
+                    return
+            next_t += interval
+            delay = next_t - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            elif delay < -2.0:
+                next_t = time.perf_counter()
+
+    done = threading.Event()
+    try:
+        _, version = Client(HTTPTransport(url)).list("pods", namespace="default")
+        threads = [threading.Thread(target=watcher, args=(version,), daemon=True)]
+        threads += [threading.Thread(target=creator, daemon=True) for _ in range(creators)]
+        threads += [threading.Thread(target=deleter, daemon=True)]
+        for t in threads:
+            t.start()
+        time.sleep(warmup_s)
+        conn.send("start")
+        t_start = time.perf_counter()
+        time.sleep(window_s)
+        t_end = time.perf_counter()
+        stop.set()
+        conn.send("end")
+
+        def unbound(window_only):
+            with lock:
+                return [n for n, t0 in t_create.items()
+                        if n not in t_bound and (not window_only or t_start <= t0 < t_end)]
+
+        deadline = time.monotonic() + drain_s
+        while unbound(True) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        with lock:
+            lats = sorted(t_bound[n] - t0 for n, t0 in t_create.items()
+                          if t_start <= t0 < t_end and n in t_bound)
+            created = sum(t_start <= t0 < t_end for t0 in t_create.values())
+            calls = sorted(t_call[n] for n, t0 in t_create.items()
+                           if t_start <= t0 < t_end and n in t_call)
+        after_drain = len(unbound(True))
+        deadline = t_end + lost_s
+        while unbound(False) and time.perf_counter() < deadline:
+            time.sleep(0.1)
+        lost = unbound(False)
+        conn.send({"lats": lats, "created": created, "window_s": t_end - t_start, "calls": calls,
+                   "unbound_after_drain": after_drain, "lost": lost[:20], "lost_count": len(lost),
+                   "created_total": len(t_create), "double_bound": double[:20],
+                   "errors": errors[:5]})
+    except Exception as e:
+        conn.send({"error": repr(e)})
+    finally:
+        stop.set()
+        done.set()
+
+
+class _K1Events:
+    """CUDA events around every K1 launch (`scan_kernel._launch`) while
+    in the block."""
+
+    def __init__(self, torch):
+        self.torch, self.events, self._launch = torch, [], None
+
+    def __enter__(self):
+        from kubernetes_tpu_torch.ops import scan_kernel
+
+        self._launch = launch = scan_kernel._launch
+        cuda = self.torch.cuda
+
+        def timed(*args, **kwargs):
+            ev = (cuda.Event(enable_timing=True), cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = launch(*args, **kwargs)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        scan_kernel._launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        from kubernetes_tpu_torch.ops import scan_kernel
+
+        if self._launch is not None:
+            scan_kernel._launch, self._launch = self._launch, None
+
+
+def _pct(xs, p):
+    """The p-quantile of sorted `xs`, as bench.py's drill reads it."""
+    return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else None
+
+
+def _hist(h, **labels):
+    snap = h.snapshot().get(h._key(labels))
+    return {"count": h.count(**labels), "sum": snap[1] if snap else 0.0,
+            "p50": h.quantile(0.5, **labels), "p99": h.quantile(0.99, **labels)}
+
+
+def _mirror_equal_to_rebuild(torch, device, phase, session, pods, nodes):
+    """The daemon's session against a fresh session from the LIST, by
+    node name: every host-mirror column of every node, and which node
+    holds each pod; and its device rows against its mirror."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import SolverSession
+
+    bound = [p for p in pods if p.spec.node_name]
+    fresh = SolverSession(nodes, assigned=bound, node_capacity=max(64, int(len(nodes) * 1.25)),
+                          device=device)
+    if session.node_index.keys() != fresh.node_index.keys():
+        fail(phase, "the session's nodes differ from the apiserver's")
+    pods_at = {k: session.node_names[j] for k, j in session._pod_node.items()}
+    want_at = {k: fresh.node_names[j] for k, j in fresh._pod_node.items()}
+    if pods_at != want_at:
+        bad = sorted(set(pods_at.items()) ^ set(want_at.items()))
+        fail(phase, f"the session holds {len(pods_at)} pods and the LIST {len(want_at)}; "
+                    f"first difference {bad[:2]}")
+    names = [n for n in fresh.node_names if n is not None]
+    rows, fresh_rows = [session.node_index[n] for n in names], [fresh.node_index[n] for n in names]
+    for key, col in fresh.h.items():
+        got, want = session.h[key][rows], col[fresh_rows]
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            fail(phase, f"the session's host column {key} differs from a rebuild's")
+    return {"nodes": len(rows), "pods": len(pods_at),
+            "device_rows_checked": _mirror_check(torch, session, "the daemon's session", phase)}
+
+
+def run_daemon_drill(torch, device, smi, phase, preload=0):
+    """The pod-to-bind drill (the JAX package's bench.py:417-575 shape)
+    against a fresh apiserver child: the port's daemon started on the
+    card over its own HTTP transport, a spawned load generator, the
+    window's latencies and throughput, the tick and device figures, and
+    the checks (no double bind, a valid final placement, the session
+    equal to a rebuild from the LIST, no device error, no lost pod)."""
+    import multiprocessing as mp
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops import ledger, scan_kernel
+    from kubernetes_tpu_torch.scheduler import daemon as daemon_mod
+    from kubernetes_tpu_torch.utils import profiler, sli, tracing
+
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        t0 = time.perf_counter()
+        preloaded = _cluster(phase, client, preload)
+        setup_s = time.perf_counter() - t0
+        cfg = daemon_mod.SchedulerConfig(Client(HTTPTransport(cp.url))).start()
+        daemon, k1 = None, _K1Events(torch)
+        try:
+            if not cfg.wait_for_sync(120):
+                fail(phase, "the daemon's caches did not sync")
+            _wait(phase, "the preloaded pods in the cache",
+                  lambda: len(cfg.scheduled_pods.store) == preload, timeout=120)
+            daemon = daemon_mod.IncrementalBatchScheduler(cfg, max_batch=1024,
+                                                          prewarm_buckets=1024, device=device)
+            t0 = time.perf_counter()
+            daemon.prewarm()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            session = daemon._session
+            handles = _record_handles(session)
+            kernel_events = k1.__enter__().events
+            window_series = (profiler.DUTY_CYCLE, profiler.OVERLAP, profiler.DEVICE_BUSY,
+                             tracing.PHASE_SECONDS, daemon_mod._BIND_LATENCY,
+                             sli.INFORMER_STALENESS)
+            scan_kernel.scan_with_state.launches = 0
+            calls0 = ledger.DEFAULT.calls("scan_kernel")
+            daemon.start()
+            ctx = mp.get_context("spawn")
+            parent, child_conn = ctx.Pipe(duplex=False)
+            load = ctx.Process(target=_drill_load, daemon=True, args=(
+                cp.url, DRILL_RATE, DRILL_CREATORS, DRILL_WARMUP_S, DRILL_WINDOW_S, DRILL_DRAIN_S,
+                DRILL_LOST_S, DRILL_CUSHION, preloaded, child_conn))
+            gc.collect()
+            gc.freeze()
+            try:
+                load.start()
+                child_conn.close()
+                msgs, pauses = {}, GcPauses()
+                for tag, wait_s in (("start", DRILL_WARMUP_S + 60),
+                                    ("end", DRILL_WINDOW_S + 30)):
+                    if not parent.poll(wait_s):
+                        fail(phase, f"the load generator sent no {tag!r}")
+                    msg = parent.recv()
+                    if msg != tag:
+                        fail(phase, f"the load generator failed: {msg}")
+                    msgs[tag] = (cp.cpu_seconds(), time.process_time(), len(handles),
+                                 len(kernel_events))
+                    if tag == "start":
+                        for series in window_series:
+                            series.reset()
+                        pauses.__enter__()
+                    else:
+                        pauses.__exit__()
+                        in_window = {
+                            "duty_cycle": _hist(profiler.DUTY_CYCLE),
+                            "overlap": _hist(profiler.OVERLAP),
+                            "device_busy_s": profiler.DEVICE_BUSY.value(),
+                            "phase_seconds": {p[0]: _hist(tracing.PHASE_SECONDS, phase=p[0])
+                                              for p in tracing.PHASE_SECONDS.label_values()},
+                            "bind_bulk_latency": _hist(daemon_mod._BIND_LATENCY),
+                            "informer_staleness_s": {
+                                k[0]: v for k, v in sli.INFORMER_STALENESS.snapshot().items()},
+                        }
+                if not parent.poll(DRILL_LOST_S + 30):
+                    fail(phase, "the load generator sent no result")
+                result = parent.recv()
+            finally:
+                gc.unfreeze()
+                if load.pid is not None:
+                    load.join(timeout=10)
+                    if load.is_alive():
+                        load.terminate()
+                        load.join(timeout=10)
+            if "error" in result:
+                fail(phase, f"the load generator failed: {result['error']}")
+            bound, pods, nodes = _listed(client)
+            _wait(phase, "the daemon's caches to reach the LIST", lambda: {
+                k.split("/")[-1] for k in cfg.scheduled_pods.store.keys()} == {
+                n for n, v in bound.items() if v})
+            time.sleep(1.0)
+            daemon.stop()
+            daemon.schedule_batch(timeout=0)  # one idle tick applies the last deltas
+            launches = scan_kernel.scan_with_state.launches
+            ledger_launches = ledger.DEFAULT.calls("scan_kernel") - calls0
+        finally:
+            if daemon is not None and daemon._thread is not None and daemon._thread.is_alive():
+                daemon.stop()
+            cfg.stop()
+            k1.__exit__()
+        mirror = _mirror_equal_to_rebuild(torch, device, phase, daemon._session, pods, nodes)
+        command = cp.cmd
+
+    # The final placement under the capacity rule, counting every bound pod.
+    placed = [p for p in pods if p.spec.node_name]
+    snap = build_snapshot(placed, nodes)
+    _valid(phase, snap, _assignment_of(snap, [p.spec.node_name for p in placed]), "final placement")
+    (cpu_s, own_s, h_s, e_s), (cpu_e, own_e, h_e, e_e) = msgs["start"], msgs["end"]
+    window = handles[h_s:h_e]
+    per_tick = [len(h.pending) for h in window]
+    torch.cuda.synchronize()
+    k1_ms = [a.elapsed_time(b) for a, b in kernel_events[e_s:e_e]]
+    lats = result["lats"]
+    problems = []
+    if result["double_bound"]:
+        problems.append(f"pods bound twice: {result['double_bound']}")
+    if result["lost_count"]:
+        problems.append(f"{result['lost_count']} pods lost (unbound {DRILL_LOST_S} s after the "
+                        f"window): {result['lost']}")
+    if daemon.device_errors:
+        problems.append(f"{daemon.device_errors} device errors")
+    if result["errors"]:
+        problems.append(f"load generator errors: {result['errors']}")
+    if not lats or not window:
+        problems.append("no pod bound in the window")
+    if problems:
+        fail(phase, "; ".join(problems))
+
+    return {
+        "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES,
+        "preloaded_bound_pods": preload, "setup_s": setup_s, "session_build_s": build_s,
+        "rate": DRILL_RATE, "creators": DRILL_CREATORS, "warmup_s": DRILL_WARMUP_S,
+        "window_s": result["window_s"], "drain_s": DRILL_DRAIN_S,
+        "bound_pods_per_s": len(lats) / result["window_s"],
+        "bind_latency_p50_s": _pct(lats, 0.50), "bind_latency_p99_s": _pct(lats, 0.99),
+        "bind_latency_max_s": lats[-1], "bound_in_window": len(lats),
+        "created_in_window": result["created"],
+        "created_per_s": result["created"] / result["window_s"],
+        "create_call_p50_s": _pct(result["calls"], 0.50),
+        "create_call_p99_s": _pct(result["calls"], 0.99),
+        "unbound_after_drain": result["unbound_after_drain"], "lost": result["lost_count"],
+        "created_total": result["created_total"], "double_bound": 0,
+        "ticks": len(window), "pods_per_tick_mean": statistics.mean(per_tick),
+        "pods_per_tick_max": max(per_tick),
+        "k1_launches": ledger_launches, "wrapper_launches": launches,
+        "k1_ms_per_tick": {"median": statistics.median(k1_ms), "mean": statistics.mean(k1_ms),
+                           "max": max(k1_ms), "ticks_timed": len(k1_ms)},
+        **in_window,
+        "apiserver_cpu_s_window": cpu_e - cpu_s, "smoke_cpu_s_window": own_e - own_s,
+        "gc_in_window": pauses.summary(),
+        "rebuilds": daemon.rebuilds, "device_errors": daemon.device_errors,
+        "switch_interval_s": sys.getswitchinterval(),
+        "checks": {"no_double_bind": True, "valid_final_placement": len(placed),
+                   "mirror_equal_to_rebuild": mirror, "lost_pods": 0,
+                   "all_bound_by": f"{DRILL_LOST_S} s after the window"},
+        "timed": "latency: the load process's clock from the start of the create call to the "
+                 "binding on its own watch (spec.nodeName!=); create_call: the POST's round "
+                 "trip; window figures between its 'start' and 'end'; K1 ms by CUDA events "
+                 "around every K1 launch in the window; "
+                 "duty, overlap, phases, bind_bulk latency and staleness from the registry, "
+                 "reset at the window's start and read at its end; CPU seconds "
+                 "from /proc/<pid>/stat (apiserver) and time.process_time (this process)",
+    }
+
+
+def run_daemon(torch, device, smi):
+    """The four legs, each on a fresh apiserver child."""
+    out = {"daemon_parity": run_daemon_parity(torch, device)}
+    emit("daemon_parity", ok=True, card=smi, **out["daemon_parity"])
+    out["daemon_parity_wide"] = run_daemon_parity(torch, device, wide=True)
+    emit("daemon_parity_wide", ok=True, **out["daemon_parity_wide"])
+    out["daemon_drill"] = run_daemon_drill(torch, device, smi, "daemon_drill")
+    emit("daemon_drill", ok=True, **out["daemon_drill"])
+    out["daemon_churn"] = run_daemon_drill(torch, device, smi, "daemon_churn",
+                                           preload=CHURN_PRELOAD)
+    emit("daemon_churn", ok=True, **out["daemon_churn"])
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,21 @@
-"""Typed API objects: the kinds the batch scheduler's lowering reads.
+"""Typed API objects: the kinds the batch scheduler reads.
 
 A copy of the subset of `kubernetes_tpu/models/objects.py` that
 `models/columnar.py`, the incremental session, the gang solver,
-preemption and the defrag planner consume (reference:
-pkg/api/types.go): ObjectMeta, Pod with its spec, containers, ports,
-resources and the exclusive-disk volume sources, Node with its status
-and conditions, and Service. The lowering reads these objects by
+preemption, the defrag planner and the scheduler daemon consume
+(reference: pkg/api/types.go): ObjectMeta, Pod with its spec,
+containers, ports, resources and the exclusive-disk volume sources,
+Node with its spec, status and conditions, Service, PodGroup, and the
+Event the recorder writes. The lowering reads these objects by
 attribute only, so the JAX package's objects of the same shape lower
-identically.
+identically. Wire form is camelCase JSON through `models/serde.py`;
+a field's `wire` metadata names a key that the plain conversion would
+spell otherwise.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -45,6 +49,7 @@ class ObjectMeta:
     name: str = ""
     namespace: str = ""
     uid: str = ""
+    resource_version: str = ""
     # Set when a pod is marked Terminating; gang membership no longer
     # counts it.
     deletion_timestamp: str = ""
@@ -90,7 +95,7 @@ class GCEPersistentDiskVolumeSource:
 
 @dataclass
 class AWSElasticBlockStoreVolumeSource:
-    volume_id: str = ""
+    volume_id: str = field(default="", metadata={"wire": "volumeID"})
     fs_type: str = ""
     read_only: bool = False
 
@@ -213,3 +218,70 @@ class Service:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: ServiceSpec = field(default_factory=ServiceSpec)
     status: Dict[str, Any] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# PodGroup
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PodGroupSpec:
+    """Gang-scheduling intent: fewer than `min_member` schedulable
+    members rejects the whole group."""
+
+    min_member: int = 1
+    max_member: int = 0
+    schedule_timeout_seconds: int = 0
+
+
+@dataclass
+class PodGroupStatus:
+    phase: str = "Pending"  # Pending | Scheduled | Unschedulable
+    members: int = 0
+    bound: int = 0
+    message: str = ""
+
+
+@dataclass
+class PodGroup:
+    kind: str = "PodGroup"
+    api_version: str = "v1"
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodGroupSpec = field(default_factory=PodGroupSpec)
+    status: PodGroupStatus = field(default_factory=PodGroupStatus)
+
+
+# ---------------------------------------------------------------------------
+# Event
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ObjectReference:
+    kind: str = ""
+    namespace: str = ""
+    name: str = ""
+    uid: str = ""
+
+
+@dataclass
+class Event:
+    """Reference: pkg/api/types.go Event (what the recorder writes and,
+    for a repeat, reads back to raise its count)."""
+
+    kind: str = "Event"
+    api_version: str = "v1"
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    involved_object: ObjectReference = field(default_factory=ObjectReference)
+    reason: str = ""
+    message: str = ""
+    source: Dict[str, str] = field(default_factory=dict)
+    first_timestamp: str = ""
+    last_timestamp: str = ""
+    count: int = 0
+
+
+def now_iso() -> str:
+    """The current UTC time to the second, as the wire stamps it."""
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())

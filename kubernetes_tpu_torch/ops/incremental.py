@@ -16,7 +16,8 @@ the large, long-lived half of the problem) stays on the device:
   from its host store.
 
 The layout is the JAX session's: N_cap = pow2(max(node_capacity,
-nodes)) slots, 4-word bitsets, SVC_K = 8 service ids a pod, svc_counts
+nodes)) slots, 4-word bitsets by default (the daemon sizes them with
+`vocab_widths` instead), SVC_K = 8 service ids a pod, svc_counts
 (N_cap, max(1, services)) f32, bitset words int32 on the device and u32
 in `h`. Pending pods pad to the same power-of-two buckets and dirty
 scatters to the same widths.
@@ -250,6 +251,25 @@ def _mask(ids: Sequence[int]) -> int:
 def _words(mask: int, words: int) -> np.ndarray:
     """A bit mask as `words` u32 bitset words (the layout of `bitset`)."""
     return np.array([(mask >> (32 * w)) & 0xFFFFFFFF for w in range(words)], np.uint32)
+
+
+def vocab_widths(nodes: Sequence[Node], pods: Sequence[Pod]) -> Tuple[int, int, int]:
+    """(label, port, volume) bitset words that hold every token of
+    `nodes` and `pods` (node labels, the pods' nodeSelector pairs,
+    hostPorts and exclusive volumes) with a quarter more, at least 32
+    tokens, of headroom, and never fewer than the default 4 words: a
+    session built over these objects cannot overflow its vocabularies."""
+    labels = {f"{k}={v}" for n in nodes for k, v in (n.metadata.labels or {}).items()}
+    ports, vols = set(), set()
+    for pod in pods:
+        labels.update(f"{k}={v}" for k, v in (pod.spec.node_selector or {}).items())
+        ports.update(pod_host_ports(pod))
+        vols.update(v for v, _ in pod_volumes(pod))
+
+    def words(n: int) -> int:
+        return max(4, -(-(n + max(32, n // 4)) // 32))
+
+    return words(len(labels)), words(len(ports)), words(len(vols))
 
 
 class SolverSession:

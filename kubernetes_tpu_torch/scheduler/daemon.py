@@ -1,0 +1,1087 @@
+"""The scheduler daemon: watch-fed caches -> device session -> bulk binds.
+
+The port's copy of the incremental daemon of
+`kubernetes_tpu/scheduler/daemon.py` (reference:
+plugin/pkg/scheduler/scheduler.go, factory/factory.go):
+
+- `SchedulerConfig` wires the caches: the unassigned-pod FIFO fed by a
+  `spec.nodeName=` reflector; informers for the scheduled pods, nodes,
+  services and podgroups whose deltas reach the daemon through the
+  `cluster_events` hook; the assumed-pod modeler and its merged pod
+  lister; the binder and the retry `Backoff`. The session reads node
+  readiness itself, so the JAX config's Ready-filtered node lister (for
+  its scalar path) is not here.
+- `IncrementalBatchScheduler` keeps a `SolverSession` on the card
+  across ticks: watch deltas patch node rows, and each tick uploads only
+  its pending pods. The drain is event-driven (one wake event fed by
+  queue arrivals, deltas and commit releases, with a coalescing window
+  once a sweep finds `COALESCE_MIN` pods). Tick k's binds run on one
+  commit worker thread while tick k+1 solves (`solve_async`), and the
+  worker keeps tick order. Gang ticks solve synchronously through
+  `solve_gang`; accepted groups commit with `bind_bulk(atomic=True)`.
+  Pods the solve cannot place go through the preemption pass (victim
+  selection on the card, `scheduler.batch.preempt_backlog`) and back to
+  the queue after their backoff, released early when capacity frees.
+
+Started (`start()`), the daemon runs its loop on a thread; a daemon
+that was never started ticks synchronously, one `schedule_batch()` a
+call, with commits inline. The JAX daemon's fixed-tick mode
+(`microticks=False`) and its tuning arguments (`pod_bucket`,
+`batch_window`, `coalesce_min`, `commit_depth`) are not carried: the
+port runs their defaults.
+
+Departures from the JAX daemon:
+
+- (a) Session failures. A `RebuildRequired` or a service-set change
+  invalidates the session, and the same tick's pods are solved again on
+  a session rebuilt from the caches (the JAX daemon falls to its full
+  re-lower tick instead; both are the exact sequential solve, so the
+  decisions are the same when the tick held the whole queue: the JAX
+  fallback queues the tick's pods again behind the rest). A session is built with vocabularies sized
+  from the caches and the tick's pods (`vocab_widths`: every token with
+  a quarter more of headroom), so a rebuild holds what overflowed the
+  old one; the JAX session keeps 128 tokens each, and its daemon re-
+  lowers every tick of a cluster that has more. Should the rebuilt
+  session overflow too (tokens that arrived during the rebuild), the
+  tick's pods go back to the queue for the next tick: capacity is not
+  a device error. Any other exception of a tick is not caught: it is
+  logged, counted in `device_errors`, and raised out of
+  `schedule_batch`, and `run()` then stops the daemon. There is no
+  scalar path to fall to, so a broken card never schedules on the CPU.
+  Tokens past what the scan kernel's pod rows hold (about 220 bitset
+  words in all) make K1 refuse the plan: that is a device error.
+- (b) Preemption's victim selection runs on the card only; its errors
+  propagate as in (a). On the commit worker the error is kept and
+  raised by the next `schedule_batch`.
+- (c) No chaos seams (`faults.fire`) and no lock sanitizer wrappers.
+- (d) Decision records and explain capture, capacity sampling and the
+  flight recorder's preemption records are not ported; they change no
+  decision.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import queue
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+from kubernetes_tpu_torch import DeviceLike, resolve_device
+from kubernetes_tpu_torch.client.cache import FIFO, Informer, Reflector, ThreadSafeStore
+from kubernetes_tpu_torch.client.rest import APIError
+from kubernetes_tpu_torch.models import serde
+from kubernetes_tpu_torch.models.algspec import spec_from_policy
+from kubernetes_tpu_torch.models.objects import (
+    Node,
+    Pod,
+    PodGroup,
+    Service,
+    pod_can_preempt,
+    pod_full_key,
+    pod_priority,
+)
+from kubernetes_tpu_torch.ops.incremental import (
+    RebuildRequired,
+    SessionGang,
+    SolverSession,
+    vocab_widths,
+)
+from kubernetes_tpu_torch.scheduler import gang
+from kubernetes_tpu_torch.scheduler.batch import preempt_backlog
+from kubernetes_tpu_torch.scheduler.modeler import SimpleModeler
+from kubernetes_tpu_torch.utils import metrics, profiler, sli, tracing
+from kubernetes_tpu_torch.utils.ratelimit import Backoff
+
+_LOG = logging.getLogger("kubernetes_tpu_torch.scheduler")
+
+_E2E_LATENCY = metrics.DEFAULT.histogram(
+    "scheduler_e2e_scheduling_latency_seconds",
+    "E2e scheduling latency (scheduling algorithm + binding)",
+)
+_ALGO_LATENCY = metrics.DEFAULT.histogram(
+    "scheduler_scheduling_algorithm_latency_seconds", "Scheduling algorithm latency"
+)
+_BIND_LATENCY = metrics.DEFAULT.histogram(
+    "scheduler_binding_latency_seconds", "Binding latency"
+)
+_SCHEDULED = metrics.DEFAULT.counter(
+    "scheduler_pods_scheduled_total", "Pods successfully bound", ("result",)
+)
+_PREEMPT_VICTIMS = metrics.DEFAULT.counter(
+    "preemption_victims_total", "Pods evicted to make room for higher-priority pods"
+)
+_PREEMPT_OUTCOMES = metrics.DEFAULT.counter(
+    "preemption_solve_outcomes_total", "Per-preemptor preemption solve outcomes by kind",
+    ("outcome",),
+)
+_PREEMPT_NOMINATED = metrics.DEFAULT.gauge(
+    "preemption_active_nominations", "Pending pods currently holding a nominated node"
+)
+
+#: The apiserver's grace for an eviction that names none.
+DEFAULT_EVICTION_GRACE_SECONDS = 5
+
+#: Seconds past the victims' grace a nomination stays live before the
+#: preemptor may preempt again (covers the kubelet's confirm lag).
+NOMINATION_SLACK_SECONDS = 10.0
+
+
+def _decode_pod(wire: dict) -> Pod:
+    return serde.from_wire(Pod, wire)
+
+
+def _decode_node(wire: dict) -> Node:
+    return serde.from_wire(Node, wire)
+
+
+def _decode_service(wire: dict) -> Service:
+    return serde.from_wire(Service, wire)
+
+
+def _decode_podgroup(wire: dict) -> PodGroup:
+    return serde.from_wire(PodGroup, wire)
+
+
+def _key(pod: Pod) -> str:
+    return f"{pod.metadata.namespace or 'default'}/{pod.metadata.name}"
+
+
+class _StoreServiceLister:
+    def __init__(self, store: ThreadSafeStore):
+        self.store = store
+
+    def list(self) -> List[Service]:
+        return self.store.list()
+
+
+class SchedulerConfig:
+    """Wires the caches (reference: factory.CreateFromKeys).
+
+    The scheduled-pods cache stays in wire form and decodes on access
+    (the JAX config's `raw_scheduled_cache=True`; its typed form serves
+    the scalar path, which the port does not have): the session tracks
+    its own bound pods, so fully decoding every bind and delete event
+    would be the reflector threads' main cost under churn. `policy` is
+    kept as an algorithm
+    spec; the incremental daemon refuses any but the default. The JAX
+    config's bind TokenBucket is not here: only its scalar path reads
+    it, and the incremental daemon never throttles its bulk binds."""
+
+    #: Seconds an assumed binding counts before the watch must confirm it.
+    ASSUME_TTL_S = 30.0
+
+    def __init__(
+        self,
+        client,
+        policy: Optional[dict] = None,
+    ):
+        self.client = client
+        # Unassigned pods -> FIFO (factory.go:180-186). A DELETED event
+        # (the pod bound or removed) needs only its key.
+        self.pod_queue = FIFO()
+        self._pod_reflector = Reflector(
+            client, "pods", self.pod_queue, field_selector="spec.nodeName=",
+            decode=_decode_pod, decode_deleted=False,
+        )
+        # Delta hook (kind, event type, object), called from the
+        # reflector threads: a subscriber must only enqueue.
+        self.cluster_events: Optional[Callable[[str, str, object], None]] = None
+
+        def _emit(kind: str, etype: str):
+            def handler(obj, _k=kind, _e=etype):
+                cb = self.cluster_events
+                if cb is not None:
+                    cb(_k, _e, obj)
+            return handler
+
+        self.scheduled_pods = Informer(
+            client, "pods", field_selector="spec.nodeName!=",
+            decode=None,
+            on_add=_emit("pod", "ADDED"), on_update=_emit("pod", "MODIFIED"),
+            on_delete=_emit("pod", "DELETED"), decode_deleted=False,
+        )
+        self.nodes = Informer(
+            client, "nodes", decode=_decode_node,
+            on_add=_emit("node", "ADDED"), on_update=_emit("node", "MODIFIED"),
+            on_delete=_emit("node", "DELETED"),
+        )
+        self.services = Informer(
+            client, "services", decode=_decode_service,
+            on_add=_emit("service", "ADDED"), on_update=_emit("service", "MODIFIED"),
+            on_delete=_emit("service", "DELETED"),
+        )
+        # Gang partitioning reads PodGroup specs here, not by a LIST a tick.
+        self.podgroups = Informer(client, "podgroups", decode=_decode_podgroup)
+
+        # A LIST lands typed pods in the cache and the watch wire dicts.
+        def _scheduled_typed() -> List[Pod]:
+            return [_decode_pod(p) if isinstance(p, dict) else p
+                    for p in self.scheduled_pods.store.list()]
+
+        self.modeler = SimpleModeler(scheduled_pods=_scheduled_typed, ttl=self.ASSUME_TTL_S)
+        self.pod_lister = self.modeler.pod_lister()
+        self.service_lister = _StoreServiceLister(self.services.store)
+        self.algorithm_spec = spec_from_policy(policy) if policy is not None else None
+        self.binder = client
+        self.backoff = Backoff(initial=1.0, max_backoff=60.0)
+
+    def _reflectors(self):
+        return (self._pod_reflector, self.scheduled_pods, self.nodes, self.services,
+                self.podgroups)
+
+    def start(self) -> "SchedulerConfig":
+        for x in self._reflectors():
+            x.start()
+        return self
+
+    def wait_for_sync(self, timeout: float = 10.0) -> bool:
+        return all(x.wait_for_sync(timeout) for x in self._reflectors())
+
+    def stop(self) -> None:
+        self.pod_queue.close()
+        for x in self._reflectors():
+            x.stop()
+
+
+class IncrementalBatchScheduler:
+    """Session-backed batch daemon on one card (see the module text).
+
+    `device` is the session's (None: the CUDA card, raising without
+    one); `mode` the tick solver, scan, wave or sinkhorn. `max_batch`
+    bounds a tick; `prewarm_buckets` pre-runs the session's launches at
+    every pod bucket up to it when the session is built; victims of a
+    preemption get `eviction_grace_seconds` to exit."""
+
+    #: A sweep of at least this many pods waits BATCH_WINDOW_S for more.
+    COALESCE_MIN = 64
+    BATCH_WINDOW_S = 0.02
+    #: Queued commit jobs at most: a solve loop that outruns the
+    #: apiserver blocks instead of growing a bind backlog.
+    COMMIT_DEPTH = 4
+
+    def __init__(
+        self,
+        config: SchedulerConfig,
+        max_batch: int = 65536,
+        mode: str = "scan",
+        eviction_grace_seconds: Optional[int] = None,
+        prewarm_buckets: int = 0,
+        device: DeviceLike = None,
+    ):
+        spec = config.algorithm_spec
+        if spec is not None and not spec.is_default():
+            raise ValueError("incremental batch mode supports the default policy only")
+        if mode not in ("scan", "wave", "sinkhorn"):
+            raise ValueError(f"unknown batch mode {mode!r}")
+        self.config = config
+        self.device = resolve_device(device)
+        self.mode = mode
+        self.max_batch = max_batch
+        self.eviction_grace_seconds = (
+            DEFAULT_EVICTION_GRACE_SECONDS if eviction_grace_seconds is None
+            else int(eviction_grace_seconds)
+        )
+        self.prewarm_buckets = prewarm_buckets
+        # Ticks and commit jobs that raised (departure (a)), counted from
+        # the loop and the commit worker; sessions rebuilt.
+        self.device_errors = 0
+        self._errors_lock = threading.Lock()
+        self.rebuilds = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # Capacity-freed signal: a retry backoff is an event wait, and a
+        # pod DELETED or node ADDED delta bumps the epoch, releasing
+        # every backlogged pod the tick the capacity appears.
+        self._capacity_cond = threading.Condition(threading.Lock())
+        self._capacity_epoch = 0
+        # pod key -> (node, priority, monotonic expiry) of a nomination.
+        self._nominations: Dict[str, Tuple[str, int, float]] = {}
+        self._missing_groups: Dict[str, float] = {}
+        self._session: Optional[SolverSession] = None
+        self._event_q: "collections.deque" = collections.deque()
+        # Session charge releases the commit worker asks for, applied
+        # on the solve loop (the session is single-threaded).
+        self._release_q: "collections.deque" = collections.deque()
+        self._wake = threading.Event()
+        config.pod_queue.attach_wake(self._wake)
+        self._commit_q: "queue.Queue" = queue.Queue(maxsize=self.COMMIT_DEPTH)
+        self._commit_thread: Optional[threading.Thread] = None
+        self._worker_error: Optional[BaseException] = None
+        # Duty-cycle baseline: when the previous tick resolved.
+        self._last_tick_resolved_mono = 0.0
+        # The dispatched, unresolved tick: (PendingSolve, ctx).
+        self._inflight = None
+        self._inflight_keys: frozenset = frozenset()
+        config.cluster_events = self._on_cluster_event
+
+    # -- lifecycle ----------------------------------------------------
+
+    def start(self) -> "IncrementalBatchScheduler":
+        if self._commit_thread is None:
+            self._commit_thread = threading.Thread(target=self._commit_worker, daemon=True)
+            self._commit_thread.start()
+        self._thread = threading.Thread(target=self.run, daemon=True)
+        self._thread.start()
+        return self
+
+    def run(self) -> None:
+        """Tick until stopped; a tick that raises stops the daemon."""
+        while not self._stop.is_set():
+            try:
+                self.schedule_batch()
+            except Exception:
+                _LOG.error("the scheduler stops after a failed tick")
+                self._stop.set()
+
+    def stop(self) -> None:
+        """Stop the loop and the informers, then flush the pipeline in
+        order: the queued commit jobs first, then the outstanding solve,
+        whose commit now runs inline. A run thread still alive after the
+        join keeps its in-flight tick (resolving it from here would race
+        that thread)."""
+        self._stop.set()
+        with self._capacity_cond:
+            self._capacity_cond.notify_all()
+        self.config.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        error = None
+        if self._thread is None or not self._thread.is_alive():
+            try:
+                self._flush_commits()
+                self._resolve_inflight()
+            except Exception as e:
+                self._count_error()
+                _LOG.exception("flushing the in-flight tick on stop failed")
+                error = e
+        else:
+            _LOG.warning("scheduler run thread still alive at stop; its in-flight tick "
+                         "stays unresolved")
+        worker = self._commit_thread
+        if worker is not None:
+            self._commit_thread = None
+            self._commit_q.put(None)
+            worker.join(timeout=10)
+        if error is not None:
+            raise error
+
+    def kill(self) -> None:
+        """Abrupt death: queued commit jobs are dropped unexecuted and the
+        in-flight solve abandoned, as a killed process would. Recovery
+        is a fresh daemon that rebuilds its session from LIST+watch."""
+        self._stop.set()
+        try:
+            while True:
+                self._commit_q.get_nowait()
+                self._commit_q.task_done()
+        except queue.Empty:
+            pass
+        self._commit_q.put(None)
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+        worker = self._commit_thread
+        if worker is not None:
+            self._commit_thread = None
+            worker.join(timeout=10)
+
+    def prewarm(self) -> None:
+        """Build the session (and run its prewarm launches) now, so the
+        first pod pays neither."""
+        if self._session is None:
+            self._session = self._build_session()
+
+    # -- retries --------------------------------------------------------
+
+    def _capacity_freed(self) -> None:
+        with self._capacity_cond:
+            self._capacity_epoch += 1
+            self._capacity_cond.notify_all()
+
+    def _backoff_wait(self, delay: float, epoch: Optional[int] = None) -> bool:
+        """Wait out a retry backoff, returning early (True) when capacity
+        frees or the daemon stops. `epoch` is the capacity epoch the
+        failed solve read its state at (None: now), so capacity freed
+        between that solve and this wait still releases at once."""
+        deadline = time.monotonic() + delay
+        with self._capacity_cond:
+            base = self._capacity_epoch if epoch is None else epoch
+            while not self._stop.is_set():
+                if self._capacity_epoch != base:
+                    return True
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._capacity_cond.wait(min(remaining, 5.0))
+        return False
+
+    def _refetch_and_requeue(self, pod: Pod) -> None:
+        """Re-fetch `pod` and queue it again if still pending; drop it
+        only when the apiserver says it is gone (404). Any other error
+        retries with the snapshot (the bind's emptiness check still
+        guards against a double assignment)."""
+        try:
+            fresh = self.config.client.get("pods", pod.metadata.name,
+                                           namespace=pod.metadata.namespace or "default")
+        except APIError as e:
+            if e.code == 404:
+                return
+            fresh = pod
+        except Exception:
+            fresh = pod
+        if not fresh.spec.node_name:
+            self.config.pod_queue.add(fresh)
+
+    def _requeue_many(self, pods: List[Pod], epoch: Optional[int] = None) -> None:
+        """One worker thread queues the rejected set again at each pod's
+        backoff deadline (factory.go:257-286); one capacity event
+        releases the whole set."""
+        if not pods:
+            return
+        now = time.monotonic()
+        schedule = sorted(
+            (now + self.config.backoff.duration(f"{p.metadata.namespace}/{p.metadata.name}"), i)
+            for i, p in enumerate(pods)
+        )
+
+        def worker():
+            released = False
+            for deadline, i in schedule:
+                wait = deadline - time.monotonic()
+                if wait > 0 and not released:
+                    released = self._backoff_wait(wait, epoch)
+                if self._stop.is_set():
+                    return
+                self._refetch_and_requeue(pods[i])
+
+        threading.Thread(target=worker, daemon=True).start()
+
+    # -- gangs ------------------------------------------------------------
+
+    def _gang_groups(self, pending: List[Pod], assigned=None):
+        """The drained backlog's PodGroups (empty when no pod carries the
+        group label). Specs come from the podgroups informer; a miss
+        makes one read-through LIST, and a group absent from that LIST
+        is remembered as deleted for 30 s. None when the LIST failed
+        transiently: the caller defers the grouped pods rather than
+        scheduling them one by one."""
+        needed = {
+            gang.group_key(p.metadata.namespace or "default", name)
+            for p in pending
+            for name in (gang.pod_group_name(p),)
+            if name
+        }
+        if not needed:
+            return []
+        by_key = {gang.group_key(pg.metadata.namespace, pg.metadata.name): pg
+                  for pg in self.config.podgroups.store.list()}
+        now = time.monotonic()
+        missing = {k for k in needed - by_key.keys() if self._missing_groups.get(k, 0.0) <= now}
+        if missing:
+            try:
+                pgs, _ = self.config.client.list("podgroups")
+            except APIError as e:
+                if e.code in (400, 404):
+                    return []  # the resource is not served
+                return None
+            except Exception:
+                return None
+            by_key = {gang.group_key(pg.metadata.namespace, pg.metadata.name): pg for pg in pgs}
+            if len(self._missing_groups) > 4096:
+                self._missing_groups.clear()
+            for k in needed - by_key.keys():
+                self._missing_groups[k] = time.monotonic() + 30.0
+
+        def min_member_of(ns: str, name: str):
+            pg = by_key.get(gang.group_key(ns, name))
+            return pg.spec.min_member if pg is not None else None
+
+        if assigned is None:
+            assigned = self.config.pod_lister.list()
+        return gang.partition_backlog(pending, assigned=assigned, min_member_of=min_member_of)
+
+    @staticmethod
+    def _split_deferred_gangs(pending: List[Pod]) -> Tuple[List[Pod], List[Pod]]:
+        """(ungrouped, grouped): grouped pods wait for resolvable specs."""
+        ungrouped = [p for p in pending if not gang.pod_group_name(p)]
+        grouped = [p for p in pending if gang.pod_group_name(p)]
+        return ungrouped, grouped
+
+    def _bind_groups_atomic(self, group_binds, outcome) -> None:
+        """Commit each accepted group with bind_bulk(atomic=True): a
+        conflict rejects the whole group server-side, and its pods come
+        back 409 Aborted."""
+        for _gkey, (ns, items) in sorted(group_binds.items()):
+            results = self.config.binder.bind_bulk(items, namespace=ns, atomic=True)
+            for (pod_name, _dest), res in zip(items, results):
+                outcome[(ns, pod_name)] = res
+            if any(r.get("status") != "Success" for r in results):
+                gang.OUTCOMES.inc(outcome="bind_rollback")
+
+    @staticmethod
+    def _bind_retryable(res: dict) -> bool:
+        """A failed bind that should requeue: a plain 409 means another
+        binder won (drop the pod); 409 Aborted means its gang's atomic
+        batch rolled back (still pending)."""
+        return res.get("code") != 409 or res.get("reason") == "Aborted"
+
+    # -- preemption -------------------------------------------------------
+
+    def _maybe_preempt(self, unbound: List[Pod], nodes, assigned, groups=()) -> int:
+        """Preemption over a tick's unplaceable pods: victim selection on
+        the card, the gang guard, then nominate and evict gracefully.
+        Preemptors stay in the requeue loop and bind through an ordinary
+        solve once their victims exit. Returns nominations granted."""
+        now = time.monotonic()
+        for key in [k for k, (_, _, exp) in self._nominations.items() if exp <= now]:
+            del self._nominations[key]
+        candidates = [p for p in unbound if pod_priority(p) > 0 and pod_can_preempt(p)
+                      and pod_full_key(p) not in self._nominations]
+        _PREEMPT_NOMINATED.set(len(self._nominations))
+        if not candidates:
+            return 0
+        with tracing.phase("preempt", pods=len(candidates)):
+            return self._preempt(candidates, unbound, nodes, assigned, now, groups)
+
+    def _preempt(self, candidates, unbound, nodes, assigned, now, groups=()) -> int:
+        cfg = self.config
+        decisions = preempt_backlog(candidates, nodes, assigned, device=self.device)
+        solved = list(decisions)
+        decisions, dropped = gang.drop_partial_gang_preemptions(
+            unbound, candidates, decisions, covered_keys=frozenset(self._nominations),
+            groups=groups or (),
+        )
+        for gkey in dropped:
+            _PREEMPT_OUTCOMES.inc(outcome="gang_partial")
+            _LOG.info("preemption for pod group %s dropped: not every unbound member could "
+                      "be granted a nomination", gkey)
+        granted = 0
+        for pod, dec, pre_guard in zip(candidates, decisions, solved):
+            if dec is None:
+                if pre_guard is None:
+                    _PREEMPT_OUTCOMES.inc(outcome="infeasible")
+                continue
+            ns = pod.metadata.namespace or "default"
+            key = pod_full_key(pod)
+            evicted = gone = 0
+            for vkey in dec.victims:
+                vns, _, vname = vkey.partition("/")
+                try:
+                    cfg.client.evict(vname, namespace=vns,
+                                     grace_period_seconds=self.eviction_grace_seconds)
+                except APIError as e:
+                    if e.code == 404:
+                        gone += 1  # already gone: the capacity is free anyway
+                        continue
+                    _LOG.warning("eviction of %s failed: %s", vkey, e)
+                    continue
+                except Exception:
+                    _LOG.exception("eviction of %s failed", vkey)
+                    continue
+                evicted += 1
+                cfg.client.record_event(
+                    {"kind": "Pod", "metadata": {"name": vname, "namespace": vns}},
+                    "Preempted", f"Preempted by {key} on node {dec.node}",
+                    source="scheduler", namespace=vns,
+                )
+            _PREEMPT_VICTIMS.inc(evicted)
+            if evicted + gone == 0:
+                # Nothing freed: a nomination would only hold the
+                # preemptor back for grace + slack. Retry next tick.
+                _PREEMPT_OUTCOMES.inc(outcome="evict_failed")
+                continue
+            try:
+                cfg.client.patch("pods", pod.metadata.name,
+                                 {"status": {"nominatedNodeName": dec.node}}, namespace=ns)
+            except Exception:
+                _LOG.debug("nominatedNodeName write for %s failed", key, exc_info=True)
+            _PREEMPT_OUTCOMES.inc(outcome="nominated")
+            self._nominations[key] = (
+                dec.node, pod_priority(pod),
+                now + self.eviction_grace_seconds + NOMINATION_SLACK_SECONDS,
+            )
+            # The nominated pod must contest the freed capacity the tick
+            # it appears, not after a grown backoff.
+            cfg.backoff.reset(key)
+            granted += 1
+        _PREEMPT_NOMINATED.set(len(self._nominations))
+        return granted
+
+    # -- deltas -----------------------------------------------------------
+
+    def _on_cluster_event(self, kind: str, etype: str, obj) -> None:
+        """From the reflector threads: enqueue and wake only."""
+        self._event_q.append((kind, etype, obj))
+        if (kind == "node" and etype == "ADDED") or (kind == "pod" and etype == "DELETED"):
+            # Capacity freed. Not node MODIFIED: status heartbeats would
+            # defeat the backoff.
+            self._capacity_freed()
+        self._wake.set()
+
+    def _observe_informer_staleness(self) -> None:
+        """scheduler_informer_staleness_seconds per cache: seconds since
+        it last processed a delta or re-list."""
+        cfg = self.config
+        now = time.monotonic()
+        for resource, ref in (
+            ("pods_pending", cfg._pod_reflector),
+            ("pods_scheduled", cfg.scheduled_pods.reflector),
+            ("nodes", cfg.nodes.reflector),
+            ("services", cfg.services.reflector),
+            ("podgroups", cfg.podgroups.reflector),
+        ):
+            if ref.last_event_mono:
+                sli.INFORMER_STALENESS.set(now - ref.last_event_mono, resource=resource)
+
+    @staticmethod
+    def _obj_key(obj) -> str:
+        """The session's pod key of a typed pod or a wire dict."""
+        if isinstance(obj, dict):
+            m = obj.get("metadata", {})
+            return f"{m.get('namespace') or 'default'}/{m.get('name', '')}"
+        return _key(obj)
+
+    def _apply_events(self, session) -> bool:
+        """Drain watch deltas into the session. False when it must be
+        rebuilt (the service set changed). Pod deltas come in wire form
+        from the watch and typed from a re-list: deletes use the key
+        alone; pods bound by someone else decode on demand."""
+        while self._event_q:
+            kind, etype, obj = self._event_q.popleft()
+            if kind == "service":
+                return False
+            if kind == "node":
+                if etype == "DELETED":
+                    session.remove_node(obj.metadata.name)
+                else:
+                    session.upsert_node(obj)
+            elif kind == "pod":
+                key = self._obj_key(obj)
+                if etype == "DELETED":
+                    session.delete_assigned(key)
+                elif not session.has_assigned(key):
+                    session.add_assigned(_decode_pod(obj) if isinstance(obj, dict) else obj)
+        return True
+
+    def _build_session(self, pending: List[Pod] = ()) -> SolverSession:
+        """A session from the caches. Deltas queued so far are dropped
+        first (the snapshot holds them; later ones replay idempotently),
+        and so are pending releases (they name the old session's
+        charges). The pod lister adds pods bound but not yet seen by the
+        watch. Node slots: 1.25 x the nodes, at least 64. Vocabularies:
+        every token of the nodes, the assigned pods, the queued pods and
+        the tick's `pending` pods, with headroom (`vocab_widths`)."""
+        cfg = self.config
+        self._event_q.clear()
+        self._release_q.clear()
+        nodes = cfg.nodes.store.list()
+        assigned = cfg.pod_lister.list()
+        lw, pw, vw = vocab_widths(nodes, [*assigned, *cfg.pod_queue.list(), *pending])
+        session = SolverSession(
+            nodes, services=cfg.service_lister.list(), assigned=assigned,
+            label_words=lw, port_words=pw, vol_words=vw,
+            node_capacity=max(64, int(len(nodes) * 1.25)), mode=self.mode, device=self.device,
+        )
+        if self.prewarm_buckets:
+            t0 = time.monotonic()
+            n = session.prewarm(self.prewarm_buckets)
+            _LOG.info("session prewarm: %d launches in %.1fs (pod buckets up to %d)",
+                      n, time.monotonic() - t0, self.prewarm_buckets)
+        return session
+
+    # -- the commit pipeline ----------------------------------------------
+
+    @property
+    def _pipelined(self) -> bool:
+        """Commits ride the worker and solves stay in flight across
+        ticks only while the started daemon runs."""
+        t = self._commit_thread
+        return t is not None and t.is_alive() and not self._stop.is_set()
+
+    def _commit_worker(self) -> None:
+        while True:
+            job = self._commit_q.get()
+            try:
+                if job is None:
+                    return
+                self._commit_job(job)
+            except Exception as e:
+                self._count_error()
+                _LOG.exception("commit job failed; the scheduler stops")
+                self._worker_error = e
+                self._stop.set()
+                self._wake.set()
+            finally:
+                self._commit_q.task_done()
+
+    def _flush_commits(self) -> None:
+        """Barrier: every queued commit job has run (before a rebuild
+        reads the pod lister)."""
+        t = self._commit_thread
+        if t is not None and t.is_alive():
+            self._commit_q.join()
+
+    def _release(self, key: str) -> None:
+        """Route a session charge release back to the solve loop."""
+        self._release_q.append(key)
+        self._wake.set()
+
+    def _drain_releases(self) -> None:
+        while self._release_q:
+            key = self._release_q.popleft()
+            if self._session is not None:
+                self._session.delete_assigned(key)
+
+    def _resolve_inflight(self, prefer_inline: bool = False) -> int:
+        """Wait for the outstanding tick's readback, then hand its commit
+        on. Returns the pods resolved. `prefer_inline` (nothing else
+        queued) commits on this thread when the worker is idle."""
+        inflight, self._inflight = self._inflight, None
+        self._inflight_keys = frozenset()
+        if inflight is None:
+            return 0
+        handle, ctx = inflight
+        results = handle.result()
+        self._observe_device_profile(handle)
+        self._finish_tick(handle._session, results, ctx,
+                          ctx.get("stage_s", 0.0) + handle.dispatch_s + handle.block_s,
+                          prefer_inline=prefer_inline)
+        return len(ctx["pending"])
+
+    def _observe_device_profile(self, handle) -> None:
+        """Duty cycle and overlap of one resolved tick: the in-flight
+        window (launch to result()) over the resolve-to-resolve period,
+        into profiler.observe_tick. The first tick only sets the
+        baseline."""
+        if not handle.pending:
+            return
+        start, end = handle.dispatched_mono, handle.resolved_mono
+        if not start or not end or end <= start:
+            return
+        prev = self._last_tick_resolved_mono
+        self._last_tick_resolved_mono = end
+        if not prev or end <= prev:
+            return
+        profiler.observe_tick(end - start, end - prev, handle.block_s)
+
+    def _finish_tick(self, session, results, ctx, solve_s, prefer_inline=False) -> None:
+        ctx["solve_s"] = solve_s
+        stats = dict(getattr(session, "last_stats", {}) or {})
+        stats["incremental"] = True
+        ctx["stats"] = stats
+        _ALGO_LATENCY.observe(solve_s)
+        self._submit_commit(results, ctx, prefer_inline=prefer_inline)
+
+    def _submit_commit(self, results, ctx, prefer_inline=False) -> None:
+        if self._pipelined and not (prefer_inline and self._commit_q.unfinished_tasks == 0):
+            self._commit_q.put((results, ctx))
+        else:
+            self._commit_job((results, ctx))
+            self._drain_releases()
+
+    def _commit_job(self, job) -> None:
+        """Commit one resolved tick: bulk binds (accepted gangs
+        atomically), Scheduled and FailedScheduling events, releases
+        routed back to the solve loop, the preemption pass, requeues.
+        Runs on the commit worker while the pipeline is live, inline
+        otherwise; never touches the session."""
+        results, ctx = job
+        cfg = self.config
+        gkey_of: Dict[str, str] = ctx["gkey_of"]
+        denied_keys = ctx["denied_keys"]
+        by_key = {_key(p): p for p in ctx["pending"]}
+        by_ns: Dict[str, List] = {}
+        group_binds: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {}
+        placed: List[Tuple[Pod, str]] = []
+        rejected: List[Pod] = []
+        for key, dest in results:
+            pod = by_key.get(key)
+            if pod is None:
+                continue
+            if dest is None:
+                _SCHEDULED.inc(result="unschedulable")
+                gkey = gkey_of.get(key)
+                message = (f'pod group "{gkey}" rejected: fewer than minMember pods schedulable'
+                           if gkey in denied_keys else "no node fits")
+                cfg.client.record_event(pod, "FailedScheduling", message, source="scheduler")
+                rejected.append(pod)
+                continue
+            ns = pod.metadata.namespace or "default"
+            gkey = gkey_of.get(key)
+            if gkey is not None:
+                group_binds.setdefault(gkey, (ns, []))[1].append((pod.metadata.name, dest))
+            else:
+                by_ns.setdefault(ns, []).append((pod.metadata.name, dest))
+            placed.append((pod, dest))
+
+        t0 = time.monotonic()
+        outcome: Dict[Tuple[str, str], dict] = {}
+        with tracing.phase("bind", pods=len(placed)):
+            try:
+                for ns, items in by_ns.items():
+                    for (pod_name, _dest), res in zip(items, cfg.binder.bind_bulk(items,
+                                                                                 namespace=ns)):
+                        outcome[(ns, pod_name)] = res
+                self._bind_groups_atomic(group_binds, outcome)
+            except Exception:
+                _LOG.warning("bulk bind failed; unrecorded pods retry", exc_info=True)
+        if by_ns or group_binds:
+            _BIND_LATENCY.observe(time.monotonic() - t0)
+
+        for pod, dest in placed:
+            ns = pod.metadata.namespace or "default"
+            key = f"{ns}/{pod.metadata.name}"
+            res = outcome.get((ns, pod.metadata.name), {})
+            if res.get("status") == "Success":
+                pod.spec.node_name = dest
+                cfg.modeler.assume_pod(pod)
+                self._nominations.pop(key, None)
+                _SCHEDULED.inc(result="scheduled")
+                cfg.client.record_event(pod, "Scheduled",
+                                        f"Successfully assigned {pod.metadata.name} to {dest}",
+                                        source="scheduler")
+            elif not self._bind_retryable(res):
+                # Someone else bound it: release our charge; the true
+                # binding arrives by the watch and charges the right row.
+                self._release(key)
+                _SCHEDULED.inc(result="bind_conflict")
+            else:
+                self._release(key)
+                _SCHEDULED.inc(result="bind_error")
+                rejected.append(pod)
+        sli.observe_device_telemetry()
+        # Victims come from the watch caches, not the session; their
+        # exits come back as ordinary pod DELETED deltas.
+        unbound = [by_key[key] for key, dest in results if dest is None and key in by_key]
+        if unbound:
+            self._maybe_preempt(unbound, cfg.nodes.store.list(), cfg.pod_lister.list(),
+                                groups=ctx["groups"])
+        self._requeue_many(rejected, epoch=ctx.get("epoch"))
+        _E2E_LATENCY.observe(time.monotonic() - ctx["start"])
+
+    # -- the tick -----------------------------------------------------------
+
+    def _sweep(self) -> List[Pod]:
+        """Non-blocking drain of what is queued, up to max_batch."""
+        q = self.config.pod_queue
+        batch: List[Pod] = []
+        while len(batch) < self.max_batch:
+            pod = q.pop(timeout=0.0)
+            if pod is None:
+                break
+            batch.append(pod)
+        return batch
+
+    def _drain(self, timeout: Optional[float]) -> List[Pod]:
+        """The tick's pods: what is queued, or what the wake event brings
+        within `timeout` (never waiting with a solve in flight: the
+        caller must resolve it), with a coalescing window once a sweep
+        found COALESCE_MIN pods. Highest priority first, stable within a
+        priority (so arrival order holds): the order that holds a
+        nominated pod's freed capacity against lower-priority pods."""
+        batch = self._sweep()
+        if not batch:
+            if self._inflight is not None:
+                return []
+            self._wake.clear()
+            batch = self._sweep()  # re-check after the clear: no lost wake
+            if not batch:
+                if not self._wake.wait(timeout):
+                    return []
+                batch = self._sweep()
+                if not batch:
+                    return []
+        self._wake.clear()
+        if self.COALESCE_MIN <= len(batch) < self.max_batch:
+            deadline = time.monotonic() + self.BATCH_WINDOW_S
+            while len(batch) < self.max_batch:
+                wait = deadline - time.monotonic()
+                if wait <= 0:
+                    break
+                pod = self.config.pod_queue.pop(timeout=wait)
+                if pod is None:
+                    break
+                batch.append(pod)
+        batch = [p for p in batch if not p.spec.node_name]
+        batch.sort(key=lambda p: -(p.spec.priority or 0))
+        return batch
+
+    def _topup(self, pending: List[Pod]) -> List[Pod]:
+        """Stage pods that arrived while the previous tick's resolve
+        blocked into the tick about to launch. A gang member, or a pod
+        that outranks the tick's lowest priority, goes back to the queue
+        and heads the next tick instead. On an error every popped pod
+        is queued again before it propagates."""
+        session = self._session
+        if session is None:
+            return []
+        room = self.max_batch - len(pending)
+        if room <= 0:
+            return []
+        q = self.config.pod_queue
+        seen = {_key(p) for p in pending}
+        floor = min(((p.spec.priority or 0) for p in pending), default=0)
+        extra: List[Pod] = []
+        while len(extra) < room:
+            pod = q.pop(timeout=0.0)
+            if pod is None:
+                break
+            try:
+                if pod.spec.node_name:
+                    continue
+                if gang.pod_group_name(pod) or (pod.spec.priority or 0) > floor:
+                    q.add(pod)
+                    break
+                key = _key(pod)
+                if key in seen or key in self._inflight_keys or session.has_assigned(key):
+                    continue
+                seen.add(key)
+                session.add_pending(pod)
+                extra.append(pod)
+            except Exception:
+                for p in extra + [pod]:
+                    q.add(p)
+                raise
+        return extra
+
+    def schedule_batch(self, timeout: Optional[float] = 0.5) -> int:
+        """One drain, solve and commit; returns the pods processed.
+        Raises what the tick raised (departure (a)), or the commit
+        worker's error."""
+        error, self._worker_error = self._worker_error, None
+        if error is not None:
+            raise error
+        try:
+            return self._tick(timeout)
+        except Exception:
+            self._count_error()
+            _LOG.exception("scheduling tick failed")
+            raise
+
+    def _count_error(self) -> None:
+        with self._errors_lock:
+            self.device_errors += 1
+
+    def _tick(self, timeout: Optional[float]) -> int:
+        t_drain = time.monotonic()
+        self._observe_informer_staleness()
+        sli.observe_device_telemetry()
+        pending = self._drain(timeout)
+        if not pending:
+            # Flush the in-flight tick (its readback overlapped the
+            # wait), inline: nothing else is queued.
+            self._resolve_inflight(prefer_inline=True)
+            if self._session is not None:
+                # Keep the session current while idle.
+                self._drain_releases()
+                try:
+                    if not self._apply_events(self._session):
+                        self._session = None
+                except RebuildRequired:
+                    self._session = None
+            elif self.prewarm_buckets and self.config.wait_for_sync(0):
+                self._session = self._build_session()
+            else:
+                # The next build snapshots the caches anyway.
+                self._event_q.clear()
+            return 0
+        with tracing.trace("schedule_batch") as tr:
+            tr.note(pods=len(pending), mode=self.mode, incremental=True,
+                    drain_s=time.monotonic() - t_drain)
+            try:
+                return self._session_solve_and_commit(pending)
+            except RebuildRequired:
+                # Departure (a): solve the same pods again, once, on a
+                # session rebuilt from the caches.
+                self._invalidate()
+            try:
+                return self._session_solve_and_commit(pending)
+            except RebuildRequired:
+                # Tokens arrived during the rebuild: the next tick
+                # rebuilds over them.
+                _LOG.info("rebuilt session overflowed; %d pods wait for the next tick",
+                          len(pending))
+                self._invalidate()
+                for pod in pending:
+                    self.config.pod_queue.add(pod)
+                return 0
+
+    def _invalidate(self) -> None:
+        """Drop the session after the in-flight tick and the queued
+        commits are done (a rebuild reads the pod lister, and a bind
+        not yet committed would be in neither it nor the modeler)."""
+        self._resolve_inflight()
+        self._flush_commits()
+        self._session = None
+        self.rebuilds += 1
+
+    def _session_solve_and_commit(self, pending: List[Pod]) -> int:
+        start = time.monotonic()
+        t0 = start
+        if self._session is None:
+            self._resolve_inflight()
+            self._flush_commits()
+            self._session = self._build_session(pending)
+        # Capacity baseline for this tick's backoffs, before the deltas.
+        with self._capacity_cond:
+            epoch = self._capacity_epoch
+        self._drain_releases()
+        if not self._apply_events(self._session):
+            self._invalidate()
+            self._session = self._build_session(pending)
+        groups = self._gang_groups(pending)
+        deferred: List[Pod] = []
+        if groups is None:
+            pending, deferred = self._split_deferred_gangs(pending)
+            self._requeue_many(deferred)
+            groups = []
+        # A drained pod bound elsewhere since (its watch event charged
+        # the session), or still in flight from the previous tick, is
+        # not staged: a second charge would orphan the true one.
+        with tracing.phase("lower", pods=len(pending)):
+            for pod in pending:
+                key = _key(pod)
+                if key not in self._inflight_keys and not self._session.has_assigned(key):
+                    self._session.add_pending(pod)
+        ctx = {
+            "pending": pending,
+            "groups": groups,
+            "gkey_of": {_key(pending[i]): g.key for g in groups for i in g.indices},
+            "denied_keys": set(),
+            "start": start,
+            "epoch": epoch,
+        }
+        if groups:
+            # Gang ticks run synchronously: the acceptance loop solves
+            # to a fixed point on a resolved session.
+            self._resolve_inflight()
+            gangs = [
+                SessionGang(key=g.key, min_member=g.min_member, bound=g.bound,
+                            pod_keys=frozenset(_key(pending[i]) for i in g.indices))
+                for g in groups
+            ]
+            results, denied_keys = self._session.solve_gang(gangs)
+            ctx["denied_keys"] = set(denied_keys)
+            for g in gangs:
+                gang.OUTCOMES.inc(outcome="rejected" if g.key in ctx["denied_keys"]
+                                  else "accepted")
+            self._finish_tick(self._session, results, ctx, time.monotonic() - t0)
+            return len(pending) + len(deferred)
+        # Pipelined dispatch: resolve the previous tick (its commit then
+        # rides the worker, overlapping this solve), top up with what
+        # arrived meanwhile, launch, and return without waiting.
+        self._resolve_inflight()
+        pending = pending + self._topup(pending)
+        ctx["pending"] = pending
+        ctx["stage_s"] = time.monotonic() - t0
+        handle = self._session.solve_async()
+        if self._pipelined:
+            self._inflight = (handle, ctx)
+            self._inflight_keys = frozenset(handle.keys)
+            return len(pending) + len(deferred)
+        results = handle.result()
+        self._observe_device_profile(handle)
+        self._finish_tick(self._session, results, ctx,
+                          ctx["stage_s"] + handle.dispatch_s + handle.block_s)
+        return len(pending) + len(deferred)

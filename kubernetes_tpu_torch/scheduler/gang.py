@@ -4,7 +4,8 @@ The counterpart of `kubernetes_tpu/scheduler/gang.py`, with its span
 tree: `gang_solve` runs under a `gang` span and times each round's
 acceptance reduction as phase `gang_accept` (also into an optional
 PhaseTimer). Group outcomes are the returned accepted and rejected
-lists; the JAX outcome counter waits for the daemon that reads it.
+lists; the scheduler daemon counts them, and its atomic commits'
+rollbacks, in `gang_solve_outcomes_total` (OUTCOMES).
 
 - pods join a group through the POD_GROUP_LABEL label naming a PodGroup
   in their namespace;
@@ -30,7 +31,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL, Pod, pod_full_key
+from kubernetes_tpu_torch.utils import metrics
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, span, timing
+
+#: Group-level outcomes: accepted and rejected by a tick's acceptance
+#: loop, bind_rollback when an atomic commit conflicted server-side.
+OUTCOMES = metrics.DEFAULT.counter(
+    "gang_solve_outcomes_total",
+    "PodGroup gang outcomes by kind",
+    ("outcome",),
+)
 
 
 def pod_group_name(pod: Pod) -> str:

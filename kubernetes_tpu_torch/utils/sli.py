@@ -15,12 +15,16 @@ series names:
   ledger's compiles) seen between samples;
 - **device memory** (`device_memory_bytes{kind}`): `in_use` and `peak`
   from `torch.cuda.memory_stats` (`allocated_bytes.all.current`,
-  `.peak`), `limit` from `torch.cuda.mem_get_info` (the card's total).
+  `.peak`), `limit` from `torch.cuda.mem_get_info` (the card's total);
+- **informer staleness** (`scheduler_informer_staleness_seconds
+  {resource}`): seconds since each of the scheduler daemon's watch-fed
+  caches last processed a delta or re-list, set by the daemon every
+  tick.
 
-`observe_device_telemetry()` samples the last two; it never raises, and
-on a process without a card it sets no memory gauge. The lifecycle
-SLIs, watch lag and informer staleness of the JAX module need the store
-and the informers; they are not here.
+`observe_device_telemetry()` samples the build pair and device memory;
+it never raises, and on a process without a card it sets no memory
+gauge. The lifecycle SLIs and watch lag of the JAX module need the
+apiserver's store; they are not here.
 """
 
 from __future__ import annotations
@@ -50,6 +54,12 @@ XLA_COMPILES = metrics.DEFAULT.counter(
 )
 
 #: Live device memory (kind: in_use | peak | limit).
+INFORMER_STALENESS = metrics.DEFAULT.gauge(
+    "scheduler_informer_staleness_seconds",
+    "Seconds since the scheduler informer last processed a delta",
+    ("resource",),
+)
+
 DEVICE_MEMORY = metrics.DEFAULT.gauge(
     "device_memory_bytes",
     "Accelerator memory reported by the backend, by kind",

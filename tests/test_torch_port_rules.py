@@ -117,7 +117,82 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/utils/sli.py",
         "kubernetes_tpu_torch/utils/profiler.py",
         "kubernetes_tpu_torch/utils/flightrecorder.py",
+        "kubernetes_tpu_torch/models/serde.py",
+        "kubernetes_tpu_torch/utils/ratelimit.py",
+        "kubernetes_tpu_torch/client/cache.py",
+        "kubernetes_tpu_torch/client/rest.py",
+        "kubernetes_tpu_torch/client/record.py",
+        "kubernetes_tpu_torch/scheduler/modeler.py",
+        "kubernetes_tpu_torch/scheduler/daemon.py",
+        "kubernetes_tpu_torch/cmd/scheduler.py",
     } <= names
+
+
+def _python(args, **kw):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, *args], cwd=REPO, env=env, capture_output=True,
+                          text=True, **kw)
+
+
+def test_scheduler_command_loads_nothing_of_the_jax_package():
+    proc = _python(["-c", "import sys, kubernetes_tpu_torch.cmd.scheduler; "
+                          "print(sorted(m for m in sys.modules "
+                          "if m == 'kubernetes_tpu' or m.startswith('kubernetes_tpu.')))"],
+                   timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_scheduler_command_raises_without_cuda():
+    proc = _python(["-m", "kubernetes_tpu_torch.cmd.scheduler", "--server",
+                    "http://127.0.0.1:9"], timeout=120)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    proc = _python(["-m", "kubernetes_tpu_torch.cmd.scheduler", "--device", "cpu",
+                    "--policy-config-file", "policy.json"], timeout=120)
+    assert proc.returncode != 0 and "supports the default policy only" in proc.stderr
+
+
+def test_scheduler_command_binds_on_the_cpu_when_asked():
+    """--device cpu: the daemon process schedules a pod of the apiserver
+    it was pointed at, and exits 0 on SIGTERM."""
+    import signal
+    import time
+
+    from kubernetes_tpu.client import Client, LocalTransport
+    from kubernetes_tpu.server.api import APIServer
+    from kubernetes_tpu.server.httpserver import APIHTTPServer
+
+    api = APIServer()
+    setup = Client(LocalTransport(api))
+    setup.create("nodes", {"kind": "Node", "metadata": {"name": "n0"},
+                           "status": {"capacity": {"cpu": "2", "memory": "4Gi", "pods": "10"}}})
+    setup.create("pods", {"kind": "Pod", "metadata": {"name": "p", "namespace": "default"},
+                          "spec": {"containers": [{"name": "c", "image": "app"}]}},
+                 namespace="default")
+    srv = APIHTTPServer(api).start()
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu_torch.cmd.scheduler", "--server", srv.address,
+         "--device", "cpu", "--prewarm-buckets", "0"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and proc.poll() is None:
+            if setup.get("pods", "p", namespace="default").spec.node_name:
+                break
+            time.sleep(0.1)
+        assert setup.get("pods", "p", namespace="default").spec.node_name == "n0"
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0, err
+        assert "scheduler running" in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        srv.stop()
 
 
 def test_preemption_capacity_and_rebalance_entry_points_raise_without_cuda(no_cuda):
