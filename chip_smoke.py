@@ -214,7 +214,24 @@ exits non-zero and prints no result. Phases, one JSON line each:
               pod bound twice, an invalid final placement (the port's
               oracle, every bound pod counted), a session that differs
               from one rebuilt from the LIST, a device error, or a pod
-              still unbound 30 s after the window;
+              still unbound 30 s after the window. Four more legs, each
+              on a fresh child: daemon_parity_hostnames, the wide leg on
+              8,000 nodes (8,004 label tokens: K1's pod rows of about
+              340 words, past the two 128-pod tiles, staged 64 pods a
+              tile with the slices in place), its K1 plan and ms;
+              daemon_policy_parity, 5,000 nodes labelled as
+              workload.policy_objects labels them, its services and
+              bound peers, 1,024 pending pods and one schedule_batch()
+              of a non-started full re-lower BatchScheduler under
+              FULL_VOCABULARY_POLICY, its bindings equal to
+              schedule_backlog(spec=...)'s and the plain K1P version's,
+              one K1P launch; daemon_policy_drill, the drill's load
+              against that daemon started (the same figures and checks
+              but the session's, and `lower` a tick); and
+              daemon_sidecar_parity, the port's sidecar as a child on
+              the card and a non-started BatchScheduler solving 1,024
+              pods through it, equal to schedule_backlog's, the sidecar
+              reporting one K1 launch;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -256,7 +273,7 @@ compared by running it in turns in one command (A B B A).
 
     python3 chip_smoke.py --daemon
 
-builds the kernels and runs phase 5o alone (four lines, no result
+builds the kernels and runs phase 5o alone (eight lines, no result
 line). Each drill line carries the process's thread switch interval;
 `python3 -c "import sys; sys.setswitchinterval(S); import chip_smoke;
 chip_smoke.main(['--daemon'])"` runs it at another.
@@ -456,6 +473,8 @@ def main(argv=None) -> int:
                 "daemon_parity_wide": daemon["daemon_parity_wide"]["launches"],
                 "daemon_drill": daemon["daemon_drill"]["wrapper_launches"],
                 "daemon_churn": daemon["daemon_churn"]["wrapper_launches"],
+                "daemon_parity_hostnames": daemon["daemon_parity_hostnames"]["launches"],
+                "daemon_sidecar_parity": daemon["daemon_sidecar_parity"]["launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -478,6 +497,8 @@ def main(argv=None) -> int:
                 "policy": policy["launches_last_run"],
                 "sidecar_policy": sidecar_line["policy"]["kernel_launches"]["policy_scan_kernel"],
                 "policy_past_8": policy_parity["past_8"]["launches"],
+                "daemon_policy_parity": daemon["daemon_policy_parity"]["launches"],
+                "daemon_policy_drill": daemon["daemon_policy_drill"]["wrapper_launches"],
             },
             "max_abs_err": max(policy_parity["max_abs_err"], policy_timing["max_abs_err"]),
             "ms": policy_timing["ms"],
@@ -1063,7 +1084,10 @@ def check_parity_in_place(torch, device, chunk_state):
     CTAs; the main backlog's first 1,024 pods on its 5,120 nodes forced
     in place, twice; 1,024 pods on 50,000 nodes, where the default plan
     is in place; and the runtime-width instance (4-word bitsets) on
-    30,000 nodes, past the session's resident limit."""
+    30,000 nodes, past the session's resident limit. Then every pod tile
+    the plan can pick (128 pods down to 8, and rows read in place),
+    resident and in place, on 300 pods of ties over 45 nodes (4-word
+    bitsets), and rows of 348 and 3,720 words at their own tiles."""
     from kubernetes_tpu_torch import workload
     from kubernetes_tpu_torch.models.columnar import build_snapshot
     from kubernetes_tpu_torch.ops import scan_kernel
@@ -1107,6 +1131,44 @@ def check_parity_in_place(torch, device, chunk_state):
         for C in (1, 4, 16):
             held(f"small seed {seed}, {C} CTAs", d.pods, d.nodes,
                  scan_kernel.plan_for(d.pods, d.nodes, C, None, False))
+    tiles = []
+
+    def tiled(tag, pods, nodes, plan):
+        nonlocal cases, max_err
+        kn, pn = _copy(nodes), _copy(nodes)
+        got, kn = scan_kernel._launch(pods, kn, (1, 1, 1), plan)
+        ref, pn = scan_kernel.plain_scan_with_state(pods, pn, (1, 1, 1))
+        torch.cuda.synchronize()
+        max_err = max(max_err, _compare(torch, tag, got, kn, ref, pn, phase="parity_in_place"))
+        cases += 1
+        tiles.append({"case": tag, "row_words": plan.row_words, "tile": plan.tile,
+                      "resident": plan.resident, "cluster": plan.cluster,
+                      "placed": int((ref >= 0).sum().item())})
+
+    pending, nodes, services = workload.synthetic_objects(300, 45, seed=11)
+    d = device_snapshot(build_snapshot(pending, nodes, services=services), device, 1)
+    wp, wn = _widen(torch, d.pods, d.nodes, 4)
+    for tile in scan_kernel.TILES + (0,):
+        for resident in (True, False):
+            tiled(f"300 pods of ties, tile {tile}, {'resident' if resident else 'in place'}",
+                  wp, wn, scan_kernel.plan_for(wp, wn, 4, None, resident, tile))
+    for words in (320, 3692):  # rows of 348 and 3,720 words
+        # Random label bits past the real words on the nodes; every third
+        # pod selects one bit of them.
+        P, N, sw = d.pods["sel"].shape[0], d.nodes["labels"].shape[0], d.pods["sel"].shape[1]
+        gen = torch.Generator(device=device).manual_seed(words)
+        high = torch.randint(-2**31, 2**31 - 1, (N, words - sw), dtype=torch.int32, device=device,
+                             generator=gen)
+        sel = torch.zeros((P, words - sw), dtype=torch.int32, device=device)
+        rows = torch.arange(0, P, 3, device=device)
+        sel[rows, (rows * 7919) % (words - sw)] = torch.bitwise_left_shift(
+            torch.ones_like(rows, dtype=torch.int32), (rows % 31).to(torch.int32))
+        wp, wn = _widen(torch, d.pods, d.nodes, 4)
+        wp = dict(wp, sel=torch.cat([d.pods["sel"], sel], 1).contiguous())
+        wn = dict(wn, labels=torch.cat([d.nodes["labels"], high], 1).contiguous())
+        for C in (1, 16):
+            plan = scan_kernel.plan_for(wp, wn, C)
+            tiled(f"300 pods, {plan.row_words}-word rows, {C} CTAs", wp, wn, plan)
     pods0, carry0 = chunk_state
     pods = {k: v[:IN_PLACE_PODS].contiguous() for k, v in pods0.items()}
     plan = scan_kernel.plan_for(pods, carry0, resident=False)
@@ -1125,7 +1187,7 @@ def check_parity_in_place(torch, device, chunk_state):
     return {"cases": cases, "launches": launches,
             "resident_limit_nodes": {"main_widths": scan_kernel.max_nodes(2, 2, 2, 8),
                                      "session_widths": scan_kernel.max_nodes(4, 4, 4, 8)},
-            "timed": plans, "max_abs_err": max_err,
+            "timed": plans, "tiles": tiles, "max_abs_err": max_err,
             "tolerance": "exact (torch.equal)"}
 
 
@@ -3108,6 +3170,9 @@ DAEMON_SELECTOR_EVERY = 8  # every eighth parity pod carries a nodeSelector
 # the session's vocabularies are sized from them, its pod rows 224
 # words, the most K1's two 128-pod tiles hold.
 DAEMON_VOLUME_EVERY = 10
+# daemon_parity_hostnames: 8,000 nodes with their hostname labels, past
+# what two 128-pod tiles of K1's pod rows hold.
+HOSTNAME_NODES = 8000
 DRILL_RATE = 1000  # creates a second, and deletes a second
 DRILL_CREATORS = 2
 DRILL_WARMUP_S = 6.0
@@ -3245,11 +3310,11 @@ def _bulk(phase, call, items, batch=PRELOAD_BATCH, **kw):
             fail(phase, f"bulk call failed on {len(bad)} items: {bad[:2]}")
 
 
-def _cluster(phase, client, pods=0, hostname=False):
+def _cluster(phase, client, pods=0, hostname=False, n_nodes=DAEMON_NODES):
     """The drill's nodes and, with `pods`, that many pods bound round-robin
     (pod i on node i mod DAEMON_NODES). Returns the pods' names."""
     _bulk(phase, lambda xs: client.create_bulk("nodes", xs),
-          [_daemon_node_wire(j, hostname) for j in range(DAEMON_NODES)])
+          [_daemon_node_wire(j, hostname) for j in range(n_nodes)])
     names = [f"pre{i}" for i in range(pods)]
     _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
           [_daemon_pod_wire(n) for n in names])
@@ -3287,24 +3352,57 @@ def _plain_session(torch, device, nodes, assigned=(), pending=()):
     return session
 
 
-def _parity_pod(i, wide):
+def _parity_pod(i, wide, n_nodes=DAEMON_NODES):
     """Parity pod i: every eighth selects a zone or, `wide`, a host;
     `wide`, every tenth mounts a disk of its own."""
     sel = i % DAEMON_SELECTOR_EVERY == 0
     if not wide:
         return _daemon_pod_wire(f"d{i}", f"z{(i // DAEMON_SELECTOR_EVERY) % 4}" if sel else None)
     return _daemon_pod_wire(
-        f"d{i}", selector={"kubernetes.io/hostname": f"n{i * 37 % DAEMON_NODES}"} if sel else None,
+        f"d{i}", selector={"kubernetes.io/hostname": f"n{i * 37 % n_nodes}"} if sel else None,
         disk=f"pd-{i}" if i % DAEMON_VOLUME_EVERY == 3 else None)
 
 
-def run_daemon_parity(torch, device, wide=False):
+def _policy_cluster(phase, client, n_pending, seed=5):
+    """`workload.policy_objects(n_pending, DAEMON_NODES, seed)` in the
+    apiserver: the labelled nodes (rack, ssd, retiring, some without a
+    zone), its services, its peers created and bound to their nodes.
+    Returns the pending pods' wire forms, not created."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models import serde
+
+    pending, nodes, assigned, services = workload.policy_objects(n_pending, DAEMON_NODES, seed)
+    _bulk(phase, lambda xs: client.create_bulk("nodes", xs), [serde.to_wire(n) for n in nodes])
+    for svc in services:
+        wire = serde.to_wire(svc)
+        wire["spec"].setdefault("ports", [{"port": 80}])  # the apiserver requires one
+        client.create("services", wire, namespace="default")
+    peers = []
+    for pod in assigned:
+        wire = serde.to_wire(pod)
+        wire["spec"].pop("nodeName", None)
+        wire.pop("status", None)
+        peers.append(wire)
+    _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"), peers)
+    _bulk(phase, lambda xs: client.bind_bulk(xs, namespace="default"),
+          [(p.metadata.name, p.spec.node_name) for p in assigned])
+    wires = []
+    for pod in pending:
+        wire = serde.to_wire(pod)
+        wire.pop("status", None)
+        wires.append(wire)
+    return wires
+
+
+def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
     """1,024 pending pods over HTTP, then one schedule_batch() of a
     non-started daemon on the card: its bindings, read back by LIST,
     equal schedule_backlog's on the same objects and the plain K1
     version's, pod for pod. `wide` (leg daemon_parity_wide): hostname
     labels on every node and a disk on every tenth pod, past the 128
-    tokens a vocabulary of a default session."""
+    tokens a vocabulary of a default session. On HOSTNAME_NODES nodes
+    (leg daemon_parity_hostnames) K1's pod rows pass the 224 words two
+    128-pod tiles hold."""
     import copy
 
     from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
@@ -3312,11 +3410,12 @@ def run_daemon_parity(torch, device, wide=False):
     from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
     from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler, SchedulerConfig
 
-    phase = "daemon_parity_wide" if wide else "daemon_parity"
+    phase = ("daemon_parity_hostnames" if n_nodes != DAEMON_NODES
+             else "daemon_parity_wide" if wide else "daemon_parity")
     with ControlPlane(phase) as cp:
         client = Client(HTTPTransport(cp.url))
-        _cluster(phase, client, hostname=wide)
-        pods = [_parity_pod(i, wide) for i in range(DAEMON_PARITY_PODS)]
+        _cluster(phase, client, hostname=wide, n_nodes=n_nodes)
+        pods = [_parity_pod(i, wide, n_nodes) for i in range(DAEMON_PARITY_PODS)]
         _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"), pods)
         cfg = SchedulerConfig(Client(HTTPTransport(cp.url))).start()
         try:
@@ -3338,6 +3437,7 @@ def run_daemon_parity(torch, device, wide=False):
             if device.type == "cuda":
                 torch.cuda.synchronize()
             k1_ms = [a.elapsed_time(b) for a, b in k1.events]
+            k1_plans = k1.plans
             launches = scan_kernel.scan_with_state.launches
             ledger_launches = ledger.DEFAULT.calls("scan_kernel") - calls0
             widths = (daemon._session.LW, daemon._session.PW, daemon._session.VW)
@@ -3361,14 +3461,163 @@ def run_daemon_parity(torch, device, wide=False):
     if took != DAEMON_PARITY_PODS or launches != 1 or daemon.device_errors:
         fail(phase, f"the tick took {took} pods with {launches} K1 launches and "
                     f"{daemon.device_errors} errors")
+    plan = k1_plans[0] if k1_plans else None
     return {
-        "apiserver": " ".join(command), "nodes": DAEMON_NODES, "pods": len(got),
+        "apiserver": " ".join(command), "nodes": n_nodes, "pods": len(got),
         "placed": sum(n is not None for n in got), "with_selector": sum(
             bool(p.spec.node_selector) for p in pending),
         "with_volume": sum(bool(p.spec.volumes) for p in pending),
         "session_words": dict(zip(("labels", "ports", "volumes"), widths)),
+        "k1_plan": plan and {"row_words": plan.row_words, "tile": plan.tile,
+                             "resident": plan.resident, "cluster": plan.cluster,
+                             "nodes_per_cta": plan.nodes_per_cta, "threads": plan.threads,
+                             "smem_bytes": plan.smem_bytes},
         "equal_to_schedule_backlog": True, "equal_to_plain": True, "tick_s": tick_s,
         "k1_ms": k1_ms, "launches": launches, "ledger_launches": ledger_launches,
+        "tolerance": "exact (node name per pod)",
+    }
+
+
+def _batch_parity(phase, cp, daemon_kw, policy=None):
+    """The pending pods in the queue of a fresh full re-lower
+    BatchScheduler (`daemon_kw`, typed scheduled-pods cache), one
+    schedule_batch() of it, not started. Returns (pending pods in the
+    drain order, nodes, assigned, services from the caches, the names
+    bound as read back by LIST, the daemon, the tick's pods and
+    seconds)."""
+    import copy
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.scheduler.daemon import BatchScheduler, SchedulerConfig
+
+    n_pending = DAEMON_PARITY_PODS
+    client = Client(HTTPTransport(cp.url))
+    cfg = SchedulerConfig(Client(HTTPTransport(cp.url)), policy=policy,
+                          raw_scheduled_cache=False).start()
+    try:
+        if not cfg.wait_for_sync(60):
+            fail(phase, "the daemon's caches did not sync")
+        _wait(phase, "the pending pods in the queue", lambda: len(cfg.pod_queue) == n_pending)
+        q = cfg.pod_queue
+        pending = copy.deepcopy([q._items[k] for k in q._queue if k in q._items])
+        nodes = cfg.nodes.store.list()
+        assigned = cfg.pod_lister.list()
+        services = cfg.service_lister.list()
+        daemon = BatchScheduler(cfg, max_batch=n_pending, **daemon_kw)
+        if daemon.sidecar is not None:
+            daemon.sidecar.timeout = SIDECAR_WAIT_S
+        t0 = time.perf_counter()
+        took = daemon.schedule_batch(timeout=1.0)
+        tick_s = time.perf_counter() - t0
+        daemon.stop()
+    finally:
+        cfg.stop()
+    bound, _, _ = _listed(client)
+    return pending, nodes, assigned, services, [bound[p.metadata.name] for p in pending], \
+        daemon, took, tick_s
+
+
+def _same(phase, pending, got, ref, tag):
+    diff = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    if diff or len(ref) != len(got):
+        i = diff[0] if diff else 0
+        fail(phase, f"the daemon's bindings differ from {tag} on {len(diff)} of {len(got)} "
+                    f"pods; first {pending[i].metadata.name}: {got[i]} != {ref[i]}")
+
+
+def run_daemon_policy_parity(torch, device):
+    """Leg daemon_policy_parity: the full re-lower BatchScheduler under
+    FULL_VOCABULARY_POLICY, one tick of 1,024 pods on 5,000 labelled
+    nodes; its bindings equal schedule_backlog(spec=...)'s and the plain
+    K1P version's on the same objects, and the tick launched K1P once."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.models.algspec import spec_from_policy
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops import ledger, policy_scan
+    from kubernetes_tpu_torch.ops.matrices import device_snapshot
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+
+    phase = "daemon_policy_parity"
+    policy = workload.FULL_VOCABULARY_POLICY
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        wires = _policy_cluster(phase, client, DAEMON_PARITY_PODS)
+        _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"), wires)
+        policy_scan.policy_scan_with_state.launches = 0
+        calls0 = ledger.DEFAULT.calls("policy_scan_kernel")
+        with _K1Events(torch, policy=True) as k1p:
+            pending, nodes, assigned, services, got, daemon, took, tick_s = _batch_parity(
+                phase, cp, {"device": device}, policy=policy)
+        torch.cuda.synchronize()
+        launches = policy_scan.policy_scan_with_state.launches
+        ledger_launches = ledger.DEFAULT.calls("policy_scan_kernel") - calls0
+        k1p_ms = [a.elapsed_time(b) for a, b in k1p.events]
+        command = cp.cmd
+    spec = spec_from_policy(policy)
+    _same(phase, pending, got, schedule_backlog(pending, nodes, assigned, services,
+                                                device=device, spec=spec), "schedule_backlog")
+    snap = build_snapshot(pending, nodes, assigned, services, spec=spec)
+    d = device_snapshot(snap, device)
+    choice, _ = policy_scan.plain_policy_scan_with_state(d.pods, _copy(d.nodes), d.weights,
+                                                         d.lowered)
+    names = snap.nodes.names
+    _same(phase, pending, got, [names[i] if i >= 0 else None
+                                for i in choice[:len(pending)].tolist()], "the plain K1P version")
+    if took != DAEMON_PARITY_PODS or launches != 1 or daemon.device_errors:
+        fail(phase, f"the tick took {took} pods with {launches} K1P launches and "
+                    f"{daemon.device_errors} errors")
+    return {
+        "apiserver": " ".join(command), "nodes": len(nodes), "pods": len(got),
+        "bound_peers": len(assigned), "services": len(services),
+        "placed": sum(n is not None for n in got), "route": "policy scan (K1P)",
+        "equal_to_schedule_backlog": True, "equal_to_plain": True, "tick_s": tick_s,
+        "k1p_ms": k1p_ms, "launches": launches, "ledger_launches": ledger_launches,
+        "tolerance": "exact (node name per pod)",
+    }
+
+
+def run_daemon_sidecar_parity(torch, device):
+    """Leg daemon_sidecar_parity: the port's sidecar as a child process
+    on the card and a non-started BatchScheduler solving through it,
+    default spec, one tick of 1,024 pods on 5,000 nodes; the bindings
+    equal schedule_backlog's, and the sidecar reports one K1 launch."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.ops import sidecar
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+
+    phase = "daemon_sidecar_parity"
+    proc, sock_path = None, None
+    try:
+        t0 = time.perf_counter()
+        proc, sock_path = sidecar.spawn_sidecar(wait=SIDECAR_WAIT_S)
+        start_s = time.perf_counter() - t0
+        with ControlPlane(phase) as cp:
+            client = Client(HTTPTransport(cp.url))
+            _cluster(phase, client)
+            pods = [_parity_pod(i, False) for i in range(DAEMON_PARITY_PODS)]
+            _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"), pods)
+            pending, nodes, assigned, services, got, daemon, took, tick_s = _batch_parity(
+                phase, cp, {"sidecar_path": sock_path})
+            command = cp.cmd
+        reported = daemon.sidecar.last_kernel_launches
+    except sidecar.SidecarError as e:
+        fail(phase, f"sidecar failure: {e}")
+    finally:
+        if proc is not None:
+            _stop_process(proc)
+            shutil.rmtree(os.path.dirname(sock_path), ignore_errors=True)
+    _same(phase, pending, got, schedule_backlog(pending, nodes, assigned, services, device=device),
+          "schedule_backlog")
+    if took != DAEMON_PARITY_PODS or daemon.device_errors or daemon.device is not None:
+        fail(phase, f"the tick took {took} pods with {daemon.device_errors} errors")
+    if reported != {"scan_kernel": 1, "policy_scan_kernel": 0}:
+        fail(phase, f"the sidecar reported {reported} launches, expected one K1 launch")
+    return {
+        "apiserver": " ".join(command), "nodes": len(nodes), "pods": len(got),
+        "placed": sum(n is not None for n in got), "route": "sidecar (K1 in the child)",
+        "sidecar_start_s": start_s, "equal_to_schedule_backlog": True, "tick_s": tick_s,
+        "sidecar_kernel_launches": reported, "launches": reported["scan_kernel"],
         "tolerance": "exact (node name per pod)",
     }
 
@@ -3561,19 +3810,27 @@ def _drill_load(url, rate, creators, warmup_s, window_s, drain_s, lost_s, cushio
 
 
 class _K1Events:
-    """CUDA events around every K1 launch (`scan_kernel._launch`) while
-    in the block."""
+    """CUDA events around every launch of K1 (`scan_kernel._launch`), or
+    with `policy` of K1P (`policy_scan._launch`), while in the block;
+    for K1 also the default plan of each launch."""
 
-    def __init__(self, torch):
-        self.torch, self.events, self._launch = torch, [], None
+    def __init__(self, torch, policy=False):
+        self.torch, self.events, self.plans, self._launch = torch, [], [], None
+        self.policy = policy
+
+    def _module(self):
+        from kubernetes_tpu_torch.ops import policy_scan, scan_kernel
+
+        return policy_scan if self.policy else scan_kernel
 
     def __enter__(self):
-        from kubernetes_tpu_torch.ops import scan_kernel
-
-        self._launch = launch = scan_kernel._launch
+        module = self._module()
+        self._launch = launch = module._launch
         cuda = self.torch.cuda
 
         def timed(*args, **kwargs):
+            if not self.policy:
+                self.plans.append(module.plan_for(args[0], args[1]))
             ev = (cuda.Event(enable_timing=True), cuda.Event(enable_timing=True))
             ev[0].record()
             out = launch(*args, **kwargs)
@@ -3581,14 +3838,12 @@ class _K1Events:
             self.events.append(ev)
             return out
 
-        scan_kernel._launch = timed
+        module._launch = timed
         return self
 
     def __exit__(self, *exc):
-        from kubernetes_tpu_torch.ops import scan_kernel
-
         if self._launch is not None:
-            scan_kernel._launch, self._launch = self._launch, None
+            self._module()._launch, self._launch = self._launch, None
 
 
 def _pct(xs, p):
@@ -3631,47 +3886,72 @@ def _mirror_equal_to_rebuild(torch, device, phase, session, pods, nodes):
             "device_rows_checked": _mirror_check(torch, session, "the daemon's session", phase)}
 
 
-def run_daemon_drill(torch, device, smi, phase, preload=0):
+def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
     """The pod-to-bind drill (the JAX package's bench.py:417-575 shape)
     against a fresh apiserver child: the port's daemon started on the
     card over its own HTTP transport, a spawned load generator, the
     window's latencies and throughput, the tick and device figures, and
     the checks (no double bind, a valid final placement, the session
-    equal to a rebuild from the LIST, no device error, no lost pod)."""
+    equal to a rebuild from the LIST, no device error, no lost pod).
+    With `policy` (leg daemon_policy_drill) the daemon is the full
+    re-lower BatchScheduler under FULL_VOCABULARY_POLICY over
+    `workload.policy_objects`' nodes, services and peers: no session to
+    check, K1P in place of K1, and `lower` a tick reported."""
     import multiprocessing as mp
 
+    from kubernetes_tpu_torch import workload
     from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
     from kubernetes_tpu_torch.models.columnar import build_snapshot
-    from kubernetes_tpu_torch.ops import ledger, scan_kernel
+    from kubernetes_tpu_torch.ops import ledger, policy_scan, scan_kernel
     from kubernetes_tpu_torch.scheduler import daemon as daemon_mod
     from kubernetes_tpu_torch.utils import profiler, sli, tracing
 
+    counter = policy_scan.policy_scan_with_state if policy else scan_kernel.scan_with_state
+    kernel = "policy_scan_kernel" if policy else "scan_kernel"
     with ControlPlane(phase) as cp:
         client = Client(HTTPTransport(cp.url))
         t0 = time.perf_counter()
-        preloaded = _cluster(phase, client, preload)
+        if policy:
+            _policy_cluster(phase, client, 0)
+            preloaded = []
+        else:
+            preloaded = _cluster(phase, client, preload)
         setup_s = time.perf_counter() - t0
-        cfg = daemon_mod.SchedulerConfig(Client(HTTPTransport(cp.url))).start()
-        daemon, k1 = None, _K1Events(torch)
+        cfg = daemon_mod.SchedulerConfig(
+            Client(HTTPTransport(cp.url)),
+            policy=workload.FULL_VOCABULARY_POLICY if policy else None,
+            raw_scheduled_cache=not policy).start()
+        daemon, k1 = None, _K1Events(torch, policy=policy)
         try:
             if not cfg.wait_for_sync(120):
                 fail(phase, "the daemon's caches did not sync")
+            bound0 = len(cfg.scheduled_pods.store) if policy else preload
             _wait(phase, "the preloaded pods in the cache",
-                  lambda: len(cfg.scheduled_pods.store) == preload, timeout=120)
-            daemon = daemon_mod.IncrementalBatchScheduler(cfg, max_batch=1024,
-                                                          prewarm_buckets=1024, device=device)
+                  lambda: len(cfg.scheduled_pods.store) == bound0, timeout=120)
             t0 = time.perf_counter()
-            daemon.prewarm()
+            if policy:
+                daemon = daemon_mod.BatchScheduler(cfg, device=device)
+                # Each tick is one solve: its pods, in order.
+                handles, solve = [], daemon._solve
+
+                def counted(pending, *rest):
+                    handles.append(len(pending))
+                    return solve(pending, *rest)
+
+                daemon._solve = counted
+            else:
+                daemon = daemon_mod.IncrementalBatchScheduler(cfg, max_batch=1024,
+                                                              prewarm_buckets=1024, device=device)
+                daemon.prewarm()
+                handles = _record_handles(daemon._session)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
-            session = daemon._session
-            handles = _record_handles(session)
             kernel_events = k1.__enter__().events
             window_series = (profiler.DUTY_CYCLE, profiler.OVERLAP, profiler.DEVICE_BUSY,
                              tracing.PHASE_SECONDS, daemon_mod._BIND_LATENCY,
                              sli.INFORMER_STALENESS)
-            scan_kernel.scan_with_state.launches = 0
-            calls0 = ledger.DEFAULT.calls("scan_kernel")
+            counter.launches = 0
+            calls0 = ledger.DEFAULT.calls(kernel)
             daemon.start()
             ctx = mp.get_context("spawn")
             parent, child_conn = ctx.Pipe(duplex=False)
@@ -3728,14 +4008,15 @@ def run_daemon_drill(torch, device, smi, phase, preload=0):
             time.sleep(1.0)
             daemon.stop()
             daemon.schedule_batch(timeout=0)  # one idle tick applies the last deltas
-            launches = scan_kernel.scan_with_state.launches
-            ledger_launches = ledger.DEFAULT.calls("scan_kernel") - calls0
+            launches = counter.launches
+            ledger_launches = ledger.DEFAULT.calls(kernel) - calls0
         finally:
             if daemon is not None and daemon._thread is not None and daemon._thread.is_alive():
                 daemon.stop()
             cfg.stop()
             k1.__exit__()
-        mirror = _mirror_equal_to_rebuild(torch, device, phase, daemon._session, pods, nodes)
+        mirror = None if policy else _mirror_equal_to_rebuild(torch, device, phase,
+                                                              daemon._session, pods, nodes)
         command = cp.cmd
 
     # The final placement under the capacity rule, counting every bound pod.
@@ -3744,7 +4025,7 @@ def run_daemon_drill(torch, device, smi, phase, preload=0):
     _valid(phase, snap, _assignment_of(snap, [p.spec.node_name for p in placed]), "final placement")
     (cpu_s, own_s, h_s, e_s), (cpu_e, own_e, h_e, e_e) = msgs["start"], msgs["end"]
     window = handles[h_s:h_e]
-    per_tick = [len(h.pending) for h in window]
+    per_tick = window if policy else [len(h.pending) for h in window]
     torch.cuda.synchronize()
     k1_ms = [a.elapsed_time(b) for a, b in kernel_events[e_s:e_e]]
     lats = result["lats"]
@@ -3760,8 +4041,18 @@ def run_daemon_drill(torch, device, smi, phase, preload=0):
         problems.append(f"load generator errors: {result['errors']}")
     if not lats or not window:
         problems.append("no pod bound in the window")
+    if policy and not launches:
+        problems.append("no K1P launch")
     if problems:
         fail(phase, "; ".join(problems))
+    lower = in_window["phase_seconds"].get("lower", {})
+    checks = {"no_double_bind": True, "valid_final_placement": len(placed), "lost_pods": 0,
+              "all_bound_by": f"{DRILL_LOST_S} s after the window"}
+    if mirror is not None:
+        checks["mirror_equal_to_rebuild"] = mirror
+    extra = {"route": "policy scan (K1P), full re-lower", "rebuilds": None,
+             "lower_s_per_tick": lower["sum"] / lower["count"] if lower.get("count") else None,
+             } if policy else {"rebuilds": daemon.rebuilds}
 
     return {
         "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES,
@@ -3779,17 +4070,17 @@ def run_daemon_drill(torch, device, smi, phase, preload=0):
         "created_total": result["created_total"], "double_bound": 0,
         "ticks": len(window), "pods_per_tick_mean": statistics.mean(per_tick),
         "pods_per_tick_max": max(per_tick),
-        "k1_launches": ledger_launches, "wrapper_launches": launches,
-        "k1_ms_per_tick": {"median": statistics.median(k1_ms), "mean": statistics.mean(k1_ms),
-                           "max": max(k1_ms), "ticks_timed": len(k1_ms)},
+        "k1_launches" if not policy else "k1p_launches": ledger_launches,
+        "wrapper_launches": launches,
+        "k1_ms_per_tick" if not policy else "k1p_ms_per_tick": k1_ms and {
+            "median": statistics.median(k1_ms), "mean": statistics.mean(k1_ms),
+            "max": max(k1_ms), "ticks_timed": len(k1_ms)},
         **in_window,
         "apiserver_cpu_s_window": cpu_e - cpu_s, "smoke_cpu_s_window": own_e - own_s,
         "gc_in_window": pauses.summary(),
-        "rebuilds": daemon.rebuilds, "device_errors": daemon.device_errors,
+        **extra, "device_errors": daemon.device_errors,
         "switch_interval_s": sys.getswitchinterval(),
-        "checks": {"no_double_bind": True, "valid_final_placement": len(placed),
-                   "mirror_equal_to_rebuild": mirror, "lost_pods": 0,
-                   "all_bound_by": f"{DRILL_LOST_S} s after the window"},
+        "checks": checks,
         "timed": "latency: the load process's clock from the start of the create call to the "
                  "binding on its own watch (spec.nodeName!=); create_call: the POST's round "
                  "trip; window figures between its 'start' and 'end'; K1 ms by CUDA events "
@@ -3801,7 +4092,7 @@ def run_daemon_drill(torch, device, smi, phase, preload=0):
 
 
 def run_daemon(torch, device, smi):
-    """The four legs, each on a fresh apiserver child."""
+    """The eight legs, each on a fresh apiserver child."""
     out = {"daemon_parity": run_daemon_parity(torch, device)}
     emit("daemon_parity", ok=True, card=smi, **out["daemon_parity"])
     out["daemon_parity_wide"] = run_daemon_parity(torch, device, wide=True)
@@ -3811,6 +4102,16 @@ def run_daemon(torch, device, smi):
     out["daemon_churn"] = run_daemon_drill(torch, device, smi, "daemon_churn",
                                            preload=CHURN_PRELOAD)
     emit("daemon_churn", ok=True, **out["daemon_churn"])
+    out["daemon_parity_hostnames"] = run_daemon_parity(torch, device, wide=True,
+                                                       n_nodes=HOSTNAME_NODES)
+    emit("daemon_parity_hostnames", ok=True, **out["daemon_parity_hostnames"])
+    out["daemon_policy_parity"] = run_daemon_policy_parity(torch, device)
+    emit("daemon_policy_parity", ok=True, **out["daemon_policy_parity"])
+    out["daemon_policy_drill"] = run_daemon_drill(torch, device, smi, "daemon_policy_drill",
+                                                  policy=True)
+    emit("daemon_policy_drill", ok=True, **out["daemon_policy_drill"])
+    out["daemon_sidecar_parity"] = run_daemon_sidecar_parity(torch, device)
+    emit("daemon_sidecar_parity", ok=True, **out["daemon_sidecar_parity"])
     return out
 
 

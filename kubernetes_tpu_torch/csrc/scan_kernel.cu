@@ -27,8 +27,17 @@
 //     memory are issued one step late, after the block barrier by which
 //     every row fetched so far has landed, so the rows in shared memory
 //     are known to lack them: the node's owning thread adds them there;
-//   - pod rows are staged 128 at a time into shared memory by cp.async,
-//     double-buffered, so a step's pod scalars are shared-memory reads;
+//   - pod rows are staged a tile at a time into shared memory by
+//     cp.async, double-buffered, so a step's pod scalars are shared-memory
+//     reads. The tile is 128 pods for the widths the lowering nearly
+//     always gives, and a power of two down to 8 pods for wider rows (a
+//     plan parameter, passed as a shift). A tile is issued 4 pods ahead
+//     into the buffer that held the tile before the previous one, and
+//     the pods still read at that moment (the step's pod, whose commit
+//     flushes one step late, and the next three) lie in the other buffer
+//     for any tile of 4 pods or more; the plan keeps 8 as the floor.
+//     Rows too wide for two tiles of 8 are read in place from device
+//     memory (read only, so through L1), the same code with no staging;
 //   - selection: each CTA reduces its slice to one 64-bit key
 //     (score << 32 | ~global index, infeasible nodes at -1; warp max by
 //     two redux instructions) and stores it into a slot in every CTA's
@@ -83,7 +92,7 @@ namespace {
 
 constexpr int kMaxCluster = 16;
 constexpr int kMaxThreads = 1024;
-constexpr int kTile = 128;  // pods staged per tile
+constexpr int kTileShift = 7;  // 128 pods staged per tile, the unrolled instance's
 constexpr int kRows = 4;    // count rows in shared memory: the pod's and the next three
 
 // A pod's row in the packed (P, row_words) int32 matrix the wrapper
@@ -112,22 +121,24 @@ struct Layout {
   int ns;         // row stride of the service counts, npc * C
   int row_words;  // words of a packed pod row
   int resident;   // 1: the slice and its count rows live in shared memory
+  int tile_shift; // log2 of the pods a tile stages; 0: pod rows read in place
   int f32, words, rows, tiles, red, slots, flags, bytes;
 };
 
 __host__ __device__ inline Layout make_layout(int N, int SW, int PW, int VW, int K, int C,
-                                              int resident) {
+                                              int resident, int tile_shift) {
   Layout L;
   L.npc = round_up((N + C - 1) / C, 4);
   L.ns = L.npc * C;
   L.row_words = round_up(kRowBits + SW + PW + 2 * VW + K, 4);
   L.resident = resident;
+  L.tile_shift = tile_shift;
   const int kept = resident ? L.npc : 0;  // slice columns held here
   int o = 0;
   L.f32 = o;    o += 8 * 4 * kept;                   // caps, fit, used
   L.words = o;  o += 4 * (SW + PW + 2 * VW) * kept;  // labels, uport, uvol
   L.rows = o;   o += kRows * 4 * kept;               // count rows of 4 pods
-  L.tiles = o;  o += 2 * 4 * kTile * L.row_words;    // pod tiles, 2
+  L.tiles = o;  o += tile_shift ? 2 * 4 * (L.row_words << tile_shift) : 0;  // pod tiles, 2
   L.red = o;    o += 32 * (8 + 4);                   // a key and a count per warp
   L.slots = o;  o += 2 * kMaxCluster * 16;           // Slot[parity][CTA]
   L.flags = o;  o += round_up(2 * kept, 16);         // over, sched
@@ -213,8 +224,10 @@ __device__ __forceinline__ int warp_max_int(int v) { return __reduce_max_sync(0x
 // and service-id loops unroll); 0 takes the width from the arguments.
 // kResident picks where the slice lives at compile time, so a resident
 // launch's pointers are known to be shared memory and its step carries
-// no branch for the in-place case.
-template <int kSW, int kPW, int kVW, int kK, bool kResident>
+// no branch for the in-place case. kTsh > 0 fixes the tile's shift, 0
+// takes it from the layout, and -1 reads the pod rows in place: a
+// staged instance's pod rows are then known to be shared memory.
+template <int kSW, int kPW, int kVW, int kK, bool kResident, int kTsh>
 __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const Layout L = a.L;
@@ -236,6 +249,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
   const int n_real = max(0, min(NPC, N - start));  // nodes of the slice that exist
   const int ids_at = kRowBits + SW + PW + 2 * VW;   // service ids in a pod row
   constexpr bool resident = kResident;
+  constexpr bool staged = kTsh >= 0;  // pod rows staged in tiles, else read in place
+  const int tsh = kTsh > 0 ? kTsh : staged ? L.tile_shift : 0;
+  const int tmask = (1 << tsh) - 1;
 
   unsigned char* sm = dyn_smem();
   // The slice's columns: word w of node j of a word column at
@@ -286,13 +302,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
     ns_vol = VW;
   }
   int* rowbuf = reinterpret_cast<int*>(sm + L.rows);  // [pod % kRows][NPC], resident
-  int* tiles = reinterpret_cast<int*>(sm + L.tiles);  // [tile parity][kTile][row_words]
+  int* tiles = reinterpret_cast<int*>(sm + L.tiles);  // [tile parity][tile][row_words]
   long long* red = reinterpret_cast<long long*>(sm + L.red);  // one key per warp
   int* red_max = reinterpret_cast<int*>(red + 32);             // one max count per warp
   Slot* slots = reinterpret_cast<Slot*>(sm + L.slots);         // [parity][source CTA]
 
   auto pod_row = [&](int p) -> const int* {
-    return tiles + ((p / kTile) & 1) * kTile * L.row_words + (p % kTile) * L.row_words;
+    if (!staged) return a.pod_rows + (size_t)p * L.row_words;
+    return tiles + ((p >> tsh) & 1) * (L.row_words << tsh) + (p & tmask) * L.row_words;
   };
   auto count_row = [&](int p) { return rowbuf + (p % kRows) * NPC; };
   // JAX clamps a dynamic index into range; the lowering never gives one
@@ -323,11 +340,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
     const int pin = pod_row(p)[kRowPin];
     return pin != -1 && (pin < 0 || pin >= N);
   };
-  // Pods first .. first + kTile - 1 into their tile buffer.
+  // The tile of pods from `first` into its buffer (staged rows only).
   auto issue_tile = [&](int first) {
-    int* dst = tiles + ((first / kTile) & 1) * kTile * L.row_words;
+    if (!staged) return;
+    int* dst = tiles + ((first >> tsh) & 1) * (L.row_words << tsh);
     const int* src = a.pod_rows + (size_t)first * L.row_words;
-    const int chunks = min(kTile, a.P - first) * L.row_words / 4;
+    const int chunks = min(1 << tsh, a.P - first) * L.row_words / 4;
     for (int i = tid; i < chunks; i += T) cp_async16(dst + 4 * i, src + 4 * i);
   };
   // The slice of pod p's service row of the counts, if it has a service
@@ -344,7 +362,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
   // row landed at step p's block barrier) and the tile that starts at
   // pod p + 4.
   auto prefetch = [&](int p) {
-    if (p + 4 < a.P && (p + 4) % kTile == 0) issue_tile(p + 4);
+    if (staged && p + 4 < a.P && ((p + 4) & tmask) == 0) issue_tile(p + 4);
     if (p + 3 < a.P) issue_row(p + 3);
   };
   // A commit's adds to the counts in device memory wait one step: they
@@ -591,12 +609,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
 using Kernel = void (*)(ScanArgs);
 
 // The lowering pads every bitset to a multiple of 2 words and keeps 8
-// service ids per pod, so nearly every launch has these widths.
-Kernel kernel_for(int SW, int PW, int VW, int K, int resident) {
-  if (SW == 2 && PW == 2 && VW == 2 && K == 8) {
-    return resident ? scan_kernel<2, 2, 2, 8, true> : scan_kernel<2, 2, 2, 8, false>;
+// service ids per pod, so nearly every launch has these widths, and
+// their rows always take the 128-pod tile.
+Kernel kernel_for(int SW, int PW, int VW, int K, int resident, int tile_shift) {
+  if (SW == 2 && PW == 2 && VW == 2 && K == 8 && tile_shift == kTileShift) {
+    return resident ? scan_kernel<2, 2, 2, 8, true, kTileShift>
+                    : scan_kernel<2, 2, 2, 8, false, kTileShift>;
   }
-  return resident ? scan_kernel<0, 0, 0, 0, true> : scan_kernel<0, 0, 0, 0, false>;
+  if (tile_shift == 0) {
+    return resident ? scan_kernel<0, 0, 0, 0, true, -1> : scan_kernel<0, 0, 0, 0, false, -1>;
+  }
+  return resident ? scan_kernel<0, 0, 0, 0, true, 0> : scan_kernel<0, 0, 0, 0, false, 0>;
 }
 
 cudaError_t configure(Kernel kernel, int C, int threads, const Layout& L, cudaLaunchConfig_t* cfg,
@@ -627,17 +650,17 @@ cudaError_t configure(Kernel kernel, int C, int threads, const Layout& L, cudaLa
 
 // The dynamic shared memory one CTA of the launch needs.
 extern "C" int ktt_scan_smem_bytes(int N, int SW, int PW, int VW, int K, int cluster,
-                                   int resident) {
-  return make_layout(N, SW, PW, VW, K, cluster, resident).bytes;
+                                   int resident, int tile_shift) {
+  return make_layout(N, SW, PW, VW, K, cluster, resident, tile_shift).bytes;
 }
 
 // cudaOccupancyMaxActiveClusters for a launch plan, into *active.
 extern "C" int ktt_scan_occupancy(int N, int SW, int PW, int VW, int K, int cluster,
-                                  int resident, int threads, int* active) {
+                                  int resident, int tile_shift, int threads, int* active) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  const Layout L = make_layout(N, SW, PW, VW, K, cluster, resident);
-  const Kernel kernel = kernel_for(SW, PW, VW, K, resident);
+  const Layout L = make_layout(N, SW, PW, VW, K, cluster, resident, tile_shift);
+  const Kernel kernel = kernel_for(SW, PW, VW, K, resident, tile_shift);
   cudaError_t e = configure(kernel, cluster, threads, L, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(active, kernel, &cfg));
@@ -651,7 +674,8 @@ extern "C" int ktt_scan_launch(
     void* pods_used, void* uport, void* uvol_any, void* uvol_rw,
     void* counts, void* choice,
     int P, int N, int S, int SW, int PW, int VW, int K,
-    int w_lr, int w_bra, int w_spread, int cluster, int threads, int resident, void* stream) {
+    int w_lr, int w_bra, int w_spread, int cluster, int threads, int resident, int tile_shift,
+    void* stream) {
   ScanArgs a;
   a.pod_rows = static_cast<const int*>(pod_rows);
   a.cpu_cap = static_cast<const float*>(cpu_cap);
@@ -681,11 +705,14 @@ extern "C" int ktt_scan_launch(
   a.w_lr = w_lr;
   a.w_bra = w_bra;
   a.w_spread = w_spread;
-  a.L = make_layout(N, SW, PW, VW, K, cluster, resident);
-  if (K > 32) return static_cast<int>(cudaErrorInvalidValue);
+  a.L = make_layout(N, SW, PW, VW, K, cluster, resident, tile_shift);
+  // The plan's tiles, 8 to 128 pods (one under 4 would overwrite rows still read).
+  if (K > 32 || (tile_shift != 0 && (tile_shift < 3 || tile_shift > kTileShift))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  const Kernel kernel = kernel_for(SW, PW, VW, K, resident);
+  const Kernel kernel = kernel_for(SW, PW, VW, K, resident, tile_shift);
   cudaError_t e = configure(kernel, cluster, threads, a.L, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -31,10 +31,17 @@ the Pallas kernel's limit was 8,192. Past that the same kernel runs
 "in place": the slices and the carry stay in device memory, read and
 written by their owning threads, and the counts are read through L2;
 the winner still crosses the cluster through distributed shared memory.
-In place needs shared memory only for the pod tiles, so only pod rows
-of hundreds of words could outgrow it: such a plan raises ValueError
-before any launch. Nothing falls back to another kernel or to the
-plain version.
+Pod rows are staged into shared memory a tile at a time: 128 pods
+where two such tiles fit (rows of up to 224 words, which the main
+path's and the session's widths always are), else the largest power of
+two down to 8 pods whose two buffers fit; the slice stays resident
+where it fits beside that tile. So rows of 224 words or fewer plan as
+they always did. Rows too wide
+for two tiles of 8 (over about 3,600 words) are read in place from
+device memory. So no pod-row width makes the plan raise: only a plan
+forced to hold what does not fit, a cluster or thread count the card
+cannot launch, or more than 32 service ids, raise ValueError before any
+launch. Nothing falls back to another kernel or to the plain version.
 
 The wrapper checks device, dtype, shape and contiguity, packs the pod
 columns into one (P, row_words) int32 matrix, converts the service
@@ -62,8 +69,14 @@ SMEM_LIMIT = 232448
 #: The largest cluster (16 needs the non-portable cluster attribute).
 MAX_CLUSTER = 16
 MAX_THREADS = 1024
-#: Pods staged into shared memory per tile (the kernel's kTile).
+#: Pods staged into shared memory per tile, the most (the kernel's
+#: kTileShift).
 TILE = 128
+#: The tiles a plan may pick, largest first (0 reads the rows in place).
+#: A tile is issued 4 pods ahead into the buffer its predecessor's
+#: predecessor used, so a tile under 4 pods would overwrite rows still
+#: read; the plan keeps 8 as the floor.
+TILES = (128, 64, 32, 16, 8)
 #: Count rows held in shared memory: the pod's and the next three (kRows).
 COUNT_ROWS = 4
 #: Words of a packed pod row ahead of the bitsets: cpu, mem, zero_req,
@@ -110,17 +123,22 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _row_words(SW: int, PW: int, VW: int, K: int) -> int:
+    return _round_up(_ROW_SCALARS + SW + PW + 2 * VW + K, 4)
+
+
 def smem_bytes(
-    N: int, SW: int, PW: int, VW: int, K: int, cluster: int, resident: bool = True
+    N: int, SW: int, PW: int, VW: int, K: int, cluster: int, resident: bool = True,
+    tile: int = TILE,
 ) -> int:
     """Dynamic shared memory of one CTA: the kernel's `make_layout`.
     `resident` keeps the slice's columns and its count rows in shared
-    memory; in place they stay in device memory."""
+    memory; in place they stay in device memory. `tile` pods of rows are
+    staged twice over (0: the rows are read in place)."""
     kept = _round_up(-(-N // cluster), 4) if resident else 0
-    row_words = _round_up(_ROW_SCALARS + SW + PW + 2 * VW + K, 4)
     return (
         4 * kept * (8 + SW + PW + 2 * VW + COUNT_ROWS)  # f32 columns, bitset words, count rows
-        + 2 * 4 * TILE * row_words  # pod tiles
+        + 2 * 4 * tile * _row_words(SW, PW, VW, K)  # pod tiles
         + 32 * (8 + 4)  # a key and a max count per warp
         + 2 * MAX_CLUSTER * 16  # slots: [parity][CTA]
         + _round_up(2 * kept, 16)  # over, sched
@@ -133,7 +151,8 @@ class LaunchPlan:
     threads, CTA r owning nodes [r * nodes_per_cta, (r + 1) *
     nodes_per_cta), its slice held in shared memory (`resident`) or read
     in place from device memory; the service counts have `count_stride`
-    columns and a packed pod row `row_words` words."""
+    columns and a packed pod row `row_words` words, staged `tile` pods
+    at a time (0: read in place from device memory)."""
 
     cluster: int
     nodes_per_cta: int
@@ -142,17 +161,36 @@ class LaunchPlan:
     count_stride: int
     row_words: int
     resident: bool = True
+    tile: int = TILE
+
+    @property
+    def tile_shift(self) -> int:
+        """The launcher's tile argument: log2 of `tile`, 0 in place."""
+        return self.tile.bit_length() - 1 if self.tile else 0
+
+
+def row_tile(SW: int, PW: int, VW: int, K: int) -> int:
+    """The largest tile whose two buffers the rows alone fit in shared
+    memory beside the fixed regions (0: none, the rows stay in place)."""
+    for t in TILES:
+        if smem_bytes(0, SW, PW, VW, K, 1, False, t) <= SMEM_LIMIT:
+            return t
+    return 0
 
 
 def max_nodes(SW: int, PW: int, VW: int, K: int, cluster: int = MAX_CLUSTER) -> int:
     """The largest node axis whose slices fit a cluster's shared memory
-    (resident); in place any node axis plans."""
+    (resident) beside the rows' own tile (`row_tile`); in place any
+    node axis plans."""
+    tile = row_tile(SW, PW, VW, K)
+    if smem_bytes(0, SW, PW, VW, K, cluster, True, tile) > SMEM_LIMIT:
+        return 0
     lo, hi = 0, 1
-    while smem_bytes(hi, SW, PW, VW, K, cluster) <= SMEM_LIMIT:
+    while smem_bytes(hi, SW, PW, VW, K, cluster, True, tile) <= SMEM_LIMIT:
         lo, hi = hi, hi * 2
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        if smem_bytes(mid, SW, PW, VW, K, cluster) <= SMEM_LIMIT:
+        if smem_bytes(mid, SW, PW, VW, K, cluster, True, tile) <= SMEM_LIMIT:
             lo = mid
         else:
             hi = mid
@@ -162,14 +200,16 @@ def max_nodes(SW: int, PW: int, VW: int, K: int, cluster: int = MAX_CLUSTER) -> 
 def launch_plan(
     N: int, SW: int, PW: int, VW: int, K: int,
     cluster: Optional[int] = None, threads: Optional[int] = None,
-    resident: Optional[bool] = None,
+    resident: Optional[bool] = None, tile: Optional[int] = None,
 ) -> LaunchPlan:
     """The launch for a node axis of N at these widths. By default the
-    largest cluster, 16 CTAs, resident where the slices fit its shared
-    memory and in place where not, and one thread per node of a slice (a
-    multiple of 32, at most 1024); `cluster`, `threads` and `resident`
+    largest cluster, 16 CTAs, the largest tile whose two buffers fit
+    beside the fixed regions (`row_tile`; 0: rows in place), resident
+    where the slices fit its shared memory beside that tile and in place
+    where not, and one thread per node of a slice (a multiple of 32, at
+    most 1024); `cluster`, `threads`, `resident` and `tile`
     override them for a test or a sweep. Raises ValueError for a plan
-    the card cannot run, before any launch."""
+    the card cannot run, before any launch; never for a row width."""
     C = MAX_CLUSTER if cluster is None else int(cluster)
     if not 1 <= C <= MAX_CLUSTER:
         raise ValueError(f"scan kernel: cluster size {C} is outside [1, {MAX_CLUSTER}]")
@@ -179,33 +219,37 @@ def launch_plan(
     T = min(MAX_THREADS, max(32, _round_up(npc, 32))) if threads is None else int(threads)
     if T % 32 or not 32 <= T <= MAX_THREADS:
         raise ValueError(f"scan kernel: {T} threads per CTA; need a multiple of 32 up to 1024")
+    if tile is not None and tile not in TILES + (0,):
+        raise ValueError(f"scan kernel: a tile of {tile} pods; the kernel stages one of {TILES} "
+                         "or reads the rows in place (0)")
+    if tile is None:
+        tile = row_tile(SW, PW, VW, K)
     if resident is None:
-        resident = smem_bytes(N, SW, PW, VW, K, C, True) <= SMEM_LIMIT
-    smem = smem_bytes(N, SW, PW, VW, K, C, resident)
+        resident = smem_bytes(N, SW, PW, VW, K, C, True, tile) <= SMEM_LIMIT
+    smem = smem_bytes(N, SW, PW, VW, K, C, resident, tile)
     if smem > SMEM_LIMIT:
         where = (f"at these widths a cluster of {C} holds at most "
                  f"{max_nodes(SW, PW, VW, K, C)} nodes resident" if resident
-                 else "the pod rows alone outgrow it")
+                 else f"two tiles of {tile} pods outgrow it")
         raise ValueError(
             f"scan kernel: N={N} nodes need {smem} bytes of shared memory per CTA in a "
             f"cluster of {C}, over the limit of {SMEM_LIMIT}; {where}"
         )
     return LaunchPlan(
         cluster=C, nodes_per_cta=npc, threads=T, smem_bytes=smem,
-        count_stride=npc * C,
-        row_words=_round_up(_ROW_SCALARS + SW + PW + 2 * VW + K, 4),
-        resident=bool(resident),
+        count_stride=npc * C, row_words=_row_words(SW, PW, VW, K),
+        resident=bool(resident), tile=int(tile),
     )
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.ktt_scan_launch.argtypes = (
-        [ctypes.c_void_p] * _N_PTRS + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * _N_PTRS + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     )
     lib.ktt_scan_launch.restype = ctypes.c_int
-    lib.ktt_scan_smem_bytes.argtypes = [ctypes.c_int] * 7
+    lib.ktt_scan_smem_bytes.argtypes = [ctypes.c_int] * 8
     lib.ktt_scan_smem_bytes.restype = ctypes.c_int
-    lib.ktt_scan_occupancy.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ktt_scan_occupancy.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
     lib.ktt_scan_occupancy.restype = ctypes.c_int
     lib.ktt_error_string.argtypes = [ctypes.c_int]
     lib.ktt_error_string.restype = ctypes.c_char_p
@@ -263,11 +307,13 @@ def _note(impl: str, pods: Tensors, nodes: Tensors) -> None:
     ledger.DEFAULT.note_call("scan_kernel", impl, sig, lambda: cost(**d))
 
 
-def plan_for(pods: Tensors, nodes: Tensors, cluster=None, threads=None, resident=None) -> LaunchPlan:
+def plan_for(pods: Tensors, nodes: Tensors, cluster=None, threads=None, resident=None,
+             tile=None) -> LaunchPlan:
     """`launch_plan` at the shapes of these tensors."""
     d = _dims(pods, nodes)
     return launch_plan(
-        nodes["cpu_cap"].shape[0], d["SW"], d["PW"], d["VW"], d["K"], cluster, threads, resident
+        nodes["cpu_cap"].shape[0], d["SW"], d["PW"], d["VW"], d["K"], cluster, threads, resident,
+        tile,
     )
 
 
@@ -306,7 +352,7 @@ def _call(
         raise ValueError("scan kernel: the service axis must have at least one column")
     if plan is None:
         plan = plan_for(pods, nodes)
-    elif plan != plan_for(pods, nodes, plan.cluster, plan.threads, plan.resident):
+    elif plan != plan_for(pods, nodes, plan.cluster, plan.threads, plan.resident, plan.tile):
         raise ValueError(f"scan kernel: {plan} was made for other shapes")
     w_lr, w_bra, w_spread = (int(w) for w in weights)
     rows = _pod_rows(pods, plan.row_words)
@@ -318,7 +364,8 @@ def _call(
     ptrs += [counts.data_ptr(), choice.data_ptr()]
     rc = lib.ktt_scan_launch(
         *ptrs, P, N, S, dims["SW"], dims["PW"], dims["VW"], dims["K"],
-        w_lr, w_bra, w_spread, plan.cluster, plan.threads, int(plan.resident), stream,
+        w_lr, w_bra, w_spread, plan.cluster, plan.threads, int(plan.resident), plan.tile_shift,
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: {lib.ktt_error_string(rc).decode()}")
@@ -333,7 +380,7 @@ def occupancy(plan: LaunchPlan, N: int, SW: int, PW: int, VW: int, K: int) -> in
     lib = build.load("scan_kernel", _bind)
     active = ctypes.c_int(0)
     rc = lib.ktt_scan_occupancy(N, SW, PW, VW, K, plan.cluster, int(plan.resident),
-                                plan.threads, ctypes.byref(active))
+                                plan.tile_shift, plan.threads, ctypes.byref(active))
     if rc != 0:
         raise RuntimeError(f"scan kernel occupancy query failed: {lib.ktt_error_string(rc).decode()}")
     return active.value

@@ -114,8 +114,8 @@ def _encode(obj):
 def _decode(header: bytes, body: bytearray):
     """Every malformed-frame failure surfaces as SidecarError — the
     'any transport/sidecar error raises SidecarError' contract the
-    fallback seam and ping() rely on (a raw TypeError from a corrupt
-    dtype string would otherwise crash the readiness loop)."""
+    daemon's error count and ping() rely on (a raw TypeError from a
+    corrupt dtype string would otherwise crash the readiness loop)."""
     try:
         doc = json.loads(header)
         specs = doc["arrays"]
@@ -263,8 +263,9 @@ def _snapshot_from_payload(payload: dict) -> Snapshot:
 
 class SidecarSolver:
     """Client half: lowers API objects host-side, ships arrays to the
-    sidecar, returns node names. Raises SidecarError on ANY failure so
-    the caller's fallback seam engages.
+    sidecar, returns node names. Raises SidecarError on ANY failure: the
+    port's daemon counts it as a device error and stops (it has no
+    scalar fallback).
 
     Trust model: the schema'd protocol carries only JSON + raw
     arrays (no code), but the socket remains same-user-only as defense
@@ -273,8 +274,8 @@ class SidecarSolver:
     user controls.
 
     The default timeout is deliberately short: a HUNG (not crashed)
-    sidecar would otherwise stall every batch for the full timeout
-    before the scalar fallback engages."""
+    sidecar would otherwise stall the daemon for a long time before
+    the error reaches it."""
 
     def __init__(self, sock_path: str, timeout: float = 15.0):
         self.sock_path = sock_path
@@ -420,7 +421,7 @@ def serve(sock_path: str, device=None, stop: Optional[threading.Event] = None) -
 
     Per-connection containment: a garbage frame, a client that hangs up
     mid-reply, or a failed solve never ends this loop; a dead sidecar
-    would demote every later batch to the scalar fallback."""
+    would stop every daemon that solves through it."""
     from kubernetes_tpu_torch import resolve_device
 
     device = resolve_device(device)

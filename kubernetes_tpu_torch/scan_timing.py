@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time a checkout's scan kernel (K1) or defrag plan kernel (K2).
 
-    python3 kubernetes_tpu_torch/scan_timing.py [--root DIR] [--reps N] [--kernel scan|rebalance]
+    python3 kubernetes_tpu_torch/scan_timing.py [--root DIR] [--reps N]
+        [--kernel scan|scan_widths|rebalance]
 
 Imports `kubernetes_tpu_torch` from DIR (default: the checkout that
 holds this file), builds the kernel and prints one JSON line per input: the median
@@ -13,6 +14,13 @@ power limit.
              (`synthetic_objects(50000, 5000, seed=2)`: 13,312 pods
              padded, 5,120 nodes), each launch from a fresh copy of the
              node carry;
+  scan_widths
+             K1 on 1,024 pods of `synthetic_objects(1024, 5120, seed=3)`
+             on its 5,120 nodes, one line a width: the main path's
+             2-word bitsets, the session's 4-word bitsets (the runtime-
+             width instance, resident), and 196 label words (a hostname
+             label on each of 5,000 nodes: 224-word rows, in place);
+             every eighth pod selects one bit of the added words;
   rebalance  K2 on five worklists, one line each: the main path's
              placement (the 50k x 5k backlog, seed 2, as
              solve_backlog_pipelined places it; 50,000 movable pods) at
@@ -72,6 +80,52 @@ def _time_scan(torch, device, reps):
     checksum = int((choice.to(torch.int64) * torch.arange(1, choice.numel() + 1, device=device)).sum())
     return scan_kernel, {"pods": int(pods["cpu"].shape[0]), "nodes": int(carry["cpu_cap"].shape[0]),
                          "times": times, "choice_checksum": checksum}
+
+
+def _time_scan_widths(torch, device, reps):
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops import scan_kernel
+    from kubernetes_tpu_torch.ops.matrices import device_snapshot
+
+    pending, nodes, services = workload.synthetic_objects(1024, 5120, seed=3)
+    d = device_snapshot(build_snapshot(pending, nodes, services=services), device, 1)
+
+    def widen(words, label_words=0):
+        def pad(t):
+            return torch.cat([t, t.new_zeros(t.shape[0], words - t.shape[1])], 1).contiguous()
+
+        pods = {k: pad(v) if k in ("sel", "port", "vol_any", "vol_rw") else v
+                for k, v in d.pods.items()}
+        carry = {k: pad(v) if k in ("labels", "uport", "uvol_any", "uvol_rw") else v
+                 for k, v in d.nodes.items()}
+        if label_words:
+            n, p, extra = carry["labels"].shape[0], pods["sel"].shape[0], label_words - words
+            gen = torch.Generator(device=device).manual_seed(7)
+            carry["labels"] = torch.cat([carry["labels"], torch.randint(
+                -2**31, 2**31 - 1, (n, extra), dtype=torch.int32, device=device, generator=gen)],
+                1).contiguous()
+            sel = torch.zeros((p, extra), dtype=torch.int32, device=device)
+            rows = torch.arange(0, p, 8, device=device)
+            sel[rows, (rows * 37) % extra] = 1
+            pods["sel"] = torch.cat([pods["sel"], sel], 1).contiguous()
+        return pods, carry
+
+    out = []
+    for tag, (pods, carry) in (("main_2_words", (d.pods, d.nodes)), ("session_4_words", widen(4)),
+                               ("labels_196_words", widen(4, 196))):
+        def launch():
+            state = {k: v.clone() for k, v in carry.items()}
+            return scan_kernel.scan_with_state(pods, state)[0]
+
+        times, choice = _events_ms(torch, launch, reps)
+        checksum = int((choice.to(torch.int64)
+                        * torch.arange(1, choice.numel() + 1, device=device)).sum())
+        plan = scan_kernel.plan_for(pods, carry)
+        out.append({"widths": tag, "pods": int(pods["cpu"].shape[0]),
+                    "nodes": int(carry["cpu_cap"].shape[0]), "row_words": plan.row_words,
+                    "resident": plan.resident, "times": times, "choice_checksum": checksum})
+    return scan_kernel, out
 
 
 def _rebalance_worklists(torch, device):
@@ -143,7 +197,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--reps", type=int, default=5)
-    parser.add_argument("--kernel", choices=("scan", "rebalance"), default="scan")
+    parser.add_argument("--kernel", choices=("scan", "scan_widths", "rebalance"), default="scan")
     args = parser.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -153,7 +207,8 @@ def main(argv=None) -> int:
         print("scan_timing: no CUDA card", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    timed = _time_scan if args.kernel == "scan" else _time_rebalance
+    timed = {"scan": _time_scan, "scan_widths": _time_scan_widths,
+             "rebalance": _time_rebalance}[args.kernel]
     module, result = timed(torch, device, args.reps)
     if not os.path.abspath(module.__file__).startswith(root + os.sep):
         print(f"scan_timing: imported {module.__file__}, not from {root}", file=sys.stderr)

@@ -8,11 +8,17 @@ one), map indices back to node names; with gangs, wrap that in the
 all-or-nothing acceptance loop. `preempt_backlog` is the counterpart of
 `preempt_backlog_tpu` (victim selection on the card), and
 `preempt_backlog_scalar` the port's own copy of the reference's scalar
-rule, the yardstick it is held to.
+rule, the yardstick it is held to. `schedule_backlog_scalar` is the
+JAX module's scalar backlog loop over the port's copy of the plugins:
+the full re-lower daemon runs it for a policy that has no device
+lowering, never as a fallback from the card. `resolve_batch_mode`
+resolves `auto` for one card.
 """
 
 from __future__ import annotations
 
+import copy
+import logging
 from functools import partial
 from typing import List, Optional, Sequence
 
@@ -44,7 +50,81 @@ from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_assignments
 from kubernetes_tpu_torch.ops.solver import solve_assignments
 from kubernetes_tpu_torch.ops.wave import wave_assignments
 from kubernetes_tpu_torch.scheduler.gang import gang_solve
+from kubernetes_tpu_torch.scheduler.generic import FitError, GenericScheduler, NoNodesError
+from kubernetes_tpu_torch.scheduler.plugins import (
+    PluginFactoryArgs,
+    build_from_spec,
+    default_predicates,
+    default_priorities,
+)
+from kubernetes_tpu_torch.scheduler.types import (
+    StaticNodeLister,
+    StaticPodLister,
+    StaticServiceLister,
+)
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
+
+_AUTO_WARNED = False
+
+#: The batch modes a daemon runs; `auto` resolves to one of them.
+BATCH_MODES = ("scan", "wave", "sinkhorn")
+
+
+def resolve_batch_mode(mode: str) -> str:
+    """`--batch-mode auto` for one card: the scan, exact and the
+    fastest backlog mode there (the JAX package picks the wave only for
+    a solve sharded over a device mesh, which the port's daemons never
+    build). Any other mode is returned as it is, for the caller to
+    check. Warns once, as the JAX package does."""
+    if mode != "auto":
+        return mode
+    global _AUTO_WARNED
+    if not _AUTO_WARNED:
+        _AUTO_WARNED = True
+        logging.getLogger(__name__).warning(
+            "--batch-mode auto resolved to 'scan': the port's daemons solve on one card, "
+            "with no device mesh")
+    return "scan"
+
+
+def schedule_backlog_scalar(
+    pending: Sequence[Pod],
+    nodes: Sequence[Node],
+    assigned: Sequence[Pod] = (),
+    services: Sequence[Service] = (),
+    spec: Optional[AlgorithmSpec] = None,
+) -> List[Optional[str]]:
+    """Schedule the backlog one pod at a time through the scalar
+    plugins, each placement committed before the next (the reference's
+    scheduleOne and AssumePod), on the Ready nodes only. Returns node
+    names (None: unschedulable). `spec` selects the configured plugin
+    set (default: the default provider's). Phase `solve_scalar`."""
+    with phase("solve_scalar", pods=len(pending)):
+        committed: List[Pod] = list(assigned)
+        pod_lister = StaticPodLister(committed)  # shared, grown as pods commit
+        args = PluginFactoryArgs(
+            pod_lister=pod_lister,
+            service_lister=StaticServiceLister(list(services)),
+            node_lister=StaticNodeLister(list(nodes)),
+        )
+        if spec is not None:
+            predicates, priorities = build_from_spec(spec, args)
+        else:
+            predicates, priorities = default_predicates(args), default_priorities(args)
+        scheduler = GenericScheduler(predicates, priorities, pod_lister)
+        ready_nodes = StaticNodeLister([n for n in nodes if node_is_ready(n)])
+        out: List[Optional[str]] = []
+        for pod in pending:
+            try:
+                dest = scheduler.schedule(pod, ready_nodes)
+            except (FitError, NoNodesError):
+                out.append(None)
+                continue
+            out.append(dest)
+            placed = copy.deepcopy(pod)
+            placed.spec.node_name = dest
+            pod_lister.pods.append(placed)
+        return out
 
 
 def schedule_backlog(

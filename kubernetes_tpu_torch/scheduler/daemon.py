@@ -1,62 +1,98 @@
-"""The scheduler daemon: watch-fed caches -> device session -> bulk binds.
+"""The scheduler daemons: watch-fed caches -> solve -> bulk binds.
 
-The port's copy of the incremental daemon of
+The port's copy of the batch daemons of
 `kubernetes_tpu/scheduler/daemon.py` (reference:
 plugin/pkg/scheduler/scheduler.go, factory/factory.go):
 
 - `SchedulerConfig` wires the caches: the unassigned-pod FIFO fed by a
   `spec.nodeName=` reflector; informers for the scheduled pods, nodes,
-  services and podgroups whose deltas reach the daemon through the
+  services and podgroups whose deltas reach a daemon through the
   `cluster_events` hook; the assumed-pod modeler and its merged pod
-  lister; the binder and the retry `Backoff`. The session reads node
-  readiness itself, so the JAX config's Ready-filtered node lister (for
-  its scalar path) is not here.
-- `IncrementalBatchScheduler` keeps a `SolverSession` on the card
-  across ticks: watch deltas patch node rows, and each tick uploads only
-  its pending pods. The drain is event-driven (one wake event fed by
-  queue arrivals, deltas and commit releases, with a coalescing window
-  once a sweep finds `COALESCE_MIN` pods). Tick k's binds run on one
-  commit worker thread while tick k+1 solves (`solve_async`), and the
-  worker keeps tick order. Gang ticks solve synchronously through
-  `solve_gang`; accepted groups commit with `bind_bulk(atomic=True)`.
-  Pods the solve cannot place go through the preemption pass (victim
-  selection on the card, `scheduler.batch.preempt_backlog`) and back to
-  the queue after their backoff, released early when capacity frees.
+  lister; the binder and the retry `Backoff`; the algorithm spec of the
+  policy file, or else of the algorithm provider. The scalar plugin set
+  is built from that spec by the scalar route itself
+  (`scheduler.batch.schedule_backlog_scalar`), so the JAX config's
+  Ready-filtered node lister is not here.
+- `BatchScheduler` is the full re-lower daemon: each tick drains the
+  queue (a 0.02 s window, up to 65,536 pods, highest priority first),
+  lowers the whole cluster from the caches, solves once and commits
+  inline on the tick's thread. Its route is decided once, at
+  construction: a policy that lowers to the card runs
+  `schedule_backlog(spec=...)` (the policy scan kernel; a wave or
+  Sinkhorn mode is forced to the scan, with a warning); a policy with no
+  device lowering runs `schedule_backlog_scalar(spec=...)`, logged once;
+  a sidecar path solves through `ops.sidecar.SidecarSolver` (phase
+  `solve_sidecar`); otherwise `schedule_backlog`,
+  `schedule_backlog_wave` or `schedule_backlog_sinkhorn` on the card.
+  Gangs go through `scheduler.gang.gang_solve` around whichever solver
+  runs; preemption follows the binds. The scalar and sidecar routes
+  never touch this process's card: their victim selection is
+  `preempt_backlog_scalar` (as in JAX), and they resolve no device.
+- `IncrementalBatchScheduler` (a `BatchScheduler`, as in JAX) keeps a
+  `SolverSession` on the card across ticks: watch deltas patch node
+  rows, and each tick uploads only its pending pods. The drain is
+  event-driven (one wake event fed by queue arrivals, deltas and commit
+  releases, with a coalescing window once a sweep finds `COALESCE_MIN`
+  pods). Tick k's binds run on one commit worker thread while tick k+1
+  solves (`solve_async`), and the worker keeps tick order. Gang ticks
+  solve synchronously through `solve_gang`; accepted groups commit with
+  `bind_bulk(atomic=True)`. Pods the solve cannot place go through the
+  preemption pass (victim selection on the card,
+  `scheduler.batch.preempt_backlog`) and back to the queue after their
+  backoff, released early when capacity frees. The default policy only.
 
-Started (`start()`), the daemon runs its loop on a thread; a daemon
-that was never started ticks synchronously, one `schedule_batch()` a
-call, with commits inline. The JAX daemon's fixed-tick mode
+What the two share lives in the base: the retry requeue, gang groups,
+atomic group binds, preemption and the handling of bind outcomes.
+
+Started (`start()`), a daemon runs its loop on a thread; a daemon that
+was never started ticks synchronously, one `schedule_batch()` a call,
+with commits inline. The JAX incremental daemon's fixed-tick mode
 (`microticks=False`) and its tuning arguments (`pod_bucket`,
-`batch_window`, `coalesce_min`, `commit_depth`) are not carried: the
-port runs their defaults.
+`coalesce_min`, `commit_depth`) are not carried: the port runs their
+defaults. `--batch-mode auto` resolves to the scan in both daemons
+(`scheduler.batch.resolve_batch_mode`): the port solves on one card and
+builds no device mesh, where the JAX package would pick the wave.
 
-Departures from the JAX daemon:
+Departures from the JAX daemons:
 
-- (a) Session failures. A `RebuildRequired` or a service-set change
-  invalidates the session, and the same tick's pods are solved again on
-  a session rebuilt from the caches (the JAX daemon falls to its full
-  re-lower tick instead; both are the exact sequential solve, so the
-  decisions are the same when the tick held the whole queue: the JAX
-  fallback queues the tick's pods again behind the rest). A session is built with vocabularies sized
-  from the caches and the tick's pods (`vocab_widths`: every token with
-  a quarter more of headroom), so a rebuild holds what overflowed the
-  old one; the JAX session keeps 128 tokens each, and its daemon re-
-  lowers every tick of a cluster that has more. Should the rebuilt
-  session overflow too (tokens that arrived during the rebuild), the
-  tick's pods go back to the queue for the next tick: capacity is not
-  a device error. Any other exception of a tick is not caught: it is
+- (a) Failures. In the incremental daemon a `RebuildRequired` or a
+  service-set change invalidates the session, and the same tick's pods
+  are solved again on a session rebuilt from the caches (the JAX daemon
+  falls to its full re-lower tick instead; both are the exact
+  sequential solve, so the decisions are the same when the tick held the
+  whole queue: the JAX fallback queues the tick's pods again behind the
+  rest). A session is built with vocabularies sized from the caches and
+  the tick's pods (`vocab_widths`: every token with a quarter more of
+  headroom), so a rebuild holds what overflowed the old one; the JAX
+  session keeps 128 tokens each, and its daemon re-lowers every tick of
+  a cluster that has more. Should the rebuilt session overflow too
+  (tokens that arrived during the rebuild), the tick's pods go back to
+  the queue for the next tick: capacity is not a device error. Any
+  other exception of a tick, in either daemon, is not caught: it is
   logged, counted in `device_errors`, and raised out of
-  `schedule_batch`, and `run()` then stops the daemon. There is no
-  scalar path to fall to, so a broken card never schedules on the CPU.
-  Tokens past what the scan kernel's pod rows hold (about 220 bitset
-  words in all) make K1 refuse the plan: that is a device error.
-- (b) Preemption's victim selection runs on the card only; its errors
+  `schedule_batch`, and `run()` then stops the daemon. The JAX
+  `BatchScheduler` solves such a tick again on its scalar path when the
+  card or the sidecar fails; the port's does not, so a broken card or
+  sidecar never schedules on the CPU. The scalar path runs only for a
+  policy that has no device lowering.
+- (b) Preemption's victim selection runs on the card only (the scalar
+  and sidecar routes: `preempt_backlog_scalar`, as in JAX); its errors
   propagate as in (a). On the commit worker the error is kept and
   raised by the next `schedule_batch`.
 - (c) No chaos seams (`faults.fire`) and no lock sanitizer wrappers.
 - (d) Decision records and explain capture, capacity sampling and the
   flight recorder's preemption records are not ported; they change no
   decision.
+- (e) The scheduled-pods cache defaults to the wire form
+  (`raw_scheduled_cache=True`), which the incremental daemon wants: its
+  session tracks its own bound pods, so fully decoding every bind and
+  delete event would be the reflector threads' main cost under churn.
+  The JAX config defaults to the typed form. The full re-lower daemon
+  reads every scheduled pod each tick, so its command builds the
+  config with `raw_scheduled_cache=False`, as the JAX command does.
+- (f) Without a batch flag the JAX command boots its per-pod scalar
+  `Scheduler`; the port has none yet, and its command boots the
+  incremental daemon (`cmd/scheduler.py`).
 """
 
 from __future__ import annotations
@@ -66,13 +102,14 @@ import logging
 import queue
 import threading
 import time
+from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch import DeviceLike, resolve_device
 from kubernetes_tpu_torch.client.cache import FIFO, Informer, Reflector, ThreadSafeStore
 from kubernetes_tpu_torch.client.rest import APIError
 from kubernetes_tpu_torch.models import serde
-from kubernetes_tpu_torch.models.algspec import spec_from_policy
+from kubernetes_tpu_torch.models.algspec import UnloweredPolicyError, lower_spec
 from kubernetes_tpu_torch.models.objects import (
     Node,
     Pod,
@@ -88,9 +125,24 @@ from kubernetes_tpu_torch.ops.incremental import (
     SolverSession,
     vocab_widths,
 )
+from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device
 from kubernetes_tpu_torch.scheduler import gang
-from kubernetes_tpu_torch.scheduler.batch import preempt_backlog
+from kubernetes_tpu_torch.scheduler.batch import (
+    BATCH_MODES,
+    preempt_backlog,
+    preempt_backlog_scalar,
+    resolve_batch_mode,
+    schedule_backlog,
+    schedule_backlog_scalar,
+    schedule_backlog_sinkhorn,
+    schedule_backlog_wave,
+)
 from kubernetes_tpu_torch.scheduler.modeler import SimpleModeler
+from kubernetes_tpu_torch.scheduler.plugins import (
+    DEFAULT_PROVIDER,
+    spec_for_policy,
+    spec_for_provider,
+)
 from kubernetes_tpu_torch.utils import metrics, profiler, sli, tracing
 from kubernetes_tpu_torch.utils.ratelimit import Backoff
 
@@ -159,15 +211,14 @@ class _StoreServiceLister:
 class SchedulerConfig:
     """Wires the caches (reference: factory.CreateFromKeys).
 
-    The scheduled-pods cache stays in wire form and decodes on access
-    (the JAX config's `raw_scheduled_cache=True`; its typed form serves
-    the scalar path, which the port does not have): the session tracks
-    its own bound pods, so fully decoding every bind and delete event
-    would be the reflector threads' main cost under churn. `policy` is
-    kept as an algorithm
-    spec; the incremental daemon refuses any but the default. The JAX
-    config's bind TokenBucket is not here: only its scalar path reads
-    it, and the incremental daemon never throttles its bulk binds."""
+    `raw_scheduled_cache` keeps the scheduled-pods cache in wire form,
+    decoded on access (departure (e): the port's default, for the
+    incremental daemon); False decodes each event, the form the full
+    re-lower daemon reads every tick. `policy` (a policy document), or
+    else `provider_name`, gives `algorithm_spec`; the incremental daemon
+    refuses any but the default. The JAX config's bind TokenBucket is
+    not here: only its per-pod scalar daemon reads it, and the batch
+    daemons never throttle their bulk binds."""
 
     #: Seconds an assumed binding counts before the watch must confirm it.
     ASSUME_TTL_S = 30.0
@@ -175,9 +226,12 @@ class SchedulerConfig:
     def __init__(
         self,
         client,
+        provider_name: str = DEFAULT_PROVIDER,
         policy: Optional[dict] = None,
+        raw_scheduled_cache: bool = True,
     ):
         self.client = client
+        self.raw_scheduled_cache = raw_scheduled_cache
         # Unassigned pods -> FIFO (factory.go:180-186). A DELETED event
         # (the pod bound or removed) needs only its key.
         self.pod_queue = FIFO()
@@ -198,7 +252,7 @@ class SchedulerConfig:
 
         self.scheduled_pods = Informer(
             client, "pods", field_selector="spec.nodeName!=",
-            decode=None,
+            decode=None if raw_scheduled_cache else _decode_pod,
             on_add=_emit("pod", "ADDED"), on_update=_emit("pod", "MODIFIED"),
             on_delete=_emit("pod", "DELETED"), decode_deleted=False,
         )
@@ -223,7 +277,8 @@ class SchedulerConfig:
         self.modeler = SimpleModeler(scheduled_pods=_scheduled_typed, ttl=self.ASSUME_TTL_S)
         self.pod_lister = self.modeler.pod_lister()
         self.service_lister = _StoreServiceLister(self.services.store)
-        self.algorithm_spec = spec_from_policy(policy) if policy is not None else None
+        self.algorithm_spec = (spec_for_policy(policy) if policy is not None
+                               else spec_for_provider(provider_name))
         self.binder = client
         self.backoff = Backoff(initial=1.0, max_backoff=60.0)
 
@@ -245,83 +300,110 @@ class SchedulerConfig:
             x.stop()
 
 
-class IncrementalBatchScheduler:
-    """Session-backed batch daemon on one card (see the module text).
+def lowers(spec) -> bool:
+    """Whether an algorithm spec has a device lowering (the default spec
+    has)."""
+    try:
+        lower_spec(spec)
+    except UnloweredPolicyError:
+        return False
+    return True
 
-    `device` is the session's (None: the CUDA card, raising without
-    one); `mode` the tick solver, scan, wave or sinkhorn. `max_batch`
-    bounds a tick; `prewarm_buckets` pre-runs the session's launches at
-    every pod bucket up to it when the session is built; victims of a
-    preemption get `eviction_grace_seconds` to exit."""
 
-    #: A sweep of at least this many pods waits BATCH_WINDOW_S for more.
-    COALESCE_MIN = 64
-    BATCH_WINDOW_S = 0.02
-    #: Queued commit jobs at most: a solve loop that outruns the
-    #: apiserver blocks instead of growing a bind backlog.
-    COMMIT_DEPTH = 4
+class BatchScheduler:
+    """The full re-lower batch daemon (see the module text).
+
+    `device` is where the card routes solve (None: the CUDA card,
+    raising without one; not resolved by the scalar and sidecar
+    routes); `mode` the solver, scan, wave, sinkhorn or auto (the scan);
+    `sidecar_path` a solver sidecar's socket. A tick drains up to
+    `max_batch` pods within `batch_window` seconds of the first; victims
+    of a preemption get `eviction_grace_seconds` to exit."""
 
     def __init__(
         self,
         config: SchedulerConfig,
         max_batch: int = 65536,
+        batch_window: float = 0.02,
         mode: str = "scan",
+        sidecar_path: Optional[str] = None,
         eviction_grace_seconds: Optional[int] = None,
-        prewarm_buckets: int = 0,
         device: DeviceLike = None,
     ):
-        spec = config.algorithm_spec
-        if spec is not None and not spec.is_default():
-            raise ValueError("incremental batch mode supports the default policy only")
-        if mode not in ("scan", "wave", "sinkhorn"):
+        mode = resolve_batch_mode(mode)
+        if mode not in BATCH_MODES:
             raise ValueError(f"unknown batch mode {mode!r}")
         self.config = config
-        self.device = resolve_device(device)
         self.mode = mode
         self.max_batch = max_batch
+        self.batch_window = batch_window
         self.eviction_grace_seconds = (
             DEFAULT_EVICTION_GRACE_SECONDS if eviction_grace_seconds is None
             else int(eviction_grace_seconds)
         )
-        self.prewarm_buckets = prewarm_buckets
-        # Ticks and commit jobs that raised (departure (a)), counted from
-        # the loop and the commit worker; sessions rebuilt.
+        # Ticks (and, in the incremental daemon, commit jobs) that
+        # raised: departure (a).
         self.device_errors = 0
         self._errors_lock = threading.Lock()
-        self.rebuilds = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # Capacity-freed signal: a retry backoff is an event wait, and a
-        # pod DELETED or node ADDED delta bumps the epoch, releasing
-        # every backlogged pod the tick the capacity appears.
+        # capacity event (the incremental daemon's pod DELETED or node
+        # ADDED delta) bumps the epoch, releasing every backlogged pod.
         self._capacity_cond = threading.Condition(threading.Lock())
         self._capacity_epoch = 0
         # pod key -> (node, priority, monotonic expiry) of a nomination.
         self._nominations: Dict[str, Tuple[str, int, float]] = {}
         self._missing_groups: Dict[str, float] = {}
-        self._session: Optional[SolverSession] = None
-        self._event_q: "collections.deque" = collections.deque()
-        # Session charge releases the commit worker asks for, applied
-        # on the solve loop (the session is single-threaded).
-        self._release_q: "collections.deque" = collections.deque()
-        self._wake = threading.Event()
-        config.pod_queue.attach_wake(self._wake)
-        self._commit_q: "queue.Queue" = queue.Queue(maxsize=self.COMMIT_DEPTH)
-        self._commit_thread: Optional[threading.Thread] = None
-        self._worker_error: Optional[BaseException] = None
-        # Duty-cycle baseline: when the previous tick resolved.
-        self._last_tick_resolved_mono = 0.0
-        # The dispatched, unresolved tick: (PendingSolve, ctx).
-        self._inflight = None
-        self._inflight_keys: frozenset = frozenset()
-        config.cluster_events = self._on_cluster_event
+        # The route, decided once: a non-default spec lowers to the
+        # policy scan or pins the daemon to the scalar path.
+        spec = config.algorithm_spec
+        self.spec = None if spec.is_default() else spec
+        self.policy_scalar = self.spec is not None and not lowers(self.spec)
+        if self.policy_scalar:
+            _LOG.warning("scheduler policy is not device-lowerable; batch mode will run the "
+                         "configured plugins on the scalar path")
+        elif self.spec is not None and self.mode != "scan":
+            _LOG.warning("batch mode %r does not support non-default scheduler policy; "
+                         "using the policy-aware scan solver instead", self.mode)
+            self.mode = "scan"
+        self.sidecar = None
+        if sidecar_path and not self.policy_scalar:
+            from kubernetes_tpu_torch.ops.sidecar import SidecarSolver
+
+            self.sidecar = SidecarSolver(sidecar_path)
+        on_card = not self.policy_scalar and self.sidecar is None
+        self.device = resolve_device(device) if on_card else None
+        self._solve = self._route()
+        # The gang acceptance reducer: on the card with the solve, else
+        # gang_solve's host reducer.
+        self._counts_fn = (partial(gang_member_counts_device, device=self.device)
+                           if on_card else None)
+
+    def _route(self) -> Callable:
+        """The tick's solver, (pending, nodes, assigned, services) ->
+        node names."""
+        if self.policy_scalar:
+            return partial(schedule_backlog_scalar, spec=self.spec)
+        if self.sidecar is not None:
+            sidecar, mode, spec = self.sidecar, self.mode, self.spec
+
+            def solve_sidecar(pending, nodes, assigned, services):
+                # The whole round trip: the sidecar's own phases run in
+                # its process.
+                with tracing.phase("solve_sidecar", mode=mode):
+                    return sidecar.solve(pending, nodes, assigned, services, mode=mode, spec=spec)
+
+            return solve_sidecar
+        if self.mode == "wave":
+            return partial(schedule_backlog_wave, device=self.device)
+        if self.mode == "sinkhorn":
+            return partial(schedule_backlog_sinkhorn, device=self.device)
+        return partial(schedule_backlog, device=self.device, spec=self.spec)
 
     # -- lifecycle ----------------------------------------------------
 
-    def start(self) -> "IncrementalBatchScheduler":
-        if self._commit_thread is None:
-            self._commit_thread = threading.Thread(target=self._commit_worker, daemon=True)
-            self._commit_thread.start()
+    def start(self) -> "BatchScheduler":
         self._thread = threading.Thread(target=self.run, daemon=True)
         self._thread.start()
         return self
@@ -336,61 +418,12 @@ class IncrementalBatchScheduler:
                 self._stop.set()
 
     def stop(self) -> None:
-        """Stop the loop and the informers, then flush the pipeline in
-        order: the queued commit jobs first, then the outstanding solve,
-        whose commit now runs inline. A run thread still alive after the
-        join keeps its in-flight tick (resolving it from here would race
-        that thread)."""
         self._stop.set()
         with self._capacity_cond:
             self._capacity_cond.notify_all()
         self.config.stop()
         if self._thread is not None:
             self._thread.join(timeout=5)
-        error = None
-        if self._thread is None or not self._thread.is_alive():
-            try:
-                self._flush_commits()
-                self._resolve_inflight()
-            except Exception as e:
-                self._count_error()
-                _LOG.exception("flushing the in-flight tick on stop failed")
-                error = e
-        else:
-            _LOG.warning("scheduler run thread still alive at stop; its in-flight tick "
-                         "stays unresolved")
-        worker = self._commit_thread
-        if worker is not None:
-            self._commit_thread = None
-            self._commit_q.put(None)
-            worker.join(timeout=10)
-        if error is not None:
-            raise error
-
-    def kill(self) -> None:
-        """Abrupt death: queued commit jobs are dropped unexecuted and the
-        in-flight solve abandoned, as a killed process would. Recovery
-        is a fresh daemon that rebuilds its session from LIST+watch."""
-        self._stop.set()
-        try:
-            while True:
-                self._commit_q.get_nowait()
-                self._commit_q.task_done()
-        except queue.Empty:
-            pass
-        self._commit_q.put(None)
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-        worker = self._commit_thread
-        if worker is not None:
-            self._commit_thread = None
-            worker.join(timeout=10)
-
-    def prewarm(self) -> None:
-        """Build the session (and run its prewarm launches) now, so the
-        first pod pays neither."""
-        if self._session is None:
-            self._session = self._build_session()
 
     # -- retries --------------------------------------------------------
 
@@ -526,13 +559,85 @@ class IncrementalBatchScheduler:
         batch rolled back (still pending)."""
         return res.get("code") != 409 or res.get("reason") == "Aborted"
 
+    # -- commits ------------------------------------------------------------
+
+    def _commit(self, decided, gkey_of: Dict[str, str], denied_keys) -> List[Pod]:
+        """Bind a tick's decisions, `decided` (pod, node or None) in
+        order: FailedScheduling for the unplaced, the placed ones in one
+        bulk call per namespace and each accepted group atomically, then
+        Scheduled and the modeler's assumption for each success.
+        `gkey_of` maps a pod key to its group, `denied_keys` holds the
+        rejected groups. Returns the pods to requeue."""
+        cfg = self.config
+        by_ns: Dict[str, List] = {}
+        group_binds: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {}
+        placed: List[Tuple[Pod, str]] = []
+        rejected: List[Pod] = []
+        for pod, dest in decided:
+            key = _key(pod)
+            if dest is None:
+                _SCHEDULED.inc(result="unschedulable")
+                gkey = gkey_of.get(key)
+                message = (f'pod group "{gkey}" rejected: fewer than minMember pods schedulable'
+                           if gkey in denied_keys else "no node fits")
+                cfg.client.record_event(pod, "FailedScheduling", message, source="scheduler")
+                rejected.append(pod)
+                continue
+            ns = pod.metadata.namespace or "default"
+            gkey = gkey_of.get(key)
+            if gkey is not None:
+                group_binds.setdefault(gkey, (ns, []))[1].append((pod.metadata.name, dest))
+            else:
+                by_ns.setdefault(ns, []).append((pod.metadata.name, dest))
+            placed.append((pod, dest))
+
+        t0 = time.monotonic()
+        outcome: Dict[Tuple[str, str], dict] = {}
+        with tracing.phase("bind", pods=len(placed)):
+            try:
+                for ns, items in by_ns.items():
+                    for (pod_name, _dest), res in zip(items, cfg.binder.bind_bulk(items,
+                                                                                 namespace=ns)):
+                        outcome[(ns, pod_name)] = res
+                self._bind_groups_atomic(group_binds, outcome)
+            except Exception:
+                _LOG.warning("bulk bind failed; unrecorded pods retry", exc_info=True)
+        if by_ns or group_binds:
+            _BIND_LATENCY.observe(time.monotonic() - t0)
+
+        for pod, dest in placed:
+            ns = pod.metadata.namespace or "default"
+            key = f"{ns}/{pod.metadata.name}"
+            res = outcome.get((ns, pod.metadata.name), {})
+            if res.get("status") == "Success":
+                pod.spec.node_name = dest
+                cfg.modeler.assume_pod(pod)
+                self._nominations.pop(key, None)
+                _SCHEDULED.inc(result="scheduled")
+                cfg.client.record_event(pod, "Scheduled",
+                                        f"Successfully assigned {pod.metadata.name} to {dest}",
+                                        source="scheduler")
+            elif not self._bind_retryable(res):
+                # Someone else bound it; the pod is not ours to retry.
+                self._bind_failed(key)
+                _SCHEDULED.inc(result="bind_conflict")
+            else:
+                self._bind_failed(key)
+                _SCHEDULED.inc(result="bind_error")
+                rejected.append(pod)
+        return rejected
+
+    def _bind_failed(self, key: str) -> None:
+        """A placed pod's bind did not succeed (the incremental daemon
+        releases its session charge)."""
+
     # -- preemption -------------------------------------------------------
 
     def _maybe_preempt(self, unbound: List[Pod], nodes, assigned, groups=()) -> int:
-        """Preemption over a tick's unplaceable pods: victim selection on
-        the card, the gang guard, then nominate and evict gracefully.
-        Preemptors stay in the requeue loop and bind through an ordinary
-        solve once their victims exit. Returns nominations granted."""
+        """Preemption over a tick's unplaceable pods: victim selection,
+        the gang guard, then nominate and evict gracefully. Preemptors
+        stay in the requeue loop and bind through an ordinary solve once
+        their victims exit. Returns nominations granted."""
         now = time.monotonic()
         for key in [k for k, (_, _, exp) in self._nominations.items() if exp <= now]:
             del self._nominations[key]
@@ -546,7 +651,11 @@ class IncrementalBatchScheduler:
 
     def _preempt(self, candidates, unbound, nodes, assigned, now, groups=()) -> int:
         cfg = self.config
-        decisions = preempt_backlog(candidates, nodes, assigned, device=self.device)
+        if self.device is None:
+            # The scalar and sidecar routes never touch this process's card.
+            decisions = preempt_backlog_scalar(candidates, nodes, assigned)
+        else:
+            decisions = preempt_backlog(candidates, nodes, assigned, device=self.device)
         solved = list(decisions)
         decisions, dropped = gang.drop_partial_gang_preemptions(
             unbound, candidates, decisions, covered_keys=frozenset(self._nominations),
@@ -608,16 +717,7 @@ class IncrementalBatchScheduler:
         _PREEMPT_NOMINATED.set(len(self._nominations))
         return granted
 
-    # -- deltas -----------------------------------------------------------
-
-    def _on_cluster_event(self, kind: str, etype: str, obj) -> None:
-        """From the reflector threads: enqueue and wake only."""
-        self._event_q.append((kind, etype, obj))
-        if (kind == "node" and etype == "ADDED") or (kind == "pod" and etype == "DELETED"):
-            # Capacity freed. Not node MODIFIED: status heartbeats would
-            # defeat the backoff.
-            self._capacity_freed()
-        self._wake.set()
+    # -- the tick -----------------------------------------------------------
 
     def _observe_informer_staleness(self) -> None:
         """scheduler_informer_staleness_seconds per cache: seconds since
@@ -633,6 +733,217 @@ class IncrementalBatchScheduler:
         ):
             if ref.last_event_mono:
                 sli.INFORMER_STALENESS.set(now - ref.last_event_mono, resource=resource)
+
+    def _drain(self, timeout: Optional[float]) -> List[Pod]:
+        """The first pod (waiting up to `timeout`), then what arrives
+        within `batch_window` of it, up to `max_batch`. Highest priority
+        first, stable within a priority: the order that holds a nominated
+        pod's freed capacity against lower-priority pods."""
+        first = self.config.pod_queue.pop(timeout=timeout)
+        if first is None:
+            return []
+        batch = [first]
+        deadline = time.monotonic() + self.batch_window
+        while len(batch) < self.max_batch:
+            wait = deadline - time.monotonic()
+            pod = self.config.pod_queue.pop(timeout=max(0.0, wait))
+            if pod is None:
+                break
+            batch.append(pod)
+        batch = [p for p in batch if not p.spec.node_name]
+        batch.sort(key=lambda p: -(p.spec.priority or 0))
+        return batch
+
+    def schedule_batch(self, timeout: Optional[float] = 0.5) -> int:
+        """One drain, solve and commit; returns the pods processed.
+        Raises what the tick raised (departure (a))."""
+        try:
+            return self._tick(timeout)
+        except Exception:
+            self._count_error()
+            _LOG.exception("scheduling tick failed")
+            raise
+
+    def _count_error(self) -> None:
+        with self._errors_lock:
+            self.device_errors += 1
+
+    def _tick(self, timeout: Optional[float]) -> int:
+        t_drain = time.monotonic()
+        self._observe_informer_staleness()
+        sli.observe_device_telemetry()
+        pending = self._drain(timeout)
+        if not pending:
+            return 0
+        with tracing.trace("schedule_batch") as tr:
+            tr.note(pods=len(pending), mode=self.mode, drain_s=time.monotonic() - t_drain)
+            return self._solve_and_commit(pending)
+
+    def _solve_and_commit(self, pending: List[Pod]) -> int:
+        """The whole cluster from the caches, one solve (in gangs'
+        acceptance loop when the tick has groups), the commit inline."""
+        cfg = self.config
+        start = time.monotonic()
+        nodes = cfg.nodes.store.list()  # unfiltered; the lowering reads readiness
+        assigned = cfg.pod_lister.list()
+        services = cfg.service_lister.list()
+        groups = self._gang_groups(pending, assigned)
+        deferred: List[Pod] = []
+        if groups is None:
+            pending, deferred = self._split_deferred_gangs(pending)
+            self._requeue_many(deferred)
+            groups = []
+            if not pending:
+                return len(deferred)
+        t0 = time.monotonic()
+        if groups:
+            destinations, _accepted, denied = gang.gang_solve(
+                self._solve, pending, nodes, assigned, services, groups,
+                counts_fn=self._counts_fn,
+            )
+        else:
+            destinations, denied = self._solve(pending, nodes, assigned, services), []
+        _ALGO_LATENCY.observe(time.monotonic() - t0)
+        gkey_of = {_key(pending[i]): g.key for g in groups for i in g.indices}
+        rejected = self._commit(list(zip(pending, destinations)), gkey_of,
+                                {g.key for g in denied})
+        unbound = [p for p, d in zip(pending, destinations) if d is None]
+        if unbound:
+            # This tick's binds were assumed into the modeler since
+            # `assigned` was read.
+            self._maybe_preempt(unbound, nodes, cfg.pod_lister.list(), groups=groups)
+        self._requeue_many(rejected)
+        _E2E_LATENCY.observe(time.monotonic() - start)
+        return len(pending) + len(deferred)
+
+
+class IncrementalBatchScheduler(BatchScheduler):
+    """Session-backed batch daemon on one card (see the module text).
+
+    `device` is the session's (None: the CUDA card, raising without
+    one); `mode` the tick solver, scan, wave, sinkhorn or auto (the
+    scan). `max_batch` bounds a tick; `prewarm_buckets` pre-runs the
+    session's launches at every pod bucket up to it when the session is
+    built; victims of a preemption get `eviction_grace_seconds` to
+    exit."""
+
+    #: A sweep of at least this many pods waits BATCH_WINDOW_S for more.
+    COALESCE_MIN = 64
+    BATCH_WINDOW_S = 0.02
+    #: Queued commit jobs at most: a solve loop that outruns the
+    #: apiserver blocks instead of growing a bind backlog.
+    COMMIT_DEPTH = 4
+
+    def __init__(
+        self,
+        config: SchedulerConfig,
+        max_batch: int = 65536,
+        mode: str = "scan",
+        eviction_grace_seconds: Optional[int] = None,
+        prewarm_buckets: int = 0,
+        device: DeviceLike = None,
+    ):
+        super().__init__(config, max_batch=max_batch, mode=mode,
+                         eviction_grace_seconds=eviction_grace_seconds, device=device)
+        if self.spec is not None:
+            raise ValueError("incremental batch mode supports the default policy only")
+        self.prewarm_buckets = prewarm_buckets
+        # Sessions rebuilt.
+        self.rebuilds = 0
+        self._session: Optional[SolverSession] = None
+        self._event_q: "collections.deque" = collections.deque()
+        # Session charge releases the commit worker asks for, applied
+        # on the solve loop (the session is single-threaded).
+        self._release_q: "collections.deque" = collections.deque()
+        self._wake = threading.Event()
+        config.pod_queue.attach_wake(self._wake)
+        self._commit_q: "queue.Queue" = queue.Queue(maxsize=self.COMMIT_DEPTH)
+        self._commit_thread: Optional[threading.Thread] = None
+        self._worker_error: Optional[BaseException] = None
+        # Duty-cycle baseline: when the previous tick resolved.
+        self._last_tick_resolved_mono = 0.0
+        # The dispatched, unresolved tick: (PendingSolve, ctx).
+        self._inflight = None
+        self._inflight_keys: frozenset = frozenset()
+        config.cluster_events = self._on_cluster_event
+
+    # -- lifecycle ----------------------------------------------------
+
+    def start(self) -> "IncrementalBatchScheduler":
+        if self._commit_thread is None:
+            self._commit_thread = threading.Thread(target=self._commit_worker, daemon=True)
+            self._commit_thread.start()
+        self._thread = threading.Thread(target=self.run, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the loop and the informers, then flush the pipeline in
+        order: the queued commit jobs first, then the outstanding solve,
+        whose commit now runs inline. A run thread still alive after the
+        join keeps its in-flight tick (resolving it from here would race
+        that thread)."""
+        self._stop.set()
+        with self._capacity_cond:
+            self._capacity_cond.notify_all()
+        self.config.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        error = None
+        if self._thread is None or not self._thread.is_alive():
+            try:
+                self._flush_commits()
+                self._resolve_inflight()
+            except Exception as e:
+                self._count_error()
+                _LOG.exception("flushing the in-flight tick on stop failed")
+                error = e
+        else:
+            _LOG.warning("scheduler run thread still alive at stop; its in-flight tick "
+                         "stays unresolved")
+        worker = self._commit_thread
+        if worker is not None:
+            self._commit_thread = None
+            self._commit_q.put(None)
+            worker.join(timeout=10)
+        if error is not None:
+            raise error
+
+    def kill(self) -> None:
+        """Abrupt death: queued commit jobs are dropped unexecuted and the
+        in-flight solve abandoned, as a killed process would. Recovery
+        is a fresh daemon that rebuilds its session from LIST+watch."""
+        self._stop.set()
+        try:
+            while True:
+                self._commit_q.get_nowait()
+                self._commit_q.task_done()
+        except queue.Empty:
+            pass
+        self._commit_q.put(None)
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+        worker = self._commit_thread
+        if worker is not None:
+            self._commit_thread = None
+            worker.join(timeout=10)
+
+    def prewarm(self) -> None:
+        """Build the session (and run its prewarm launches) now, so the
+        first pod pays neither."""
+        if self._session is None:
+            self._session = self._build_session()
+
+    # -- deltas -----------------------------------------------------------
+
+    def _on_cluster_event(self, kind: str, etype: str, obj) -> None:
+        """From the reflector threads: enqueue and wake only."""
+        self._event_q.append((kind, etype, obj))
+        if (kind == "node" and etype == "ADDED") or (kind == "pod" and etype == "DELETED"):
+            # Capacity freed. Not node MODIFIED: status heartbeats would
+            # defeat the backoff.
+            self._capacity_freed()
+        self._wake.set()
 
     @staticmethod
     def _obj_key(obj) -> str:
@@ -788,68 +1099,9 @@ class IncrementalBatchScheduler:
         otherwise; never touches the session."""
         results, ctx = job
         cfg = self.config
-        gkey_of: Dict[str, str] = ctx["gkey_of"]
-        denied_keys = ctx["denied_keys"]
         by_key = {_key(p): p for p in ctx["pending"]}
-        by_ns: Dict[str, List] = {}
-        group_binds: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {}
-        placed: List[Tuple[Pod, str]] = []
-        rejected: List[Pod] = []
-        for key, dest in results:
-            pod = by_key.get(key)
-            if pod is None:
-                continue
-            if dest is None:
-                _SCHEDULED.inc(result="unschedulable")
-                gkey = gkey_of.get(key)
-                message = (f'pod group "{gkey}" rejected: fewer than minMember pods schedulable'
-                           if gkey in denied_keys else "no node fits")
-                cfg.client.record_event(pod, "FailedScheduling", message, source="scheduler")
-                rejected.append(pod)
-                continue
-            ns = pod.metadata.namespace or "default"
-            gkey = gkey_of.get(key)
-            if gkey is not None:
-                group_binds.setdefault(gkey, (ns, []))[1].append((pod.metadata.name, dest))
-            else:
-                by_ns.setdefault(ns, []).append((pod.metadata.name, dest))
-            placed.append((pod, dest))
-
-        t0 = time.monotonic()
-        outcome: Dict[Tuple[str, str], dict] = {}
-        with tracing.phase("bind", pods=len(placed)):
-            try:
-                for ns, items in by_ns.items():
-                    for (pod_name, _dest), res in zip(items, cfg.binder.bind_bulk(items,
-                                                                                 namespace=ns)):
-                        outcome[(ns, pod_name)] = res
-                self._bind_groups_atomic(group_binds, outcome)
-            except Exception:
-                _LOG.warning("bulk bind failed; unrecorded pods retry", exc_info=True)
-        if by_ns or group_binds:
-            _BIND_LATENCY.observe(time.monotonic() - t0)
-
-        for pod, dest in placed:
-            ns = pod.metadata.namespace or "default"
-            key = f"{ns}/{pod.metadata.name}"
-            res = outcome.get((ns, pod.metadata.name), {})
-            if res.get("status") == "Success":
-                pod.spec.node_name = dest
-                cfg.modeler.assume_pod(pod)
-                self._nominations.pop(key, None)
-                _SCHEDULED.inc(result="scheduled")
-                cfg.client.record_event(pod, "Scheduled",
-                                        f"Successfully assigned {pod.metadata.name} to {dest}",
-                                        source="scheduler")
-            elif not self._bind_retryable(res):
-                # Someone else bound it: release our charge; the true
-                # binding arrives by the watch and charges the right row.
-                self._release(key)
-                _SCHEDULED.inc(result="bind_conflict")
-            else:
-                self._release(key)
-                _SCHEDULED.inc(result="bind_error")
-                rejected.append(pod)
+        decided = [(by_key[key], dest) for key, dest in results if key in by_key]
+        rejected = self._commit(decided, ctx["gkey_of"], ctx["denied_keys"])
         sli.observe_device_telemetry()
         # Victims come from the watch caches, not the session; their
         # exits come back as ordinary pod DELETED deltas.
@@ -952,16 +1204,12 @@ class IncrementalBatchScheduler:
         error, self._worker_error = self._worker_error, None
         if error is not None:
             raise error
-        try:
-            return self._tick(timeout)
-        except Exception:
-            self._count_error()
-            _LOG.exception("scheduling tick failed")
-            raise
+        return super().schedule_batch(timeout)
 
-    def _count_error(self) -> None:
-        with self._errors_lock:
-            self.device_errors += 1
+    def _bind_failed(self, key: str) -> None:
+        # Release our charge; a true binding by another binder arrives
+        # by the watch and charges the right row.
+        self._release(key)
 
     def _tick(self, timeout: Optional[float]) -> int:
         t_drain = time.monotonic()

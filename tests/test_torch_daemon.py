@@ -533,8 +533,13 @@ def test_daemon_refuses_policies_and_unknown_modes():
     with pytest.raises(ValueError, match="default policy only"):
         IncrementalBatchScheduler(cfg, device="cpu")
     with pytest.raises(ValueError, match="unknown batch mode"):
-        IncrementalBatchScheduler(SchedulerConfig(Client(LocalTransport(api))), mode="auto",
+        IncrementalBatchScheduler(SchedulerConfig(Client(LocalTransport(api))), mode="bogus",
                                   device="cpu")
+    # `auto` is the scan on one card, as the JAX daemons resolve it
+    # without a device mesh.
+    daemon = IncrementalBatchScheduler(SchedulerConfig(Client(LocalTransport(api))), mode="auto",
+                                       device="cpu")
+    assert daemon.mode == "scan"
 
 
 def test_kill_drops_queued_commits_and_stops_the_threads():
@@ -552,3 +557,44 @@ def test_kill_drops_queued_commits_and_stops_the_threads():
         assert daemon._commit_thread is None and daemon._commit_q.unfinished_tasks == 0
     finally:
         cfg.stop()
+
+
+def test_label_rows_past_the_old_kernel_limit_match_jax(pair_factory):
+    """40 nodes with 190 labels of their own (7,600 label tokens, as a
+    hostname and rack labels per node would give a large cluster): the
+    port's session sizes its label words from them, past the 224-word
+    pod rows the scan kernel once refused, and ticks to the JAX daemon's
+    bindings (which re-lowers every tick of such a cluster)."""
+    from kubernetes_tpu_torch.ops import scan_kernel
+
+    n_nodes = 40
+    pair = pair_factory(seed=16, n_nodes=n_nodes, n_pods=0, max_batch=1024)
+    for j in range(n_nodes):
+        for c in pair.setups:
+            node = c.get("nodes", f"n{j}")
+            node.metadata.labels.update({f"l{j}-{k}": f"v{k % 7}" for k in range(190)})
+            node.metadata.labels["kubernetes.io/hostname"] = f"n{j}"
+            c.update("nodes", node)
+    rng = np.random.default_rng(17)
+    pods = []
+    for i in range(240):
+        pod = pod_wire(f"h{i}", rng, cpu="100m")
+        if i % 3 == 0:
+            pod["spec"]["nodeSelector"] = {f"l{i % n_nodes}-{i % 190}": f"v{(i % 190) % 7}"}
+        elif i % 3 == 1:
+            pod["spec"]["nodeSelector"] = {"kubernetes.io/hostname": f"n{(7 * i) % n_nodes}"}
+        pods.append(pod)
+    pair.each("create_bulk", "pods", pods, namespace="default")
+    pair.settle()
+    pair.t.prewarm()
+    session = pair.t._session
+    plan = scan_kernel.launch_plan(n_nodes, session.LW, session.PW, session.VW, 8)
+    assert session.LW * 32 > 7600 and plan.row_words > 224 and plan.tile < scan_kernel.TILE
+    pair.tick_all()
+    bound = pair.bindings(0)
+    assert bound == pair.bindings(1) and pair.events(0) == pair.events(1)
+    assert pair.j.fallback_count > 0 and pair.t.device_errors == 0
+    for i in range(0, 240, 3):
+        assert bound[f"h{i}"] == f"n{i % n_nodes}"
+    for i in range(1, 240, 3):
+        assert bound[f"h{i}"] == f"n{(7 * i) % n_nodes}"

@@ -519,12 +519,95 @@ def test_emulated_kernel_in_place(emulated, case, cluster):
 
 
 @pytest.mark.parametrize(
-    "widths", [(5121, 2, 2, 2, 8, 16, 1), (40, 1, 4, 1, 8, 4, 1), (3, 2, 2, 2, 8, 8, 1),
-               (0, 2, 2, 2, 8, 2, 1), (50000, 2, 2, 2, 8, 16, 0), (40, 4, 4, 4, 8, 4, 0)],
+    "widths", [(5121, 2, 2, 2, 8, 16, 1, 128), (40, 1, 4, 1, 8, 4, 1, 128), (3, 2, 2, 2, 8, 8, 1, 128),
+               (0, 2, 2, 2, 8, 2, 1, 128), (50000, 2, 2, 2, 8, 16, 0, 128),
+               (40, 4, 4, 4, 8, 4, 0, 128), (8000, 315, 4, 4, 8, 16, 0, 64),
+               (36, 315, 4, 4, 8, 16, 1, 64), (45, 1175, 4, 4, 8, 16, 1, 16),
+               (45, 275, 4, 4, 8, 1, 0, 32), (45, 275, 4, 4, 8, 4, 1, 8),
+               (45, 3700, 4, 4, 8, 16, 1, 0), (45, 3700, 4, 4, 8, 1, 0, 0)],
 )
 def test_emulated_layout_equals_the_plan(emulated, widths):
-    """The kernel's shared-memory layout and the Python plan agree."""
-    assert emulated.ktt_scan_smem_bytes(*widths) == scan_kernel.smem_bytes(*widths)
+    """The kernel's shared-memory layout and the Python plan agree, at
+    every tile (the launcher takes it as a shift, 0 for rows in place)."""
+    *dims, tile = widths
+    shift = tile.bit_length() - 1 if tile else 0
+    assert emulated.ktt_scan_smem_bytes(*dims, shift) == scan_kernel.smem_bytes(*dims, tile)
+
+
+def _ties_case():
+    pending, nodes, services = workload.synthetic_objects(300, 45, seed=11)
+    d = device_snapshot(build_snapshot(pending, nodes, services=services), "cpu", 1)
+    return d.pods, d.nodes
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("tile", [8, 16, 32, 64, 128, 0])
+def test_emulated_each_tile_with_ties_across_tiles(emulated, tile, resident):
+    """The runtime-width instance at every tile the plan can pick, and
+    with the rows read in place (0): 300 pods of ties across CTAs,
+    services and host ports, so commits, the count rows fetched ahead
+    and the flushed adds straddle tiles of 8 and 16 pods many times."""
+    pods, nodes = _widen(*_ties_case(), 4, seed=tile)
+    plan = scan_kernel.plan_for(pods, nodes, 4, 32, resident, tile)
+    assert plan.tile == tile
+    assert _check_case_plan(emulated, pods, nodes, plan).resident == resident
+
+
+def _widen(pods, nodes, SW, seed, selective=True):
+    """The same pods and nodes with label bitsets of SW words: the
+    original words first, random bits in the others on the nodes, and
+    every third pod selecting one bit of a high word (so the new words
+    decide feasibility, as hostname and rack labels would)."""
+    g = torch.Generator().manual_seed(seed)
+    P, N = pods["sel"].shape[0], nodes["labels"].shape[0]
+    old = pods["sel"].shape[1]
+    if SW <= old:
+        return pods, nodes
+    pods, nodes = dict(pods), dict(nodes)
+    sel = torch.zeros((P, SW), dtype=torch.int32)
+    sel[:, :old] = pods["sel"]
+    labels = torch.zeros((N, SW), dtype=torch.int32)
+    labels[:, :old] = nodes["labels"]
+    labels[:, old:] = torch.randint(-2**31, 2**31 - 1, (N, SW - old), generator=g,
+                                    dtype=torch.int32)
+    if selective:
+        for i in range(0, P, 3):
+            sel[i, old + (i * 7919) % (SW - old)] |= 1 << (i % 31)
+    pods["sel"], nodes["labels"] = sel, labels
+    return pods, nodes
+
+
+def _check_case_plan(lib, pods, nodes, plan, weights=(1, 1, 1)):
+    got_nodes = {k: v.clone() for k, v in nodes.items()}
+    ref_nodes = {k: v.clone() for k, v in nodes.items()}
+    got = scan_kernel._call(lib, pods, got_nodes, weights, None, plan)
+    ref, ref_nodes = scan_kernel.plain_scan_with_state(pods, ref_nodes, weights)
+    assert torch.equal(got, ref), f"{int((got != ref).sum())} decisions differ"
+    assert int((ref >= 0).sum()) > 0
+    for k in CARRY_KEYS:
+        assert torch.equal(got_nodes[k], ref_nodes[k]), f"carry field {k} differs"
+    return plan
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("cluster", [1, 16])
+@pytest.mark.parametrize("row_words,tile", [(300, 64), (1200, 16), (3700, 0)])
+def test_emulated_rows_past_224_words(emulated, row_words, tile, cluster, resident):
+    """Pod rows past the old limit of 224 words, at the plan's own tile:
+    about 300 words (64 pods), about 1,200 (16) and rows read in place
+    from device memory (about 3,700), each resident and in place, on one
+    CTA and on 16."""
+    pods, nodes = _ties_case()
+    SW = row_words - 5 - pods["port"].shape[1] - 2 * pods["vol_any"].shape[1] - 8
+    pods, nodes = _widen(pods, nodes, SW, seed=row_words)
+    if resident:
+        # As many nodes as one CTA's shared memory holds beside the tiles.
+        dims = scan_kernel._dims(pods, nodes)
+        held = scan_kernel.max_nodes(dims["SW"], dims["PW"], dims["VW"], dims["K"], cluster)
+        nodes = _cut_nodes(nodes, min(held, nodes["cpu_cap"].shape[0]))
+    plan = scan_kernel.plan_for(pods, nodes, cluster, 32, resident)
+    assert (plan.tile, plan.row_words) == (tile, row_words)
+    _check_case_plan(emulated, pods, nodes, plan)
 
 
 # ---------------------------------------------------------------------------

@@ -125,6 +125,12 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/scheduler/modeler.py",
         "kubernetes_tpu_torch/scheduler/daemon.py",
         "kubernetes_tpu_torch/cmd/scheduler.py",
+        "kubernetes_tpu_torch/models/labels.py",
+        "kubernetes_tpu_torch/scheduler/types.py",
+        "kubernetes_tpu_torch/scheduler/predicates.py",
+        "kubernetes_tpu_torch/scheduler/priorities.py",
+        "kubernetes_tpu_torch/scheduler/generic.py",
+        "kubernetes_tpu_torch/scheduler/plugins.py",
     } <= names
 
 
@@ -150,8 +156,12 @@ def test_scheduler_command_raises_without_cuda():
                     "http://127.0.0.1:9"], timeout=120)
     assert proc.returncode != 0 and "CUDA" in proc.stderr
     proc = _python(["-m", "kubernetes_tpu_torch.cmd.scheduler", "--device", "cpu",
-                    "--policy-config-file", "policy.json"], timeout=120)
+                    "--batch-incremental", "--policy-config-file", "policy.json"], timeout=120)
     assert proc.returncode != 0 and "supports the default policy only" in proc.stderr
+    # A policy boots the full re-lower daemon, on the card too.
+    proc = _python(["-m", "kubernetes_tpu_torch.cmd.scheduler", "--server", "http://127.0.0.1:9",
+                    "--batch-full-relower"], timeout=120)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
 
 
 def test_scheduler_command_binds_on_the_cpu_when_asked():

@@ -111,8 +111,9 @@ def _tensors(N, S, P=4, words=1):
 
 
 def test_wrapper_raises_past_the_limit_without_calling_the_launcher():
-    """A plan held resident past the limit, or pod rows too wide for two
-    tiles even in place, is refused before the launcher is called."""
+    """A plan held resident past the limit, or one forced to stage pod
+    rows in tiles too large for them even in place, is refused before
+    the launcher is called."""
     N = max_nodes(1, 1, 1, 8) + 1
     pods, nodes = _tensors(N=N, S=16)
     held = LaunchPlan(cluster=16, nodes_per_cta=-(-N // 64) * 4, threads=1024,
@@ -121,8 +122,10 @@ def test_wrapper_raises_past_the_limit_without_calling_the_launcher():
     with pytest.raises(ValueError, match="shared memory"):
         scan_kernel._call(_NoLaunch(), pods, nodes, (1, 1, 1), None, held)
     pods, nodes = _tensors(N=64, S=4, words=240)
-    with pytest.raises(ValueError, match="pod rows alone"):
-        scan_kernel._call(_NoLaunch(), pods, nodes, (1, 1, 1), None)
+    forced = LaunchPlan(cluster=16, nodes_per_cta=4, threads=32, smem_bytes=0, count_stride=64,
+                        row_words=976, resident=False, tile=128)
+    with pytest.raises(ValueError, match="two tiles of 128 pods outgrow it"):
+        scan_kernel._call(_NoLaunch(), pods, nodes, (1, 1, 1), None, forced)
 
 
 @pytest.mark.parametrize(
@@ -179,3 +182,49 @@ def test_resident_plan_unchanged_below_the_limit(N):
     assert plan.resident and plan == launch_plan(N, resident=True, **MAIN)
     npc = (-(-N // 16) + 3) // 4 * 4
     assert plan.smem_bytes == 4 * npc * 20 + -(-2 * npc // 16) * 16 + 24576 + 384 + 512
+
+
+def _words_for_row(row_words):
+    """(SW, PW, VW, K) whose packed row is `row_words` words: label
+    words beside the session's 4-word port and volume bitsets."""
+    return row_words - 5 - 4 - 8 - 8, 4, 4, 8
+
+
+@pytest.mark.parametrize("row_words,tile", [
+    (24, 128), (196, 128), (224, 128), (228, 64), (340, 64), (452, 64), (456, 32),
+    (904, 32), (908, 16), (1200, 16), (1808, 16), (1812, 8), (3616, 8), (3620, 0), (9000, 0),
+])
+def test_each_row_width_takes_the_largest_tile_that_fits(row_words, tile):
+    """Two tiles of 128 pods hold rows of up to 224 words; past that
+    the tile halves down to 8 pods, and past 3,616 words the rows are
+    read in place. No width raises."""
+    widths = _words_for_row(row_words)
+    assert scan_kernel.row_tile(*widths) == tile
+    for N in (1, 36, 8000, 50000):
+        plan = launch_plan(N, *widths)
+        assert plan.row_words == row_words and plan.tile == tile
+        assert plan.smem_bytes == smem_bytes(N, *widths, 16, plan.resident, tile) <= 232448
+        assert plan.tile_shift == (tile.bit_length() - 1 if tile else 0)
+
+
+def test_hostname_cluster_plans_in_place_with_a_64_pod_tile():
+    """8,000 nodes whose hostname labels make 340-word rows: the slices
+    do not fit beside two 64-pod tiles, so they run in place, the tile
+    64 pods. A few dozen such nodes stay resident beside the same tile."""
+    widths = _words_for_row(340)
+    plan = launch_plan(8000, *widths)
+    assert (plan.resident, plan.tile, plan.cluster, plan.nodes_per_cta) == (False, 64, 16, 500)
+    small = launch_plan(36, *widths)
+    assert small.resident and small.tile == 64
+
+
+@pytest.mark.parametrize("tile", [0, 8, 16, 32, 64, 128])
+def test_a_forced_tile_plans_or_names_the_limit(tile):
+    widths = _words_for_row(340)
+    if 2 * 4 * tile * 340 + 896 > 232448:
+        with pytest.raises(ValueError, match=f"two tiles of {tile} pods"):
+            launch_plan(8000, *widths, tile=tile)
+    else:
+        assert launch_plan(8000, *widths, tile=tile).tile == tile
+    with pytest.raises(ValueError, match="tile of 4 pods"):
+        launch_plan(64, **MAIN, tile=4)
