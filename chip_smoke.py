@@ -231,7 +231,32 @@ exits non-zero and prints no result. Phases, one JSON line each:
               daemon_sidecar_parity, the port's sidecar as a child on
               the card and a non-started BatchScheduler solving 1,024
               pods through it, equal to schedule_backlog's, the sidecar
-              reporting one K1 launch;
+              reporting one K1 launch. Every daemon samples the capacity
+              plane each tick: the parity legs hold the monitor's
+              snapshot to the plain report on the session's columns,
+              the drills report the `capacity` phase a tick and its
+              share of the window. Two more legs, each on a fresh child
+              at 5,000 nodes with the incremental daemon started:
+              desched_defrag, every node keeping a 2,000m shard (15,000
+              bound pods), 56 pending pods of 3,000m, the slice shape
+              configured, and four cycles of the port's Descheduler
+              (grace 0, disruption cap 16): each cycle's K2 plan equal
+              to the plain version's on the same inputs, the cap held,
+              every replacement bound at its destination within 30 s,
+              no pod name lost or bound twice, no journal left, nothing
+              stranded, the measured score lower at the end, the
+              pending pods bound; with each cycle's wall by phase, ms a
+              move, eviction to rebind p50 and p99, K2 ms by CUDA
+              events, K2 and K1 launches; autoscale_cycle, the nodes
+              filled to 500m free, a burst of 64 pods of 2,000m, the
+              port's Autoscaler (grow_after 2, grow_step 64) polled
+              over a hollow node pool until it grows and the burst
+              binds on the new nodes, then fillers and burst deleted
+              (one small pod a node) and polled (shrink_after 2)
+              through cordon, drain (K2, the node forced) and shrink:
+              the drained pod bound elsewhere, the node gone, the pool
+              one smaller, no pod lost; poll walls, grow to bound and
+              drain to retire seconds;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -273,7 +298,7 @@ compared by running it in turns in one command (A B B A).
 
     python3 chip_smoke.py --daemon
 
-builds the kernels and runs phase 5o alone (eight lines, no result
+builds the kernels and runs phase 5o alone (ten lines, no result
 line). Each drill line carries the process's thread switch interval;
 `python3 -c "import sys; sys.setswitchinterval(S); import chip_smoke;
 chip_smoke.main(['--daemon'])"` runs it at another.
@@ -475,6 +500,8 @@ def main(argv=None) -> int:
                 "daemon_churn": daemon["daemon_churn"]["wrapper_launches"],
                 "daemon_parity_hostnames": daemon["daemon_parity_hostnames"]["launches"],
                 "daemon_sidecar_parity": daemon["daemon_sidecar_parity"]["launches"],
+                "desched_defrag": daemon["desched_defrag"]["k1_launches"],
+                "autoscale_cycle": daemon["autoscale_cycle"]["k1_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -518,7 +545,9 @@ def main(argv=None) -> int:
             "replaces": "kubernetes_tpu/ops/rebalance.py:58 (plan_moves; XLA, not a Pallas kernel)",
             "launches": sum(rebalance_line["launches"].values()),
             "launches_by_path": {**{f"rebalance_{k}": v for k, v in rebalance_line["launches"].items()},
-                                 **k2_launches, "rebalance_parity": rebalance_parity["launches"]},
+                                 **k2_launches, "rebalance_parity": rebalance_parity["launches"],
+                                 "desched_defrag": daemon["desched_defrag"]["k2_launches"],
+                                 "autoscale_cycle": daemon["autoscale_cycle"]["k2_launches"]},
             "max_abs_err": max(rebalance_parity["max_abs_err"], rebalance_line["k2"]["max_abs_err"]),
             # ms, plain_ms and bound_ms: the same first rows of case budget_d.
             "ms": rebalance_line["k2"]["ms"],
@@ -3394,6 +3423,31 @@ def _policy_cluster(phase, client, n_pending, seed=5):
     return wires
 
 
+def _capacity_vs_plain(phase, daemon, pending):
+    """The capacity monitor's snapshot after the daemon's tick against
+    the plain version's report (a fresh monitor on the CPU) on the same
+    session columns and probes, every field but the backlog's age and
+    pressure (the wall clock's)."""
+    from kubernetes_tpu_torch.models.columnar import mem_to_mib_ceil, pod_resource_limits
+    from kubernetes_tpu_torch.utils import capacity
+
+    got = capacity.DEFAULT.snapshot()
+    ref = capacity.CapacityMonitor()
+    ref.note_backlog_shapes([(float(c), float(mem_to_mib_ceil(m)))
+                             for c, m in map(pod_resource_limits, pending)])
+    cols, names = capacity.session_columns(daemon._session)
+    t0 = time.perf_counter()
+    want = ref.sample(cols, names, backlog_depth=got.get("backlog", {}).get("depth", 0),
+                      device="cpu")
+    plain_s = time.perf_counter() - t0
+    got_b, want_b = got.pop("backlog", None), want.pop("backlog")
+    if got != want or got_b is None or got_b["depth"] != want_b["depth"]:
+        diff = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        fail(phase, f"the capacity snapshot differs from the plain report in {diff}")
+    return {"equal_to_plain": True, "samples": got["samples"], "score": got["fragmentation_score"],
+            "live_nodes": got["live_nodes"], "probes": len(got["probes"]), "plain_s": plain_s}
+
+
 def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
     """1,024 pending pods over HTTP, then one schedule_batch() of a
     non-started daemon on the card: its bindings, read back by LIST,
@@ -3409,9 +3463,11 @@ def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
     from kubernetes_tpu_torch.ops import ledger, scan_kernel
     from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
     from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler, SchedulerConfig
+    from kubernetes_tpu_torch.utils import capacity
 
     phase = ("daemon_parity_hostnames" if n_nodes != DAEMON_NODES
              else "daemon_parity_wide" if wide else "daemon_parity")
+    capacity.DEFAULT.reset()
     with ControlPlane(phase) as cp:
         client = Client(HTTPTransport(cp.url))
         _cluster(phase, client, hostname=wide, n_nodes=n_nodes)
@@ -3441,6 +3497,7 @@ def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
             launches = scan_kernel.scan_with_state.launches
             ledger_launches = ledger.DEFAULT.calls("scan_kernel") - calls0
             widths = (daemon._session.LW, daemon._session.PW, daemon._session.VW)
+            capacity_check = _capacity_vs_plain(phase, daemon, pending)
             daemon.stop()
         finally:
             cfg.stop()
@@ -3473,6 +3530,7 @@ def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
                              "nodes_per_cta": plan.nodes_per_cta, "threads": plan.threads,
                              "smem_bytes": plan.smem_bytes},
         "equal_to_schedule_backlog": True, "equal_to_plain": True, "tick_s": tick_s,
+        "capacity": capacity_check,
         "k1_ms": k1_ms, "launches": launches, "ledger_launches": ledger_launches,
         "tolerance": "exact (node name per pod)",
     }
@@ -4046,6 +4104,7 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
     if problems:
         fail(phase, "; ".join(problems))
     lower = in_window["phase_seconds"].get("lower", {})
+    sampled = in_window["phase_seconds"].get("capacity", {})
     checks = {"no_double_bind": True, "valid_final_placement": len(placed), "lost_pods": 0,
               "all_bound_by": f"{DRILL_LOST_S} s after the window"}
     if mirror is not None:
@@ -4053,6 +4112,9 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
     extra = {"route": "policy scan (K1P), full re-lower", "rebuilds": None,
              "lower_s_per_tick": lower["sum"] / lower["count"] if lower.get("count") else None,
              } if policy else {"rebuilds": daemon.rebuilds}
+    extra["capacity_samples"] = sampled.get("count", 0)
+    extra["capacity_s_per_tick"] = sampled["sum"] / len(window) if sampled and window else None
+    extra["capacity_share_of_window"] = sampled.get("sum", 0.0) / result["window_s"]
 
     return {
         "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES,
@@ -4091,8 +4153,563 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
     }
 
 
+# -- the descheduler and the autoscaler on the card ------------------------------
+
+DEFRAG_SLICE = ("slice-1x3000m", 3000.0, 1024.0, 1)  # the pending pods' shape, configured
+DEFRAG_PENDING = 56  # three cycles' shards and half a fourth's
+DEFRAG_CYCLES = 4
+DEFRAG_CAP = 16
+REBIND_S = 30.0  # a replacement's time to bind at its destination
+AUTOSCALE_BURST = 64
+AUTOSCALE_STEP = 64
+AUTOSCALE_POLLS = 12  # polls allowed for each of grow and shrink
+
+
+def _sized_pod_wire(name, cpu, mem="1Gi"):
+    return {"kind": "Pod", "metadata": {"name": name, "namespace": "default"},
+            "spec": {"containers": [{"name": "c", "image": "app", "resources": {
+                "limits": {"cpu": cpu, "memory": mem}}}]}}
+
+
+def _bind_sized(phase, client, pods):
+    """Create (name, cpu, node) pods and bind each to its node."""
+    _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
+          [_sized_pod_wire(n, c) for n, c, _ in pods])
+    _bulk(phase, lambda xs: client.bind_bulk(xs, namespace="default"),
+          [(n, node) for n, _, node in pods])
+
+
+class _PodWatch:
+    """The default namespace's pods over the port's HTTP watch: for each
+    pod incarnation (name, uid) the nodes it was seen bound to, each with
+    the monotonic second it was first seen there."""
+
+    def __init__(self, url, since):
+        import threading
+
+        from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+
+        self.stream = Client(HTTPTransport(url)).watch("pods", namespace="default", since=since)
+        self.bound = {}  # (name, uid) -> {node: first seen}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            ev = self.stream.next(timeout=0.5)
+            if ev is None:
+                if self.stream.closed:
+                    return
+                continue
+            node = (ev.object.get("spec") or {}).get("nodeName")
+            if node:
+                meta = ev.object.get("metadata", {})
+                self.bound.setdefault((meta.get("name"), meta.get("uid")), {}).setdefault(
+                    node, time.monotonic())
+
+    def close(self):
+        self._stop.set()
+        self.stream.close()
+        self._thread.join(timeout=5)
+
+    def bound_twice(self):
+        """Pod incarnations seen bound to two nodes."""
+        return sorted(k for k, v in list(self.bound.items()) if len(v) > 1)
+
+    def bound_at(self, name, node, not_uid=None):
+        """When an incarnation of `name` other than `not_uid` was first
+        seen bound at `node` (None if not yet)."""
+        seen = [at[node] for (n, uid), at in list(self.bound.items())
+                if n == name and uid != not_uid and node in at]
+        return min(seen) if seen else None
+
+    def bound_names(self):
+        return {n for n, _ in list(self.bound)}
+
+
+class _K2Events:
+    """CUDA events around every K2 launch (`rebalance._launch`) while in
+    the block."""
+
+    def __init__(self, torch):
+        self.torch, self.events, self._launch = torch, [], None
+
+    def __enter__(self):
+        from kubernetes_tpu_torch.ops import rebalance
+
+        self._launch = launch = rebalance._launch
+        cuda = self.torch.cuda
+
+        def timed(*args, **kwargs):
+            ev = (cuda.Event(enable_timing=True), cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = launch(*args, **kwargs)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        rebalance._launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        from kubernetes_tpu_torch.ops import rebalance
+
+        if self._launch is not None:
+            rebalance._launch, self._launch = self._launch, None
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _k2_plan_vs_plain(phase, args, outs, cols, names, pods, forced, budget, plan):
+    """K2's outputs and `plan` against the plain version's on the same
+    staged inputs, exactly. Rows after the one that spends the budget
+    cannot commit, so the plain version runs up to that row only (all
+    rows when the budget is not spent) and the rest are its no-moves."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.ops.rebalance import plan_moves
+    from kubernetes_tpu_torch.utils.rebalance import group_plan, stage_rows
+
+    dest, moved, gain, n_moves, before, after = outs
+    d = len(dest)
+    rows_run = int(np.nonzero(moved)[0][budget - 1]) + 1 if int(n_moves) >= budget > 0 else d
+    trunc = [a[:rows_run] if 8 <= i <= 12 else a for i, a in enumerate(args[:17])]
+    # One intra-op thread: the plain loop's small ops run several times
+    # slower spread over the host's cores.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        ref = [t.numpy() for t in plan_moves(*trunc, budget, device="cpu")]
+        plain_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    rdest, rmoved, rgain = np.full(d, -1, np.int32), np.zeros(d, bool), np.zeros(d, np.int32)
+    rdest[:rows_run], rmoved[:rows_run], rgain[:rows_run] = ref[0], ref[1], ref[2]
+    for tag, got, want in (("dest", dest, rdest), ("moved", moved, rmoved), ("gain", gain, rgain),
+                           ("n_moves", n_moves, ref[3]), ("score_before", before, ref[4]),
+                           ("score_after", after, ref[5])):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            fail(phase, f"K2's {tag} differs from the plain version's")
+    rows, *_, pod_force = stage_rows(cols, names, pods, forced)
+    if group_plan(rows, names, pod_force, rdest, rmoved, rgain, budget, ref[4], ref[5]) != plan:
+        fail(phase, "the plan differs from the plain version's")
+    return {"rows": d, "rows_run_plain": rows_run, "plain_s": plain_s, "moves": int(n_moves)}
+
+
+class _PlanSpy:
+    """Wraps `build_plan` as the descheduler calls it and `plan_moves` as
+    the planner calls it: each plan is held to the plain version's on
+    its own inputs (`_k2_plan_vs_plain`)."""
+
+    def __init__(self, phase):
+        self.phase, self.checks, self._k2 = phase, [], []
+
+    def __enter__(self):
+        from kubernetes_tpu_torch.controllers import descheduler as desched_mod
+        from kubernetes_tpu_torch.utils import rebalance as rebal_utils
+
+        self._saved = (desched_mod.build_plan, rebal_utils.plan_moves)
+        build, launch = self._saved
+
+        def plan_moves(*args, device=None):
+            out = launch(*args, device=device)
+            self._k2.append((args, [t.cpu().numpy() for t in out]))
+            return out
+
+        def build_plan(cols, names, pods, probes, move_budget=32, forced_nodes=(), device=None):
+            del self._k2[:]
+            plan = build(cols, names, pods, probes, move_budget=move_budget,
+                         forced_nodes=forced_nodes, device=device)
+            if plan is not None:
+                args, outs = self._k2[-1]
+                self.checks.append(_k2_plan_vs_plain(self.phase, args, outs, cols, names, pods,
+                                                     forced_nodes, int(move_budget), plan))
+            return plan
+
+        desched_mod.build_plan, rebal_utils.plan_moves = build_plan, plan_moves
+        return self
+
+    def __exit__(self, *exc):
+        from kubernetes_tpu_torch.controllers import descheduler as desched_mod
+        from kubernetes_tpu_torch.utils import rebalance as rebal_utils
+
+        desched_mod.build_plan, rebal_utils.plan_moves = self._saved
+
+
+class _MoveSpy:
+    """Every move the descheduler makes: (name, from, to, old uid, start,
+    evicted)."""
+
+    def __init__(self, desched):
+        self.moves = []
+        move = desched._move
+
+        def spy(pod, m, defer_bind=False):
+            t = time.monotonic()
+            ok = move(pod, m, defer_bind=defer_bind)
+            self.moves.append((m["name"], m["from"], m["to"], pod["metadata"].get("uid"), t, ok))
+            return ok
+
+        desched._move = spy
+
+
+def _started_daemon(phase, torch, device, cfg, n_bound):
+    """The incremental daemon as the drills start it (max_batch 1,024,
+    prewarm to 1,024), once the caches hold `n_bound` bound pods."""
+    from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler
+
+    if not cfg.wait_for_sync(120):
+        fail(phase, "the daemon's caches did not sync")
+    _wait(phase, "the preloaded pods in the cache",
+          lambda: len(cfg.scheduled_pods.store) == n_bound, timeout=120)
+    daemon = IncrementalBatchScheduler(cfg, max_batch=1024, prewarm_buckets=1024, device=device)
+    daemon.prewarm()
+    torch.cuda.synchronize()
+    return daemon
+
+
+def _counts():
+    from kubernetes_tpu_torch.controllers import descheduler as desched_mod
+    from kubernetes_tpu_torch.utils import rebalance as rebal_utils
+
+    return {"stranded": rebal_utils.MOVES.value(outcome="stranded"),
+            "sync_errors": desched_mod._SYNCS.value(result="error")}
+
+
+def _pending_placed(client, pending, request_milli):
+    """Whether every pending pod that fits is bound: none is left, or no
+    live node has `request_milli` cpu free (a LIST, the capacity
+    columns)."""
+    from kubernetes_tpu_torch.utils.capacity import cluster_columns
+
+    bound, pods, nodes = _listed(client)
+    if all(bound.get(n) for n in pending):
+        return True
+    cols, _ = cluster_columns(nodes, pods)
+    live = cols["sched"] & ~cols["over"]
+    return float((cols["cpu_cap"] - cols["cpu_fit"])[live].max(initial=0.0)) < request_milli
+
+
+def run_desched_defrag(torch, device, smi):
+    """The descheduler on the card against the repo's apiserver: 5,000
+    nodes each keeping a 2,000m shard, DEFRAG_PENDING pods of 3,000m that
+    fit none, the incremental daemon started, then DEFRAG_CYCLES cycles
+    of `Descheduler.sync_once()` (grace 0, disruption cap 16, the JAX
+    defaults otherwise) under the configured slice shape."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.controllers.descheduler import Descheduler
+    from kubernetes_tpu_torch.ops import rebalance, scan_kernel
+    from kubernetes_tpu_torch.scheduler.daemon import SchedulerConfig
+    from kubernetes_tpu_torch.utils import capacity, tracing
+    from kubernetes_tpu_torch.utils import rebalance as rebal_utils
+
+    phase = "desched_defrag"
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        t0 = time.perf_counter()
+        _bulk(phase, lambda xs: client.create_bulk("nodes", xs),
+              [_daemon_node_wire(j) for j in range(DAEMON_NODES)])
+        preload = []
+        for j in range(DAEMON_NODES):
+            # Every node keeps 2,000m free: three 2,000m pods on 8 cpus,
+            # one large pod and two of 1,000m on 16 and 32.
+            sizes = (("2000m",) * 3, ("12000m", "1000m", "1000m"),
+                     ("28000m", "1000m", "1000m"))[j % 3]
+            preload += [(f"b{j}-{k}", c, f"n{j}") for k, c in enumerate(sizes)]
+        _bind_sized(phase, client, preload)
+        setup_s = time.perf_counter() - t0
+        capacity.DEFAULT.reset()
+        capacity.DEFAULT.configure([DEFRAG_SLICE])
+        rebal_utils.DEFAULT.reset()
+        cfg = SchedulerConfig(Client(HTTPTransport(cp.url))).start()
+        daemon = watch = None
+        try:
+            daemon = _started_daemon(phase, torch, device, cfg, len(preload))
+            _, version = client.list_wire("nodes")
+            watch = _PodWatch(cp.url, version)
+            counts0 = _counts()
+            scan_kernel.scan_with_state.launches = 0
+            rebalance.plan_moves.launches = 0
+            daemon.start()
+            pending = [f"w{i}" for i in range(DEFRAG_PENDING)]
+            _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
+                  [_sized_pod_wire(n, "3000m") for n in pending])
+            # The daemon's samples note the pending pods' shape.
+            _wait(phase, "the backlog's shape in the probe set",
+                  lambda: len(capacity.DEFAULT.probe_set()) > 1, timeout=60)
+            names0 = set(_listed(client)[0])
+            desched = Descheduler(Client(HTTPTransport(cp.url)), grace_period_seconds=0,
+                                  disruption_cap=DEFRAG_CAP, device=device)
+            moves = _MoveSpy(desched)
+            cycles, k2_ms = [], []
+            with _PlanSpy(phase) as spy:
+                for c in range(DEFRAG_CYCLES):
+                    timer, done = tracing.PhaseTimer(), len(moves.moves)
+                    t1 = time.perf_counter()
+                    with tracing.timing(timer), _K2Events(torch) as k2:
+                        out = desched.sync_once()
+                    wall = time.perf_counter() - t1
+                    k2_ms.append(k2.ms())
+                    mine = moves.moves[done:]
+                    if out["moves_executed"] > DEFRAG_CAP or out["moves_executed"] != sum(
+                            m[5] for m in mine):
+                        fail(phase, f"cycle {c} executed {out['moves_executed']} moves "
+                                    f"({len(mine)} tried) under a cap of {DEFRAG_CAP}")
+                    # Every replacement binds at its destination.
+                    _wait(phase, f"cycle {c}'s replacements bound at their destinations",
+                          lambda: all(watch.bound_at(n, to, uid) for n, _, to, uid, _, ok in mine
+                                      if ok), timeout=REBIND_S)
+                    # The next plan sees the shards this one opened taken: a
+                    # plan that counted on one a pending pod then takes
+                    # would pin a replacement where it no longer fits.
+                    t1 = time.perf_counter()
+                    _wait(phase, "the pending pods placed where they fit",
+                          lambda: _pending_placed(client, pending, 3000.0), timeout=REBIND_S)
+                    settle_s = time.perf_counter() - t1
+                    cycles.append({"summary": out, "wall_s": wall, "phases_s": dict(timer.seconds),
+                                   "k2_ms": k2_ms[-1], "plain_check": spy.checks[-1],
+                                   "moves_tried": len(mine), "settle_s": settle_s})
+            _wait(phase, "the pending pods bound",
+                  lambda: watch.bound_names() >= set(pending), timeout=REBIND_S)
+            bound, _, _ = _listed(client)
+            templates, _ = client.list_wire("podtemplates")
+            time.sleep(0.5)
+            k1_launches = scan_kernel.scan_with_state.launches
+            k2_launches = rebalance.plan_moves.launches
+            counts1 = _counts()
+            rebound = [watch.bound_at(n, to, uid) - t for n, _, to, uid, t, ok in moves.moves if ok]
+            twice = watch.bound_twice()
+            errors = daemon.device_errors
+        finally:
+            if watch is not None:
+                watch.close()
+            if daemon is not None:
+                daemon.stop()
+            cfg.stop()
+        command = cp.cmd
+    problems = []
+    if set(bound) != names0:
+        problems.append(f"pod names changed: {sorted(set(bound) ^ names0)[:4]}")
+    if twice:
+        problems.append(f"pods bound twice: {twice[:4]}")
+    if templates:
+        problems.append(f"{len(templates)} journal entries left")
+    if counts1 != counts0:
+        problems.append(f"stranded or sync errors: {counts0} -> {counts1}")
+    if errors:
+        problems.append(f"{errors} device errors")
+    # A cycle with no pending pod left is not triggered and measures nothing.
+    triggered = [c["summary"] for c in cycles if c["summary"]["triggered"]]
+    before = triggered[0]["score_before"] if triggered else None
+    after = triggered[-1]["score_after"] if triggered else None
+    if not triggered or not after < before:
+        problems.append(f"the measured score did not drop: {before} -> {after}")
+    if not k2_launches or not k1_launches:
+        problems.append(f"K2 launched {k2_launches} times, K1 {k1_launches}")
+    if problems:
+        fail(phase, "; ".join(problems))
+    executed = sum(c["summary"]["moves_executed"] for c in cycles)
+    execute_s = sum(c["phases_s"].get("execute", 0.0) for c in cycles)
+    rebound.sort()
+    return {
+        "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES,
+        "bound_pods": len(preload), "pending_pods": DEFRAG_PENDING, "slice": DEFRAG_SLICE,
+        "setup_s": setup_s, "disruption_cap": DEFRAG_CAP, "cycles": cycles,
+        "moves_executed": executed, "ms_per_move": 1000.0 * execute_s / max(executed, 1),
+        "evict_to_rebind_p50_s": _pct(rebound, 0.50), "evict_to_rebind_p99_s": _pct(rebound, 0.99),
+        "evict_to_rebind_max_s": rebound[-1] if rebound else None,
+        "score_before": before, "score_after": after, "cycles_triggered": len(triggered),
+        "k2_launches": k2_launches, "k1_launches": k1_launches,
+        "checks": {"plans_equal_plain": len(cycles), "cap_held": True,
+                   "replacements_bound_at_destination": executed, "names_unchanged": len(names0),
+                   "bound_twice": 0, "journals_left": 0, "stranded": 0, "sync_errors": 0,
+                   "pending_bound": DEFRAG_PENDING},
+        "timed": "cycle wall and phases by the host clock around sync_once (PhaseTimer); K2 ms "
+                 "by CUDA events around each launch (the plan's, then the measured score's); "
+                 "evict to rebind from the move's start to the replacement bound at its "
+                 "destination on this process's watch",
+    }
+
+
+class _HollowPool:
+    """A node pool of Node objects over HTTP (as tools/soak.py's hollow
+    pool): `grow` creates 8-cpu nodes g0000, g0001, ..., `shrink` deletes
+    one. Its members are the nodes it started with and those it grew."""
+
+    name = "hollow"
+
+    def __init__(self, client, members):
+        self.client, self.members, self.grown = client, list(members), 0
+
+    def size(self):
+        return len(self.members)
+
+    def node_names(self):
+        return list(self.members)
+
+    def grow(self, k):
+        wires = []
+        for _ in range(k):
+            wire = _daemon_node_wire(0)
+            wire["metadata"]["name"] = f"g{self.grown:04d}"
+            wires.append(wire)
+            self.grown += 1
+        _bulk("autoscale_cycle", lambda xs: self.client.create_bulk("nodes", xs), wires)
+        added = [w["metadata"]["name"] for w in wires]
+        self.members += added
+        return added
+
+    def shrink(self, name):
+        self.client.delete("nodes", name)
+        self.members.remove(name)
+
+
+def _polls(phase, scaler, want, limit=AUTOSCALE_POLLS):
+    """Poll until the action `want`; each poll's wall and summary."""
+    out = []
+    for _ in range(limit):
+        t0 = time.perf_counter()
+        summary = scaler.sync_once()
+        out.append({"wall_s": time.perf_counter() - t0, "action": summary["action"],
+                    "size": summary["size"], "pending": summary["pending"],
+                    "mean_cpu_util": summary["mean_cpu_util"],
+                    "start": time.monotonic() - (time.perf_counter() - t0),
+                    "end": time.monotonic()})
+        if summary["action"] == want:
+            return out
+        time.sleep(0.2)
+    fail(phase, f"no {want!r} in {limit} polls: {[p['action'] for p in out]}")
+
+
+def run_autoscale_cycle(torch, device, smi):
+    """The autoscaler on the card against the repo's apiserver: 5,000
+    nodes filled to 500m free, a burst of AUTOSCALE_BURST pods of 2,000m,
+    polls until the pool grows by AUTOSCALE_STEP and the burst binds on
+    the new nodes; then the fillers and the burst deleted, one small pod
+    left a node, polls through cordon, drain (K2 with the node forced)
+    and shrink."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.controllers.autoscaler import Autoscaler
+    from kubernetes_tpu_torch.ops import rebalance, scan_kernel
+    from kubernetes_tpu_torch.scheduler.daemon import SchedulerConfig
+    from kubernetes_tpu_torch.utils import capacity
+    from kubernetes_tpu_torch.utils import rebalance as rebal_utils
+
+    phase = "autoscale_cycle"
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        t0 = time.perf_counter()
+        nodes = [f"n{j}" for j in range(DAEMON_NODES)]
+        _bulk(phase, lambda xs: client.create_bulk("nodes", xs),
+              [_daemon_node_wire(j) for j in range(DAEMON_NODES)])
+        cpus = [(8, 16, 32)[j % 3] for j in range(DAEMON_NODES)]
+        fillers = [(f"fill{j}", f"{cpus[j] * 1000 - 600}m", nodes[j]) for j in range(DAEMON_NODES)]
+        smalls = [(f"small{j}", "100m", nodes[j]) for j in range(DAEMON_NODES)]
+        _bind_sized(phase, client, fillers + smalls)
+        setup_s = time.perf_counter() - t0
+        capacity.DEFAULT.reset()
+        rebal_utils.DEFAULT.reset()
+        cfg = SchedulerConfig(Client(HTTPTransport(cp.url))).start()
+        daemon = watch = None
+        try:
+            daemon = _started_daemon(phase, torch, device, cfg, len(fillers) + len(smalls))
+            _, version = client.list_wire("nodes")
+            watch = _PodWatch(cp.url, version)
+            counts0 = _counts()
+            scan_kernel.scan_with_state.launches = 0
+            rebalance.plan_moves.launches = 0
+            daemon.start()
+            pool = _HollowPool(Client(HTTPTransport(cp.url)), nodes)
+            scaler = Autoscaler(Client(HTTPTransport(cp.url)), pool, min_size=DAEMON_NODES,
+                                max_size=DAEMON_NODES + AUTOSCALE_STEP, grow_after=2,
+                                grow_step=AUTOSCALE_STEP, shrink_after=2, device=device)
+            burst = [f"burst{i}" for i in range(AUTOSCALE_BURST)]
+            _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
+                  [_sized_pod_wire(n, "2000m") for n in burst])
+            grow = _polls(phase, scaler, "grow")
+            _wait(phase, "the burst bound", lambda: watch.bound_names() >= set(burst),
+                  timeout=REBIND_S)
+            at = _listed(client)[0]
+            grow_to_bound_s = max(watch.bound_at(n, at[n]) for n in burst) - grow[-1]["end"]
+            off_pool = [n for n in burst if not at[n].startswith("g")]
+            if off_pool or pool.size() != DAEMON_NODES + AUTOSCALE_STEP:
+                fail(phase, f"the burst bound off the new nodes ({off_pool[:4]}) or the pool "
+                            f"is {pool.size()}")
+            # Shrink: the fillers and the burst go, one small pod a node stays.
+            gone = [n for n, _, _ in fillers] + burst
+            for s in range(0, len(gone), PRELOAD_BATCH):
+                client.t._do("POST", "/api/v1/namespaces/default/pods:bulkdelete",
+                             body={"names": gone[s:s + PRELOAD_BATCH]})
+            grown = pool.members[DAEMON_NODES:]
+            _bind_sized(phase, client, [(f"gsmall{i}", "100m", g) for i, g in enumerate(grown)])
+            names0 = set(_listed(client)[0])
+            _wait(phase, "the caches to settle", lambda: len(cfg.scheduled_pods.store) == len(
+                names0) and not len(cfg.pod_queue), timeout=60)
+            shrink = _polls(phase, scaler, "shrink")
+            drain = [p for p in shrink if p["action"] == "drain"]
+            retired = [n for n in grown if n not in pool.members]
+            moved = [m for m in rebal_utils.DEFAULT.snapshot()["moves"] if m["forced"]]
+            if len(retired) != 1 or len(moved) != 1 or not drain:
+                fail(phase, f"retired {retired}, forced moves {moved}, actions "
+                            f"{[p['action'] for p in shrink]}")
+            victim, m = retired[0], moved[0]
+            _wait(phase, "the drained pod bound elsewhere",
+                  lambda: watch.bound_at(m["name"], m["to"]) is not None, timeout=REBIND_S)
+            bound, _, listed_nodes = _listed(client)
+            k1_launches = scan_kernel.scan_with_state.launches
+            k2_launches = rebalance.plan_moves.launches
+            counts1 = _counts()
+            twice = watch.bound_twice()
+            errors = daemon.device_errors
+        finally:
+            if watch is not None:
+                watch.close()
+            if daemon is not None:
+                daemon.stop()
+            cfg.stop()
+        command = cp.cmd
+    problems = []
+    if set(bound) != names0:
+        problems.append(f"pods lost or added: {sorted(set(bound) ^ names0)[:4]}")
+    if victim in {n.metadata.name for n in listed_nodes} or m["from"] != victim:
+        problems.append(f"node {victim} still listed, or the drain moved from {m['from']}")
+    if pool.size() != DAEMON_NODES + AUTOSCALE_STEP - 1:
+        problems.append(f"the pool is {pool.size()}")
+    if twice:
+        problems.append(f"pods bound twice: {twice[:4]}")
+    if counts1 != counts0 or errors:
+        problems.append(f"stranded, sync or device errors: {counts0} -> {counts1}, {errors}")
+    if not k2_launches or not k1_launches:
+        problems.append(f"K2 launched {k2_launches} times, K1 {k1_launches}")
+    if problems:
+        fail(phase, "; ".join(problems))
+    drain_to_retire_s = shrink[-1]["end"] - drain[0]["start"]
+    for p in grow + shrink:
+        p.pop("start")
+        p.pop("end")
+    return {
+        "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES, "setup_s": setup_s,
+        "burst": AUTOSCALE_BURST, "grow_step": AUTOSCALE_STEP, "grow_polls": grow,
+        "shrink_polls": shrink, "grow_to_bound_s": grow_to_bound_s,
+        "drain_to_retire_s": drain_to_retire_s,
+        "retired": victim, "drained_pod": {"name": m["name"], "to": m["to"]},
+        "pool_size": pool.size(), "k2_launches": k2_launches, "k1_launches": k1_launches,
+        "checks": {"burst_on_new_nodes": AUTOSCALE_BURST, "drained_pod_bound_elsewhere": True,
+                   "node_gone": True, "pool_one_smaller": True, "pods_kept": len(names0),
+                   "bound_twice": 0, "stranded": 0, "sync_errors": 0},
+        "timed": "poll walls by the host clock around sync_once; grow to bound from the end of "
+                 "the grow poll to the last burst pod bound on this process's watch; drain to "
+                 "retire from the start of the drain poll to the end of the shrink poll",
+    }
+
+
 def run_daemon(torch, device, smi):
-    """The eight legs, each on a fresh apiserver child."""
+    """The ten legs, each on a fresh apiserver child."""
     out = {"daemon_parity": run_daemon_parity(torch, device)}
     emit("daemon_parity", ok=True, card=smi, **out["daemon_parity"])
     out["daemon_parity_wide"] = run_daemon_parity(torch, device, wide=True)
@@ -4112,6 +4729,10 @@ def run_daemon(torch, device, smi):
     emit("daemon_policy_drill", ok=True, **out["daemon_policy_drill"])
     out["daemon_sidecar_parity"] = run_daemon_sidecar_parity(torch, device)
     emit("daemon_sidecar_parity", ok=True, **out["daemon_sidecar_parity"])
+    out["desched_defrag"] = run_desched_defrag(torch, device, smi)
+    emit("desched_defrag", ok=True, **out["desched_defrag"])
+    out["autoscale_cycle"] = run_autoscale_cycle(torch, device, smi)
+    emit("autoscale_cycle", ok=True, **out["autoscale_cycle"])
     return out
 
 

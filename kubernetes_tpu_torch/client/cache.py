@@ -142,6 +142,14 @@ class FIFO:
             self._cond.notify_all()
             self._signal_locked()
 
+    def peek(self):
+        """The object the next pop returns, left queued; None when empty."""
+        with self._lock:
+            for key in self._queue:
+                if key in self._items:
+                    return self._items[key]
+        return None
+
     def __len__(self) -> int:
         with self._lock:
             return len([k for k in self._queue if k in self._items])

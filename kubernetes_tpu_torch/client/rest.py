@@ -14,7 +14,9 @@ daemon runs (reference: pkg/client/client.go + request.go):
   connection failures and 502/503/504, and the watch as a stream of
   newline-delimited JSON frames read by a thread of its own.
 - `Client` types objects through `models/serde.py` and records events
-  through `client/record.py`.
+  through `client/record.py`. `list_wire` and `get_wire` return the
+  apiserver's dicts as they come, for a caller that must carry fields
+  the port's typed objects do not model (the descheduler's moves).
 
 A watch yields `Event`s (`.type`, `.object` as a wire dict, `.version`),
 the shape of `kubernetes_tpu/store/watch.py`'s.
@@ -35,7 +37,7 @@ from urllib.parse import urlencode, urlparse
 
 from kubernetes_tpu_torch.models import serde
 from kubernetes_tpu_torch.models.objects import Event as EventObject
-from kubernetes_tpu_torch.models.objects import Node, Pod, PodGroup, Service
+from kubernetes_tpu_torch.models.objects import Node, Pod, PodGroup, PodTemplate, Service
 
 # Watch event types (reference: pkg/watch Event{Added,Modified,Deleted,Error}).
 ADDED = "ADDED"
@@ -71,9 +73,10 @@ class Resource:
     namespaced: bool = True
 
 
-#: The resources the daemon reads and writes.
+#: The resources the daemon and the controllers read and write.
 RESOURCES: Dict[str, Resource] = {
     "pods": Resource("pods", Pod),
+    "podtemplates": Resource("podtemplates", PodTemplate),
     "nodes": Resource("nodes", Node, namespaced=False),
     "services": Resource("services", Service),
     "podgroups": Resource("podgroups", PodGroup),
@@ -367,6 +370,12 @@ class HTTPTransport(Transport):
             resource, namespace, name = args
             return self._do("PUT", self._collection_path(resource, namespace) + f"/{name}",
                             body=body)
+        if op == "delete":
+            resource, namespace, name = args[:3]
+            grace = args[3] if len(args) > 3 else None
+            return self._do("DELETE", self._collection_path(resource, namespace) + f"/{name}",
+                            query={"gracePeriodSeconds": str(int(grace))} if grace is not None
+                            else None)
         if op == "evict_pod":
             namespace, name = args
             return self._do("POST", self._collection_path("pods", namespace or "default")
@@ -444,20 +453,42 @@ class Client:
                                                     self._wire(obj)))
 
     def get(self, resource: str, name: str, namespace: str = ""):
-        return self._typed(resource, self.t.request("GET", "get", (resource, namespace, name)))
+        return self._typed(resource, self.get_wire(resource, name, namespace))
+
+    def get_wire(self, resource: str, name: str, namespace: str = "") -> dict:
+        """The object as the apiserver returns it."""
+        return self.t.request("GET", "get", (resource, namespace, name))
 
     def list(self, resource: str, namespace: str = "", label_selector: str = "",
              field_selector: str = "") -> Tuple[List[Any], int]:
         """(typed items, the list's resourceVersion)."""
+        items, version = self.list_wire(resource, namespace, label_selector, field_selector)
+        return [self._typed(resource, o) for o in items], version
+
+    def list_wire(self, resource: str, namespace: str = "", label_selector: str = "",
+                  field_selector: str = "") -> Tuple[List[dict], int]:
+        """(the items as the apiserver returns them, the list's
+        resourceVersion). Over a LocalTransport they may be the server's
+        own dicts: copy before changing one."""
         out = self.t.request("GET", "list", (resource, namespace, label_selector, field_selector))
         version = int(out.get("metadata", {}).get("resourceVersion", "0") or "0")
-        return [self._typed(resource, o) for o in out.get("items", [])], version
+        return out.get("items", []), version
 
     def update(self, resource: str, obj, namespace: str = ""):
         wire = self._wire(obj)
         name = wire.get("metadata", {}).get("name", "")
         return self._typed(resource, self.t.request("PUT", "update", (resource, namespace, name),
                                                     wire))
+
+    def delete(self, resource: str, name: str, namespace: str = "",
+               grace_period_seconds: Optional[int] = None) -> None:
+        """Delete; a grace over 0 on a bound pod marks it Terminating
+        instead (its kubelet confirms at the deadline). None or 0
+        deletes at once."""
+        args = (resource, namespace, name)
+        if grace_period_seconds is not None:
+            args = args + (grace_period_seconds,)
+        self.t.request("DELETE", "delete", args)
 
     def evict(self, name: str, namespace: str = "default",
               grace_period_seconds: Optional[int] = None):

@@ -5,8 +5,9 @@ A copy of the subset of `kubernetes_tpu/models/objects.py` that
 preemption, the defrag planner and the scheduler daemon consume
 (reference: pkg/api/types.go): ObjectMeta, Pod with its spec,
 containers, ports, resources and the exclusive-disk volume sources,
-Node with its spec, status and conditions, Service, PodGroup, and the
-Event the recorder writes. The lowering reads these objects by
+Node with its spec, status and conditions, Service, PodGroup, the
+PodTemplate of the descheduler's move journal, and the Event the
+recorder writes. The lowering reads these objects by
 attribute only, so the JAX package's objects of the same shape lower
 identically. Wire form is camelCase JSON through `models/serde.py`;
 a field's `wire` metadata names a key that the plain conversion would
@@ -15,6 +16,7 @@ spell otherwise.
 
 from __future__ import annotations
 
+import calendar
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -30,6 +32,12 @@ RESOURCE_PODS = "pods"
 # descheduler carries its planned destination here, and the lowering
 # honours it as a HostName pin.
 REBALANCE_DEST_ANNOTATION = "rebalance.kubernetes-tpu.io/destination"
+
+# Label marking a PodTemplate as a journaled rebalance move (value: the
+# move's destination node): written before the eviction, deleted once
+# the replacement pod exists; the descheduler's recovery replays an
+# orphaned one.
+REBALANCE_JOURNAL_LABEL = "rebalance.kubernetes-tpu.io/move"
 
 # The pod label naming the PodGroup (same namespace) a pod belongs to;
 # the gang solver places a group's pods all-or-nothing.
@@ -50,6 +58,7 @@ class ObjectMeta:
     namespace: str = ""
     uid: str = ""
     resource_version: str = ""
+    creation_timestamp: str = ""
     # Set when a pod is marked Terminating; gang membership no longer
     # counts it.
     deletion_timestamp: str = ""
@@ -163,6 +172,24 @@ def pod_is_terminating(pod: Pod) -> bool:
     """Graceful delete in flight: still occupies its node, no longer a
     preemption victim or a movable pod."""
     return bool(pod.metadata.deletion_timestamp)
+
+
+@dataclass
+class PodTemplateSpec:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSpec = field(default_factory=PodSpec)
+
+
+@dataclass
+class PodTemplate:
+    """Reference: pkg/api/types.go PodTemplate. Typed, it carries only
+    the PodSpec fields above; the descheduler reads and writes its
+    journal entries in wire form, so no field of a moved pod is lost."""
+
+    kind: str = "PodTemplate"
+    api_version: str = "v1"
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
 
 
 # ---------------------------------------------------------------------------
@@ -285,3 +312,14 @@ class Event:
 def now_iso() -> str:
     """The current UTC time to the second, as the wire stamps it."""
     return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+
+def parse_iso(ts: str) -> Optional[float]:
+    """Seconds since the epoch of a wire stamp (`now_iso`'s form); None
+    when it is empty or not in that form."""
+    if not ts:
+        return None
+    try:
+        return float(calendar.timegm(time.strptime(ts, "%Y-%m-%dT%H:%M:%SZ")))
+    except ValueError:
+        return None

@@ -42,7 +42,17 @@ plugin/pkg/scheduler/scheduler.go, factory/factory.go):
   backoff, released early when capacity frees. The default policy only.
 
 What the two share lives in the base: the retry requeue, gang groups,
-atomic group binds, preemption and the handling of bind outcomes.
+atomic group binds, preemption, the handling of bind outcomes and the
+capacity plane. Each resolved tick ends with a capacity sample
+(`_sample_capacity`, phase `capacity`): the backlog's shapes noted, the
+session's host columns (or, with no session, `cluster_columns` of the
+caches) reported by `utils.capacity.DEFAULT` on the daemon's card (on
+the CPU for the scalar and sidecar routes, which keep no card), with the
+queue's depth and the age of the pod at its head. An idle tick samples
+when no sample was taken for `CAPACITY_IDLE_REFRESH_S`, and `start()`
+warms the report on a thread. The sample feeds
+`capacity_zero_headroom_ticks_total`, which an autoscaler in the same
+process reads (`controllers/autoscaler.py`).
 
 Started (`start()`), a daemon runs its loop on a thread; a daemon that
 was never started ticks synchronously, one `schedule_batch()` a call,
@@ -80,9 +90,13 @@ Departures from the JAX daemons:
   propagate as in (a). On the commit worker the error is kept and
   raised by the next `schedule_batch`.
 - (c) No chaos seams (`faults.fire`) and no lock sanitizer wrappers.
-- (d) Decision records and explain capture, capacity sampling and the
-  flight recorder's preemption records are not ported; they change no
-  decision.
+- (d) Decision records and explain capture and the flight recorder's
+  preemption records are not ported; they change no decision. The
+  capacity sample is, with two differences: an error in it is a tick
+  error as in (a) (the JAX daemon swallows every sample error), and the
+  backlog's age is that of the queue's head pod by its creation stamp
+  (the JAX daemon reads the lifecycle collector of an apiserver in its
+  own process).
 - (e) The scheduled-pods cache defaults to the wire form
   (`raw_scheduled_cache=True`), which the incremental daemon wants: its
   session tracks its own bound pods, so fully decoding every bind and
@@ -93,6 +107,14 @@ Departures from the JAX daemons:
 - (f) Without a batch flag the JAX command boots its per-pod scalar
   `Scheduler`; the port has none yet, and its command boots the
   incremental daemon (`cmd/scheduler.py`).
+- (g) A pod the incremental daemon drains while its session still holds
+  the pod's key (a pod recreated under the name of one whose delete has
+  not reached the session yet, as a descheduler's replacement is, or a
+  stale copy of a pod bound since) goes to the retry backoff, which
+  refetches it and queues it again if it is still pending. The JAX
+  daemon drops it from the tick, and it comes back only with its next
+  watch event: for a replacement, the nomination sweep 30 s on, which
+  also unpins it.
 """
 
 from __future__ import annotations
@@ -110,11 +132,13 @@ from kubernetes_tpu_torch.client.cache import FIFO, Informer, Reflector, ThreadS
 from kubernetes_tpu_torch.client.rest import APIError
 from kubernetes_tpu_torch.models import serde
 from kubernetes_tpu_torch.models.algspec import UnloweredPolicyError, lower_spec
+from kubernetes_tpu_torch.models.columnar import mem_to_mib_ceil, pod_resource_limits
 from kubernetes_tpu_torch.models.objects import (
     Node,
     Pod,
     PodGroup,
     Service,
+    parse_iso,
     pod_can_preempt,
     pod_full_key,
     pod_priority,
@@ -143,7 +167,7 @@ from kubernetes_tpu_torch.scheduler.plugins import (
     spec_for_policy,
     spec_for_provider,
 )
-from kubernetes_tpu_torch.utils import metrics, profiler, sli, tracing
+from kubernetes_tpu_torch.utils import capacity, metrics, profiler, sli, tracing
 from kubernetes_tpu_torch.utils.ratelimit import Backoff
 
 _LOG = logging.getLogger("kubernetes_tpu_torch.scheduler")
@@ -379,6 +403,10 @@ class BatchScheduler:
         # gang_solve's host reducer.
         self._counts_fn = (partial(gang_member_counts_device, device=self.device)
                            if on_card else None)
+        # The capacity report runs with the solve, or on the CPU for the
+        # routes that keep no card.
+        self._capacity_device = self.device if on_card else resolve_device("cpu")
+        self._capacity_sampled_mono = 0.0
 
     def _route(self) -> Callable:
         """The tick's solver, (pending, nodes, assigned, services) ->
@@ -404,6 +432,7 @@ class BatchScheduler:
     # -- lifecycle ----------------------------------------------------
 
     def start(self) -> "BatchScheduler":
+        self._warm_capacity()
         self._thread = threading.Thread(target=self.run, daemon=True)
         self._thread.start()
         return self
@@ -717,6 +746,62 @@ class BatchScheduler:
         _PREEMPT_NOMINATED.set(len(self._nominations))
         return granted
 
+    # -- the capacity plane -------------------------------------------------
+
+    #: Seconds without a sample after which an idle tick takes one.
+    CAPACITY_IDLE_REFRESH_S = 2.0
+
+    def _warm_capacity(self) -> None:
+        """One report at the cluster's node count on a thread of its own,
+        so the first sample does not pay the device's warm-up."""
+        def warm():
+            try:
+                capacity.DEFAULT.warm(len(self.config.nodes.store.list()),
+                                      device=self._capacity_device)
+            except Exception:
+                _LOG.debug("capacity warm failed", exc_info=True)
+
+        threading.Thread(target=warm, daemon=True, name="capacity-warm").start()
+
+    def _backlog_age_s(self) -> float:
+        """Seconds since the creation of the pod at the queue's head (0
+        with an empty queue or no stamp)."""
+        head = self.config.pod_queue.peek()
+        born = parse_iso(head.metadata.creation_timestamp) if head is not None else None
+        return max(time.time() - born, 0.0) if born is not None else 0.0
+
+    def _sample_capacity(self, pending: Optional[List[Pod]] = None) -> None:
+        """One capacity sample in its own `capacity` phase: the pending
+        pods' shapes noted, then the report of the session's host
+        columns, or with no session of the caches' columns. Raises what
+        the report raises."""
+        cfg = self.config
+        if pending:
+            shapes = []
+            for pod in pending:
+                cpu, mem = pod_resource_limits(pod)
+                shapes.append((float(cpu), float(mem_to_mib_ceil(mem))))
+            capacity.DEFAULT.note_backlog_shapes(shapes)
+        session = getattr(self, "_session", None)
+        with tracing.phase("capacity"):
+            if session is not None:
+                cols, names = capacity.session_columns(session)
+            else:
+                cols, names = capacity.cluster_columns(cfg.nodes.store.list(),
+                                                       cfg.pod_lister.list())
+            capacity.DEFAULT.sample(cols, names, backlog_depth=len(cfg.pod_queue),
+                                    oldest_age_s=self._backlog_age_s(),
+                                    device=self._capacity_device)
+        self._capacity_sampled_mono = time.monotonic()
+
+    def _refresh_capacity_idle(self) -> None:
+        """An idle tick's sample, when none was taken for
+        CAPACITY_IDLE_REFRESH_S: the series keep moving on a quiet
+        cluster."""
+        if time.monotonic() - self._capacity_sampled_mono < self.CAPACITY_IDLE_REFRESH_S:
+            return
+        self._sample_capacity()
+
     # -- the tick -----------------------------------------------------------
 
     def _observe_informer_staleness(self) -> None:
@@ -774,6 +859,7 @@ class BatchScheduler:
         sli.observe_device_telemetry()
         pending = self._drain(timeout)
         if not pending:
+            self._refresh_capacity_idle()
             return 0
         with tracing.trace("schedule_batch") as tr:
             tr.note(pods=len(pending), mode=self.mode, drain_s=time.monotonic() - t_drain)
@@ -813,6 +899,7 @@ class BatchScheduler:
             # `assigned` was read.
             self._maybe_preempt(unbound, nodes, cfg.pod_lister.list(), groups=groups)
         self._requeue_many(rejected)
+        self._sample_capacity(pending)
         _E2E_LATENCY.observe(time.monotonic() - start)
         return len(pending) + len(deferred)
 
@@ -870,6 +957,7 @@ class IncrementalBatchScheduler(BatchScheduler):
     # -- lifecycle ----------------------------------------------------
 
     def start(self) -> "IncrementalBatchScheduler":
+        self._warm_capacity()
         if self._commit_thread is None:
             self._commit_thread = threading.Thread(target=self._commit_worker, daemon=True)
             self._commit_thread.start()
@@ -1083,6 +1171,8 @@ class IncrementalBatchScheduler(BatchScheduler):
         ctx["stats"] = stats
         _ALGO_LATENCY.observe(solve_s)
         self._submit_commit(results, ctx, prefer_inline=prefer_inline)
+        # The columns this very tick solved against.
+        self._sample_capacity(ctx.get("pending"))
 
     def _submit_commit(self, results, ctx, prefer_inline=False) -> None:
         if self._pipelined and not (prefer_inline and self._commit_q.unfinished_tasks == 0):
@@ -1175,6 +1265,7 @@ class IncrementalBatchScheduler(BatchScheduler):
         seen = {_key(p) for p in pending}
         floor = min(((p.spec.priority or 0) for p in pending), default=0)
         extra: List[Pod] = []
+        held: List[Pod] = []
         while len(extra) < room:
             pod = q.pop(timeout=0.0)
             if pod is None:
@@ -1186,15 +1277,19 @@ class IncrementalBatchScheduler(BatchScheduler):
                     q.add(pod)
                     break
                 key = _key(pod)
-                if key in seen or key in self._inflight_keys or session.has_assigned(key):
+                if key in seen or key in self._inflight_keys:
+                    continue
+                if session.has_assigned(key):
+                    held.append(pod)
                     continue
                 seen.add(key)
                 session.add_pending(pod)
                 extra.append(pod)
             except Exception:
-                for p in extra + [pod]:
+                for p in extra + held + [pod]:
                     q.add(p)
                 raise
+        self._requeue_many(held)
         return extra
 
     def schedule_batch(self, timeout: Optional[float] = 0.5) -> int:
@@ -1233,6 +1328,7 @@ class IncrementalBatchScheduler(BatchScheduler):
             else:
                 # The next build snapshots the caches anyway.
                 self._event_q.clear()
+            self._refresh_capacity_idle()
             return 0
         with tracing.trace("schedule_batch") as tr:
             tr.note(pods=len(pending), mode=self.mode, incremental=True,
@@ -1286,12 +1382,21 @@ class IncrementalBatchScheduler(BatchScheduler):
             groups = []
         # A drained pod bound elsewhere since (its watch event charged
         # the session), or still in flight from the previous tick, is
-        # not staged: a second charge would orphan the true one.
+        # not staged: a second charge would orphan the true one. One the
+        # session holds under its key is refetched after its backoff: a
+        # pod recreated under its old name (a descheduler's move) waits
+        # there for its old incarnation's delete to reach the session.
+        held = []
         with tracing.phase("lower", pods=len(pending)):
             for pod in pending:
                 key = _key(pod)
-                if key not in self._inflight_keys and not self._session.has_assigned(key):
+                if key in self._inflight_keys:
+                    continue
+                if self._session.has_assigned(key):
+                    held.append(pod)
+                else:
                     self._session.add_pending(pod)
+        self._requeue_many(held, epoch=epoch)
         ctx = {
             "pending": pending,
             "groups": groups,

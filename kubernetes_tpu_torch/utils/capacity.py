@@ -1,9 +1,7 @@
-"""The capacity plane's host half: the probe set and the occupancy
-columns.
+"""The capacity plane's host half: the probe set, the occupancy columns
+and the monitor.
 
-The counterpart of the column builders, the probe assembly and the
-report's metric series of `kubernetes_tpu/utils/capacity.py` (its
-`CapacityMonitor`'s snapshot and trend ring wait for the daemon):
+The counterpart of `kubernetes_tpu/utils/capacity.py`:
 
 - `probe_set`: the configured slice shapes plus the p50, p90 and max of
   the recent backlog shapes (requests ceiled so the columns stay
@@ -15,25 +13,42 @@ report's metric series of `kubernetes_tpu/utils/capacity.py` (its
 - `cluster_columns`: the same columns from object lists, for a caller
   that keeps no session. Terminal-phase and Terminating pods do not
   charge their node;
-- `sample`: the capacity report of a set of columns, observed into
-  the JAX series (`cluster_fragmentation_score`,
-  `slice_alloc_success_rate`, `cluster_headroom_pods{shape}`,
-  `node_utilization_ratio{resource}`) as the monitor's sample feeds
-  them. The backlog series (`scheduler_backlog_pressure`,
-  `capacity_zero_headroom_ticks_total`) need the scheduler's FIFO and
-  wait for the daemon.
+- `CapacityMonitor` (`DEFAULT`): the process's sampler, which the
+  scheduler daemons call every resolved tick (`scheduler/daemon.py
+  _sample_capacity`). A sample runs `ops.capacity.capacity_report` on
+  the device, feeds the series and keeps the snapshot that the JAX
+  package serves as `/debug/capacity`, with a trend ring of the score;
+- `sample`: one report of a set of columns observed into the series,
+  without the monitor (node utilisation on every call).
 
+Series, under the JAX names: `cluster_fragmentation_score`,
+`slice_alloc_success_rate`, `cluster_headroom_pods{shape}`,
+`node_utilization_ratio{resource}` (a monitor observes it at most once
+every `UTIL_REFRESH_S`: 3 x the live nodes of observations),
+`scheduler_backlog_pressure` (queued pods x the oldest one's age, s)
+and `capacity_zero_headroom_ticks_total` (samples taken with a backlog
+while some live probe had no headroom), which the autoscaler reads in
+the same process.
+
+Departures from the JAX monitor: its `sample` catches every error and
+returns None; the port's raises (the daemon counts it as a tick error).
+Nothing pads the node or the probe axis (PyTorch reuses no executable
+across shapes; padding changes no output), and `warm` runs one report
+on the device to warm its context and allocator, where JAX compiles.
 The columns are NumPy arrays, so either package's capacity report and
 planner take them.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from kubernetes_tpu_torch import DeviceLike, native
+from kubernetes_tpu_torch import DeviceLike, native, resolve_device
 from kubernetes_tpu_torch.models.columnar import (
     MIB,
     mem_to_mib_ceil,
@@ -78,6 +93,17 @@ SLICE_ALLOC = metrics.DEFAULT.histogram(
     "gang bound (headroom >= minMember) is satisfiable right now",
     buckets=RATIO_BUCKETS,
 )
+BACKLOG_PRESSURE = metrics.DEFAULT.gauge(
+    "scheduler_backlog_pressure",
+    "Pending-backlog pressure watermark: FIFO depth x oldest unbound "
+    "pod age in seconds (0 on an idle cluster)",
+)
+ZERO_HEADROOM = metrics.DEFAULT.counter(
+    "capacity_zero_headroom_ticks_total",
+    "Capacity samples taken while the backlog was non-empty and some "
+    "live probe shape had zero cluster-wide headroom",
+)
+
 #: Default slice probes (cpu milli, mem MiB, minMember): a single small
 #: pod, a mid gang, and an 8-member accelerator slice shape.
 DEFAULT_SLICE_SHAPES: Tuple[Probe, ...] = (
@@ -85,6 +111,18 @@ DEFAULT_SLICE_SHAPES: Tuple[Probe, ...] = (
     ("slice-4x500m", 500.0, 512.0, 4),
     ("slice-8x2000m", 2000.0, 2048.0, 8),
 )
+
+#: Seconds between observations of every live node's utilisation.
+UTIL_REFRESH_S = 1.0
+
+#: Length of the monitor's ring of fragmentation scores.
+TREND_LEN = 120
+
+#: Stranded nodes listed in the snapshot.
+TOP_K_STRANDED = 8
+
+#: Backlog shapes remembered for the quantile probes.
+SHAPE_WINDOW = 512
 
 COLUMN_KEYS = ("cpu_cap", "mem_cap", "pods_cap", "cpu_fit", "mem_fit", "pods_used", "over", "sched")
 
@@ -185,13 +223,30 @@ def cluster_columns(nodes, assigned) -> Tuple[Dict[str, np.ndarray], List[str]]:
     return cols, names
 
 
+def _report(cols: Dict[str, np.ndarray], probes: Sequence[Probe], device: DeviceLike):
+    """`capacity_report` of `cols` under `probes` on `device`, read back
+    as NumPy (fit_int stays on the device: nothing here reads it)."""
+    report = capacity_report(*(cols[k] for k in COLUMN_KEYS), *probe_arrays(probes),
+                             device=device)
+    return [r.cpu().numpy() for i, r in enumerate(report) if i != 3]
+
+
+def _observe_util(live_idx, util_cpu, util_mem, util_pods) -> None:
+    for resource, ratios in (("cpu", util_cpu), ("mem", util_mem), ("pods", util_pods)):
+        for v in ratios[live_idx].tolist():
+            NODE_UTIL.observe(v, resource=resource)
+
+
+def _live(cols) -> np.ndarray:
+    return np.asarray(cols["sched"], bool) & ~np.asarray(cols["over"], bool)
+
 
 def sample(cols: Dict[str, np.ndarray], probes: Sequence[Probe], device: DeviceLike = None):
     """`ops.capacity.capacity_report` of `cols` under `probes` on
     `device` (default: the CUDA card; raises without one), observed into
-    the series as the JAX monitor's sample feeds them: headroom per
-    probe, the score, the share of allocatable probes, and every live
-    node's utilisation by resource. Returns the report's tuple."""
+    the series as the monitor's sample feeds them: headroom per probe,
+    the score, the share of allocatable probes, and every live node's
+    utilisation by resource. Returns the report's tuple."""
     report = capacity_report(*(cols[k] for k in COLUMN_KEYS), *probe_arrays(probes),
                              device=device)
     util_cpu, util_mem, util_pods, _fit, headroom, _frag, slice_ok, _stranded, score = (
@@ -202,8 +257,188 @@ def sample(cols: Dict[str, np.ndarray], probes: Sequence[Probe], device: DeviceL
         HEADROOM.set(float(headroom[i]), shape=name)
     FRAG_SCORE.observe(float(score))
     SLICE_ALLOC.observe(n_ok / len(probes) if probes else 0.0)
-    live = np.flatnonzero(np.asarray(cols["sched"]) & ~np.asarray(cols["over"]))
-    for resource, ratios in (("cpu", util_cpu), ("mem", util_mem), ("pods", util_pods)):
-        for v in ratios[live]:
-            NODE_UTIL.observe(float(v), resource=resource)
+    _observe_util(np.flatnonzero(_live(cols)), util_cpu, util_mem, util_pods)
     return report
+
+
+def _util_summary(vals) -> dict:
+    if not len(vals):
+        return {"mean": 0.0, "p50": 0.0, "p99": 0.0}
+    return {
+        "mean": round(float(vals.mean()), 6),
+        "p50": round(float(np.percentile(vals, 50)), 6),
+        "p99": round(float(np.percentile(vals, 99)), 6),
+    }
+
+
+class CapacityMonitor:
+    """The process's capacity sampler: the probe set, the report on the
+    device, the series and the snapshot. Thread-safe; `sample` raises
+    what the report raises."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._slice_shapes: Tuple[Probe, ...] = DEFAULT_SLICE_SHAPES
+        self._recent_shapes: deque = deque(maxlen=SHAPE_WINDOW)
+        self._trend: deque = deque(maxlen=TREND_LEN)
+        self.samples = 0
+        self._last_util_mono = 0.0
+        self._last: Optional[dict] = None
+
+    def configure(self, slice_shapes: Sequence[Probe]) -> None:
+        """Replace the configured slice probes: (name, cpu milli, mem
+        MiB, minMember) tuples."""
+        with self._lock:
+            self._slice_shapes = tuple((str(n), float(c), float(m), int(k))
+                                       for n, c, m, k in slice_shapes)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._slice_shapes = DEFAULT_SLICE_SHAPES
+            self._recent_shapes.clear()
+            self._trend.clear()
+            self.samples = 0
+            self._last_util_mono = 0.0
+            self._last = None
+
+    def warm(self, n_nodes: int = 0, device: DeviceLike = None) -> None:
+        """One report of `n_nodes` empty nodes on `device` (default: the
+        card), so a daemon's first sample does not pay the device's
+        context and allocator; the daemons call it on a thread of its
+        own at start."""
+        n = max(int(n_nodes), 1)
+        zeros = {k: np.zeros(n, np.float32) for k in COLUMN_KEYS}
+        zeros["over"] = np.zeros(n, bool)
+        zeros["sched"] = np.zeros(n, bool)
+        _report(zeros, self.probe_set(), resolve_device(device))
+
+    def note_backlog_shapes(self, shapes: Sequence[Tuple[float, float]]) -> None:
+        """Record pending pods' shapes (cpu milli, mem MiB): the
+        backlog quantile probes are drawn from this window."""
+        with self._lock:
+            self._recent_shapes.extend((float(c), float(m)) for c, m in shapes)
+
+    def probe_set(self) -> List[Probe]:
+        """The configured slice shapes and the backlog quantiles."""
+        with self._lock:
+            slices, recent = self._slice_shapes, list(self._recent_shapes)
+        return probe_set(slices, recent)
+
+    def sample(self, cols: Dict[str, np.ndarray], node_names: Sequence[Optional[str]],
+               backlog_depth: int = 0, oldest_age_s: float = 0.0,
+               device: DeviceLike = None) -> dict:
+        """One sample of the occupancy columns (`COLUMN_KEYS`; a free
+        slot has sched False) on `device` (default: the card): the
+        series, the trend ring and the snapshot body, returned."""
+        backlog_depth, oldest_age_s = int(backlog_depth), float(oldest_age_s)
+        probes = self.probe_set()
+        q = len(probes)
+        (util_cpu, util_mem, util_pods, headroom, frag, slice_ok, stranded, frag_score,
+         stranded_cpu, stranded_mem) = _report(cols, probes, resolve_device(device))
+
+        now = time.monotonic()
+        live = _live(cols)
+        live_idx = np.flatnonzero(live)
+        score = float(frag_score)
+        pressure = float(backlog_depth) * max(oldest_age_s, 0.0)
+
+        table = []
+        n_ok = 0
+        zero_headroom = False
+        for i, (name, cpu, mem, minm) in enumerate(probes):
+            h = int(headroom[i])
+            ok = bool(slice_ok[i])
+            n_ok += ok
+            zero_headroom = zero_headroom or h == 0
+            HEADROOM.set(float(h), shape=name)
+            table.append({
+                "shape": name,
+                "cpu_milli": float(cpu),
+                "mem_mib": float(mem),
+                "min_member": int(minm),
+                "headroom_pods": h,
+                "fragmentation": round(float(frag[i]), 6),
+                "allocatable": ok,
+            })
+        alloc_rate = (n_ok / q) if q else 0.0
+
+        # Stranded top-k by leftover cpu.
+        free_cpu = np.maximum(np.asarray(cols["cpu_cap"], np.float32)
+                              - np.asarray(cols["cpu_fit"], np.float32), 0.0) * live
+        free_mem = np.maximum(np.asarray(cols["mem_cap"], np.float32)
+                              - np.asarray(cols["mem_fit"], np.float32), 0.0) * live
+        stranded_idx = np.flatnonzero(stranded)
+        order = stranded_idx[np.argsort(-free_cpu[stranded_idx])]
+
+        def name_of(j):
+            return node_names[j] if j < len(node_names) and node_names[j] is not None else None
+
+        top = []
+        for j in order[:TOP_K_STRANDED]:
+            name = name_of(j)
+            top.append({
+                "node": str(name) if name is not None else f"node[{j}]",
+                "free_cpu_milli": float(free_cpu[j]),
+                "free_mem_mib": float(free_mem[j]),
+            })
+
+        FRAG_SCORE.observe(score)
+        SLICE_ALLOC.observe(alloc_rate)
+        BACKLOG_PRESSURE.set(pressure)
+        if backlog_depth > 0 and zero_headroom:
+            ZERO_HEADROOM.inc()
+        with self._lock:
+            refresh_util = now - self._last_util_mono >= UTIL_REFRESH_S
+            if refresh_util:
+                self._last_util_mono = now
+        if refresh_util:
+            _observe_util(live_idx, util_cpu, util_mem, util_pods)
+
+        node_util = {}
+        for j, c, m, p in zip(live_idx.tolist(), util_cpu[live_idx].tolist(),
+                              util_mem[live_idx].tolist(), util_pods[live_idx].tolist()):
+            name = name_of(j)
+            if name is not None:
+                node_util[str(name)] = [round(c, 4), round(m, 4), round(p, 4)]
+
+        body = {
+            "kind": "CapacityReport",
+            "sampled": True,
+            "fragmentation_score": round(score, 6),
+            "slice_alloc_success_rate": round(alloc_rate, 6),
+            "stranded_cpu_fraction": round(float(stranded_cpu), 6),
+            "stranded_mem_fraction": round(float(stranded_mem), 6),
+            "stranded_nodes": top,
+            "stranded_node_count": int(len(stranded_idx)),
+            "live_nodes": int(len(live_idx)),
+            "probes": table,
+            "utilization": {
+                "cpu": _util_summary(util_cpu[live_idx]),
+                "mem": _util_summary(util_mem[live_idx]),
+                "pods": _util_summary(util_pods[live_idx]),
+            },
+            "node_utilization": node_util,
+            "backlog": {
+                "depth": backlog_depth,
+                "oldest_age_s": round(max(oldest_age_s, 0.0), 3),
+                "pressure": round(pressure, 3),
+            },
+        }
+        with self._lock:
+            self.samples += 1
+            self._trend.append(round(score, 6))
+            body["samples"] = self.samples
+            body["trend"] = list(self._trend)
+            self._last = body
+        return body
+
+    def snapshot(self) -> dict:
+        """The latest sample's body; `sampled: false` before the first."""
+        with self._lock:
+            if self._last is None:
+                return {"kind": "CapacityReport", "sampled": False, "samples": 0,
+                        "probes": [], "stranded_nodes": [], "trend": []}
+            return dict(self._last)
+
+
+DEFAULT = CapacityMonitor()

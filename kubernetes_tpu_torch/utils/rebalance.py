@@ -1,12 +1,20 @@
 """The defrag planner's host half: the movable worklist, the plan and its
-gang-atomic, budget-clipped grouping.
+gang-atomic, budget-clipped grouping, and the rebalance monitor.
 
-The counterpart of `movable_pods`, `build_plan` and `fragment_score` of
-`kubernetes_tpu/utils/rebalance.py`, with the one series the port
-produces: `rebalance_moves_total{outcome="planned"}`, counted by
-`build_plan` (the other outcomes, the cycle histograms and its
-`RebalanceMonitor` wait for the descheduler daemon that executes
-moves). `build_plan` stages the
+The counterpart of `kubernetes_tpu/utils/rebalance.py`. Series, under
+the JAX names: `rebalance_moves_total{outcome}` (planned, evicted,
+rebound, recovered, failed, stranded), `rebalance_score_improvement`
+and `rebalance_moves_per_improvement` (one observation a defrag cycle),
+`rebalance_stranded_pods_total`. `RebalanceMonitor` (`DEFAULT`) keeps
+the outcome table, the last plan and cycle and a trend ring of the
+improvement, the snapshot the JAX package serves as `/debug/rebalance`;
+the descheduler (`controllers/descheduler.py`) feeds it.
+
+`planned` is counted in the series by `build_plan`, for every plan it
+returns (as since the port's first planner), not when the descheduler
+executes a plan as in JAX; `RebalanceMonitor.record_move("planned")`
+adds to the outcome table only, where the JAX descheduler counts both,
+so the table equals the JAX one. `build_plan` stages the
 movable pods largest first (best-fit-decreasing, the order the plan
 expects), runs `ops/rebalance.py plan_moves` (K2 on the card) against
 the occupancy columns, then drops every gang whose movable members were
@@ -26,6 +34,8 @@ back) and `group` (host grouping and clipping).
 
 from __future__ import annotations
 
+import threading
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +51,7 @@ from kubernetes_tpu_torch.models.objects import (
 from kubernetes_tpu_torch.ops.rebalance import plan_moves
 from kubernetes_tpu_torch.utils.capacity import COLUMN_KEYS, probe_arrays
 from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils.profiler import RATIO_BUCKETS
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
 
 MOVES = metrics.DEFAULT.counter(
@@ -49,6 +60,31 @@ MOVES = metrics.DEFAULT.counter(
     "failed/stranded",
     ("outcome",),
 )
+
+IMPROVEMENT = metrics.DEFAULT.histogram(
+    "rebalance_score_improvement",
+    "Per-defrag-cycle drop in the cluster fragmentation score "
+    "(score_before - score_after, clamped at 0)",
+    buckets=RATIO_BUCKETS,
+)
+MOVES_PER_IMPROVEMENT = metrics.DEFAULT.histogram(
+    "rebalance_moves_per_improvement",
+    "Evictions spent per unit of measured fragmentation-score "
+    "improvement in one defrag cycle (saturates at the ladder cap "
+    "when a cycle moves pods without moving the score)",
+)
+STRANDED = metrics.DEFAULT.counter(
+    "rebalance_stranded_pods_total",
+    "Pods evicted by a defrag move that never re-bound (move journal "
+    "recovery exhausted)",
+)
+
+#: Observed into the efficiency histogram when a cycle executes moves
+#: and the score does not improve.
+EFFICIENCY_SATURATION = 120.0
+
+#: Length of the monitor's ring of per-cycle improvements.
+TREND_LEN = 120
 
 #: The JAX package pads the movable worklist to pow2 buckets >= this.
 POD_BUCKET_MIN = 8
@@ -225,3 +261,84 @@ def fragment_score(cols: Dict[str, np.ndarray], probes: Sequence[Tuple[str, floa
                      device=device)
     return float(out[4])
 
+
+class RebalanceMonitor:
+    """The process's rebalance bookkeeping: the outcome table, the last
+    plan and cycle, the trend ring and the snapshot. Thread-safe."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._trend: deque = deque(maxlen=TREND_LEN)
+        self.samples = 0
+        self._last_plan: Optional[dict] = None
+        self._last_cycle: Optional[dict] = None
+        self._outcomes: Dict[str, int] = {}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._trend.clear()
+            self.samples = 0
+            self._last_plan = None
+            self._last_cycle = None
+            self._outcomes = {}
+
+    def record_move(self, outcome: str, count: int = 1) -> None:
+        """`count` moves reached `outcome`: the series (but for
+        `planned`, which `build_plan` counted) and the outcome table;
+        `stranded` also counts in `rebalance_stranded_pods_total`."""
+        if count <= 0:
+            return
+        if outcome != "planned":
+            MOVES.inc(count, outcome=outcome)
+        if outcome == "stranded":
+            STRANDED.inc(count)
+        with self._lock:
+            self._outcomes[outcome] = self._outcomes.get(outcome, 0) + count
+
+    def record_plan(self, plan: dict) -> None:
+        with self._lock:
+            self._last_plan = plan
+
+    def record_cycle(self, score_before: float, score_after: float, moves_executed: int,
+                     trigger: str = "periodic") -> dict:
+        """One executed cycle: the improvement and efficiency
+        histograms, the trend ring; returns the cycle's summary."""
+        improvement = max(float(score_before) - float(score_after), 0.0)
+        IMPROVEMENT.observe(improvement)
+        if moves_executed > 0:
+            MOVES_PER_IMPROVEMENT.observe(
+                min(moves_executed / improvement, EFFICIENCY_SATURATION) if improvement > 0
+                else EFFICIENCY_SATURATION)
+        cycle = {
+            "trigger": trigger,
+            "score_before": round(float(score_before), 6),
+            "score_after": round(float(score_after), 6),
+            "improvement": round(improvement, 6),
+            "moves_executed": int(moves_executed),
+        }
+        with self._lock:
+            self.samples += 1
+            self._trend.append(round(improvement, 6))
+            self._last_cycle = cycle
+        return cycle
+
+    def snapshot(self) -> dict:
+        """The latest plan, cycle and outcomes; `sampled: false` before
+        the first cycle."""
+        with self._lock:
+            if self.samples == 0:
+                return {"kind": "RebalanceReport", "sampled": False, "samples": 0,
+                        "moves": [], "outcomes": {}, "trend": []}
+            return {
+                "kind": "RebalanceReport",
+                "sampled": True,
+                "samples": self.samples,
+                "last_plan": dict(self._last_plan or {}),
+                "last_cycle": dict(self._last_cycle or {}),
+                "moves": list((self._last_plan or {}).get("moves", [])),
+                "outcomes": dict(self._outcomes),
+                "trend": list(self._trend),
+            }
+
+
+DEFAULT = RebalanceMonitor()

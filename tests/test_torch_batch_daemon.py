@@ -4,9 +4,10 @@ Twin apiservers (the JAX package's `APIServer`) are seeded with the
 same objects, as in `tests/test_torch_daemon.py`: the JAX
 `BatchScheduler` drives one, the port's (`device="cpu"`, a typed
 scheduled-pods cache) the other, neither started, so each tick is one
-synchronous `schedule_batch()`. After every tick the tick sizes, and
-after each batch of operations the bindings pod for pod and the event
-counts, must be equal. Rejected pods are handed back by the test
+synchronous `schedule_batch()`. After every tick the tick sizes and the
+capacity monitor's snapshot (but for Sinkhorn, whose decisions agree
+to 99%), and after each batch of operations the bindings pod for pod
+and the event counts, must be equal. Rejected pods are handed back by the test
 through each daemon's own `_refetch_and_requeue`. Routes: the scan, the
 wave and a lowerable policy (exact); Sinkhorn (99% of the decisions, its
 stated tolerance); a policy with no device lowering (the scalar path,
@@ -37,11 +38,12 @@ from kubernetes_tpu_torch.ops import sidecar
 from kubernetes_tpu_torch.ops.sidecar import SidecarError
 from kubernetes_tpu_torch.scheduler import plugins
 from kubernetes_tpu_torch.scheduler.daemon import BatchScheduler, SchedulerConfig
-from tests.test_torch_daemon import (  # noqa: F401 (the module's torch-thread fixture)
+from tests.test_torch_daemon import (  # noqa: F401 (the module's fixtures)
     N_NODES,
     N_PODS,
     Pair,
     _one_torch_thread,
+    fresh_capacity_monitors,
     node_wire,
     pod_wire,
     service_wire,
@@ -113,9 +115,10 @@ class BatchPair(Pair):
         self.j = JBatch(self.jcfg, **kw)
         self.t = BatchScheduler(self.tcfg, sidecar_path=sidecar_path,
                                 device=None if sidecar_path else "cpu", **kw)
-        for hook in ("_record_decisions", "_sample_capacity", "_refresh_capacity_idle"):
-            setattr(self.j, hook, lambda *a, **k: None)
+        self.j._record_decisions = lambda *a, **k: None
+        self.compare_capacity = mode != "sinkhorn"
         for d, cfg in ((self.j, self.jcfg), (self.t, self.tcfg)):
+            d.CAPACITY_IDLE_REFRESH_S = 0.0
             d.held = []
             d._requeue_many = lambda pods, epoch=None, _d=d: _d.held.extend(pods)
             d.deltas = 0
@@ -261,8 +264,15 @@ def test_priority_burst_preempts_as_jax(batch_pair):
     pair.assert_same()
     pair.each("create_bulk", "pods", [pod_wire(f"hi{i}", rng, priority=100, cpu="1500m")
                                       for i in range(6)], namespace="default")
+    # The preempting tick samples the caches as its own evictions and
+    # nominations come back through the watch: its snapshot follows
+    # timing. Both are compared once the caches hold them, on an idle tick.
+    pair.compare_capacity = False
     pair.tick_all()
     pair.assert_same()
+    pair.settle()
+    assert pair.j.schedule_batch(timeout=0.05) == pair.t.schedule_batch(timeout=0.05) == 0
+    assert pair.assert_capacity_same()["stranded_node_count"] > 0
 
     def evicted(k):
         return sorted(p["metadata"]["name"] for p in pair.apis[k].list("pods", "default")["items"]

@@ -142,3 +142,101 @@ def test_probe_set_equals_the_monitors():
     assert capmod.probe_set(capmod.DEFAULT_SLICE_SHAPES, shapes) == monitor.probe_set()
     cpu, mem, minm, live = capmod.probe_arrays([])
     assert cpu.shape == (1,) and not live.any()
+
+
+# -- CapacityMonitor against the JAX monitor ----------------------------------
+
+
+def _series():
+    """The backlog series and the sample counts of both packages."""
+    return ((capmod.ZERO_HEADROOM.value(), capmod.BACKLOG_PRESSURE.value(),
+             capmod.FRAG_SCORE.count(), capmod.SLICE_ALLOC.count()),
+            (jcapmod.ZERO_HEADROOM.value(), jcapmod.BACKLOG_PRESSURE.value(),
+             jcapmod.FRAG_SCORE.count(), jcapmod.SLICE_ALLOC.count()))
+
+
+def test_monitor_constants_equal_the_jax_packages():
+    assert (capmod.UTIL_REFRESH_S, capmod.TREND_LEN, capmod.TOP_K_STRANDED,
+            capmod.SHAPE_WINDOW) == (jcapmod.UTIL_REFRESH_S, jcapmod.TREND_LEN,
+                                     jcapmod.TOP_K_STRANDED, jcapmod.SHAPE_WINDOW)
+    assert capmod.CapacityMonitor().snapshot() == jcapmod.CapacityMonitor().snapshot()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_monitor_samples_equal_the_jax_monitors(seed):
+    """A sequence of samples over one cluster's columns as its pods are
+    placed, with backlog shapes noted between them: every snapshot and
+    the backlog series equal the JAX monitor's."""
+    nodes, pods = _placed_cluster(seed)
+    rng = np.random.default_rng(seed)
+    port, jax = capmod.CapacityMonitor(), jcapmod.CapacityMonitor()
+    if seed % 2:
+        shapes = [("big", 3000.0, 4096.0, 2), ("tiny", 10.0, 8.0, 1)]
+        port.configure(shapes)
+        jax.configure(shapes)
+    t0, j0 = _series()
+    for step in range(6):
+        placed = pods[: len(pods) * (step + 1) // 6]
+        cols, names = capmod.cluster_columns(nodes, placed)
+        if step % 2:
+            shapes = [(float(rng.integers(50, 4000)), float(rng.integers(16, 4096)))
+                      for _ in range(int(rng.integers(1, 40)))]
+            port.note_backlog_shapes(shapes)
+            jax.note_backlog_shapes(shapes)
+        depth, age = int(rng.integers(0, 3)) * 10, float(rng.random() * 5)
+        body = port.sample(cols, names, backlog_depth=depth, oldest_age_s=age, device="cpu")
+        assert body == jax.sample(cols, names, backlog_depth=depth, oldest_age_s=age)
+        assert port.snapshot() == jax.snapshot() and port.probe_set() == jax.probe_set()
+        t1, j1 = _series()
+        assert [a - b for a, b in zip(t1, t0)] == [a - b for a, b in zip(j1, j0)]
+        t0, j0 = t1, j1
+    assert body["samples"] == 6 and len(body["trend"]) == 6
+
+
+def test_monitor_on_session_columns_with_free_slots():
+    """Session columns (free slots have no name) and a stranded table."""
+    pods, nodes, services = workload.synthetic_objects(200, 24, seed=3)
+    for i, p in enumerate(pods[:150]):
+        p.spec.node_name = f"n{i % 24}"
+    t = SolverSession(nodes, services=services, assigned=pods[:150], device="cpu")
+    j = JSolverSession(nodes, services=services, assigned=pods[:150])
+    cols, names = capmod.session_columns(t)
+    jcols, jnames = jcapmod.session_columns(j)
+    assert None in names
+    # Shapes no node hosts: every live node with free capacity is stranded.
+    shapes = [("huge", 64000.0, 1024.0, 3), ("wide", 100.0, 10.0**6, 1)]
+    port, jax = capmod.CapacityMonitor(), jcapmod.CapacityMonitor()
+    port.configure(shapes)
+    jax.configure(shapes)
+    body = port.sample(cols, names, backlog_depth=5, oldest_age_s=2.5, device="cpu")
+    assert body == jax.sample(jcols, jnames, backlog_depth=5, oldest_age_s=2.5)
+    assert len(body["stranded_nodes"]) == capmod.TOP_K_STRANDED and body["node_utilization"]
+
+
+def test_monitor_reset_warm_and_errors():
+    port = capmod.CapacityMonitor()
+    port.note_backlog_shapes([(100.0, 64.0)])
+    port.configure([("one", 100.0, 64.0, 1)])
+    port.warm(64, device="cpu")  # one report; no sample kept
+    assert port.snapshot()["sampled"] is False
+    port.reset()
+    assert port.probe_set() == jcapmod.CapacityMonitor().probe_set()
+    # The JAX monitor returns None on a broken input; the port raises.
+    assert jcapmod.CapacityMonitor().sample({}, []) is None
+    with pytest.raises(KeyError):
+        port.sample({}, [], device="cpu")
+
+
+def test_monitor_observes_node_utilisation_at_most_once_a_refresh(monkeypatch):
+    nodes, pods = _placed_cluster(1)
+    cols, names = capmod.cluster_columns(nodes, pods)
+    live = int((cols["sched"] & ~cols["over"]).sum())
+    port = capmod.CapacityMonitor()
+    before = capmod.NODE_UTIL.count(resource="cpu")
+    clock = [100.0]
+    monkeypatch.setattr(capmod.time, "monotonic", lambda: clock[0])
+    for dt in (0.0, 0.5, 0.6, 0.1):
+        clock[0] += dt
+        port.sample(cols, names, device="cpu")
+    # Observed at 100.0 and 101.1 only.
+    assert capmod.NODE_UTIL.count(resource="cpu") - before == 2 * live

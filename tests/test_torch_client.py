@@ -12,7 +12,10 @@
   DELETED, as the JAX one does.
 - Over HTTP, against the JAX APIHTTPServer on 127.0.0.1: the port's
   HTTPTransport `list`, `watch` and `bind_bulk` (atomic, with a
-  conflict) return what the JAX `Client(HTTPTransport)` returns.
+  conflict) return what the JAX `Client(HTTPTransport)` returns; so do
+  `delete` (with and without a grace), the wire reads `list_wire` and
+  `get_wire`, and `podtemplates` listed by an existence label selector,
+  over HTTP and a LocalTransport.
 """
 
 import dataclasses
@@ -128,8 +131,17 @@ def podgroup_wire(rng, i):
     }
 
 
+def podtemplate_wire(rng, i):
+    pod = pod_wire(rng, i)
+    return {"kind": "PodTemplate", "apiVersion": "v1",
+            "metadata": {"name": f"t{i}", "namespace": "default",
+                         "labels": {"rebalance.kubernetes-tpu.io/move": f"n{i}"}},
+            "template": {"metadata": pod["metadata"], "spec": pod["spec"]}}
+
+
 KINDS = {
     "Pod": (pod_wire, objects.Pod, jobjects.Pod),
+    "PodTemplate": (podtemplate_wire, objects.PodTemplate, jobjects.PodTemplate),
     "Node": (node_wire, objects.Node, jobjects.Node),
     "Service": (service_wire, objects.Service, jobjects.Service),
     "PodGroup": (podgroup_wire, objects.PodGroup, jobjects.PodGroup),
@@ -427,3 +439,86 @@ def test_http_bind_bulk_matches_jax(two_servers):
     bound = {p.metadata.name: p.spec.node_name
              for p in got_c.list("pods", namespace="default")[0]}
     assert bound["h4"] == "" and bound["h1"] == "n1" and bound["h2"] == "n2"
+
+
+def test_fifo_peek_is_the_next_pop():
+    q = cache.FIFO()
+    assert q.peek() is None
+    for name in ("a", "b", "c"):
+        q.add(_mkpod(name))
+    q.delete(_mkpod("a"))
+    assert q.peek()["metadata"]["name"] == "b" and len(q) == 2
+    assert q.pop(timeout=0)["metadata"]["name"] == "b"
+    assert q.peek()["metadata"]["name"] == "c"
+
+
+def _same_but_stamps(port, ref):
+    """assert_same_fields, the server-assigned uid, resourceVersion and
+    creationTimestamp aside (twin servers assign their own)."""
+    for k in ("uid", "resource_version", "creation_timestamp"):
+        setattr(port.metadata, k, getattr(ref.metadata, k))
+    assert_same_fields(port, ref)
+
+
+def _journal(name, dest):
+    return {"kind": "PodTemplate", "apiVersion": "v1",
+            "metadata": {"name": name, "namespace": "default",
+                         "labels": {"rebalance.kubernetes-tpu.io/move": dest}},
+            "template": {"metadata": {"name": name}, "spec": {"containers": [
+                {"name": "c", "image": "app", "restartPolicyX": "kept"}]}}}
+
+
+@pytest.mark.parametrize("over", ["http", "local"])
+def test_wire_reads_delete_and_podtemplates_match_jax(two_servers, over):
+    """The port's client against the JAX client on twin servers: the
+    wire reads return the stored dicts (fields the port does not model
+    included), the typed reads decode them, a label-existence selector
+    passes unchanged, and deletes (a grace on a bound pod marks it
+    Terminating) leave the servers alike."""
+    if over == "http":
+        got_c, ref_c = Client(HTTPTransport(two_servers[0])), JClient(JHTTPTransport(two_servers[1]))
+    else:
+        apis = [APIServer(), APIServer()]
+        for api in apis:
+            setup = JClient(JLocalTransport(api))
+            setup.create("nodes", {"kind": "Node", "metadata": {"name": "n0"}})
+            for i in range(8):
+                setup.create("pods", _mkpod(f"h{i}", app=f"a{i % 2}"), namespace="default")
+            setup.bind("h0", "n0", namespace="default")
+        got_c, ref_c = Client(LocalTransport(apis[0])), JClient(JLocalTransport(apis[1]))
+    for c in (got_c, ref_c):
+        c.create("podtemplates", _journal("rebalance-move-a", "n1"), namespace="default")
+        c.create("podtemplates", dict(_journal("other", "n2"), metadata={
+            "name": "other", "namespace": "default", "labels": {"app": "x"}}),
+            namespace="default")
+    label = "rebalance.kubernetes-tpu.io/move"
+    got, _ = got_c.list_wire("podtemplates", label_selector=label)
+    ref, _ = ref_c.list("podtemplates", label_selector=label)
+    assert [t["metadata"]["name"] for t in got] == [t.metadata.name for t in ref] == [
+        "rebalance-move-a"]
+    assert got[0]["template"]["spec"]["containers"][0]["restartPolicyX"] == "kept"
+    typed, _ = got_c.list("podtemplates", label_selector=label)
+    _same_but_stamps(typed[0], ref[0])
+    wire = got_c.get_wire("pods", "h1", namespace="default")
+    _same_but_stamps(serde.from_wire(objects.Pod, wire), ref_c.get("pods", "h1", namespace="default"))
+    pods, version = got_c.list_wire("pods", namespace="default")
+    _, ref_version = ref_c.list("pods", namespace="default")
+    assert version == ref_version and len(pods) == 8
+    assert all(isinstance(p, dict) for p in pods)
+
+    for c in (got_c, ref_c):
+        c.delete("podtemplates", "rebalance-move-a", namespace="default")
+        c.delete("pods", "h2", namespace="default")
+        c.delete("pods", "h0", namespace="default", grace_period_seconds=30)
+    assert got_c.list_wire("podtemplates", label_selector=label)[0] == []
+    names = sorted(p["metadata"]["name"] for p in got_c.list_wire("pods", "default")[0])
+    assert names == sorted(p.metadata.name for p in ref_c.list("pods", "default")[0])
+    assert "h2" not in names
+    h0 = got_c.get_wire("pods", "h0", namespace="default")
+    assert h0["metadata"].get("deletionTimestamp")
+    assert ref_c.get("pods", "h0", namespace="default").metadata.deletion_timestamp
+    from kubernetes_tpu_torch.client.rest import APIError
+
+    with pytest.raises(APIError) as e:
+        got_c.delete("pods", "nope", namespace="default")
+    assert e.value.code == 404

@@ -6,18 +6,23 @@ one, the port's (`device="cpu"`) the other; neither is started, so
 every tick is one synchronous `schedule_batch()`. After the same
 operations, pod for pod the bindings, the Scheduled and FailedScheduling
 event counts and the session's host mirror (compared by node name) must
-be equal.
+be equal, and after every tick the capacity monitor's snapshot (each
+package's `utils.capacity.DEFAULT`, fed by the daemon's capacity
+sample) on every field but the backlog's age and pressure, which follow
+the wall clock. Both daemons sample on every idle tick
+(`CAPACITY_IDLE_REFRESH_S` 0), so the samples do not depend on timing.
 
 The retry backoff runs on threads; here both daemons hand their
 rejected pods to the test instead, which sends them back through each
 daemon's own `_refetch_and_requeue` at the same points. The JAX daemon's
-decision records and capacity samples (telemetry the port does not
-carry, departure (d)) are switched off on its instance.
+decision records (telemetry the port does not carry, departure (d))
+are switched off on its instance.
 
 One test runs the port's daemon started, over HTTP; its waits are
 bounded and it asserts no timing.
 """
 
+import copy
 import time
 
 import numpy as np
@@ -32,10 +37,12 @@ from kubernetes_tpu.scheduler.daemon import IncrementalBatchScheduler as JDaemon
 from kubernetes_tpu.scheduler.daemon import SchedulerConfig as JConfig
 from kubernetes_tpu.server.api import APIServer
 from kubernetes_tpu.server.httpserver import APIHTTPServer
+from kubernetes_tpu.utils import capacity as jcapmod
 from kubernetes_tpu_torch.client.rest import Client, HTTPTransport, LocalTransport
 from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL
 from kubernetes_tpu_torch.ops import RebuildRequired
 from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler, SchedulerConfig
+from kubernetes_tpu_torch.utils import capacity as capmod
 
 N_NODES, N_PODS = 64, 600
 
@@ -101,6 +108,10 @@ class Pair:
     """The JAX daemon on one apiserver and the port's on another, both
     fed the same operations."""
 
+    compare_capacity = True
+    #: Backlog fields of the capacity snapshot that follow timing.
+    capacity_timed = ("oldest_age_s", "pressure")
+
     def __init__(self, seed=0, n_nodes=N_NODES, n_pods=N_PODS, services=2, max_batch=256,
                  **daemon_kw):
         self.apis = [APIServer(), APIServer()]
@@ -121,8 +132,8 @@ class Pair:
         self.t = IncrementalBatchScheduler(self.tcfg, max_batch=max_batch, device="cpu",
                                            **daemon_kw)
         self.j._record_decisions = lambda *a, **k: None
-        self.j._sample_capacity = lambda *a, **k: None
         for d, cfg in ((self.j, self.jcfg), (self.t, self.tcfg)):
+            d.CAPACITY_IDLE_REFRESH_S = 0.0
             d.held = []
             d._requeue_many = lambda pods, epoch=None, _d=d: _d.held.extend(pods)
             # Count the deltas handed to each daemon: equal servers give
@@ -138,6 +149,21 @@ class Pair:
 
     def daemons(self):
         return ((self.j, self.jcfg, self.apis[0]), (self.t, self.tcfg, self.apis[1]))
+
+    def capacity_snapshots(self):
+        """Both monitors' snapshots less the backlog's timed fields."""
+        out = []
+        for snap in (jcapmod.DEFAULT.snapshot(), capmod.DEFAULT.snapshot()):
+            snap = copy.deepcopy(snap)
+            for k in self.capacity_timed:
+                snap.get("backlog", {}).pop(k, None)
+            out.append(snap)
+        return out
+
+    def assert_capacity_same(self):
+        jsnap, tsnap = self.capacity_snapshots()
+        assert tsnap == jsnap
+        return tsnap
 
     def each(self, verb, *args, **kw):
         for c in self.setups:
@@ -175,6 +201,8 @@ class Pair:
             self.settle()
             nj, nt = self.j.schedule_batch(timeout=0.05), self.t.schedule_batch(timeout=0.05)
             assert nj == nt, f"tick {ticks}: jax took {nj} pods, the port {nt}"
+            if self.compare_capacity:
+                self.assert_capacity_same()
             if nj == 0:
                 return ticks
             ticks += 1
@@ -222,6 +250,12 @@ class Pair:
     def stop(self):
         for d in (self.j, self.t):
             d.stop()
+
+
+@pytest.fixture(autouse=True)
+def fresh_capacity_monitors(monkeypatch):
+    monkeypatch.setattr(jcapmod, "DEFAULT", jcapmod.CapacityMonitor())
+    monkeypatch.setattr(capmod, "DEFAULT", capmod.CapacityMonitor())
 
 
 @pytest.fixture
@@ -396,6 +430,9 @@ def test_gangs_match_jax(pair_factory):
 def test_priority_burst_preempts_as_jax(pair_factory):
     pair = pair_factory(seed=6, n_nodes=8, n_pods=0, services=0,
                         eviction_grace_seconds=30)
+    # The queue's depth at the sample counts preemptors that the tick's
+    # own nomination patches have sent back through the watch by then.
+    pair.capacity_timed += ("depth",)
     rng = np.random.default_rng(12)
     fill = [pod_wire(f"low{i}", rng, cpu="500m") for i in range(8 * 16)]
     pair.each("create_bulk", "pods", fill, namespace="default")

@@ -131,6 +131,9 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/scheduler/priorities.py",
         "kubernetes_tpu_torch/scheduler/generic.py",
         "kubernetes_tpu_torch/scheduler/plugins.py",
+        "kubernetes_tpu_torch/controllers/__init__.py",
+        "kubernetes_tpu_torch/controllers/descheduler.py",
+        "kubernetes_tpu_torch/controllers/autoscaler.py",
     } <= names
 
 
@@ -233,6 +236,33 @@ def test_preemption_capacity_and_rebalance_entry_points_raise_without_cuda(no_cu
         fragment_score(cols, probes)
     with pytest.raises(RuntimeError, match="CUDA"):
         capacity_sample(cols, probes)
+    from kubernetes_tpu_torch.utils.capacity import CapacityMonitor
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CapacityMonitor().sample(cols, names)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CapacityMonitor().warm(len(names))
+
+
+def test_controllers_raise_without_cuda(no_cuda):
+    """The descheduler, and an autoscaler that builds its own, resolve
+    the card at construction."""
+    from kubernetes_tpu_torch.client.rest import Client, LocalTransport
+    from kubernetes_tpu_torch.controllers import Autoscaler, Descheduler
+
+    client = Client(LocalTransport(object()))
+
+    class Pool:
+        name = "p"
+
+        def size(self):
+            return 0
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Descheduler(client)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Autoscaler(client, Pool())
+    assert str(Descheduler(client, device="cpu").device) == "cpu"
 
 
 def test_rebalance_wrapper_routes_cpu_tensors_to_the_plain_version(monkeypatch):

@@ -275,3 +275,57 @@ def test_plain_version_direct():
     args = workload.random_rebalance_args(7)
     tensors = stage(args[:-1], rebalance._DTYPES, torch.device("cpu"))
     assert_outputs_equal(plan_moves_plain(*tensors, args[-1]), jplan_moves(*args))
+
+
+# -- RebalanceMonitor against the JAX monitor ---------------------------------
+
+
+def test_monitor_constants_equal_the_jax_packages():
+    assert (rebmod.EFFICIENCY_SATURATION, rebmod.TREND_LEN) == (
+        jrebmod.EFFICIENCY_SATURATION, jrebmod.TREND_LEN)
+    assert rebmod.RebalanceMonitor().snapshot() == jrebmod.RebalanceMonitor().snapshot()
+
+
+def _monitor_series():
+    outcomes = ("evicted", "rebound", "recovered", "failed", "stranded")
+    return ([rebmod.MOVES.value(outcome=o) for o in outcomes]
+            + [rebmod.STRANDED.value(), rebmod.IMPROVEMENT.count(),
+               rebmod.MOVES_PER_IMPROVEMENT.count()],
+            [jrebmod.MOVES.value(outcome=o) for o in outcomes]
+            + [jrebmod.STRANDED.value(), jrebmod.IMPROVEMENT.count(),
+               jrebmod.MOVES_PER_IMPROVEMENT.count()])
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_monitor_sequences_equal_the_jax_monitors(seed):
+    """A random sequence of plans, moves and cycles (improving, flat,
+    with and without moves): snapshots, cycle summaries and the series
+    equal the JAX monitor's; `planned` enters the table only."""
+    rng = np.random.default_rng(seed)
+    names = [f"n{j}" for j in range(6)]
+    plan = _both(_cols(6, cpu_fit=600.0, pods_used=3.0), names, _pods({n: 3 for n in names}))
+    port, jax = rebmod.RebalanceMonitor(), jrebmod.RebalanceMonitor()
+    t0, j0 = _monitor_series()
+    planned = rebmod.MOVES.value(outcome="planned")
+    for step in range(30):
+        kind = int(rng.integers(3))
+        if kind == 0:
+            outcome = str(rng.choice(["planned", "evicted", "rebound", "recovered", "failed",
+                                      "stranded"]))
+            count = int(rng.integers(0, 4))
+            port.record_move(outcome, count)
+            jax.record_move(outcome, count)
+        elif kind == 1:
+            port.record_plan(plan)
+            jax.record_plan(plan)
+        else:
+            before = float(rng.random())
+            after = before - float(rng.random()) * 0.3 if rng.random() < 0.7 else before + 0.1
+            moves = int(rng.integers(0, 5))
+            trigger = str(rng.choice(["periodic", "forced", "drain"]))
+            assert port.record_cycle(before, after, moves, trigger) == jax.record_cycle(
+                before, after, moves, trigger)
+        assert port.snapshot() == jax.snapshot()
+    t1, j1 = _monitor_series()
+    assert [a - b for a, b in zip(t1, t0)] == [a - b for a, b in zip(j1, j0)]
+    assert rebmod.MOVES.value(outcome="planned") == planned
