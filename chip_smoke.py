@@ -235,7 +235,16 @@ exits non-zero and prints no result. Phases, one JSON line each:
               plane each tick: the parity legs hold the monitor's
               snapshot to the plain report on the session's columns,
               the drills report the `capacity` phase a tick and its
-              share of the window. Two more legs, each on a fresh child
+              share of the window. Every daemon feeds the flight
+              recorder (explain limit 64, every trace sampled):
+              daemon_parity holds one decision a pod to its binding and
+              the verdict tables of the tick's first 64 pods (unbound
+              first) to explain_backlog on the CPU, exactly, naming the
+              pod, the node and both values where they differ; the
+              drills hold every window pod still in the ring to a
+              `bound` decision at its binding's node and report the
+              `explain` phase and the record time a tick beside
+              `capacity`. Two more legs, each on a fresh child
               at 5,000 nodes with the incremental daemon started:
               desched_defrag, every node keeping a 2,000m shard (15,000
               bound pods), 56 pending pods of 3,000m, the slice shape
@@ -256,7 +265,26 @@ exits non-zero and prints no result. Phases, one JSON line each:
               through cordon, drain (K2, the node forced) and shrink:
               the drained pod bound elsewhere, the node gone, the pool
               one smaller, no pod lost; poll walls, grow to bound and
-              drain to retire seconds;
+              drain to retire seconds; desched_defrag also holds each
+              executed move to a `rebalance_nominated` record at its
+              destination. Last, daemon_debug: the port's command
+              (`python -m kubernetes_tpu_torch.cmd.scheduler --batch
+              --server URL --healthz-port PORT`) as a child on the card
+              over 5,000 nodes, 1,024 pods that fit and 8 whose cpu
+              request is above every node's, read only over HTTP:
+              /healthz ok; /metrics counting 1,024 bound decisions;
+              /debug/decisions with each fitting pod's newest record
+              bound at its LIST binding, each stuck pod's unschedulable
+              with 0 of 5,000 nodes feasible and PodFitsResources among
+              its reasons, verdict tables on the newest tick's bound
+              pods (at most 64 a tick), the bare-name filter; solve
+              records covering the 1,032 pods; a trace naming a pod;
+              K1's launches in the load (less the session prewarm's,
+              read once they settle) at least the solve records; capacity
+              sampled; an SLOReport; a device profile's directory; exit
+              0 on SIGTERM. It reports the command's ticks, K1 ms a
+              launch from that profile, the `explain` phase and the
+              time to settle;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -298,8 +326,11 @@ compared by running it in turns in one command (A B B A).
 
     python3 chip_smoke.py --daemon
 
-builds the kernels and runs phase 5o alone (ten lines, no result
-line). Each drill line carries the process's thread switch interval;
+builds the kernels and runs phase 5o alone (eleven lines, no result
+line); `--daemon-legs daemon_churn,daemon_debug` runs only those legs,
+and `--churn-stuck N` creates N pods that fit no node before
+daemon_churn's load (they retry through it, each retry explained
+inline). Each drill line carries the process's thread switch interval;
 `python3 -c "import sys; sys.setswitchinterval(S); import chip_smoke;
 chip_smoke.main(['--daemon'])"` runs it at another.
 """
@@ -365,6 +396,12 @@ def main(argv=None) -> int:
     parser.add_argument("--runs", type=int, default=MAIN_REPEATS)
     parser.add_argument("--daemon", action="store_true",
                         help="build, then run only phase 5o (the scheduler daemon)")
+    parser.add_argument("--daemon-legs", default="",
+                        help="with --daemon: the comma-separated legs of phase 5o to run "
+                             "(default all)")
+    parser.add_argument("--churn-stuck", type=int, default=0,
+                        help="pods that fit no node, created before daemon_churn's load "
+                             "(default 0)")
     args = parser.parse_args(argv)
     if args.host_timing:
         return host_timing(os.path.abspath(args.root), args.runs)
@@ -406,7 +443,8 @@ def main(argv=None) -> int:
     )
 
     if args.daemon:
-        run_daemon(torch, device, smi)
+        run_daemon(torch, device, smi, legs=set(filter(None, args.daemon_legs.split(","))),
+                   churn_stuck=args.churn_stuck)
         print(smi, flush=True)
         return 0
 
@@ -502,6 +540,8 @@ def main(argv=None) -> int:
                 "daemon_sidecar_parity": daemon["daemon_sidecar_parity"]["launches"],
                 "desched_defrag": daemon["desched_defrag"]["k1_launches"],
                 "autoscale_cycle": daemon["autoscale_cycle"]["k1_launches"],
+                # The command's own process, read from its /debug/kernels.
+                "daemon_debug": daemon["daemon_debug"]["k1_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -3448,6 +3488,165 @@ def _capacity_vs_plain(phase, daemon, pending):
             "live_nodes": got["live_nodes"], "probes": len(got["probes"]), "plain_s": plain_s}
 
 
+EXPLAIN_LIMIT = 64  # the JAX default: pods a tick with verdict tables
+
+
+def _fresh_recorder():
+    """The flight recorder's ring emptied, at the JAX defaults (explain
+    limit 64, every trace sampled)."""
+    from kubernetes_tpu_torch.utils import flightrecorder, tracing
+
+    flightrecorder.configure(ring=4096, solve_ring=512, explain_top_k=3, explain_failed_nodes=16,
+                             explain_limit=EXPLAIN_LIMIT)
+    flightrecorder.DEFAULT.clear()
+    flightrecorder.take_last_solve_telemetry()
+    tracing.configure(sample_rate=1.0)
+
+
+class _RecordTimer:
+    """Host seconds of a daemon's flight recording: `_record_decisions`
+    (the rows, sinks, ring and the inline explain) and `_attach_verdicts`
+    by pass (inline: every pod or the unbound ones; deferred: the bound
+    ones, on the commit worker's idle drain), and within the passes the
+    `explain_backlog` calls (the lowering, the card's readback and the
+    tables; the rest is the pod lister's read). `record_s` is the first
+    less the inline explain. `close()` puts `explain_backlog` back."""
+
+    def __init__(self, daemon):
+        import threading
+
+        from kubernetes_tpu_torch.scheduler import daemon as daemon_mod
+
+        self.lock = threading.Lock()
+        self.totals = {"record_s": 0.0, "records": 0, "inline_explain_s": 0.0,
+                       "deferred_explain_s": 0.0, "deferred_explains": 0,
+                       "explain_backlog_s": 0.0}
+        record, attach = daemon._record_decisions, daemon._attach_verdicts
+        self._module, self._explain = daemon_mod, daemon_mod.explain_backlog
+
+        def timed_explain(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self._explain(*args, **kwargs)
+            finally:
+                self._add(explain_backlog_s=time.perf_counter() - t0)
+
+        daemon_mod.explain_backlog = timed_explain
+
+        def timed_record(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return record(*args, **kwargs)
+            finally:
+                self._add(record_s=time.perf_counter() - t0, records=1)
+
+        def timed_attach(*args, only=None, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return attach(*args, only=only, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                if only == "bound":
+                    self._add(deferred_explain_s=dt, deferred_explains=1)
+                else:
+                    self._add(inline_explain_s=dt)
+
+        daemon._record_decisions, daemon._attach_verdicts = timed_record, timed_attach
+
+    def close(self):
+        self._module.explain_backlog = self._explain
+
+    def _add(self, **kw):
+        with self.lock:
+            for k, v in kw.items():
+                self.totals[k] += v
+
+    def snapshot(self):
+        with self.lock:
+            return dict(self.totals)
+
+    @staticmethod
+    def between(a, b, ticks):
+        """The figures between two snapshots, a tick where `ticks`."""
+        d = {k: b[k] - a[k] for k in a}
+        own = d["record_s"] - d["inline_explain_s"]
+        return {"records": d["records"], "record_s": own,
+                "record_s_per_tick": own / ticks if ticks else None,
+                "inline_explain_s": d["inline_explain_s"],
+                "deferred_explain_s": d["deferred_explain_s"],
+                "deferred_explains": d["deferred_explains"],
+                "explain_backlog_s": d["explain_backlog_s"]}
+
+
+def _newest_decisions():
+    """Pod key -> its newest decision in the daemon's ring."""
+    from kubernetes_tpu_torch.utils import flightrecorder
+
+    out = {}
+    for d in flightrecorder.DEFAULT.decisions(limit=1 << 30)["decisions"]:
+        out.setdefault(d["pod"], d)
+    return out
+
+
+def _explain_vs_cpu(phase, pending, bindings, nodes, services):
+    """The verdict tables of the tick's first EXPLAIN_LIMIT pods (unbound
+    first, then bound, in the tick's order, as `_attach_verdicts` takes
+    them) against the port's `explain_backlog` on the CPU: bound pods
+    against the occupancy before the tick (no bound pod), unbound ones
+    against the one after it (every pod the tick bound), exactly."""
+    import copy
+
+    from kubernetes_tpu_torch.ops.pipeline import explain_backlog
+    from kubernetes_tpu_torch.utils import flightrecorder
+
+    ring = list(reversed(flightrecorder.DEFAULT.decisions(limit=1 << 30)["decisions"]))
+    if len(ring) != len(pending) or len({d["tick"] for d in ring}) != 1:
+        fail(phase, f"{len(ring)} decisions in {len({d['tick'] for d in ring})} ticks for "
+                    f"{len(pending)} pods")
+    by_key = {f"default/{p.metadata.name}": p for p in pending}
+    for d in ring:
+        name = d["pod"].split("/")[-1]
+        want = "bound" if bindings.get(name) else "unschedulable"
+        if d["outcome"] != want or d.get("node") != bindings.get(name):
+            fail(phase, f"{d['pod']}: decision {d['outcome']} at {d.get('node')}, bound at "
+                        f"{bindings.get(name)}")
+    unbound = [d for d in ring if not d.get("node")][:EXPLAIN_LIMIT]
+    bound = [d for d in ring if d.get("node")][:EXPLAIN_LIMIT - len(unbound)]
+    chosen = {d["pod"] for d in unbound + bound}
+    tabled = {d["pod"] for d in ring if "nodes" in d}
+    if tabled != chosen:
+        fail(phase, f"verdict tables on {len(tabled)} pods, expected the tick's first "
+                    f"{len(chosen)}: {sorted(tabled ^ chosen)[:3]}")
+    after = []
+    for p in pending:
+        if bindings.get(p.metadata.name):
+            q = copy.deepcopy(p)
+            q.spec.node_name = bindings[p.metadata.name]
+            after.append(q)
+    t0 = time.perf_counter()
+    refs = {}
+    for decided, occupancy in ((bound, []), (unbound, after)):
+        pods = [by_key[d["pod"]] for d in decided]
+        for entry in explain_backlog(pods, nodes, occupancy, services, device="cpu",
+                                     top_k=3, max_failed=16):
+            refs[entry["pod"]] = entry
+    cpu_s = time.perf_counter() - t0
+    keys = ("feasibleNodes", "totalNodes", "nodes", "reasonCounts")
+    for d in unbound + bound:
+        ref = refs[d["pod"]]
+        for k in keys:
+            if d[k] == ref[k]:
+                continue
+            if k == "nodes":  # name the node: the entries carry it
+                i = next((i for i, (x, y) in enumerate(zip(d[k], ref[k])) if x != y),
+                         min(len(d[k]), len(ref[k])))
+                fail(phase, f"{d['pod']}'s verdict table differs from the CPU's at entry {i}: "
+                            f"card {d[k][i:i + 1]} != cpu {ref[k][i:i + 1]}")
+            fail(phase, f"{d['pod']}'s {k} differs from the CPU's: card {d[k]} != cpu {ref[k]}")
+    return {"decisions": len(ring), "tables": len(chosen), "unbound_tables": len(unbound),
+            "equal_to_cpu": True, "cpu_explain_s": cpu_s, "tolerance": "exact"}
+
+
 def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
     """1,024 pending pods over HTTP, then one schedule_batch() of a
     non-started daemon on the card: its bindings, read back by LIST,
@@ -3483,13 +3682,21 @@ def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
             order = [q._items[k] for k in q._queue if k in q._items]  # the drain order
             pending = copy.deepcopy(order)
             nodes = cfg.nodes.store.list()
+            services = cfg.service_lister.list()
             daemon = IncrementalBatchScheduler(cfg, max_batch=DAEMON_PARITY_PODS, device=device)
+            _fresh_recorder()
+            recording = _RecordTimer(daemon)
+            explain0 = _phase_total("explain")
             scan_kernel.scan_with_state.launches = 0
             calls0 = ledger.DEFAULT.calls("scan_kernel")
             t0 = time.perf_counter()
             with _K1Events(torch) as k1:
                 took = daemon.schedule_batch(timeout=1.0)
             tick_s = time.perf_counter() - t0
+            recording.close()
+            explain_n, explain_s = (b - a for a, b in zip(explain0, _phase_total("explain")))
+            recorded = _RecordTimer.between({k: 0 for k in recording.totals},
+                                            recording.snapshot(), 1)
             if device.type == "cuda":
                 torch.cuda.synchronize()
             k1_ms = [a.elapsed_time(b) for a, b in k1.events]
@@ -3504,6 +3711,7 @@ def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
         bound, _, _ = _listed(client)
         command = cp.cmd
     got = [bound[p.metadata.name] for p in pending]
+    explain_check = _explain_vs_cpu(phase, pending, bound, nodes, services)
     backlog = schedule_backlog(pending, nodes, device=device)
     plain = _plain_session(torch, device, nodes, pending=pending)
     for pod in pending:
@@ -3531,8 +3739,10 @@ def run_daemon_parity(torch, device, wide=False, n_nodes=DAEMON_NODES):
                              "smem_bytes": plan.smem_bytes},
         "equal_to_schedule_backlog": True, "equal_to_plain": True, "tick_s": tick_s,
         "capacity": capacity_check,
+        "flight_recorder": {**explain_check, "explain_phase_s": explain_s,
+                            "explain_phases": explain_n, **recorded},
         "k1_ms": k1_ms, "launches": launches, "ledger_launches": ledger_launches,
-        "tolerance": "exact (node name per pod)",
+        "tolerance": "exact (node name per pod; verdict tables entry for entry)",
     }
 
 
@@ -3687,8 +3897,8 @@ def _drill_load(url, rate, creators, warmup_s, window_s, drain_s, lost_s, cushio
     "start" and "end" around the window, then the result: the window's
     latencies (create call start to binding visible), the pods created
     in it, those still unbound after `drain_s`, the pods (of the whole
-    run) still unbound `lost_s` after the window, and pods seen bound to
-    two nodes. Creates and deletes stop with the window. `preload`
+    run) still unbound `lost_s` after the window, pods seen bound to two
+    nodes, and the node each pod created in the window was bound to. Creates and deletes stop with the window. `preload`
     names bound pods the deleter takes first, oldest first."""
     import json as _json
     import socket
@@ -3851,6 +4061,8 @@ def _drill_load(url, rate, creators, warmup_s, window_s, drain_s, lost_s, cushio
             created = sum(t_start <= t0 < t_end for t0 in t_create.values())
             calls = sorted(t_call[n] for n, t0 in t_create.items()
                            if t_start <= t0 < t_end and n in t_call)
+            window_nodes = {n: node_of[n] for n, t0 in t_create.items()
+                            if t_start <= t0 < t_end and n in node_of}
         after_drain = len(unbound(True))
         deadline = t_end + lost_s
         while unbound(False) and time.perf_counter() < deadline:
@@ -3859,7 +4071,7 @@ def _drill_load(url, rate, creators, warmup_s, window_s, drain_s, lost_s, cushio
         conn.send({"lats": lats, "created": created, "window_s": t_end - t_start, "calls": calls,
                    "unbound_after_drain": after_drain, "lost": lost[:20], "lost_count": len(lost),
                    "created_total": len(t_create), "double_bound": double[:20],
-                   "errors": errors[:5]})
+                   "errors": errors[:5], "window_nodes": window_nodes})
     except Exception as e:
         conn.send({"error": repr(e)})
     finally:
@@ -3909,6 +4121,14 @@ def _pct(xs, p):
     return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else None
 
 
+def _phase_total(name):
+    """(count, seconds) of scheduler_phase_seconds{phase=name} so far."""
+    from kubernetes_tpu_torch.utils import tracing
+
+    snap = tracing.PHASE_SECONDS.snapshot().get((name,))
+    return (snap[0], snap[1]) if snap else (0, 0.0)
+
+
 def _hist(h, **labels):
     snap = h.snapshot().get(h._key(labels))
     return {"count": h.count(**labels), "sum": snap[1] if snap else 0.0,
@@ -3944,7 +4164,7 @@ def _mirror_equal_to_rebuild(torch, device, phase, session, pods, nodes):
             "device_rows_checked": _mirror_check(torch, session, "the daemon's session", phase)}
 
 
-def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
+def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False, stuck=0):
     """The pod-to-bind drill (the JAX package's bench.py:417-575 shape)
     against a fresh apiserver child: the port's daemon started on the
     card over its own HTTP transport, a spawned load generator, the
@@ -3954,7 +4174,9 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
     With `policy` (leg daemon_policy_drill) the daemon is the full
     re-lower BatchScheduler under FULL_VOCABULARY_POLICY over
     `workload.policy_objects`' nodes, services and peers: no session to
-    check, K1P in place of K1, and `lower` a tick reported."""
+    check, K1P in place of K1, and `lower` a tick reported. `stuck` pods
+    that fit no node are created before the daemon starts and retry
+    through the load."""
     import multiprocessing as mp
 
     from kubernetes_tpu_torch import workload
@@ -3974,12 +4196,15 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
             preloaded = []
         else:
             preloaded = _cluster(phase, client, preload)
+        if stuck:
+            _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
+                  [_stuck_pod_wire(f"x{i}") for i in range(stuck)])
         setup_s = time.perf_counter() - t0
         cfg = daemon_mod.SchedulerConfig(
             Client(HTTPTransport(cp.url)),
             policy=workload.FULL_VOCABULARY_POLICY if policy else None,
             raw_scheduled_cache=not policy).start()
-        daemon, k1 = None, _K1Events(torch, policy=policy)
+        daemon, k1, recording = None, _K1Events(torch, policy=policy), None
         try:
             if not cfg.wait_for_sync(120):
                 fail(phase, "the daemon's caches did not sync")
@@ -4004,6 +4229,8 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
                 handles = _record_handles(daemon._session)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
+            _fresh_recorder()
+            recording = _RecordTimer(daemon)
             kernel_events = k1.__enter__().events
             window_series = (profiler.DUTY_CYCLE, profiler.OVERLAP, profiler.DEVICE_BUSY,
                              tracing.PHASE_SECONDS, daemon_mod._BIND_LATENCY,
@@ -4021,7 +4248,7 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
             try:
                 load.start()
                 child_conn.close()
-                msgs, pauses = {}, GcPauses()
+                msgs, pauses, recorded_at = {}, GcPauses(), {}
                 for tag, wait_s in (("start", DRILL_WARMUP_S + 60),
                                     ("end", DRILL_WINDOW_S + 30)):
                     if not parent.poll(wait_s):
@@ -4031,6 +4258,7 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
                         fail(phase, f"the load generator failed: {msg}")
                     msgs[tag] = (cp.cpu_seconds(), time.process_time(), len(handles),
                                  len(kernel_events))
+                    recorded_at[tag] = recording.snapshot()
                     if tag == "start":
                         for series in window_series:
                             series.reset()
@@ -4068,9 +4296,13 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
             daemon.schedule_batch(timeout=0)  # one idle tick applies the last deltas
             launches = counter.launches
             ledger_launches = ledger.DEFAULT.calls(kernel) - calls0
+            recorded_total = recording.snapshot()
+            newest = _newest_decisions()
         finally:
             if daemon is not None and daemon._thread is not None and daemon._thread.is_alive():
                 daemon.stop()
+            if recording is not None:
+                recording.close()
             cfg.stop()
             k1.__exit__()
         mirror = None if policy else _mirror_equal_to_rebuild(torch, device, phase,
@@ -4101,6 +4333,17 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
         problems.append("no pod bound in the window")
     if policy and not launches:
         problems.append("no K1P launch")
+    # Every pod bound in the window whose record is still in the ring:
+    # its newest decision is `bound` at the node its binding names.
+    in_ring = {n: node for n, node in result["window_nodes"].items() if f"default/{n}" in newest}
+    wrong = [(n, newest[f"default/{n}"]["outcome"], newest[f"default/{n}"].get("node"), node)
+             for n, node in in_ring.items()
+             if (newest[f"default/{n}"]["outcome"], newest[f"default/{n}"].get("node"))
+             != ("bound", node)]
+    if not in_ring or wrong:
+        problems.append(f"{len(wrong)} of {len(in_ring)} window pods in the ring without a "
+                        f"bound decision at their node; first (pod, outcome, node, bound at) "
+                        f"{wrong[:3]}")
     if problems:
         fail(phase, "; ".join(problems))
     lower = in_window["phase_seconds"].get("lower", {})
@@ -4115,10 +4358,24 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False):
     extra["capacity_samples"] = sampled.get("count", 0)
     extra["capacity_s_per_tick"] = sampled["sum"] / len(window) if sampled and window else None
     extra["capacity_share_of_window"] = sampled.get("sum", 0.0) / result["window_s"]
+    explained = in_window["phase_seconds"].get("explain", {})
+    extra["explain_phases"] = explained.get("count", 0)
+    extra["explain_s_per_tick"] = explained["sum"] / len(window) if explained and window else 0.0
+    extra["explain_share_of_window"] = explained.get("sum", 0.0) / result["window_s"]
+    extra["flight_recorder"] = {
+        "window": _RecordTimer.between(recorded_at["start"], recorded_at["end"], len(window)),
+        "after_window": _RecordTimer.between(recorded_at["end"], recorded_total, 0),
+        "record_share_of_window": (recorded_at["end"]["record_s"]
+                                   - recorded_at["start"]["record_s"]
+                                   - recorded_at["end"]["inline_explain_s"]
+                                   + recorded_at["start"]["inline_explain_s"])
+        / result["window_s"],
+        "window_pods_in_ring": len(in_ring), "ring_decisions": len(newest)}
+    checks["window_pods_with_bound_decision"] = len(in_ring)
 
     return {
         "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES,
-        "preloaded_bound_pods": preload, "setup_s": setup_s, "session_build_s": build_s,
+        "preloaded_bound_pods": preload, "stuck_pods": stuck, "setup_s": setup_s, "session_build_s": build_s,
         "rate": DRILL_RATE, "creators": DRILL_CREATORS, "warmup_s": DRILL_WARMUP_S,
         "window_s": result["window_s"], "drain_s": DRILL_DRAIN_S,
         "bound_pods_per_s": len(lats) / result["window_s"],
@@ -4405,7 +4662,7 @@ def run_desched_defrag(torch, device, smi):
     from kubernetes_tpu_torch.controllers.descheduler import Descheduler
     from kubernetes_tpu_torch.ops import rebalance, scan_kernel
     from kubernetes_tpu_torch.scheduler.daemon import SchedulerConfig
-    from kubernetes_tpu_torch.utils import capacity, tracing
+    from kubernetes_tpu_torch.utils import capacity, flightrecorder, tracing
     from kubernetes_tpu_torch.utils import rebalance as rebal_utils
 
     phase = "desched_defrag"
@@ -4426,6 +4683,7 @@ def run_desched_defrag(torch, device, smi):
         capacity.DEFAULT.reset()
         capacity.DEFAULT.configure([DEFRAG_SLICE])
         rebal_utils.DEFAULT.reset()
+        _fresh_recorder()
         cfg = SchedulerConfig(Client(HTTPTransport(cp.url))).start()
         daemon = watch = None
         try:
@@ -4484,6 +4742,7 @@ def run_desched_defrag(torch, device, smi):
             counts1 = _counts()
             rebound = [watch.bound_at(n, to, uid) - t for n, _, to, uid, t, ok in moves.moves if ok]
             twice = watch.bound_twice()
+            records = flightrecorder.DEFAULT.decisions(limit=1 << 30)["decisions"]
             errors = daemon.device_errors
         finally:
             if watch is not None:
@@ -4511,6 +4770,14 @@ def run_desched_defrag(torch, device, smi):
         problems.append(f"the measured score did not drop: {before} -> {after}")
     if not k2_launches or not k1_launches:
         problems.append(f"K2 launched {k2_launches} times, K1 {k1_launches}")
+    # Each executed move: a rebalance_nominated record at its destination.
+    nominated = {(d["pod"], d.get("nominatedNode")) for d in records
+                 if d["outcome"] == "rebalance_nominated"}
+    unrecorded = [(n, to) for n, _, to, _, _, ok in moves.moves
+                  if ok and (f"default/{n}", to) not in nominated]
+    if unrecorded:
+        problems.append(f"{len(unrecorded)} moves without a rebalance_nominated record at their "
+                        f"destination: {unrecorded[:3]}")
     if problems:
         fail(phase, "; ".join(problems))
     executed = sum(c["summary"]["moves_executed"] for c in cycles)
@@ -4528,7 +4795,8 @@ def run_desched_defrag(torch, device, smi):
         "checks": {"plans_equal_plain": len(cycles), "cap_held": True,
                    "replacements_bound_at_destination": executed, "names_unchanged": len(names0),
                    "bound_twice": 0, "journals_left": 0, "stranded": 0, "sync_errors": 0,
-                   "pending_bound": DEFRAG_PENDING},
+                   "pending_bound": DEFRAG_PENDING,
+                   "moves_with_rebalance_nominated_record": executed},
         "timed": "cycle wall and phases by the host clock around sync_once (PhaseTimer); K2 ms "
                  "by CUDA events around each launch (the plan's, then the measured score's); "
                  "evict to rebind from the move's start to the replacement bound at its "
@@ -4708,31 +4976,347 @@ def run_autoscale_cycle(torch, device, smi):
     }
 
 
-def run_daemon(torch, device, smi):
-    """The ten legs, each on a fresh apiserver child."""
-    out = {"daemon_parity": run_daemon_parity(torch, device)}
-    emit("daemon_parity", ok=True, card=smi, **out["daemon_parity"])
-    out["daemon_parity_wide"] = run_daemon_parity(torch, device, wide=True)
-    emit("daemon_parity_wide", ok=True, **out["daemon_parity_wide"])
-    out["daemon_drill"] = run_daemon_drill(torch, device, smi, "daemon_drill")
-    emit("daemon_drill", ok=True, **out["daemon_drill"])
-    out["daemon_churn"] = run_daemon_drill(torch, device, smi, "daemon_churn",
-                                           preload=CHURN_PRELOAD)
-    emit("daemon_churn", ok=True, **out["daemon_churn"])
-    out["daemon_parity_hostnames"] = run_daemon_parity(torch, device, wide=True,
-                                                       n_nodes=HOSTNAME_NODES)
-    emit("daemon_parity_hostnames", ok=True, **out["daemon_parity_hostnames"])
-    out["daemon_policy_parity"] = run_daemon_policy_parity(torch, device)
-    emit("daemon_policy_parity", ok=True, **out["daemon_policy_parity"])
-    out["daemon_policy_drill"] = run_daemon_drill(torch, device, smi, "daemon_policy_drill",
-                                                  policy=True)
-    emit("daemon_policy_drill", ok=True, **out["daemon_policy_drill"])
-    out["daemon_sidecar_parity"] = run_daemon_sidecar_parity(torch, device)
-    emit("daemon_sidecar_parity", ok=True, **out["daemon_sidecar_parity"])
-    out["desched_defrag"] = run_desched_defrag(torch, device, smi)
-    emit("desched_defrag", ok=True, **out["desched_defrag"])
-    out["autoscale_cycle"] = run_autoscale_cycle(torch, device, smi)
-    emit("autoscale_cycle", ok=True, **out["autoscale_cycle"])
+# -- the scheduler's command and its debug server ---------------------------------
+
+DEBUG_FITTING = 1024  # pods that fit
+DEBUG_STUCK = 8  # pods whose cpu request is above every node's
+DEBUG_QUIET_S = 2.0  # quiet after the binds: the deferred verdict tables attach
+DEBUG_UP_S = 180.0  # the command's start: imports, caches, session build and prewarm
+DEBUG_TRACE_S = 5.0  # the command's device trace over the load (K1's time a launch)
+DEBUG_TRACE_LEAD_S = 1.0  # the trace's start before the load
+
+
+class _Scheduler:
+    """The port's scheduler command as a child process on the card:
+    `python -m kubernetes_tpu_torch.cmd.scheduler --batch --server URL
+    --healthz-port PORT`, its output in a temporary file, stopped by
+    SIGTERM (its exit code read) or killed with its process group."""
+
+    def __init__(self, phase, url, device):
+        import tempfile
+
+        self.phase, self.port = phase, _free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.scheduler", "--batch",
+                    "--server", url, "--healthz-port", str(self.port)]
+        if device.type != "cuda":  # a dry run on the CPU
+            self.cmd += ["--device", "cpu"]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+        self._log = tempfile.TemporaryFile()
+        self.proc = subprocess.Popen(self.cmd, cwd=REPO, env=env, stdin=subprocess.DEVNULL,
+                                     stdout=self._log, stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+
+    def tail(self, n=3000):
+        self._log.seek(0)
+        return self._log.read().decode(errors="replace")[-n:]
+
+    def get(self, path, timeout=60):
+        """(status, body) of a GET on the command's server."""
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.url + path, timeout=timeout) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def get_json(self, path, timeout=60):
+        code, body = self.get(path, timeout)
+        if code != 200:
+            fail(self.phase, f"GET {path}: HTTP {code}: {body[:300]}")
+        return json.loads(body)
+
+    def wait_up(self):
+        deadline = time.monotonic() + DEBUG_UP_S
+        while True:
+            if self.proc.poll() is not None:
+                fail(self.phase, f"the scheduler command exited with {self.proc.returncode}: "
+                                 f"{self.tail()}")
+            try:
+                if self.get("/healthz", timeout=2) == (200, "ok"):
+                    return
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                self.kill()
+                fail(self.phase, f"the command's /healthz did not answer in {DEBUG_UP_S} s: "
+                                 f"{self.tail()}")
+            time.sleep(0.2)
+
+    def terminate(self, timeout=60):
+        """SIGTERM; the exit code (None if it had to be killed)."""
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                return self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.kill()
+                return None
+        return self.proc.returncode
+
+    def kill(self):
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait(timeout=10)
+
+
+def _stuck_pod_wire(name):
+    """A churn pod asking for 64 cpus: more than any node has."""
+    wire = _daemon_pod_wire(name)
+    wire["spec"]["containers"][0]["resources"]["limits"]["cpu"] = "64"
+    return wire
+
+
+def _trace_kernels(trace_dir):
+    """The kernel events of a torch.profiler Chrome trace: (device ms of
+    every K1 launch in order, {kernel name: [launches, device ms]})."""
+    path = os.path.join(trace_dir, "trace.json")
+    if not os.path.exists(path):
+        return [], {}
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("cat") == "kernel" and "dur" in e]
+    by_name = {}
+    for e in events:
+        row = by_name.setdefault(e.get("name", "")[:100], [0, 0.0])
+        row[0] += 1
+        row[1] += e["dur"] / 1000.0
+    k1 = [e["dur"] / 1000.0 for e in sorted(events, key=lambda e: e.get("ts", 0))
+          if "scan_kernel" in e.get("name", "") and "policy" not in e.get("name", "")]
+    return k1, by_name
+
+
+def _k1_calls(kernels_view):
+    """K1's launches in a /debug/kernels body (0 before the first)."""
+    return next((r["calls"] for r in kernels_view["kernels"]
+                 if (r["kernel"], r["impl"]) == ("scan_kernel", "cuda")), 0)
+
+
+def _settled_k1_calls(sched):
+    """The command's K1 launches once its session prewarm has launched
+    and stopped: nonzero and the same for a second."""
+    deadline = time.monotonic() + DEBUG_UP_S
+    last = None
+    while time.monotonic() < deadline:
+        calls = _k1_calls(sched.get_json("/debug/kernels"))
+        if calls and calls == last:
+            return calls
+        last = calls
+        time.sleep(1.0)
+    fail(sched.phase, f"the command's prewarm launches did not settle in {DEBUG_UP_S} s "
+                      f"(K1 calls {last}): {sched.tail()}")
+
+
+def run_daemon_debug(torch, device, smi):
+    """The port's scheduler command as a child on the card, read only
+    over HTTP: DEBUG_FITTING pods that fit and DEBUG_STUCK that fit no
+    node on 5,000 nodes; its health, metrics and every debug view held
+    to what the flight recorder must show."""
+    import re
+    import threading
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+
+    phase = "daemon_debug"
+    t_leg = time.perf_counter()
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _cluster(phase, client)
+        sched = _Scheduler(phase, cp.url, device)
+        profile_dir = None
+        try:
+            sched.wait_up()
+            up_s = time.perf_counter() - t_leg
+            # A first, idle capture: the profiler's one-time start-up in
+            # the command (seconds), which would hide the load's first
+            # ticks from the trace below.
+            code, body = sched.get("/debug/device-profile?seconds=1")
+            profile_dir = json.loads(body)["dir"] if code == 200 else None
+            profile_exists = bool(profile_dir) and os.path.isdir(profile_dir)
+            # K1's launches before the load: the session prewarm's, once
+            # they have stopped (the session builds after /healthz is up).
+            k1_before = _settled_k1_calls(sched)
+            fitting = [f"g{i}" for i in range(DEBUG_FITTING)]
+            stuck = [f"x{i}" for i in range(DEBUG_STUCK)]
+            # A device trace over the load.
+            profiled = {}
+            prof = threading.Thread(target=lambda: profiled.update(zip(
+                ("code", "body"), sched.get(f"/debug/device-profile?seconds={DEBUG_TRACE_S}"))))
+            prof.start()
+            time.sleep(DEBUG_TRACE_LEAD_S)
+            t0 = time.perf_counter()
+            _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
+                  [_daemon_pod_wire(n) for n in fitting] + [_stuck_pod_wire(n) for n in stuck])
+            _wait(phase, "the fitting pods bound",
+                  lambda: all(map(_listed(client)[0].get, fitting)), timeout=120)
+            bound_s = time.perf_counter() - t0
+            prof.join(timeout=60)
+            time.sleep(DEBUG_QUIET_S)
+            settle_s = time.perf_counter() - t0
+            bindings = _listed(client)[0]
+            health = sched.get("/healthz")
+            metrics_body = sched.get("/metrics")[1]
+            decisions = sched.get_json("/debug/decisions?limit=4096")["decisions"]
+            solves = sched.get_json("/debug/solves?limit=512")["solves"]
+            kernels = sched.get_json("/debug/kernels")
+            capacity_view = sched.get_json("/debug/capacity")
+            slo_view = sched.get_json("/debug/slo")
+            rebalance_view = sched.get_json("/debug/rebalance")
+            by_name = sched.get_json(f"/debug/decisions?pod={fitting[7]}")["decisions"]
+            by_stuck = sched.get_json(f"/debug/decisions?pod={stuck[0]}")["decisions"]
+            traces = sched.get_json(f"/debug/traces?pod={fitting[7]}")["traces"]
+            stacks = sched.get("/debug/stacks")
+            if profiled.get("code") != 200:
+                fail(phase, f"/debug/device-profile?seconds={DEBUG_TRACE_S}: {profiled}")
+            trace_dir = json.loads(profiled["body"])["dir"]
+            k1_trace_ms, traced_kernels = _trace_kernels(trace_dir)
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            rc = sched.terminate()
+        finally:
+            sched.kill()
+            if profile_dir:
+                shutil.rmtree(profile_dir, ignore_errors=True)
+        log = sched.tail()
+        command = cp.cmd
+
+    problems = []
+    if health != (200, "ok"):
+        problems.append(f"/healthz answered {health}")
+    m = re.search(r'^scheduler_decisions_total\{outcome="bound"\} ([0-9.e+]+)$', metrics_body,
+                  re.M)
+    bound_events = float(m.group(1)) if m else 0.0
+    if bound_events < DEBUG_FITTING:
+        problems.append(f"scheduler_decisions_total{{outcome=bound}} is {bound_events}")
+    newest = {}
+    for d in decisions:
+        newest.setdefault(d["pod"], d)
+    wrong = [(n, newest.get(f"default/{n}", {}).get("outcome"),
+              newest.get(f"default/{n}", {}).get("node"), bindings.get(n)) for n in fitting
+             if (newest.get(f"default/{n}", {}).get("outcome"),
+                 newest.get(f"default/{n}", {}).get("node")) != ("bound", bindings.get(n))]
+    if wrong:
+        problems.append(f"{len(wrong)} fitting pods without a bound decision at their node; "
+                        f"first (pod, outcome, node, bound at) {wrong[:3]}")
+    for n in stuck:
+        d = newest.get(f"default/{n}", {})
+        if (d.get("outcome"), d.get("feasibleNodes"), d.get("totalNodes")) != (
+                "unschedulable", 0, DAEMON_NODES) or "PodFitsResources" not in d.get(
+                    "reasonCounts", {}):
+            problems.append(f"{n}'s newest decision: {json.dumps(d)[:400]}")
+            break
+    per_tick = {}
+    for d in decisions:
+        per_tick.setdefault(d["tick"], []).append(d)
+    over = {t: sum("nodes" in d for d in ds) for t, ds in per_tick.items()
+            if sum("nodes" in d for d in ds) > EXPLAIN_LIMIT}
+    bound_ticks = [t for t, ds in per_tick.items() if any(d["outcome"] == "bound" for d in ds)]
+    newest_tick = max(bound_ticks) if bound_ticks else None
+    tabled = [d for d in per_tick.get(newest_tick, ()) if d["outcome"] == "bound" and "nodes" in d]
+    if over or not tabled:
+        problems.append(f"verdict tables: ticks over {EXPLAIN_LIMIT}: {over}; the newest tick "
+                        f"with bound pods ({newest_tick}) has {len(tabled)} bound pods with tables")
+    if not by_name or by_name[0]["pod"] != f"default/{fitting[7]}":
+        problems.append(f"?pod={fitting[7]} returned {[d['pod'] for d in by_name[:2]]}")
+    incremental = [r for r in solves if r.get("incremental")]
+    if sum(r["pods"] for r in incremental) < DEBUG_FITTING + DEBUG_STUCK:
+        problems.append(f"incremental solve records hold {sum(r['pods'] for r in incremental)} "
+                        f"pods")
+    solve_ids = {r["traceId"] for r in solves}
+    orphans = {d["traceId"] for d in decisions if d["traceId"] and d["traceId"] not in solve_ids}
+    if orphans:
+        problems.append(f"decision trace ids not in /debug/solves: {sorted(orphans)[:3]}")
+    if not traces or fitting[7] not in traces[0].get("pods", []):
+        problems.append(f"/debug/traces?pod={fitting[7]} returned {len(traces)} traces")
+    k1_launches = _k1_calls(kernels) - k1_before
+    if k1_launches < len(solves):
+        problems.append(f"K1 launches in the load {k1_launches} below {len(solves)} solve "
+                        f"records")
+    if not capacity_view.get("sampled") or slo_view.get("kind") != "SLOReport":
+        problems.append(f"capacity sampled {capacity_view.get('sampled')}, slo kind "
+                        f"{slo_view.get('kind')}")
+    if not profile_exists:
+        problems.append(f"the device profile's directory {profile_dir} does not exist")
+    if stacks[0] != 200 or "--- thread" not in stacks[1]:
+        problems.append("/debug/stacks did not dump the threads")
+    if rc != 0:
+        problems.append(f"the command exited with {rc} on SIGTERM: {log}")
+    if problems:
+        fail(phase, "; ".join(problems))
+    explain = re.findall(r'^scheduler_phase_seconds_(sum|count)\{phase="explain"\} ([0-9.e+]+)$',
+                         metrics_body, re.M)
+    explain = {k: float(v) for k, v in explain}
+    explain_le = {le: float(v) for le, v in re.findall(
+        r'^scheduler_phase_seconds_bucket\{phase="explain",le="([^"]+)"\} ([0-9.e+]+)$',
+        metrics_body, re.M)}
+    ticks = len(solves)
+    return {
+        "card": smi, "apiserver": " ".join(command), "scheduler": " ".join(sched.cmd),
+        "nodes": DAEMON_NODES, "fitting_pods": DEBUG_FITTING, "stuck_pods": DEBUG_STUCK,
+        "command_up_s": up_s, "bound_s": bound_s, "settle_s": settle_s,
+        "ticks": ticks, "k1_launches": k1_launches, "k1_prewarm_launches": k1_before,
+        "k1_ms_traced": k1_trace_ms or "not measured",
+        "kernels_traced": dict(sorted(traced_kernels.items(), key=lambda kv: -kv[1][1])[:8]),
+        "trace_s": DEBUG_TRACE_S, "trace_lead_s": DEBUG_TRACE_LEAD_S,
+        "explain_phases": explain.get("count", 0.0), "explain_s": explain.get("sum", 0.0),
+        "explain_s_per_phase": (explain["sum"] / explain["count"]) if explain.get("count")
+        else None,
+        "explain_phases_over_1s": explain.get("count", 0.0) - explain_le.get("1", 0.0),
+        "explain_phases_over_2_5s": explain.get("count", 0.0) - explain_le.get("2.5", 0.0),
+        "decisions": len(decisions), "bound_decision_events": bound_events,
+        "tables_in_newest_bound_tick": len(tabled), "rebalance_sampled":
+            rebalance_view.get("sampled"),
+        "slo_verdict": slo_view.get("verdict"),
+        "leg_s": time.perf_counter() - t_leg,
+        "checks": {"healthz": "ok", "bound_decisions_at_binding": DEBUG_FITTING,
+                   "stuck_unschedulable_with_tables": DEBUG_STUCK, "pod_filter": True,
+                   "solve_records_cover_pods": True, "trace_names_pod": True,
+                   "k1_launches_cover_solves": True, "capacity_sampled": True,
+                   "device_profile_dir": True, "sigterm_exit_0": True},
+        "timed": "host clock of this process; K1 ms a launch, in launch order, and the top "
+                 "kernels by device ms from the command's own torch.profiler trace "
+                 "(/debug/device-profile, after a first idle capture of 1 s) started "
+                 "trace_lead_s before the load; explain from the command's /metrics",
+    }
+
+
+def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
+    """The eleven legs, each on a fresh apiserver child (only `legs`
+    when given). `churn_stuck` pods that fit no node wait through
+    daemon_churn's load."""
+    plan = {
+        "daemon_parity": lambda: {"card": smi, **run_daemon_parity(torch, device)},
+        "daemon_parity_wide": lambda: run_daemon_parity(torch, device, wide=True),
+        "daemon_drill": lambda: run_daemon_drill(torch, device, smi, "daemon_drill"),
+        "daemon_churn": lambda: run_daemon_drill(torch, device, smi, "daemon_churn",
+                                                 preload=CHURN_PRELOAD, stuck=churn_stuck),
+        "daemon_parity_hostnames": lambda: run_daemon_parity(torch, device, wide=True,
+                                                             n_nodes=HOSTNAME_NODES),
+        "daemon_policy_parity": lambda: run_daemon_policy_parity(torch, device),
+        "daemon_policy_drill": lambda: run_daemon_drill(torch, device, smi,
+                                                        "daemon_policy_drill", policy=True),
+        "daemon_sidecar_parity": lambda: run_daemon_sidecar_parity(torch, device),
+        "desched_defrag": lambda: run_desched_defrag(torch, device, smi),
+        "autoscale_cycle": lambda: run_autoscale_cycle(torch, device, smi),
+        "daemon_debug": lambda: run_daemon_debug(torch, device, smi),
+    }
+    unknown = set(legs) - set(plan)
+    if unknown:
+        fail("daemon", f"no such legs: {sorted(unknown)}")
+    out = {}
+    for name, run in plan.items():
+        if not legs or name in legs:
+            out[name] = run()
+            emit(name, ok=True, **out[name])
     return out
 
 

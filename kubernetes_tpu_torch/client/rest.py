@@ -8,7 +8,8 @@ daemon runs (reference: pkg/client/client.go + request.go):
   directly. It is duck-typed: the port has no apiserver of its own, and
   the tests hand it the JAX package's. An error that carries `code`,
   `reason` and `message` is raised again as the port's `APIError`.
-- `HTTPTransport` speaks the apiserver's HTTP wire to one endpoint: one
+- `HTTPTransport` speaks the apiserver's HTTP wire to one endpoint: the
+  active trace's id in the `X-Trace-Id` header of each request, one
   keep-alive connection a thread, a free replay when a reused
   connection proves stale, bounded retries of idempotent verbs on
   connection failures and 502/503/504, and the watch as a stream of
@@ -38,6 +39,7 @@ from urllib.parse import urlencode, urlparse
 from kubernetes_tpu_torch.models import serde
 from kubernetes_tpu_torch.models.objects import Event as EventObject
 from kubernetes_tpu_torch.models.objects import Node, Pod, PodGroup, PodTemplate, Service
+from kubernetes_tpu_torch.utils import tracing
 
 # Watch event types (reference: pkg/watch Event{Added,Modified,Deleted,Error}).
 ADDED = "ADDED"
@@ -287,6 +289,11 @@ class HTTPTransport(Transport):
             path = path + "?" + urlencode({k: v for k, v in query.items() if v})
         payload = json.dumps(body).encode() if body is not None else None
         headers = {"Content-Type": content_type} if payload else {}
+        # Dapper hop: the apiserver records its handling of this request
+        # under the active trace's id.
+        tid = tracing.current_trace_id()
+        if tid:
+            headers[tracing.TRACE_HEADER] = tid
         attempts = 0
         while True:
             try:

@@ -4,7 +4,7 @@
         [--batch-full-relower | --batch-incremental] \\
         [--batch-mode scan|wave|sinkhorn|auto] [--algorithm-provider NAME] \\
         [--policy-config-file FILE] [--solver-sidecar SOCKET] \\
-        [--prewarm-buckets N] [--device cuda|cpu]
+        [--prewarm-buckets N] [--healthz-port PORT] [--device cuda|cpu]
 
 The counterpart of `kubernetes_tpu/cmd/daemons.py`'s `start_scheduler`
 and `scheduler_main`, with its flags and routing: an HTTP client of the
@@ -24,8 +24,16 @@ command raises):
 
 Without any batch flag the JAX package boots its per-pod scalar
 `Scheduler`; the port has no such daemon yet and boots the incremental
-daemon. `--batch-mode auto` is the scan on one card. It runs until
-SIGTERM or SIGINT.
+daemon. `--batch-mode auto` is the scan on one card.
+
+`--healthz-port` (default 10251, the JAX scheduler's; negative
+disables) serves `/healthz` (200 while the daemon's loop runs),
+`/metrics` and the scheduler's `/debug/*` views
+(`cmd/daemons.HealthServer`): decisions, solves and traces of the
+flight recorder, slo, capacity, rebalance, kernels, device-profile,
+stacks and profile. A port that is taken prints a warning and the
+daemon runs on. It runs until SIGTERM or SIGINT, or exits 1 when the
+daemon stops after a failed tick.
 """
 
 from __future__ import annotations
@@ -66,6 +74,9 @@ def scheduler_parser() -> argparse.ArgumentParser:
     p.add_argument("--prewarm-buckets", type=int, default=128,
                    help="run the incremental session's launches at every pod bucket up to "
                         "this size when it is built; 0 disables")
+    p.add_argument("--healthz-port", type=int, default=10251,
+                   help="own /healthz, /metrics and /debug/* port (the JAX scheduler's "
+                        "10251); negative disables")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the daemon solves (default: the CUDA card)")
     return p
@@ -121,8 +132,11 @@ def start_scheduler(args, client=None):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from kubernetes_tpu_torch.cmd.daemons import _loop_alive_check, _start_health
+
     args = scheduler_parser().parse_args(argv)
     daemon = start_scheduler(args)
+    health = _start_health(args, [_loop_alive_check(daemon)])
     print(f"scheduler running against {args.server} ({type(daemon).__name__})", flush=True)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -134,6 +148,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 return 1
     finally:
         daemon.stop()
+        if health is not None:
+            health.stop()
     return 0
 
 

@@ -21,6 +21,8 @@ A move:
    `REBALANCE_DEST_ANNOTATION` naming the destination, which the
    scheduler's lowering honours as a HostName pin, then patches its
    `status.nominatedNodeName`; the scheduler daemon rebinds it there;
+   the flight recorder's newest decision of the pod is amended to
+   `rebalance_nominated` at the destination;
 5. deletes the journal entry.
 
 Every cycle first replays orphaned journal entries (`recover`): an
@@ -48,8 +50,6 @@ Departures from the JAX controller:
   version. The port's `fragment_score` never returns None, so the
   measured score is never the plan's forecast.
 - No `DESCHED_MOVE_CRASH` fault seam (the daemon's departure (c)).
-- No flight-recorder preemption record of a nomination; it comes with
-  the decision records.
 - `rebalance_moves_total{outcome="planned"}` is counted by `build_plan`
   for every plan (see `utils/rebalance.py`).
 
@@ -75,7 +75,7 @@ from kubernetes_tpu_torch.models.objects import (
     parse_iso,
 )
 from kubernetes_tpu_torch.utils import capacity as capacity_mon
-from kubernetes_tpu_torch.utils import metrics, tracing
+from kubernetes_tpu_torch.utils import flightrecorder, metrics, tracing
 from kubernetes_tpu_torch.utils import rebalance as rebalance_mon
 from kubernetes_tpu_torch.utils.capacity import cluster_columns
 from kubernetes_tpu_torch.utils.rebalance import DEFAULT_MOVE_BUDGET, build_plan, fragment_score
@@ -384,6 +384,9 @@ class Descheduler:
                                   namespace=ns)
             except APIError:
                 pass
+        flightrecorder.DEFAULT.record_preemption(
+            m["pod"], "rebalance_nominated", node=m["to"],
+            reason=f"defrag move from {m['from']} (gain {m['gain']})")
         self._delete_journal(journal_name, ns)
         return True
 

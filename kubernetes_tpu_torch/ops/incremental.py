@@ -718,7 +718,7 @@ class SolverSession:
                     self.last_stats["sinkhorn_iters"] = int(iters)
                     self.last_stats["sinkhorn_residual"] = float(res)
                     flightrecorder.observe_solve_telemetry(
-                        "sinkhorn", int(iters), residual=float(res))
+                        "sinkhorn", int(iters), residual=float(res), waves=int(waves))
                 elif waves is not None:
                     flightrecorder.observe_solve_telemetry("wave", int(waves))
             with phase("commit"):

@@ -150,6 +150,12 @@ class KernelLedger:
             "top_bytes": best("bytes_accessed"),
         }
 
+    def to_dict(self) -> dict:
+        """The `/debug/kernels` body: the rows and their summary, from
+        one read of the rows."""
+        rows = self.rows()
+        return {"kernels": rows, "summary": self.summary(rows)}
+
     def reset(self) -> None:
         with self._lock:
             self._rows.clear()

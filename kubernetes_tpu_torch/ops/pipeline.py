@@ -164,7 +164,8 @@ def solve_backlog_pipelined(
                 if mode == "sinkhorn":
                     iters = sum(int(it) for _, it, _ in tele)
                     residual = float(tele[-1][2])
-                    flightrecorder.observe_solve_telemetry("sinkhorn", iters, residual=residual)
+                    flightrecorder.observe_solve_telemetry("sinkhorn", iters, residual=residual,
+                                                            waves=waves)
                     if timer is not None:
                         timer.stats["sinkhorn_iters"] = iters
                         timer.stats["sinkhorn_residual"] = residual

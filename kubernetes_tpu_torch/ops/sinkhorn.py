@@ -112,7 +112,7 @@ def sinkhorn_assignments(dsnap: DeviceSnapshot, **kw):
         titers = int(titers)
         residual = float(residual)
         sp.note(waves=waves, sinkhorn_iters=titers, sinkhorn_residual=round(residual, 4))
-    flightrecorder.observe_solve_telemetry("sinkhorn", titers, residual=residual)
+    flightrecorder.observe_solve_telemetry("sinkhorn", titers, residual=residual, waves=waves)
     return stripped, waves
 
 

@@ -42,9 +42,31 @@ plugin/pkg/scheduler/scheduler.go, factory/factory.go):
   backoff, released early when capacity frees. The default policy only.
 
 What the two share lives in the base: the retry requeue, gang groups,
-atomic group binds, preemption, the handling of bind outcomes and the
-capacity plane. Each resolved tick ends with a capacity sample
-(`_sample_capacity`, phase `capacity`): the backlog's shapes noted, the
+atomic group binds, preemption, the handling of bind outcomes, the
+flight recorder and the capacity plane.
+
+Every tick with pods is one trace (`tracing.trace("schedule_batch")`,
+its pod set for the pod filter, an `enqueue` child from the drain's
+start) and lands in `utils.flightrecorder.DEFAULT` after its binds and
+before the preemption pass (`_record_decisions`): one SolveRecord
+(mode, pods, solve seconds, the waves and Sinkhorn figures, `incremental`)
+and one Decision a pod (bound, bind_conflict, bind_error,
+unschedulable or gang_rejected, node, group). For the default spec on
+the daemon's card, up to `explain_limit()` pods a tick (unbound ones
+first) get their per-node verdict tables from `ops.pipeline.
+explain_backlog` in phase `explain`: unbound pods against the
+occupancy after the solve, bound ones against the one before it. The
+policy, scalar and sidecar routes record outcomes without tables. The
+preemption pass then amends the unbound pods' newest records
+(preempt_infeasible, preempt_gang_partial, preempt_evict_failed,
+preempt_nominated). The started incremental daemon records on its
+commit worker, in tick order, and sheds: unbound pods are explained
+inline, bound pods' tables of the newest four ticks wait until the
+solve loop has been quiet for `_EXPLAIN_QUIET_S` with no tick running
+or in flight, and the worker's idle wait attaches them (departure (h)).
+
+Each resolved tick ends with a capacity sample (`_sample_capacity`,
+phase `capacity`): the backlog's shapes noted, the
 session's host columns (or, with no session, `cluster_columns` of the
 caches) reported by `utils.capacity.DEFAULT` on the daemon's card (on
 the CPU for the scalar and sidecar routes, which keep no card), with the
@@ -90,13 +112,13 @@ Departures from the JAX daemons:
   propagate as in (a). On the commit worker the error is kept and
   raised by the next `schedule_batch`.
 - (c) No chaos seams (`faults.fire`) and no lock sanitizer wrappers.
-- (d) Decision records and explain capture and the flight recorder's
-  preemption records are not ported; they change no decision. The
-  capacity sample is, with two differences: an error in it is a tick
-  error as in (a) (the JAX daemon swallows every sample error), and the
-  backlog's age is that of the queue's head pod by its creation stamp
-  (the JAX daemon reads the lifecycle collector of an apiserver in its
-  own process).
+- (d) Telemetry errors. An error of the explain readback on the card
+  is a tick error as in (a) (inline), or a commit worker error as in
+  (b) (the deferred half); an error of the capacity sample is a tick
+  error as in (a). The JAX daemon logs each at debug level and drops
+  it. The backlog's age in the capacity sample is that of the queue's
+  head pod by its creation stamp (the JAX daemon reads the lifecycle
+  collector of an apiserver in its own process).
 - (e) The scheduled-pods cache defaults to the wire form
   (`raw_scheduled_cache=True`), which the incremental daemon wants: its
   session tracks its own bound pods, so fully decoding every bind and
@@ -115,12 +137,24 @@ Departures from the JAX daemons:
   daemon drops it from the tick, and it comes back only with its next
   watch event: for a replacement, the nomination sweep 30 s on, which
   also unpins it.
+- (h) Explain cadence. The deferred bound-pod tables wait for
+  `_EXPLAIN_QUIET_S` after the end of the solve loop's last tick (an
+  idle tick that resolves the in-flight one counts); the JAX daemon
+  counts from the tick's start, so a tick longer than that
+  opens its gate while pods keep arriving, and the capture (the
+  lowering of every node, the pod lister's decode of every bound pod)
+  then holds the interpreter on the commit worker during the load. A
+  session built with `prewarm_buckets` also runs the explain readback
+  once, on one node, so the first pod explained pays no first use of
+  the readback's operations on the card.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import logging
+import math
 import queue
 import threading
 import time
@@ -149,7 +183,8 @@ from kubernetes_tpu_torch.ops.incremental import (
     SolverSession,
     vocab_widths,
 )
-from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device
+from kubernetes_tpu_torch.ops.pipeline import explain_backlog, gang_member_counts_device
+from kubernetes_tpu_torch.ops.preemption import REASON_INFEASIBLE
 from kubernetes_tpu_torch.scheduler import gang
 from kubernetes_tpu_torch.scheduler.batch import (
     BATCH_MODES,
@@ -167,7 +202,7 @@ from kubernetes_tpu_torch.scheduler.plugins import (
     spec_for_policy,
     spec_for_provider,
 )
-from kubernetes_tpu_torch.utils import capacity, metrics, profiler, sli, tracing
+from kubernetes_tpu_torch.utils import capacity, flightrecorder, metrics, profiler, sli, tracing
 from kubernetes_tpu_torch.utils.ratelimit import Backoff
 
 _LOG = logging.getLogger("kubernetes_tpu_torch.scheduler")
@@ -202,6 +237,14 @@ DEFAULT_EVICTION_GRACE_SECONDS = 5
 #: Seconds past the victims' grace a nomination stays live before the
 #: preemptor may preempt again (covers the kubelet's confirm lag).
 NOMINATION_SLACK_SECONDS = 10.0
+
+
+#: The pod a prewarmed session's explain readback runs once.
+_EXPLAIN_WARM_POD = {
+    "metadata": {"name": "explain-prewarm", "namespace": "default"},
+    "spec": {"containers": [{"name": "c", "image": "app", "resources": {
+        "limits": {"cpu": "100m", "memory": "64Mi"}}}]},
+}
 
 
 def _decode_pod(wire: dict) -> Pod:
@@ -590,13 +633,15 @@ class BatchScheduler:
 
     # -- commits ------------------------------------------------------------
 
-    def _commit(self, decided, gkey_of: Dict[str, str], denied_keys) -> List[Pod]:
+    def _commit(self, decided, gkey_of: Dict[str, str], denied_keys):
         """Bind a tick's decisions, `decided` (pod, node or None) in
         order: FailedScheduling for the unplaced, the placed ones in one
         bulk call per namespace and each accepted group atomically, then
         Scheduled and the modeler's assumption for each success.
         `gkey_of` maps a pod key to its group, `denied_keys` holds the
-        rejected groups. Returns the pods to requeue."""
+        rejected groups. Returns the pods to requeue, and the bind
+        outcome of each placed pod by key (bound, bind_conflict or
+        bind_error)."""
         cfg = self.config
         by_ns: Dict[str, List] = {}
         group_binds: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {}
@@ -634,6 +679,7 @@ class BatchScheduler:
         if by_ns or group_binds:
             _BIND_LATENCY.observe(time.monotonic() - t0)
 
+        bind_outcome: Dict[str, str] = {}
         for pod, dest in placed:
             ns = pod.metadata.namespace or "default"
             key = f"{ns}/{pod.metadata.name}"
@@ -643,6 +689,7 @@ class BatchScheduler:
                 cfg.modeler.assume_pod(pod)
                 self._nominations.pop(key, None)
                 _SCHEDULED.inc(result="scheduled")
+                bind_outcome[key] = "bound"
                 cfg.client.record_event(pod, "Scheduled",
                                         f"Successfully assigned {pod.metadata.name} to {dest}",
                                         source="scheduler")
@@ -650,11 +697,28 @@ class BatchScheduler:
                 # Someone else bound it; the pod is not ours to retry.
                 self._bind_failed(key)
                 _SCHEDULED.inc(result="bind_conflict")
+                bind_outcome[key] = "bind_conflict"
             else:
                 self._bind_failed(key)
                 _SCHEDULED.inc(result="bind_error")
+                bind_outcome[key] = "bind_error"
                 rejected.append(pod)
-        return rejected
+        return rejected, bind_outcome
+
+    @staticmethod
+    def _decision_rows(decided, gkey_of: Dict[str, str], denied_keys, bind_outcome):
+        """The flight recorder's rows of a committed tick: (pod, node or
+        None, outcome, group key or None) in the tick's order."""
+        rows = []
+        for pod, dest in decided:
+            key = _key(pod)
+            gkey = gkey_of.get(key)
+            if dest is None:
+                oc = "gang_rejected" if gkey in denied_keys else "unschedulable"
+            else:
+                oc = bind_outcome.get(key, "bind_error")
+            rows.append((pod, dest, oc, gkey))
+        return rows
 
     def _bind_failed(self, key: str) -> None:
         """A placed pod's bind did not succeed (the incremental daemon
@@ -697,8 +761,18 @@ class BatchScheduler:
         granted = 0
         for pod, dec, pre_guard in zip(candidates, decisions, solved):
             if dec is None:
+                # Either way the pod's decision gains the preemption
+                # verdict; a grant the gang guard dropped is counted by
+                # its group's gang_partial above.
                 if pre_guard is None:
                     _PREEMPT_OUTCOMES.inc(outcome="infeasible")
+                    flightrecorder.DEFAULT.record_preemption(
+                        pod_full_key(pod), "preempt_infeasible", reason=REASON_INFEASIBLE)
+                else:
+                    flightrecorder.DEFAULT.record_preemption(
+                        pod_full_key(pod), "preempt_gang_partial",
+                        reason="pod group preemption dropped: not every unbound member could "
+                               "be granted a nomination")
                 continue
             ns = pod.metadata.namespace or "default"
             key = pod_full_key(pod)
@@ -728,6 +802,9 @@ class BatchScheduler:
                 # Nothing freed: a nomination would only hold the
                 # preemptor back for grace + slack. Retry next tick.
                 _PREEMPT_OUTCOMES.inc(outcome="evict_failed")
+                flightrecorder.DEFAULT.record_preemption(
+                    key, "preempt_evict_failed", node=dec.node, victims=dec.victims,
+                    reason="every victim eviction failed; retrying")
                 continue
             try:
                 cfg.client.patch("pods", pod.metadata.name,
@@ -735,6 +812,8 @@ class BatchScheduler:
             except Exception:
                 _LOG.debug("nominatedNodeName write for %s failed", key, exc_info=True)
             _PREEMPT_OUTCOMES.inc(outcome="nominated")
+            flightrecorder.DEFAULT.record_preemption(key, "preempt_nominated", node=dec.node,
+                                                     victims=dec.victims)
             self._nominations[key] = (
                 dec.node, pod_priority(pod),
                 now + self.eviction_grace_seconds + NOMINATION_SLACK_SECONDS,
@@ -802,6 +881,121 @@ class BatchScheduler:
             return
         self._sample_capacity()
 
+    # -- the flight recorder ------------------------------------------------
+
+    def _record_decisions(self, rows, nodes, services, assigned_pre, solve_s=0.0,
+                          stats=None) -> None:
+        """One SolveRecord for the tick and one Decision a drained pod
+        (outcome, node, group), with bounded per-node verdict tables
+        captured in their own `explain` phase on the daemon's card.
+        `rows` are (pod, node or None, outcome, group key or None);
+        `assigned_pre` is the occupancy before the solve (None: the pod
+        lister's less this tick's binds, the incremental daemon's
+        shape). Runs before the preemption pass, which amends the
+        unbound pods' records. Raises what the readback raises."""
+        if not rows:
+            return
+        sli.observe_device_telemetry()
+        # A wave or Sinkhorn batch solve parks its figures; take them
+        # (once) for this record. The incremental daemon passes the
+        # session's stats, and the pop still runs so that a later tick
+        # never inherits them.
+        tele = flightrecorder.take_last_solve_telemetry()
+        if not stats and tele is not None and tele["mode"] == self.mode:
+            stats = {"waves": tele["waves"]}
+            if self.mode == "sinkhorn":
+                stats["sinkhorn_iters"] = tele["iterations"]
+                stats["sinkhorn_residual"] = tele["residual"]
+        stats = stats or {}
+        tick = flightrecorder.DEFAULT.next_tick()
+        trace_id = tracing.current_trace_id()
+        flightrecorder.DEFAULT.record_solve(flightrecorder.SolveRecord(
+            tick=tick, trace_id=trace_id, mode=self.mode, pods=len(rows), duration_s=solve_s,
+            waves=int(stats.get("waves", 0)),
+            sinkhorn_iterations=int(stats.get("sinkhorn_iters", 0)),
+            sinkhorn_residual=stats.get("sinkhorn_residual"),
+            incremental=bool(stats.get("incremental", False)),
+        ))
+        decisions: Dict[str, flightrecorder.Decision] = {}
+        for pod, dest, outcome, gkey in rows:
+            key = _key(pod)
+            decisions[key] = flightrecorder.Decision(
+                pod=key, tick=tick, trace_id=trace_id, mode=self.mode, outcome=outcome,
+                node=dest or "", group=gkey or "",
+            )
+        # Announce the outcomes before the readback; record() announces
+        # again (sinks are idempotent).
+        flightrecorder.notify_decision_sinks((d.pod, d.outcome) for d in decisions.values())
+        limit = flightrecorder.explain_limit()
+        # Verdict tables only for the default spec on this process's
+        # card: the readback evaluates the default pipeline, and the
+        # sidecar route keeps off the card. A pipelined daemon sheds:
+        # unbound pods are explained inline, bound pods' tables wait for
+        # the commit worker's idle drain.
+        shed = self._explain_shed()
+        has_unbound = any(dest is None for _p, dest, _o, _g in rows)
+        if limit > 0 and self.spec is None and self.sidecar is None:
+            if not shed or has_unbound:
+                with tracing.phase("explain", pods=min(len(rows), limit)):
+                    self._attach_verdicts(rows, decisions, nodes, services, assigned_pre, limit,
+                                          only="unbound" if shed else None)
+            if shed:
+                # The Decision objects live in the ring, so the drain
+                # amends the records readers see.
+                self._queue_deferred_explain(
+                    (rows, decisions, nodes, services, assigned_pre, limit))
+        flightrecorder.DEFAULT.record(decisions.values())
+
+    def _attach_verdicts(self, rows, decisions, nodes, services, assigned_pre, limit,
+                         only: Optional[str] = None) -> None:
+        """Per-node verdicts from the explain readback on the daemon's
+        card. Unbound pods against the occupancy after the solve (why
+        they are stuck now), bound pods against the one before it (the
+        view they won under); unbound pods have the first claim on the
+        budget. `only` restricts the pass to "unbound" (the pipelined
+        daemon's inline half) or "bound" (its deferred half). The pod
+        lister is read here, so a wire-form scheduled cache decodes only
+        when verdicts are captured."""
+        unbound = [pod for pod, dest, _, _ in rows if dest is None][:limit]
+        budget = 0 if only == "unbound" else limit - len(unbound)
+        if only == "bound":
+            unbound = []
+        bound = []
+        for pod, dest, _, _ in rows:
+            if dest is None or budget <= 0:
+                continue
+            # A bound pod's spec.nodeName already names its node: explain
+            # the view before the bind, or the HostName predicate would
+            # pin the verdict to the answer.
+            ep = copy.deepcopy(pod)
+            ep.spec.node_name = ""
+            bound.append(ep)
+            budget -= 1
+        post = self.config.pod_lister.list()
+        if assigned_pre is None:
+            bound_keys = {_key(pod) for pod, dest, outcome, _ in rows
+                          if dest is not None and outcome == "bound"}
+            assigned_pre = [q for q in post if pod_full_key(q) not in bound_keys]
+        top_k = flightrecorder.explain_top_k()
+        max_failed = flightrecorder.explain_failed_nodes()
+        for pods, occupancy in ((bound, assigned_pre), (unbound, post)):
+            if not pods:
+                continue
+            for entry in explain_backlog(pods, nodes, occupancy, services, device=self.device,
+                                         top_k=top_k, max_failed=max_failed):
+                d = decisions.get(entry["pod"])
+                if d is not None:
+                    flightrecorder.DEFAULT.attach(d, entry)
+
+    def _explain_shed(self) -> bool:
+        """Whether bound pods' verdict tables wait off the tick's path
+        (the started incremental daemon); this daemon never sheds."""
+        return False
+
+    def _queue_deferred_explain(self, ctx) -> None:
+        """Take a deferred bound-table context (only a shedding daemon
+        queues one)."""
+
     # -- the tick -----------------------------------------------------------
 
     def _observe_informer_staleness(self) -> None:
@@ -861,8 +1055,12 @@ class BatchScheduler:
         if not pending:
             self._refresh_capacity_idle()
             return 0
-        with tracing.trace("schedule_batch") as tr:
-            tr.note(pods=len(pending), mode=self.mode, drain_s=time.monotonic() - t_drain)
+        # One trace a tick: the pod set rides it for the pod filter, and
+        # its phase spans tell each pod's story.
+        with tracing.trace("schedule_batch", pods=(p.metadata.name for p in pending),
+                           start=t_drain) as tr:
+            tr.child("enqueue", start=t_drain, end=time.monotonic(), pods=len(pending),
+                     mode=self.mode)
             return self._solve_and_commit(pending)
 
     def _solve_and_commit(self, pending: List[Pod]) -> int:
@@ -889,10 +1087,15 @@ class BatchScheduler:
             )
         else:
             destinations, denied = self._solve(pending, nodes, assigned, services), []
-        _ALGO_LATENCY.observe(time.monotonic() - t0)
+        solve_s = time.monotonic() - t0
+        _ALGO_LATENCY.observe(solve_s)
         gkey_of = {_key(pending[i]): g.key for g in groups for i in g.indices}
-        rejected = self._commit(list(zip(pending, destinations)), gkey_of,
-                                {g.key for g in denied})
+        denied_keys = {g.key for g in denied}
+        decided = list(zip(pending, destinations))
+        rejected, bind_outcome = self._commit(decided, gkey_of, denied_keys)
+        # The records land before the preemption pass amends them.
+        self._record_decisions(self._decision_rows(decided, gkey_of, denied_keys, bind_outcome),
+                               nodes, services, assigned, solve_s=solve_s)
         unbound = [p for p, d in zip(pending, destinations) if d is None]
         if unbound:
             # This tick's binds were assumed into the modeler since
@@ -920,6 +1123,10 @@ class IncrementalBatchScheduler(BatchScheduler):
     #: Queued commit jobs at most: a solve loop that outruns the
     #: apiserver blocks instead of growing a bind backlog.
     COMMIT_DEPTH = 4
+    #: Seconds the solve loop must be quiet, from the end of its last
+    #: tick, before deferred bound-pod tables attach (their lowering
+    #: contends for the interpreter with live ticks).
+    _EXPLAIN_QUIET_S = 0.5
 
     def __init__(
         self,
@@ -947,6 +1154,9 @@ class IncrementalBatchScheduler(BatchScheduler):
         self._commit_q: "queue.Queue" = queue.Queue(maxsize=self.COMMIT_DEPTH)
         self._commit_thread: Optional[threading.Thread] = None
         self._worker_error: Optional[BaseException] = None
+        # Deferred bound-pod explain contexts, the newest four ticks.
+        self._deferred_explain: "collections.deque" = collections.deque(maxlen=4)
+        self._last_busy_mono = 0.0
         # Duty-cycle baseline: when the previous tick resolved.
         self._last_tick_resolved_mono = 0.0
         # The dispatched, unresolved tick: (PendingSolve, ctx).
@@ -1085,8 +1295,10 @@ class IncrementalBatchScheduler(BatchScheduler):
         if self.prewarm_buckets:
             t0 = time.monotonic()
             n = session.prewarm(self.prewarm_buckets)
-            _LOG.info("session prewarm: %d launches in %.1fs (pod buckets up to %d)",
-                      n, time.monotonic() - t0, self.prewarm_buckets)
+            if nodes:
+                explain_backlog([_decode_pod(_EXPLAIN_WARM_POD)], nodes[:1], device=self.device)
+            _LOG.info("session prewarm: %d launches and the explain readback in %.1fs "
+                      "(pod buckets up to %d)", n, time.monotonic() - t0, self.prewarm_buckets)
         return session
 
     # -- the commit pipeline ----------------------------------------------
@@ -1100,19 +1312,64 @@ class IncrementalBatchScheduler(BatchScheduler):
 
     def _commit_worker(self) -> None:
         while True:
-            job = self._commit_q.get()
+            try:
+                job = self._commit_q.get(timeout=0.1)
+            except queue.Empty:
+                # An idle gap: attach deferred bound-pod tables.
+                try:
+                    self._run_deferred_explain()
+                except Exception as e:
+                    self._worker_failed(e, "deferred explain capture failed")
+                continue
             try:
                 if job is None:
                     return
                 self._commit_job(job)
             except Exception as e:
-                self._count_error()
-                _LOG.exception("commit job failed; the scheduler stops")
-                self._worker_error = e
-                self._stop.set()
-                self._wake.set()
+                self._worker_failed(e, "commit job failed")
             finally:
                 self._commit_q.task_done()
+
+    def _worker_failed(self, error: BaseException, what: str) -> None:
+        """Departure (b): the commit worker's error is counted and kept
+        for the next schedule_batch to raise, and the daemon stops."""
+        self._count_error()
+        _LOG.exception("%s; the scheduler stops", what)
+        self._worker_error = error
+        self._stop.set()
+        self._wake.set()
+
+    def _explain_shed(self) -> bool:
+        # Started, bound pods' tables always wait: the readback is a
+        # device round trip of its own and would sit on the next pod's
+        # bind latency. Unbound pods are explained inline; a daemon
+        # ticked by hand captures everything synchronously.
+        return self._pipelined
+
+    def _queue_deferred_explain(self, ctx) -> None:
+        self._deferred_explain.append(ctx)
+
+    def _run_deferred_explain(self) -> None:
+        """The commit worker's idle half of verdict capture: bound-pod
+        tables attached to decisions already in the ring, once the solve
+        loop has been quiet for _EXPLAIN_QUIET_S since its last tick ended
+        and no tick is running or in flight.
+        The deque keeps the newest ticks, and the occupancy is read at
+        attach time, shortly after the binds. Raises what the readback
+        raises."""
+        if not self._deferred_explain:
+            return
+        if (time.monotonic() - self._last_busy_mono < self._EXPLAIN_QUIET_S
+                or self._inflight is not None):
+            return
+        try:
+            ctx = self._deferred_explain.popleft()
+        except IndexError:
+            return
+        rows, decisions, nodes, services, assigned_pre, limit = ctx
+        with tracing.phase("explain", pods=min(len(rows), limit)):
+            self._attach_verdicts(rows, decisions, nodes, services, assigned_pre, limit,
+                                  only="bound")
 
     def _flush_commits(self) -> None:
         """Barrier: every queued commit job has run (before a rebuild
@@ -1191,8 +1448,14 @@ class IncrementalBatchScheduler(BatchScheduler):
         cfg = self.config
         by_key = {_key(p): p for p in ctx["pending"]}
         decided = [(by_key[key], dest) for key, dest in results if key in by_key]
-        rejected = self._commit(decided, ctx["gkey_of"], ctx["denied_keys"])
-        sli.observe_device_telemetry()
+        rejected, bind_outcome = self._commit(decided, ctx["gkey_of"], ctx["denied_keys"])
+        # The records land before the preemption pass amends them; the
+        # occupancy before the solve is the pod lister's less this
+        # tick's binds.
+        self._record_decisions(
+            self._decision_rows(decided, ctx["gkey_of"], ctx["denied_keys"], bind_outcome),
+            cfg.nodes.store.list(), cfg.service_lister.list(), None,
+            solve_s=ctx.get("solve_s", 0.0), stats=ctx.get("stats") or {"incremental": True})
         # Victims come from the watch caches, not the session; their
         # exits come back as ordinary pod DELETED deltas.
         unbound = [by_key[key] for key, dest in results if dest is None and key in by_key]
@@ -1313,8 +1576,14 @@ class IncrementalBatchScheduler(BatchScheduler):
         pending = self._drain(timeout)
         if not pending:
             # Flush the in-flight tick (its readback overlapped the
-            # wait), inline: nothing else is queued.
-            self._resolve_inflight(prefer_inline=True)
+            # wait), inline: nothing else is queued. Its commit is a
+            # tick's work: the deferred explain drain waits it out.
+            if self._inflight is not None:
+                self._last_busy_mono = math.inf
+                try:
+                    self._resolve_inflight(prefer_inline=True)
+                finally:
+                    self._last_busy_mono = time.monotonic()
             if self._session is not None:
                 # Keep the session current while idle.
                 self._drain_releases()
@@ -1330,9 +1599,19 @@ class IncrementalBatchScheduler(BatchScheduler):
                 self._event_q.clear()
             self._refresh_capacity_idle()
             return 0
-        with tracing.trace("schedule_batch") as tr:
-            tr.note(pods=len(pending), mode=self.mode, incremental=True,
-                    drain_s=time.monotonic() - t_drain)
+        # The deferred explain drain waits out the tick, then
+        # _EXPLAIN_QUIET_S from its end (departure (h)).
+        self._last_busy_mono = math.inf
+        try:
+            return self._traced_tick(pending, t_drain)
+        finally:
+            self._last_busy_mono = time.monotonic()
+
+    def _traced_tick(self, pending: List[Pod], t_drain: float) -> int:
+        with tracing.trace("schedule_batch", pods=(p.metadata.name for p in pending),
+                           start=t_drain) as tr:
+            tr.child("enqueue", start=t_drain, end=time.monotonic(), pods=len(pending),
+                     mode=self.mode, incremental=True)
             try:
                 return self._session_solve_and_commit(pending)
             except RebuildRequired:
