@@ -284,7 +284,31 @@ exits non-zero and prints no result. Phases, one JSON line each:
               sampled; an SLOReport; a device profile's directory; exit
               0 on SIGTERM. It reports the command's ticks, K1 ms a
               launch from that profile, the `explain` phase and the
-              time to settle;
+              time to settle. Then the failover legs, on 5,000 nodes
+              and 5,000 bound pods: daemon_failover, five rounds of a
+              WarmStandbyScheduler prewarmed on the card (informers
+              synced, session built with its 128-bucket warm
+              launches), the active one killed, a pod created and the
+              standby activated: kill to first bind p50 and p99 with
+              the failover_to_first_bind_s verdict (reported), the
+              prewarm's sync and build, K1 launches by the prewarm and
+              the first tick and K1 ms there, device memory each round;
+              each round's pod bound once at the node the card's
+              schedule_backlog gives on the LISTed cluster, memory
+              within two sessions' worth; daemon_ha, two HAScheduler
+              replicas (lease 2 s, renew 0.5 s), the leader crashed:
+              kill to first bind, grant to running, the deposed
+              replica's rebuild; at most one active daemon and one
+              valid token at every sample, the token bumped, the
+              deposed replica warm and idle, every pod bound once;
+              daemon_ha_cmd, two commands with --batch --leader-elect,
+              the leader killed with SIGKILL: kill to first bind split
+              into the lock's wait and the rival's cold start, one
+              holder in the kube-scheduler lock at every read, a then
+              b, every pod bound once, b's /healthz 200. Last,
+              daemon_scalar: the per-pod Scheduler over 32 pods on
+              5,000 nodes, pods a second, its bindings in pop order
+              equal to the card's schedule_backlog in that order;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -326,7 +350,7 @@ compared by running it in turns in one command (A B B A).
 
     python3 chip_smoke.py --daemon
 
-builds the kernels and runs phase 5o alone (eleven lines, no result
+builds the kernels and runs phase 5o alone (fifteen lines, no result
 line); `--daemon-legs daemon_churn,daemon_debug` runs only those legs,
 and `--churn-stuck N` creates N pods that fit no node before
 daemon_churn's load (they retry through it, each retry explained
@@ -338,13 +362,16 @@ chip_smoke.main(['--daemon'])"` runs it at another.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -542,6 +569,13 @@ def main(argv=None) -> int:
                 "autoscale_cycle": daemon["autoscale_cycle"]["k1_launches"],
                 # The command's own process, read from its /debug/kernels.
                 "daemon_debug": daemon["daemon_debug"]["k1_launches"],
+                # The warm standbys' prewarms and the activated daemons' ticks.
+                "daemon_failover": daemon["daemon_failover"]["k1_launches"],
+                "daemon_ha": daemon["daemon_ha"]["k1_launches"],
+                # The rival command's own process (prewarm and ticks).
+                "daemon_ha_cmd": daemon["daemon_ha_cmd"]["k1_launches_b"],
+                # The per-pod daemon runs no kernel.
+                "daemon_scalar": daemon["daemon_scalar"]["k1_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -4989,16 +5023,17 @@ DEBUG_TRACE_LEAD_S = 1.0  # the trace's start before the load
 class _Scheduler:
     """The port's scheduler command as a child process on the card:
     `python -m kubernetes_tpu_torch.cmd.scheduler --batch --server URL
-    --healthz-port PORT`, its output in a temporary file, stopped by
-    SIGTERM (its exit code read) or killed with its process group."""
+    --healthz-port PORT [extra]`, its output in a temporary file,
+    stopped by SIGTERM (its exit code read) or killed with its process
+    group."""
 
-    def __init__(self, phase, url, device):
+    def __init__(self, phase, url, device, extra=()):
         import tempfile
 
         self.phase, self.port = phase, _free_port()
         self.url = f"http://127.0.0.1:{self.port}"
         self.cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.scheduler", "--batch",
-                    "--server", url, "--healthz-port", str(self.port)]
+                    "--server", url, "--healthz-port", str(self.port), *extra]
         if device.type != "cuda":  # a dry run on the CPU
             self.cmd += ["--device", "cpu"]
         env = dict(os.environ)
@@ -5289,8 +5324,521 @@ def run_daemon_debug(torch, device, smi):
     }
 
 
+FAILOVER_ROUNDS = 5
+FAILOVER_PREWARM_BUCKETS = 128  # the command's default: the standby's warm launches
+FAILOVER_SYNC_S = 120.0
+FAILOVER_BIND_S = 60.0  # a round's pod's time to bind after the kill
+HA_LEASE_S, HA_RENEW_S = 2.0, 0.5
+HA_CMD_BIND_S = 180.0  # the rival command's lease wait, cold build and first tick
+SCALAR_PODS = 32
+
+
+def _k1_count():
+    """K1's wrapper count: what a leg zeroes before its path and reads
+    after it (a CPU dry run patches it to the ledger's plain calls)."""
+    from kubernetes_tpu_torch.ops import scan_kernel
+
+    return scan_kernel.scan_with_state.launches
+
+
+def _k1_set(n=0):
+    from kubernetes_tpu_torch.ops import scan_kernel
+
+    scan_kernel.scan_with_state.launches = n
+
+
+def _memory(torch, device):
+    """Bytes the card's tensors hold, read once with the capacity plane
+    idle: after every capacity warm-up thread (a daemon's start) has
+    ended and a collection. The legs' daemons take no idle-tick sample
+    (`_warm_standby`), and a caller waits out a tick's own sample
+    (`_await_sample`) first, so no sample's short-lived tensors count."""
+    for t in threading.enumerate():
+        if t.name == "capacity-warm":
+            t.join(timeout=30)
+    gc.collect()
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(device)
+
+
+def _await_sample(phase, daemon, since, timeout=30.0):
+    """Wait until `daemon` took a capacity sample after monotonic second
+    `since`: the one that ends its tick."""
+    deadline = time.monotonic() + timeout
+    while daemon._capacity_sampled_mono < since:
+        if time.monotonic() > deadline:
+            fail(phase, f"no capacity sample within {timeout} s of the tick")
+        time.sleep(0.005)
+
+
+def _summary_totals(metric):
+    """(count, sum) of an unlabelled summary so far."""
+    s = metric._stats.get((), {})
+    return s.get("count", 0), s.get("sum", 0.0)
+
+
+def _wait_bound(phase, watch, name, timeout):
+    """The first monotonic second the watch saw `name` bound, and the node."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        seen = [(at, node) for (n, _uid), nodes in list(watch.bound.items()) if n == name
+                for node, at in dict(nodes).items()]
+        if seen:
+            return min(seen)
+        time.sleep(0.002)
+    fail(phase, f"pod {name} was not bound within {timeout} s")
+
+
+def _placement(phase, client, pod_wire, device):
+    """Where the card's schedule_backlog puts `pod_wire` on the cluster as
+    LISTed now (its nodes in the LIST's order, which the informers keep).
+    A comparison: K1's count is put back as it was."""
+    from kubernetes_tpu_torch.models import serde
+    from kubernetes_tpu_torch.models.objects import Pod
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+
+    _, pods, nodes = _listed(client)
+    k = _k1_count()
+    try:
+        return schedule_backlog([serde.from_wire(Pod, pod_wire)], nodes,
+                                [p for p in pods if p.spec.node_name], device=device)[0]
+    finally:
+        _k1_set(k)
+
+
+def _warm_standby(url, device):
+    """A WarmStandbyScheduler over its own HTTP client whose daemon
+    prewarms as the command's does (FAILOVER_PREWARM_BUCKETS). Its idle
+    ticks take no capacity sample (the quiet cluster's series are not
+    what these legs measure), so device memory reads between ticks see
+    no sample's tensors; each solving tick still samples."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler
+    from kubernetes_tpu_torch.scheduler.standby import WarmStandbyScheduler
+
+    def daemon(cfg):
+        d = IncrementalBatchScheduler(cfg, device=device, prewarm_buckets=FAILOVER_PREWARM_BUCKETS)
+        d.CAPACITY_IDLE_REFRESH_S = math.inf
+        return d
+
+    return WarmStandbyScheduler(Client(HTTPTransport(url)), sync_timeout=FAILOVER_SYNC_S,
+                                daemon_factory=daemon)
+
+
+def run_daemon_failover(torch, device, smi):
+    """Leg daemon_failover: `bench.py:947-1024`'s warm failover drill at
+    5,000 nodes and 5,000 bound pods over the apiserver child. A started
+    WarmStandbyScheduler binds a warm-up pod; then in each of
+    FAILOVER_ROUNDS rounds a fresh standby is prewarmed (informers
+    synced, session built on the card with its warm launches), the
+    active one killed, one pod created and the standby activated. Kill
+    to that pod's bind on this process's watch, the prewarm's split, K1
+    launches by the prewarm and by the first tick, K1 ms on the first
+    tick by CUDA events, device memory after each round. Enforced: every
+    round's pod bound once, at the node the card's schedule_backlog
+    gives on the LISTed cluster; no pod bound twice; the memory after
+    each round within two live sessions' worth (one measured after the
+    warm-up tick: the session, its tick staging and the kernels'
+    caches)."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.utils import capacity, slo
+
+    phase = "daemon_failover"
+    t_leg = time.perf_counter()
+    capacity.DEFAULT.reset()
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _cluster(phase, client, pods=DAEMON_NODES)
+        _, version = client.list_wire("pods", namespace="default")
+        watch = _PodWatch(cp.url, version)
+
+        standby = functools.partial(_warm_standby, cp.url, device)
+        active = None
+        try:
+            mem0 = _memory(torch, device)
+            _k1_set()
+            active = standby()
+            active.prewarm()
+            t_up = time.monotonic()
+            active.activate()
+            client.create("pods", _daemon_pod_wire("failover-warmup"), namespace="default")
+            _wait_bound(phase, watch, "failover-warmup", FAILOVER_BIND_S)
+            _await_sample(phase, active.daemon, t_up)
+            # A live session's worth: its state, the staging its ticks
+            # keep, and the kernels' caches.
+            session_bytes = _memory(torch, device) - mem0
+            rounds = []
+            for r in range(FAILOVER_ROUNDS):
+                name = f"failover-r{r}"
+                wire = _daemon_pod_wire(name)
+                k0 = _k1_count()
+                mem_one = _memory(torch, device)
+                sb = standby()
+                sb.prewarm()
+                k_prewarm = _k1_count() - k0
+                mem_two = _memory(torch, device)
+                want = _placement(phase, client, wire, device)
+                k1 = _k1_count()
+                active.kill()
+                t0 = time.monotonic()
+                client.create("pods", wire, namespace="default")
+                with _K1Events(torch) as ev:
+                    sb.activate()
+                    at, node = _wait_bound(phase, watch, name, FAILOVER_BIND_S)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                k_tick = _k1_count() - k1
+                k1_ms = [a.elapsed_time(b) for a, b in ev.events]
+                active = sb
+                _await_sample(phase, sb.daemon, t0)
+                mem = _memory(torch, device)
+                rounds.append({"kill_to_first_bind_s": at - t0, "node": node, "want": want,
+                               "prewarm_sync_s": sb.sync_s, "prewarm_build_s": sb.build_s,
+                               "k1_prewarm_launches": k_prewarm,
+                               "k1_first_tick_launches": k_tick, "k1_ms": k1_ms,
+                               "standby_bytes": mem_two - mem_one,
+                               "memory_two_sessions": mem_two, "memory_after_round": mem})
+            launches = _k1_count()
+        finally:
+            if active is not None:
+                active.stop()
+            watch.close()
+        twice = watch.bound_twice()
+        bound, _, _ = _listed(client)
+        command = cp.cmd
+    problems = []
+    for r, row in enumerate(rounds):
+        if row["node"] != row["want"] or bound.get(f"failover-r{r}") != row["want"]:
+            problems.append(f"round {r}: bound at {row['node']} (LIST {bound.get(f'failover-r{r}')}), "
+                            f"schedule_backlog says {row['want']}")
+        if row["memory_after_round"] > mem0 + 2 * max(session_bytes, 1):
+            problems.append(f"round {r}: {row['memory_after_round']} bytes on the card, past two "
+                            f"sessions' worth ({mem0} + 2 x {session_bytes})")
+        if row["k1_first_tick_launches"] < 1:
+            problems.append(f"round {r}: the first tick launched K1 {row['k1_first_tick_launches']} "
+                            f"times")
+    if twice:
+        problems.append(f"pods bound twice: {twice[:3]}")
+    if problems:
+        fail(phase, "; ".join(problems) + f"; rounds: {json.dumps(rounds)[:2000]}")
+    samples = sorted(row["kill_to_first_bind_s"] for row in rounds)
+    p50, p99 = samples[len(samples) // 2], samples[min(len(samples) - 1, int(len(samples) * 0.99))]
+    obj = slo.BENCH_OBJECTIVES["failover_to_first_bind_s"]
+    return {
+        "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES,
+        "bound_pods": DAEMON_NODES, "rounds": rounds,
+        "kill_to_first_bind_p50_s": p50, "kill_to_first_bind_p99_s": p99,
+        "slo_target_s": obj.target, "slo_verdict": slo.verdict_for_value(obj, p99),
+        "slo_enforced": False, "session_bytes": session_bytes, "memory_before_bytes": mem0,
+        "k1_launches": launches, "leg_s": time.perf_counter() - t_leg,
+        "checks": {"each_round_bound_once_at_schedule_backlog": True, "no_pod_bound_twice": True,
+                   "memory_within_two_sessions": True, "first_tick_launched_k1": True},
+        "timed": "host clock of this process: the kill to the round pod's binding on this "
+                 "process's watch; K1 ms by CUDA events around each launch from activation "
+                 "to the bind",
+    }
+
+
+def run_daemon_ha(torch, device, smi):
+    """Leg daemon_ha: two HAScheduler replicas in this process over the
+    apiserver child (5,000 nodes, 5,000 bound pods), lease HA_LEASE_S,
+    renew and retry HA_RENEW_S, each with a warm standby on the card.
+    The leader binds a pod; then it is crashed (its elector stopped, its
+    standby killed, no release) and one pod created: kill to its bind
+    (the lease's expiry included) and the rival's grant to running
+    (scheduler_standby_activation_seconds). The crashed replica is then
+    deposed as its elector would (`_deposed`), which rebuilds a warm
+    standby on the elector's thread (timed: it holds renewals).
+    Enforced: at most one active daemon and one validated token at every
+    sample, the token bumped across the takeover, the deposed replica
+    warm and not active with no failed rebuild, every pod bound once."""
+    import threading
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.scheduler import standby as standby_mod
+    from kubernetes_tpu_torch.scheduler.standby import HAScheduler
+    from kubernetes_tpu_torch.utils import capacity
+
+    phase = "daemon_ha"
+    t_leg = time.perf_counter()
+    capacity.DEFAULT.reset()
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _cluster(phase, client, pods=DAEMON_NODES)
+        _, version = client.list_wire("pods", namespace="default")
+        watch = _PodWatch(cp.url, version)
+
+        standby = functools.partial(_warm_standby, cp.url, device)
+        replicas = [HAScheduler(Client(HTTPTransport(cp.url)), name, lease_duration=HA_LEASE_S,
+                                renew_period=HA_RENEW_S, retry_period=HA_RENEW_S,
+                                standby_factory=standby) for name in ("ha-a", "ha-b")]
+        samples, stop = [], threading.Event()
+
+        def sampler():
+            while not stop.wait(0.05):
+                try:
+                    valid = sum(r.lease.validate(r.token) for r in replicas)
+                except Exception:  # a read that failed: the sample is skipped
+                    continue
+                samples.append((sum(r.daemon is not None for r in replicas), valid))
+
+        _k1_set()
+        t_sampler = threading.Thread(target=sampler, daemon=True)
+        try:
+            t0 = time.perf_counter()
+            for r in replicas:
+                r.start()  # each prewarms first, then stands for election
+            start_s = time.perf_counter() - t0
+            t_sampler.start()
+            _wait(phase, "one leader", lambda: sum(r.daemon is not None for r in replicas) == 1,
+                  timeout=60)
+            leader = next(r for r in replicas if r.daemon is not None)
+            rival = next(r for r in replicas if r is not leader)
+            memory_two = _memory(torch, device)
+            client.create("pods", _daemon_pod_wire("ha-before"), namespace="default")
+            _wait_bound(phase, watch, "ha-before", FAILOVER_BIND_S)
+            token = leader.token
+            act0 = _summary_totals(standby_mod._ACTIVATION_LATENCY)
+            want = _placement(phase, client, _daemon_pod_wire("ha-after"), device)
+            leader.elector._stop.set()
+            leader.standby.kill()
+            t_kill = time.monotonic()
+            client.create("pods", _daemon_pod_wire("ha-after"), namespace="default")
+            at, node = _wait_bound(phase, watch, "ha-after", HA_LEASE_S + FAILOVER_BIND_S)
+            act1 = _summary_totals(standby_mod._ACTIVATION_LATENCY)
+            t_rebuild = time.perf_counter()
+            leader._deposed()
+            rebuild_s = time.perf_counter() - t_rebuild
+            deposed_warm = (leader.standby is not None and leader.standby.warm
+                            and not leader.standby.active)
+            rival_token, failures = rival.token, leader.rebuild_failures
+            time.sleep(4 * HA_RENEW_S)  # samples with the rebuilt standby resident
+            memory_after = _memory(torch, device)
+            launches = _k1_count()
+        finally:
+            stop.set()
+            if t_sampler.is_alive():
+                t_sampler.join(timeout=5)
+            for r in replicas:
+                try:
+                    r.stop()
+                except Exception:
+                    pass
+            watch.close()
+        twice = watch.bound_twice()
+        bound, _, _ = _listed(client)
+        command = cp.cmd
+    problems = []
+    if any(a > 1 or v > 1 for a, v in samples) or not samples:
+        problems.append(f"{sum(a > 1 or v > 1 for a, v in samples)} of {len(samples)} samples "
+                        f"with two leaders")
+    if not (rival_token and token and rival_token > token):
+        problems.append(f"token {token} -> {rival_token}: not bumped")
+    if not deposed_warm or failures:
+        problems.append(f"the deposed replica: warm and idle {deposed_warm}, {failures} failed "
+                        f"rebuilds")
+    if node != want or bound.get("ha-after") != want or not bound.get("ha-before"):
+        problems.append(f"ha-after bound at {node} (LIST {bound.get('ha-after')}), "
+                        f"schedule_backlog says {want}; ha-before at {bound.get('ha-before')}")
+    if twice:
+        problems.append(f"pods bound twice: {twice[:3]}")
+    if problems:
+        fail(phase, "; ".join(problems))
+    activations = act1[0] - act0[0]
+    return {
+        "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES,
+        "bound_pods": DAEMON_NODES, "lease_s": HA_LEASE_S, "renew_s": HA_RENEW_S,
+        "replicas_start_s": start_s, "kill_to_first_bind_s": at - t_kill,
+        "grant_to_running_s": (act1[1] - act0[1]) / activations if activations else None,
+        "activations": activations, "token_before": token, "token_after": rival_token,
+        "deposed_rebuild_s": rebuild_s, "samples": len(samples),
+        "memory_two_sessions_bytes": memory_two, "memory_after_rebuild_bytes": memory_after,
+        "k1_launches": launches, "leg_s": time.perf_counter() - t_leg,
+        "checks": {"at_most_one_leader_each_sample": True, "token_bumped": True,
+                   "deposed_back_warm_not_active": True, "pods_bound_once": True,
+                   "bound_at_schedule_backlog": True},
+        "timed": "host clock of this process: the crash to ha-after's binding on this "
+                 "process's watch (the lease's expiry included); grant to running from "
+                 "scheduler_standby_activation_seconds; the deposed rebuild around _deposed()",
+    }
+
+
+def _lock_holder(client):
+    """The kube-scheduler lock's holder annotation (None before it exists)."""
+    from kubernetes_tpu_torch.client.rest import APIError
+
+    try:
+        wire = client.get_wire("endpoints", "kube-scheduler", namespace="kube-system")
+    except APIError as e:
+        if e.code == 404:
+            return None
+        raise
+    return (wire.get("metadata", {}).get("annotations") or {}).get(
+        "leaderelection.kubernetes-tpu.io/holder")
+
+
+def run_daemon_ha_cmd(torch, device, smi):
+    """Leg daemon_ha_cmd: two children of `python -m
+    kubernetes_tpu_torch.cmd.scheduler --batch --leader-elect
+    --leader-elect-identity a|b` against the apiserver child (5,000
+    nodes, 5,000 bound pods). `a` leads and binds a pod; it is killed
+    with SIGKILL and a pod created: kill to that pod's bind, split into
+    the wait for the lock (5 s lease) and `b`'s cold start (LIST,
+    session, prewarm) and first tick, beside daemon_failover's warm
+    figure. Enforced: one holder in the kube-scheduler lock at every
+    read, a then b; every pod bound once; b's /healthz 200."""
+    import threading
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+
+    phase = "daemon_ha_cmd"
+    t_leg = time.perf_counter()
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _cluster(phase, client, pods=DAEMON_NODES)
+        _, version = client.list_wire("pods", namespace="default")
+        watch = _PodWatch(cp.url, version)
+        reads, stop = [], threading.Event()
+
+        def sampler():
+            reader = Client(HTTPTransport(cp.url))
+            while not stop.wait(0.1):
+                try:
+                    reads.append((time.monotonic(), _lock_holder(reader)))
+                except Exception:
+                    continue
+
+        elect = ["--leader-elect", "--leader-elect-identity"]
+        a = _Scheduler(phase, cp.url, device, extra=elect + ["a"])
+        b = None
+        t_sampler = threading.Thread(target=sampler, daemon=True)
+        t_sampler.start()
+        try:
+            a.wait_up()
+            _wait(phase, "a holding the lock", lambda: _lock_holder(client) == "a", timeout=60)
+            k1_a = _settled_k1_calls(a)  # a's daemon built: its prewarm launches settled
+            up_s = time.perf_counter() - t_leg
+            b = _Scheduler(phase, cp.url, device, extra=elect + ["b"])
+            b.wait_up()
+            client.create("pods", _daemon_pod_wire("cmd-before"), namespace="default")
+            _wait_bound(phase, watch, "cmd-before", FAILOVER_BIND_S)
+            k1_b_idle = _k1_calls(b.get_json("/debug/kernels"))
+            a.kill()
+            t_kill = time.monotonic()
+            client.create("pods", _daemon_pod_wire("cmd-after"), namespace="default")
+            at, node = _wait_bound(phase, watch, "cmd-after", HA_CMD_BIND_S)
+            health = b.get("/healthz")
+            k1_b = _k1_calls(b.get_json("/debug/kernels"))
+            rc = b.terminate()
+        finally:
+            stop.set()
+            t_sampler.join(timeout=5)
+            a.kill()
+            if b is not None:
+                b.kill()
+            watch.close()
+        twice = watch.bound_twice()
+        bound, _, _ = _listed(client)
+        command = cp.cmd
+    holders = [h for _, h in reads if h is not None]
+    changes = [h for i, h in enumerate(holders) if i == 0 or h != holders[i - 1]]
+    took = next((t for t, h in reads if h == "b"), None)
+    problems = []
+    if changes != ["a", "b"] or any(not isinstance(h, str) or not h for h in holders):
+        problems.append(f"the lock's holders in order: {changes}")
+    if not bound.get("cmd-before") or bound.get("cmd-after") != node:
+        problems.append(f"bindings: cmd-before {bound.get('cmd-before')}, cmd-after "
+                        f"{bound.get('cmd-after')} (watch {node})")
+    if twice:
+        problems.append(f"pods bound twice: {twice[:3]}")
+    if health != (200, "ok"):
+        problems.append(f"b's /healthz answered {health}")
+    if k1_b_idle != 0 or k1_b < 1:
+        problems.append(f"b's K1 launches: {k1_b_idle} while a led, {k1_b} after")
+    if problems:
+        fail(phase, "; ".join(problems) + f": {b.tail() if b else ''}")
+    return {
+        "card": smi, "apiserver": " ".join(command), "scheduler": " ".join(a.cmd),
+        "nodes": DAEMON_NODES, "bound_pods": DAEMON_NODES, "lease_s": 5.0,
+        "a_up_s": up_s, "kill_to_first_bind_s": at - t_kill,
+        "lock_wait_s": (took - t_kill) if took else None,
+        "cold_start_to_bind_s": (at - took) if took else None,
+        "k1_prewarm_launches_a": k1_a, "k1_launches_b": k1_b, "lock_reads": len(reads),
+        "b_exit_code_on_sigterm": rc, "leg_s": time.perf_counter() - t_leg,
+        "checks": {"one_holder_each_read": True, "holders_a_then_b": True,
+                   "pods_bound_once": True, "b_healthz_200": True},
+        "timed": "host clock of this process: SIGKILL of a to cmd-after's binding on this "
+                 "process's watch; the lock read every 0.1 s (b's takeover to that resolution)",
+    }
+
+
+def run_daemon_scalar(torch, device, smi):
+    """Leg daemon_scalar: the per-pod Scheduler in this process over the
+    apiserver child, SCALAR_PODS pods (every eighth with a zone selector)
+    on 5,000 nodes, one schedule_one() a pod, not started. Pods a second.
+    Enforced: its bindings, in the order it popped the pods, equal the
+    card's schedule_backlog of those pods in that order on the cluster
+    LISTed before; the per-pod path launched no K1."""
+    import copy
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+    from kubernetes_tpu_torch.scheduler.daemon import Scheduler, SchedulerConfig
+
+    phase = "daemon_scalar"
+    t_leg = time.perf_counter()
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _cluster(phase, client)
+        _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
+              [_daemon_pod_wire(f"s{i}", zone=f"z{i % 4}" if i % 8 == 0 else None)
+               for i in range(SCALAR_PODS)])
+        _, pods, nodes = _listed(client)
+        cfg = SchedulerConfig(Client(HTTPTransport(cp.url)), raw_scheduled_cache=False).start()
+        try:
+            if not cfg.wait_for_sync(60):
+                fail(phase, "the daemon's caches did not sync")
+            _wait(phase, "the pods in the queue", lambda: len(cfg.pod_queue) == SCALAR_PODS)
+            d = Scheduler(cfg)
+            order = []
+            schedule = cfg.algorithm.schedule
+
+            def logged(pod, lister):
+                order.append(pod.metadata.name)
+                return schedule(pod, lister)
+
+            cfg.algorithm.schedule = logged
+            _k1_set()
+            t0 = time.perf_counter()
+            steps = sum(d.schedule_one(timeout=1.0) for _ in range(SCALAR_PODS))
+            wall = time.perf_counter() - t0
+            launches = _k1_count()
+            d.stop()
+        finally:
+            cfg.stop()
+        bound, _, _ = _listed(client)
+        command = cp.cmd
+    by_name = {p.metadata.name: p for p in pods}
+    pending = [copy.deepcopy(by_name[n]) for n in order]
+    want = schedule_backlog(pending, nodes, device=device)
+    got = [bound.get(n) for n in order]
+    _same(phase, pending, got, want, "the card's schedule_backlog in the pop order")
+    if steps != SCALAR_PODS or len(order) != SCALAR_PODS or launches:
+        fail(phase, f"{steps} steps, {len(order)} pods scheduled, {launches} K1 launches")
+    return {
+        "card": smi, "apiserver": " ".join(command), "nodes": DAEMON_NODES, "pods": SCALAR_PODS,
+        "placed": sum(n is not None for n in got), "wall_s": wall, "pods_per_s": SCALAR_PODS / wall,
+        "k1_launches": launches, "leg_s": time.perf_counter() - t_leg,
+        "equal_to_schedule_backlog": True,
+        "timed": "host clock of this process around the 32 schedule_one() calls (the scalar "
+                 "plugins over every Ready node and one POST a bind)",
+    }
+
+
 def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
-    """The eleven legs, each on a fresh apiserver child (only `legs`
+    """The fifteen legs, each on a fresh apiserver child (only `legs`
     when given). `churn_stuck` pods that fit no node wait through
     daemon_churn's load."""
     plan = {
@@ -5308,6 +5856,10 @@ def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
         "desched_defrag": lambda: run_desched_defrag(torch, device, smi),
         "autoscale_cycle": lambda: run_autoscale_cycle(torch, device, smi),
         "daemon_debug": lambda: run_daemon_debug(torch, device, smi),
+        "daemon_failover": lambda: run_daemon_failover(torch, device, smi),
+        "daemon_ha": lambda: run_daemon_ha(torch, device, smi),
+        "daemon_ha_cmd": lambda: run_daemon_ha_cmd(torch, device, smi),
+        "daemon_scalar": lambda: run_daemon_scalar(torch, device, smi),
     }
     unknown = set(legs) - set(plan)
     if unknown:

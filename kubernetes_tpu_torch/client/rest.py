@@ -38,7 +38,14 @@ from urllib.parse import urlencode, urlparse
 
 from kubernetes_tpu_torch.models import serde
 from kubernetes_tpu_torch.models.objects import Event as EventObject
-from kubernetes_tpu_torch.models.objects import Node, Pod, PodGroup, PodTemplate, Service
+from kubernetes_tpu_torch.models.objects import (
+    Endpoints,
+    Node,
+    Pod,
+    PodGroup,
+    PodTemplate,
+    Service,
+)
 from kubernetes_tpu_torch.utils import tracing
 
 # Watch event types (reference: pkg/watch Event{Added,Modified,Deleted,Error}).
@@ -83,6 +90,9 @@ RESOURCES: Dict[str, Resource] = {
     "services": Resource("services", Service),
     "podgroups": Resource("podgroups", PodGroup),
     "events": Resource("events", EventObject),
+    # Leader election's lock and the fencing lease (utils/leaderelect.py,
+    # utils/lease.py).
+    "endpoints": Resource("endpoints", Endpoints),
 }
 
 #: Failures that mean a pooled keep-alive connection went stale.
@@ -391,6 +401,10 @@ class HTTPTransport(Transport):
             resource, namespace, name = args
             return self._do("PATCH", self._collection_path(resource, namespace) + f"/{name}",
                             body=body, content_type="application/merge-patch+json")
+        if op == "bind":
+            (namespace,) = args
+            return self._do("POST", f"/api/v1/namespaces/{namespace or 'default'}/bindings",
+                            body=body)
         if op == "bind_bulk":
             (namespace,) = args
             return self._do("POST", f"/api/v1/namespaces/{namespace or 'default'}/bulkbindings",
@@ -513,6 +527,15 @@ class Client:
         out = self.t.request("PATCH", "patch", (resource, namespace, name), patch,
                              patch_type="merge")
         return self._typed(resource, out)
+
+    def bind(self, pod_name: str, node_name: str, namespace: str = "default") -> None:
+        """POST one Binding (the per-pod scheduler's commit;
+        factory.go:311-315): the pod's node is set only while it has
+        none, else a 409."""
+        binding = {"kind": "Binding", "apiVersion": "v1",
+                   "metadata": {"name": pod_name, "namespace": namespace},
+                   "target": {"kind": "Node", "name": node_name}}
+        self.t.request("POST", "bind", (namespace,), binding)
 
     def bind_bulk(self, bindings, namespace: str = "default", atomic: bool = False) -> list:
         """Commit many (pod_name, node_name) bindings in one request;

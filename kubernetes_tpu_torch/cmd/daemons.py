@@ -188,7 +188,7 @@ class HealthServer:
 
 def _loop_alive_check(daemon) -> Check:
     """Healthy while the daemon's loop thread is alive (a daemon with no
-    loop thread reports ok)."""
+    loop thread, as the leader-election wrapper, reports ok)."""
 
     def check():
         t = getattr(daemon, "_thread", None)

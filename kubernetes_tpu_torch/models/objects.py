@@ -6,8 +6,8 @@ preemption, the defrag planner and the scheduler daemon consume
 (reference: pkg/api/types.go): ObjectMeta, Pod with its spec,
 containers, ports, resources and the exclusive-disk volume sources,
 Node with its spec, status and conditions, Service, PodGroup, the
-PodTemplate of the descheduler's move journal, and the Event the
-recorder writes. The lowering reads these objects by
+PodTemplate of the descheduler's move journal, the Event the
+recorder writes, and the Endpoints record a lease is kept in. The lowering reads these objects by
 attribute only, so the JAX package's objects of the same shape lower
 identically. Wire form is camelCase JSON through `models/serde.py`;
 a field's `wire` metadata names a key that the plain conversion would
@@ -245,6 +245,38 @@ class Service:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: ServiceSpec = field(default_factory=ServiceSpec)
     status: Dict[str, Any] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# Endpoints (the record leader election and the fencing lease annotate)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class EndpointAddress:
+    ip: str = field(default="", metadata={"wire": "ip"})
+    target_ref: Optional[Dict[str, str]] = None
+
+
+@dataclass
+class EndpointPort:
+    name: str = ""
+    port: int = 0
+    protocol: str = "TCP"
+
+
+@dataclass
+class EndpointSubset:
+    addresses: List[EndpointAddress] = field(default_factory=list)
+    ports: List[EndpointPort] = field(default_factory=list)
+
+
+@dataclass
+class Endpoints:
+    kind: str = "Endpoints"
+    api_version: str = "v1"
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    subsets: List[EndpointSubset] = field(default_factory=list)
 
 
 # ---------------------------------------------------------------------------

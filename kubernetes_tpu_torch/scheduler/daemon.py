@@ -1,19 +1,26 @@
-"""The scheduler daemons: watch-fed caches -> solve -> bulk binds.
+"""The scheduler daemons: watch-fed caches -> schedule -> bind.
 
-The port's copy of the batch daemons of
-`kubernetes_tpu/scheduler/daemon.py` (reference:
-plugin/pkg/scheduler/scheduler.go, factory/factory.go):
+The port's copy of the daemons of `kubernetes_tpu/scheduler/daemon.py`
+(reference: plugin/pkg/scheduler/scheduler.go, factory/factory.go):
 
 - `SchedulerConfig` wires the caches: the unassigned-pod FIFO fed by a
   `spec.nodeName=` reflector; informers for the scheduled pods, nodes,
   services and podgroups whose deltas reach a daemon through the
   `cluster_events` hook; the assumed-pod modeler and its merged pod
-  lister; the binder and the retry `Backoff`; the algorithm spec of the
-  policy file, or else of the algorithm provider. The scalar plugin set
-  is built from that spec by the scalar route itself
-  (`scheduler.batch.schedule_backlog_scalar`), so the JAX config's
-  Ready-filtered node lister is not here.
-- `BatchScheduler` is the full re-lower daemon: each tick drains the
+  lister; the Ready-filtered node lister; the binder, the optional bind
+  `TokenBucket` (`bind_qps`) and the retry `Backoff`; the algorithm spec
+  of the policy file, or else of the algorithm provider, and the scalar
+  plugin set built from it (`algorithm`, a `GenericScheduler`).
+- `Scheduler` is the per-pod daemon (scheduler.go:109-158): each step
+  pops one pod, runs the scalar plugins over the Ready nodes, binds it
+  with one POST and assumes it; a pod that fits nowhere or whose bind
+  fails gets an event (FailedScheduling, FailedBinding) and is queued
+  again after its backoff (`_requeue_later`). Host only: it never
+  touches a card. Its loop contains crashes as JAX's does (a step that
+  raises waits 0.1 s and goes on). The retry code the batch daemons
+  share lives here too.
+- `BatchScheduler` (a `Scheduler`, as in JAX) is the full re-lower
+  daemon: each tick drains the
   queue (a 0.02 s window, up to 65,536 pods, highest priority first),
   lowers the whole cluster from the caches, solves once and commits
   inline on the tick's thread. Its route is decided once, at
@@ -41,9 +48,9 @@ plugin/pkg/scheduler/scheduler.go, factory/factory.go):
   `scheduler.batch.preempt_backlog`) and back to the queue after their
   backoff, released early when capacity frees. The default policy only.
 
-What the two share lives in the base: the retry requeue, gang groups,
-atomic group binds, preemption, the handling of bind outcomes, the
-flight recorder and the capacity plane.
+What the two batch daemons share lives in `BatchScheduler`: gang
+groups, atomic group binds, preemption, the handling of bind outcomes,
+the flight recorder and the capacity plane.
 
 Every tick with pods is one trace (`tracing.trace("schedule_batch")`,
 its pod set for the pod filter, an `enqueue` child from the drain's
@@ -126,9 +133,8 @@ Departures from the JAX daemons:
   The JAX config defaults to the typed form. The full re-lower daemon
   reads every scheduled pod each tick, so its command builds the
   config with `raw_scheduled_cache=False`, as the JAX command does.
-- (f) Without a batch flag the JAX command boots its per-pod scalar
-  `Scheduler`; the port has none yet, and its command boots the
-  incremental daemon (`cmd/scheduler.py`).
+- (f) Closed: the per-pod `Scheduler` is here, and the command boots it
+  without a batch flag, as JAX's does (`cmd/scheduler.py`).
 - (g) A pod the incremental daemon drains while its session still holds
   the pod's key (a pod recreated under the name of one whose delete has
   not reached the session yet, as a descheduler's replacement is, or a
@@ -166,7 +172,11 @@ from kubernetes_tpu_torch.client.cache import FIFO, Informer, Reflector, ThreadS
 from kubernetes_tpu_torch.client.rest import APIError
 from kubernetes_tpu_torch.models import serde
 from kubernetes_tpu_torch.models.algspec import UnloweredPolicyError, lower_spec
-from kubernetes_tpu_torch.models.columnar import mem_to_mib_ceil, pod_resource_limits
+from kubernetes_tpu_torch.models.columnar import (
+    mem_to_mib_ceil,
+    node_is_ready,
+    pod_resource_limits,
+)
 from kubernetes_tpu_torch.models.objects import (
     Node,
     Pod,
@@ -196,14 +206,18 @@ from kubernetes_tpu_torch.scheduler.batch import (
     schedule_backlog_sinkhorn,
     schedule_backlog_wave,
 )
+from kubernetes_tpu_torch.scheduler.generic import FitError, GenericScheduler, NoNodesError
 from kubernetes_tpu_torch.scheduler.modeler import SimpleModeler
 from kubernetes_tpu_torch.scheduler.plugins import (
     DEFAULT_PROVIDER,
+    PluginFactoryArgs,
+    build_from_spec,
     spec_for_policy,
     spec_for_provider,
 )
+from kubernetes_tpu_torch.scheduler.types import StaticServiceLister
 from kubernetes_tpu_torch.utils import capacity, flightrecorder, metrics, profiler, sli, tracing
-from kubernetes_tpu_torch.utils.ratelimit import Backoff
+from kubernetes_tpu_torch.utils.ratelimit import Backoff, TokenBucket
 
 _LOG = logging.getLogger("kubernetes_tpu_torch.scheduler")
 
@@ -267,12 +281,34 @@ def _key(pod: Pod) -> str:
     return f"{pod.metadata.namespace or 'default'}/{pod.metadata.name}"
 
 
-class _StoreServiceLister:
+class _StoreServiceLister(StaticServiceLister):
+    """The services cache as the scalar plugins' service lister."""
+
     def __init__(self, store: ThreadSafeStore):
         self.store = store
 
-    def list(self) -> List[Service]:
+    @property
+    def services(self) -> List[Service]:
         return self.store.list()
+
+
+class _StoreNodeLister:
+    """Ready-filtered node lister (reference: StoreToNodeLister with its
+    NodeCondition filter, factory.go:166,209): what the per-pod
+    scheduler places onto."""
+
+    def __init__(self, store: ThreadSafeStore):
+        self.store = store
+
+    def list(self) -> List[Node]:
+        return [n for n in self.store.list() if node_is_ready(n)]
+
+    def get(self, name: str) -> Node:
+        # Nodes are cluster-scoped: the store's key is the bare name.
+        node = self.store.get(name)
+        if node is None:
+            raise KeyError(f"node {name!r} not found")
+        return node
 
 
 class SchedulerConfig:
@@ -281,11 +317,12 @@ class SchedulerConfig:
     `raw_scheduled_cache` keeps the scheduled-pods cache in wire form,
     decoded on access (departure (e): the port's default, for the
     incremental daemon); False decodes each event, the form the full
-    re-lower daemon reads every tick. `policy` (a policy document), or
-    else `provider_name`, gives `algorithm_spec`; the incremental daemon
-    refuses any but the default. The JAX config's bind TokenBucket is
-    not here: only its per-pod scalar daemon reads it, and the batch
-    daemons never throttle their bulk binds."""
+    re-lower and per-pod daemons read. `policy` (a policy document), or
+    else `provider_name`, gives `algorithm_spec` and the scalar plugin
+    set the per-pod daemon runs (`algorithm`); the incremental daemon
+    refuses any but the default. `bind_qps` > 0 throttles the per-pod
+    daemon's binds (a burst of 20, factory.go:43-46); the batch daemons
+    never throttle their bulk binds."""
 
     #: Seconds an assumed binding counts before the watch must confirm it.
     ASSUME_TTL_S = 30.0
@@ -296,6 +333,7 @@ class SchedulerConfig:
         provider_name: str = DEFAULT_PROVIDER,
         policy: Optional[dict] = None,
         raw_scheduled_cache: bool = True,
+        bind_qps: float = 0.0,
     ):
         self.client = client
         self.raw_scheduled_cache = raw_scheduled_cache
@@ -343,11 +381,18 @@ class SchedulerConfig:
 
         self.modeler = SimpleModeler(scheduled_pods=_scheduled_typed, ttl=self.ASSUME_TTL_S)
         self.pod_lister = self.modeler.pod_lister()
+        self.node_lister = _StoreNodeLister(self.nodes.store)
         self.service_lister = _StoreServiceLister(self.services.store)
         self.algorithm_spec = (spec_for_policy(policy) if policy is not None
                                else spec_for_provider(provider_name))
+        self.predicates, self.priorities = build_from_spec(
+            self.algorithm_spec,
+            PluginFactoryArgs(pod_lister=self.pod_lister, service_lister=self.service_lister,
+                              node_lister=self.node_lister))
+        self.algorithm = GenericScheduler(self.predicates, self.priorities, self.pod_lister)
         self.binder = client
         self.backoff = Backoff(initial=1.0, max_backoff=60.0)
+        self.bind_limiter = TokenBucket(bind_qps, 20) if bind_qps > 0 else None
 
     def _reflectors(self):
         return (self._pod_reflector, self.scheduled_pods, self.nodes, self.services,
@@ -377,7 +422,182 @@ def lowers(spec) -> bool:
     return True
 
 
-class BatchScheduler:
+class Scheduler:
+    """The per-pod daemon (reference: scheduler.go:109-158); see the
+    module text. Host only."""
+
+    def __init__(self, config: SchedulerConfig):
+        self.config = config
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # Capacity-freed signal: a retry backoff is an event wait, and a
+        # capacity event (the incremental daemon's pod DELETED or node
+        # ADDED delta) bumps the epoch, releasing every backlogged pod.
+        # The other daemons have no delta feed: their waits run out.
+        self._capacity_cond = threading.Condition(threading.Lock())
+        self._capacity_epoch = 0
+
+    # -- lifecycle ----------------------------------------------------
+
+    def start(self) -> "Scheduler":
+        self._thread = threading.Thread(target=self.run, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        with self._capacity_cond:
+            self._capacity_cond.notify_all()  # wake the backoff waits
+        self.config.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def _step(self) -> None:
+        self.schedule_one()
+
+    def run(self) -> None:
+        """Step until stopped. Crash containment (reference:
+        util.HandleCrash around every control loop): a step that raises
+        waits 0.1 s and the loop goes on."""
+        while not self._stop.is_set():
+            try:
+                self._step()
+            except Exception:
+                _LOG.debug("scheduling step failed", exc_info=True)
+                if not self._stop.is_set():
+                    self._stop.wait(0.1)
+
+    def schedule_one(self, timeout: Optional[float] = 0.5) -> bool:
+        """Pop one pending pod, schedule it over the Ready nodes, bind
+        and assume it; False when no pod came within `timeout`
+        (scheduler.go:113-158)."""
+        cfg = self.config
+        pod = cfg.pod_queue.pop(timeout=timeout)
+        if pod is None:
+            return False
+        if pod.spec.node_name:
+            return True  # raced: already bound
+        if cfg.bind_limiter is not None:
+            cfg.bind_limiter.accept()
+        start = time.monotonic()
+        with tracing.trace("schedule_one", pod=pod.metadata.name) as tr:
+            tr.step("enqueue")
+            try:
+                t0 = time.monotonic()
+                with tracing.span("algorithm"):
+                    dest = cfg.algorithm.schedule(pod, cfg.node_lister)
+                _ALGO_LATENCY.observe(time.monotonic() - t0)
+            except (FitError, NoNodesError, KeyError) as e:
+                # KeyError: a node left the cache between the list and a
+                # predicate's lookup; an unschedulable attempt, retried.
+                _SCHEDULED.inc(result="unschedulable")
+                cfg.client.record_event(pod, "FailedScheduling", str(e), source="scheduler")
+                self._requeue_later(pod)
+                return True
+            try:
+                t0 = time.monotonic()
+                # "bind_one", not "bind": one pod's POST and a tick's bulk
+                # commit do not share a series.
+                with tracing.phase("bind_one"):
+                    cfg.binder.bind(pod.metadata.name, dest,
+                                    namespace=pod.metadata.namespace or "default")
+                _BIND_LATENCY.observe(time.monotonic() - t0)
+            except APIError as e:
+                _SCHEDULED.inc(result="bind_error")
+                cfg.client.record_event(pod, "FailedBinding", str(e), source="scheduler")
+                self._requeue_later(pod)
+                return True
+            # Assume, so the capacity is held before the watch confirms
+            # (scheduler.go:142-157).
+            pod.spec.node_name = dest
+            cfg.modeler.assume_pod(pod)
+            _SCHEDULED.inc(result="scheduled")
+            _E2E_LATENCY.observe(time.monotonic() - start)
+            cfg.client.record_event(pod, "Scheduled",
+                                    f"Successfully assigned {pod.metadata.name} to {dest}",
+                                    source="scheduler")
+            return True
+
+    # -- retries ------------------------------------------------------
+
+    def _capacity_freed(self) -> None:
+        with self._capacity_cond:
+            self._capacity_epoch += 1
+            self._capacity_cond.notify_all()
+
+    def _backoff_wait(self, delay: float, epoch: Optional[int] = None) -> bool:
+        """Wait out a retry backoff, returning early (True) when capacity
+        frees or the daemon stops. `epoch` is the capacity epoch the
+        failed solve read its state at (None: now), so capacity freed
+        between that solve and this wait still releases at once."""
+        deadline = time.monotonic() + delay
+        with self._capacity_cond:
+            base = self._capacity_epoch if epoch is None else epoch
+            while not self._stop.is_set():
+                if self._capacity_epoch != base:
+                    return True
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._capacity_cond.wait(min(remaining, 5.0))
+        return False
+
+    def _refetch_and_requeue(self, pod: Pod) -> None:
+        """Re-fetch `pod` and queue it again if still pending; drop it
+        only when the apiserver says it is gone (404). Any other error
+        retries with the snapshot (the bind's emptiness check still
+        guards against a double assignment)."""
+        try:
+            fresh = self.config.client.get("pods", pod.metadata.name,
+                                           namespace=pod.metadata.namespace or "default")
+        except APIError as e:
+            if e.code == 404:
+                return
+            fresh = pod
+        except Exception:
+            fresh = pod
+        if not fresh.spec.node_name:
+            self.config.pod_queue.add(fresh)
+
+    def _requeue_later(self, pod: Pod) -> None:
+        """One pod's retry after its backoff on a thread of its own, then
+        re-fetched (factory.go:257-286)."""
+        delay = self.config.backoff.duration(f"{pod.metadata.namespace}/{pod.metadata.name}")
+
+        def later():
+            self._backoff_wait(delay)
+            if self._stop.is_set():
+                return
+            self._refetch_and_requeue(pod)
+
+        threading.Thread(target=later, daemon=True).start()
+
+    def _requeue_many(self, pods: List[Pod], epoch: Optional[int] = None) -> None:
+        """One worker thread queues the rejected set again at each pod's
+        backoff deadline (factory.go:257-286); one capacity event
+        releases the whole set."""
+        if not pods:
+            return
+        now = time.monotonic()
+        schedule = sorted(
+            (now + self.config.backoff.duration(f"{p.metadata.namespace}/{p.metadata.name}"), i)
+            for i, p in enumerate(pods)
+        )
+
+        def worker():
+            released = False
+            for deadline, i in schedule:
+                wait = deadline - time.monotonic()
+                if wait > 0 and not released:
+                    released = self._backoff_wait(wait, epoch)
+                if self._stop.is_set():
+                    return
+                self._refetch_and_requeue(pods[i])
+
+        threading.Thread(target=worker, daemon=True).start()
+
+
+class BatchScheduler(Scheduler):
     """The full re-lower batch daemon (see the module text).
 
     `device` is where the card routes solve (None: the CUDA card,
@@ -400,7 +620,7 @@ class BatchScheduler:
         mode = resolve_batch_mode(mode)
         if mode not in BATCH_MODES:
             raise ValueError(f"unknown batch mode {mode!r}")
-        self.config = config
+        super().__init__(config)
         self.mode = mode
         self.max_batch = max_batch
         self.batch_window = batch_window
@@ -412,13 +632,6 @@ class BatchScheduler:
         # raised: departure (a).
         self.device_errors = 0
         self._errors_lock = threading.Lock()
-        self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
-        # Capacity-freed signal: a retry backoff is an event wait, and a
-        # capacity event (the incremental daemon's pod DELETED or node
-        # ADDED delta) bumps the epoch, releasing every backlogged pod.
-        self._capacity_cond = threading.Condition(threading.Lock())
-        self._capacity_epoch = 0
         # pod key -> (node, priority, monotonic expiry) of a nomination.
         self._nominations: Dict[str, Tuple[str, int, float]] = {}
         self._missing_groups: Dict[str, float] = {}
@@ -476,91 +689,17 @@ class BatchScheduler:
 
     def start(self) -> "BatchScheduler":
         self._warm_capacity()
-        self._thread = threading.Thread(target=self.run, daemon=True)
-        self._thread.start()
-        return self
+        return super().start()
 
     def run(self) -> None:
-        """Tick until stopped; a tick that raises stops the daemon."""
+        """Tick until stopped; a tick that raises stops the daemon
+        (departure (a))."""
         while not self._stop.is_set():
             try:
                 self.schedule_batch()
             except Exception:
                 _LOG.error("the scheduler stops after a failed tick")
                 self._stop.set()
-
-    def stop(self) -> None:
-        self._stop.set()
-        with self._capacity_cond:
-            self._capacity_cond.notify_all()
-        self.config.stop()
-        if self._thread is not None:
-            self._thread.join(timeout=5)
-
-    # -- retries --------------------------------------------------------
-
-    def _capacity_freed(self) -> None:
-        with self._capacity_cond:
-            self._capacity_epoch += 1
-            self._capacity_cond.notify_all()
-
-    def _backoff_wait(self, delay: float, epoch: Optional[int] = None) -> bool:
-        """Wait out a retry backoff, returning early (True) when capacity
-        frees or the daemon stops. `epoch` is the capacity epoch the
-        failed solve read its state at (None: now), so capacity freed
-        between that solve and this wait still releases at once."""
-        deadline = time.monotonic() + delay
-        with self._capacity_cond:
-            base = self._capacity_epoch if epoch is None else epoch
-            while not self._stop.is_set():
-                if self._capacity_epoch != base:
-                    return True
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    return False
-                self._capacity_cond.wait(min(remaining, 5.0))
-        return False
-
-    def _refetch_and_requeue(self, pod: Pod) -> None:
-        """Re-fetch `pod` and queue it again if still pending; drop it
-        only when the apiserver says it is gone (404). Any other error
-        retries with the snapshot (the bind's emptiness check still
-        guards against a double assignment)."""
-        try:
-            fresh = self.config.client.get("pods", pod.metadata.name,
-                                           namespace=pod.metadata.namespace or "default")
-        except APIError as e:
-            if e.code == 404:
-                return
-            fresh = pod
-        except Exception:
-            fresh = pod
-        if not fresh.spec.node_name:
-            self.config.pod_queue.add(fresh)
-
-    def _requeue_many(self, pods: List[Pod], epoch: Optional[int] = None) -> None:
-        """One worker thread queues the rejected set again at each pod's
-        backoff deadline (factory.go:257-286); one capacity event
-        releases the whole set."""
-        if not pods:
-            return
-        now = time.monotonic()
-        schedule = sorted(
-            (now + self.config.backoff.duration(f"{p.metadata.namespace}/{p.metadata.name}"), i)
-            for i, p in enumerate(pods)
-        )
-
-        def worker():
-            released = False
-            for deadline, i in schedule:
-                wait = deadline - time.monotonic()
-                if wait > 0 and not released:
-                    released = self._backoff_wait(wait, epoch)
-                if self._stop.is_set():
-                    return
-                self._refetch_and_requeue(pods[i])
-
-        threading.Thread(target=worker, daemon=True).start()
 
     # -- gangs ------------------------------------------------------------
 
@@ -1210,7 +1349,9 @@ class IncrementalBatchScheduler(BatchScheduler):
     def kill(self) -> None:
         """Abrupt death: queued commit jobs are dropped unexecuted and the
         in-flight solve abandoned, as a killed process would. Recovery
-        is a fresh daemon that rebuilds its session from LIST+watch."""
+        is a fresh daemon that rebuilds its session from LIST+watch, so
+        once the loop has ended the session and the abandoned solve are
+        let go, and their card memory with them."""
         self._stop.set()
         try:
             while True:
@@ -1225,6 +1366,9 @@ class IncrementalBatchScheduler(BatchScheduler):
         if worker is not None:
             self._commit_thread = None
             worker.join(timeout=10)
+        if self._thread is None or not self._thread.is_alive():
+            self._session = None
+            self._inflight = None
 
     def prewarm(self) -> None:
         """Build the session (and run its prewarm launches) now, so the

@@ -44,11 +44,12 @@ class SimpleModeler:
 
     def pod_lister(self):
         """Merged lister: scheduled pods, then the live assumptions not
-        yet visible as scheduled (modeler.go:134-179)."""
+        yet visible as scheduled (modeler.go:134-179); with a label
+        `selector`, the pods it matches (the scalar plugins' query)."""
         modeler = self
 
         class _Lister:
-            def list(self) -> List[Pod]:
+            def list(self, selector=None) -> List[Pod]:
                 scheduled = modeler._scheduled()
                 seen = {modeler._key(p) for p in scheduled}
                 out = list(scheduled)
@@ -57,6 +58,8 @@ class SimpleModeler:
                         modeler.forget_pod(pod)  # confirmed by the watch
                         continue
                     out.append(pod)
+                if selector is not None and not selector.empty():
+                    out = [p for p in out if selector.matches(p.metadata.labels)]
                 return out
 
         return _Lister()

@@ -2,10 +2,11 @@
 
 A copy of `kubernetes_tpu/utils/ratelimit.py` (reference:
 pkg/util/throttle.go, the RateLimiter behind the binding QPS of
-factory.go:43-46; podBackoff, factory.go:334-378). The scheduler daemon
-spaces a rejected pod's retries with the backoff. Nothing in the port
-throttles with the bucket yet: the incremental daemon commits in bulk
-and never throttles its binds, as in the JAX package.
+factory.go:43-46; podBackoff, factory.go:334-378). The scheduler daemons
+space a rejected pod's retries with the backoff; the per-pod daemon
+throttles its binds with the bucket when its config is given
+`bind_qps`. The batch daemons commit in bulk and never throttle, as in
+the JAX package.
 """
 
 from __future__ import annotations

@@ -28,8 +28,10 @@ its sampler runs, and that plane belongs to the apiserver's process,
 not to the scheduler's. So every entry carries `windowed: false`, as a
 JAX report does without history, and a window opens by resetting the
 series. An objective whose series this process never registers (the
-apiserver's watch, lease and replication series) reads `no_data`, as
-it would in the JAX scheduler's own process.
+apiserver's watch and replication series) reads `no_data`, as it would
+in the JAX scheduler's own process; the lease's series is observed by
+the port's lease client (`utils/lease.py`), as the JAX one's is in a
+process that runs its lease-elected scheduler.
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ from kubernetes_tpu.scheduler import plugins as jplugins
 from kubernetes_tpu.scheduler.daemon import BatchScheduler as JBatch
 from kubernetes_tpu.scheduler.daemon import SchedulerConfig as JConfig
 from kubernetes_tpu.server.api import APIServer
+from kubernetes_tpu.utils import capacity as jcapmod
 from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.client.rest import Client, LocalTransport
 from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL
@@ -38,6 +39,7 @@ from kubernetes_tpu_torch.ops import sidecar
 from kubernetes_tpu_torch.ops.sidecar import SidecarError
 from kubernetes_tpu_torch.scheduler import plugins
 from kubernetes_tpu_torch.scheduler.daemon import BatchScheduler, SchedulerConfig
+from kubernetes_tpu_torch.utils import capacity as capmod
 from tests.test_torch_daemon import (  # noqa: F401 (the module's fixtures)
     N_NODES,
     N_PODS,
@@ -266,11 +268,15 @@ def test_priority_burst_preempts_as_jax(batch_pair):
                                       for i in range(6)], namespace="default")
     # The preempting tick samples the caches as its own evictions and
     # nominations come back through the watch: its snapshot follows
-    # timing. Both are compared once the caches hold them, on an idle tick.
+    # timing. Both are compared once the caches hold them, on an idle
+    # tick whose sample starts both monitors afresh (the trend ring
+    # would keep the preempting tick's samples).
     pair.compare_capacity = False
     pair.tick_all()
     pair.assert_same()
     pair.settle()
+    jcapmod.DEFAULT.reset()
+    capmod.DEFAULT.reset()
     assert pair.j.schedule_batch(timeout=0.05) == pair.t.schedule_batch(timeout=0.05) == 0
     assert pair.assert_capacity_same()["stranded_node_count"] > 0
 
@@ -345,12 +351,12 @@ def test_device_and_sidecar_errors_raise_and_are_counted(batch_pair, tmp_path):
 
 
 @pytest.mark.parametrize("flags,want", [
-    ([], "incremental"),
+    ([], "scalar"),
     (["--batch"], "incremental"),
     (["--batch", "--batch-mode", "auto"], "incremental"),
     (["--batch", "--batch-full-relower"], "full"),
     (["--batch", "--policy-config-file", "{policy}"], "full"),
-    (["--policy-config-file", "{unlowerable}"], "full"),
+    (["--policy-config-file", "{unlowerable}"], "scalar"),
     (["--batch", "--solver-sidecar", "{socket}"], "full"),
     (["--batch", "--batch-mode", "wave", "--solver-sidecar", "{socket}"], "full"),
     (["--batch-incremental"], "incremental"),
@@ -359,13 +365,16 @@ def test_device_and_sidecar_errors_raise_and_are_counted(batch_pair, tmp_path):
 ])
 def test_command_routes_each_flag_combination(tmp_path, flags, want):
     """`cmd/scheduler.py` boots what the JAX command boots for each
-    combination (without a batch flag the incremental daemon, where JAX
-    has its per-pod scheduler): the daemon's class, route, mode and the
-    cache form it is given."""
+    combination (without a batch flag the per-pod scheduler): the
+    daemon's class, route, mode and the cache form it is given."""
     import json
 
     from kubernetes_tpu_torch.cmd import scheduler as cmd
-    from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler
+    from kubernetes_tpu_torch.scheduler.daemon import (
+        BatchScheduler,
+        IncrementalBatchScheduler,
+        Scheduler,
+    )
 
     paths = {"policy": tmp_path / "policy.json", "unlowerable": tmp_path / "custom.json",
              "socket": tmp_path / "s.sock"}
@@ -380,6 +389,10 @@ def test_command_routes_each_flag_combination(tmp_path, flags, want):
     assert cmd.route(args) == want
     daemon = cmd.start_scheduler(args, client=Client(LocalTransport(APIServer())))
     try:
+        if want == "scalar":
+            assert type(daemon) is Scheduler and not isinstance(daemon, BatchScheduler)
+            assert daemon.config.raw_scheduled_cache is False
+            return
         incremental = isinstance(daemon, IncrementalBatchScheduler)
         assert incremental == (want == "incremental")
         assert daemon.config.raw_scheduled_cache == incremental

@@ -148,11 +148,13 @@ def test_probe_set_equals_the_monitors():
 
 
 def _series():
-    """The backlog series and the sample counts of both packages."""
-    return ((capmod.ZERO_HEADROOM.value(), capmod.BACKLOG_PRESSURE.value(),
-             capmod.FRAG_SCORE.count(), capmod.SLICE_ALLOC.count()),
-            (jcapmod.ZERO_HEADROOM.value(), jcapmod.BACKLOG_PRESSURE.value(),
-             jcapmod.FRAG_SCORE.count(), jcapmod.SLICE_ALLOC.count()))
+    """The counted backlog series and the sample counts of both
+    packages (compared by their deltas: another file in the process may
+    have moved them)."""
+    return ((capmod.ZERO_HEADROOM.value(), capmod.FRAG_SCORE.count(),
+             capmod.SLICE_ALLOC.count()),
+            (jcapmod.ZERO_HEADROOM.value(), jcapmod.FRAG_SCORE.count(),
+             jcapmod.SLICE_ALLOC.count()))
 
 
 def test_monitor_constants_equal_the_jax_packages():
@@ -166,7 +168,8 @@ def test_monitor_constants_equal_the_jax_packages():
 def test_monitor_samples_equal_the_jax_monitors(seed):
     """A sequence of samples over one cluster's columns as its pods are
     placed, with backlog shapes noted between them: every snapshot and
-    the backlog series equal the JAX monitor's."""
+    the backlog series equal the JAX monitor's: the pressure gauge by
+    its value after each sample, the counters by their deltas."""
     nodes, pods = _placed_cluster(seed)
     rng = np.random.default_rng(seed)
     port, jax = capmod.CapacityMonitor(), jcapmod.CapacityMonitor()
@@ -187,6 +190,7 @@ def test_monitor_samples_equal_the_jax_monitors(seed):
         body = port.sample(cols, names, backlog_depth=depth, oldest_age_s=age, device="cpu")
         assert body == jax.sample(cols, names, backlog_depth=depth, oldest_age_s=age)
         assert port.snapshot() == jax.snapshot() and port.probe_set() == jax.probe_set()
+        assert capmod.BACKLOG_PRESSURE.value() == jcapmod.BACKLOG_PRESSURE.value()
         t1, j1 = _series()
         assert [a - b for a, b in zip(t1, t0)] == [a - b for a, b in zip(j1, j0)]
         t0, j0 = t1, j1

@@ -333,7 +333,7 @@ def test_binds_are_recorded_under_the_tick_s_trace_id_as_jax(monkeypatch):
 
 
 def test_the_command_serves_its_views_on_the_cpu():
-    """`python -m kubernetes_tpu_torch.cmd.scheduler --device cpu
+    """`python -m kubernetes_tpu_torch.cmd.scheduler --batch --device cpu
     --healthz-port 0` binds a pod, and its debug server shows the
     decision, the solve and the trace; SIGTERM ends it with 0."""
     api = APIServer()
@@ -345,7 +345,7 @@ def test_the_command_serves_its_views_on_the_cpu():
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubernetes_tpu_torch.cmd.scheduler", "--server", srv.address,
-         "--device", "cpu", "--prewarm-buckets", "0", "--healthz-port", "0"],
+         "--batch", "--device", "cpu", "--prewarm-buckets", "0", "--healthz-port", "0"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     lines = []
     reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)

@@ -134,7 +134,26 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/controllers/__init__.py",
         "kubernetes_tpu_torch/controllers/descheduler.py",
         "kubernetes_tpu_torch/controllers/autoscaler.py",
+        "kubernetes_tpu_torch/utils/lease.py",
+        "kubernetes_tpu_torch/utils/leaderelect.py",
+        "kubernetes_tpu_torch/scheduler/standby.py",
     } <= names
+
+
+def test_standby_raises_without_cuda(no_cuda):
+    """A warm standby (and so an HAScheduler's) is built on the card:
+    without one and without `device="cpu"` it raises before any
+    informer starts."""
+    from kubernetes_tpu.server.api import APIServer
+
+    from kubernetes_tpu_torch.client.rest import Client, LocalTransport
+    from kubernetes_tpu_torch.scheduler.standby import HAScheduler, WarmStandbyScheduler
+
+    client = Client(LocalTransport(APIServer()))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WarmStandbyScheduler(client)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HAScheduler(client, "a").start()
 
 
 def _python(args, **kw):
@@ -156,14 +175,14 @@ def test_scheduler_command_loads_nothing_of_the_jax_package():
 
 def test_scheduler_command_raises_without_cuda():
     proc = _python(["-m", "kubernetes_tpu_torch.cmd.scheduler", "--server",
-                    "http://127.0.0.1:9"], timeout=120)
+                    "http://127.0.0.1:9", "--batch"], timeout=120)
     assert proc.returncode != 0 and "CUDA" in proc.stderr
     proc = _python(["-m", "kubernetes_tpu_torch.cmd.scheduler", "--device", "cpu",
                     "--batch-incremental", "--policy-config-file", "policy.json"], timeout=120)
     assert proc.returncode != 0 and "supports the default policy only" in proc.stderr
-    # A policy boots the full re-lower daemon, on the card too.
+    # With a batch flag, the full re-lower daemon runs on the card too.
     proc = _python(["-m", "kubernetes_tpu_torch.cmd.scheduler", "--server", "http://127.0.0.1:9",
-                    "--batch-full-relower"], timeout=120)
+                    "--batch", "--batch-full-relower"], timeout=120)
     assert proc.returncode != 0 and "CUDA" in proc.stderr
 
 

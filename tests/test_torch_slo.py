@@ -126,11 +126,38 @@ def test_objectives_and_ladder_match_jax():
 
 
 def test_series_this_process_never_has_read_no_data():
-    """On the port's own registry the apiserver's series (watch, lease,
+    """On the port's own registry the apiserver's series (watch,
     replication) are absent and read no_data, as in the JAX scheduler's
-    process."""
+    process. (The lease's series is the port's own: its lease client
+    observes it, below.)"""
     report = slo.evaluate()
     by_name = {e["name"]: e for e in report["objectives"]}
-    for name in ("watch_fanout_lag", "replication_follower_lag", "lease_renew_latency"):
+    for name in ("watch_fanout_lag", "replication_follower_lag"):
         assert by_name[name]["verdict"] == "no_data" and by_name[name]["samples"] == 0
     assert all(e.get("windowed", False) is False for e in report["objectives"])
+
+
+def test_lease_client_feeds_the_lease_objective_as_jax():
+    """Each package's LeaseClient observes `lease_renew_latency_seconds`
+    in its own default registry, and the lease objective reads it: the
+    same acquire and renew rounds add the same samples to both, and both
+    verdicts pass (in-process CAS rounds, far under the 1 s target)."""
+    from kubernetes_tpu.client import Client as JClient
+    from kubernetes_tpu.client import LocalTransport as JLocalTransport
+    from kubernetes_tpu.server.api import APIServer
+    from kubernetes_tpu.utils import lease as jlease
+    from kubernetes_tpu_torch.client.rest import Client, LocalTransport
+    from kubernetes_tpu_torch.utils import lease
+
+    def lease_entry(pkg_slo, **kw):
+        return next(e for e in pkg_slo.evaluate(**kw)["objectives"]
+                    if e["name"] == "lease_renew_latency")
+
+    before = (lease_entry(jslo, history=NO_HISTORY)["samples"], lease_entry(slo)["samples"])
+    clients = (jlease.LeaseClient(JClient(JLocalTransport(APIServer())), "l", "a"),
+               lease.LeaseClient(Client(LocalTransport(APIServer())), "l", "a"))
+    for c in clients:
+        assert [c.try_acquire() for _ in range(3)] == [1, 1, 1]
+    after = (lease_entry(jslo, history=NO_HISTORY), lease_entry(slo))
+    assert [a["samples"] - b for a, b in zip(after, before)] == [3, 3]
+    assert [a["verdict"] for a in after] == ["pass", "pass"]
