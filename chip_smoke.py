@@ -99,14 +99,18 @@ exits non-zero and prints no result. Phases, one JSON line each:
   5f. explain explain_backlog for 1,024 pods of that backlog against its
               5,000 nodes on the card, equal to the same call with
               device="cpu";
-  5h. wave    the wave solver (plain PyTorch, no hand kernel): on the
-              card against the CPU, exactly (assignment, carry, waves),
-              on seeded small clusters at windows 32 and 4,096 and on an
-              8,192 x 1,024 backlog; solve_backlog_pipelined(mode="wave")
-              on the 50k x 5k backlog, a warm-up and three timed runs
-              (wall, phases, waves, pods placed, validity by the port's
-              oracle), the warm-up's regret against the greedy replay
-              within TestWaveQuality's bounds; then three churn ticks of
+  5h. wave    the wave solver (plain PyTorch, no hand kernel):
+              solve_backlog_pipelined(mode="wave") on the 50k x 5k
+              backlog, a warm-up run, whose regret against the greedy
+              replay (scored in a child process while Sinkhorn's
+              warm-up and both modes' card-against-CPU cases run) is
+              held within TestWaveQuality's bounds; on the card
+              against the CPU,
+              exactly (assignment, carry, waves), on seeded small
+              clusters at windows 32 and 4,096 and on an 8,192 x 1,024
+              backlog; three timed runs of the 50k backlog (wall,
+              phases, waves, pods placed, validity by the port's
+              oracle); then three churn ticks of
               the session in wave mode, the device rows equal to the host
               mirror after each;
   5i. sinkhorn the same for Sinkhorn, card against CPU within its
@@ -164,8 +168,9 @@ exits non-zero and prints no result. Phases, one JSON line each:
               events and its us a row, its commits, windows, rows
               screened and the screen/resolve split of its cycles (the
               kernel's stats), and every output of K2 equal to the
-              port's NumPy twin on the whole worklist, the plan equal to
-              the plan of the twin's rows; K2 held to its plain version
+              port's NumPy twin on the whole worklist (the twins run in
+              child processes, after the walls), the plan equal to the
+              plan of the twin's rows; K2 held to its plain version
               on the card on the first 2,048 rows of budget D (the plain
               loop is a launch sequence a row); K2 on budget D, 50
               forced nodes and the full fleet on clusters of 4, 8 and 16
@@ -183,10 +188,12 @@ exits non-zero and prints no result. Phases, one JSON line each:
               overlap and the profiled tick's busy share; the series as
               the metrics registry holds them (no daemon has fed the
               duty and overlap series yet: their count is 0);
-  5o. daemon  the port's scheduler daemon against the repo's apiserver,
-              started for each of four legs as a child process
-              (`python -m kubernetes_tpu.cmd.hyperkube apiserver`, store
-              in memory; nothing of it is imported here) on 5,000 nodes
+  5o. daemon  the port's scheduler daemon against the port's apiserver,
+              started for each leg as a child process (`python -m
+              kubernetes_tpu_torch.cmd.hyperkube apiserver`, store in
+              memory; nothing of it is imported here; each leg fails if
+              the child holds a CUDA context, read from nvidia-smi's
+              compute apps and the child's mapped libraries) on 5,000 nodes
               of the JAX package's churn drill: daemon_parity, 1,024
               pending pods (a nodeSelector on every eighth) created over
               HTTP, one schedule_batch() of a daemon that was not
@@ -247,8 +254,8 @@ exits non-zero and prints no result. Phases, one JSON line each:
               `capacity`. Two more legs, each on a fresh child
               at 5,000 nodes with the incremental daemon started:
               desched_defrag, every node keeping a 2,000m shard (15,000
-              bound pods), 56 pending pods of 3,000m, the slice shape
-              configured, and four cycles of the port's Descheduler
+              bound pods), 24 pending pods of 3,000m, the slice shape
+              configured, and two cycles of the port's Descheduler
               (grace 0, disruption cap 16): each cycle's K2 plan equal
               to the plain version's on the same inputs, the cap held,
               every replacement bound at its destination within 30 s,
@@ -308,7 +315,16 @@ exits non-zero and prints no result. Phases, one JSON line each:
               b, every pod bound once, b's /healthz 200. Last,
               daemon_scalar: the per-pod Scheduler over 32 pods on
               5,000 nodes, pods a second, its bindings in pop order
-              equal to the card's schedule_backlog in that order;
+              equal to the card's schedule_backlog in that order. Then
+              apiserver_durable: the apiserver with --data-dir (fsync
+              before every ack), 5,000 nodes and daemon_parity's 1,024
+              pods bound by one schedule_batch() (equal to
+              schedule_backlog's), SIGKILLed and restarted on the same
+              directory: every node and pod LISTed after the restart
+              equal to the LIST before the kill, the next write's
+              resourceVersion above the last acked one; the create p50
+              and p99 with fsync and in memory, the restart's seconds to
+              /healthz, the WAL and snapshot bytes;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -405,6 +421,43 @@ def emit(phase: str, **fields) -> None:
 def fail(phase: str, message: str) -> None:
     emit(phase, ok=False, error=message)
     sys.exit(1)
+
+
+CPU_CHECK_WORKERS = 5  # child processes for the NumPy checks (the host has 8 cores)
+_CPU_POOL = []
+
+
+def _timed_call(fn, *args):
+    """(fn(*args), seconds): what a check's child returns."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def cpu_check(fn, *args):
+    """Start `fn(*args)`, a NumPy check that touches no card, in a child
+    process (spawned, never forked from this CUDA process) and return
+    its future, whose result is (value, seconds). The checks of the
+    defrag plan and of the windowed solvers' quality run there while
+    this process goes on with untimed work: the defrag plan's K2 outputs
+    are read beside its twins and K2 is timed after they end; the
+    windowed solvers' quality checks run beside each other, Sinkhorn's
+    warm-up and both modes' card-against-CPU cases, whose host times
+    (that warm-up's `wall_s`, `card_s`, `cpu_s`) are kept only as a
+    reading.
+    The pool ends with `main`."""
+    if not _CPU_POOL:
+        import concurrent.futures
+        import multiprocessing
+
+        _CPU_POOL.append(concurrent.futures.ProcessPoolExecutor(
+            max_workers=CPU_CHECK_WORKERS, mp_context=multiprocessing.get_context("spawn")))
+    return _CPU_POOL[0].submit(_timed_call, fn, *args)
+
+
+def stop_cpu_checks():
+    while _CPU_POOL:
+        _CPU_POOL.pop().shutdown(wait=True, cancel_futures=True)
 
 
 def nvidia_smi_line() -> str:
@@ -512,8 +565,9 @@ def main(argv=None) -> int:
     emit("explain", ok=True, card=smi, **run_explain(torch, device))
     # -- 5h-5i. the windowed solvers -------------------------------------------
     scan_placed = sum(n is not None for n in placed_names)
-    for mode in ("wave", "sinkhorn"):
-        emit(mode, ok=True, card=smi, **run_windowed(torch, device, mode, placed_names, scan_placed))
+    windowed = start_windowed(torch, device, ("wave", "sinkhorn"), scan_placed)
+    for mode, started in windowed.items():
+        emit(mode, ok=True, card=smi, **run_windowed(torch, device, mode, placed_names, started))
     sidecar_line = run_sidecar(torch, device, placed_names, policy_names)
     emit("sidecar", ok=True, card=smi, **sidecar_line)
 
@@ -538,7 +592,7 @@ def main(argv=None) -> int:
     emit("telemetry", ok=True, card=smi, **run_telemetry(torch, device, main_result, churn,
                                                          placed_names))
 
-    # -- 5o. the scheduler daemon against the repo's apiserver --------------------
+    # -- 5o. the scheduler daemon against the port's apiserver --------------------
     daemon = run_daemon(torch, device, smi)
 
     # -- 6. kernels --------------------------------------------------------
@@ -576,6 +630,7 @@ def main(argv=None) -> int:
                 "daemon_ha_cmd": daemon["daemon_ha_cmd"]["k1_launches_b"],
                 # The per-pod daemon runs no kernel.
                 "daemon_scalar": daemon["daemon_scalar"]["k1_launches"],
+                "apiserver_durable": daemon["apiserver_durable"]["k1_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -639,6 +694,7 @@ def main(argv=None) -> int:
         },
     ]
     emit("kernel_timing", ok=True, card=smi, **timing, policy_sweep=policy_sweep)
+    stop_cpu_checks()
     jax_package = sorted(m for m in sys.modules if m == "kubernetes_tpu" or m.startswith("kubernetes_tpu."))
     if jax_package:
         fail("end", f"modules of the JAX package were loaded: {jax_package[:5]}")
@@ -2618,21 +2674,17 @@ def _profile_windowed(torch, device, mode):
     }
 
 
-def run_windowed(torch, device, mode, placed_names, scan_placed):
-    """The windowed mode end to end: card against CPU, then the 50k x 5k
-    pipeline, then the session's churn ticks."""
+def _windowed_card_vs_cpu(torch, device, mode, out):
+    """The windowed solver on the card against the CPU on small clusters
+    and on WINDOWED_CHECK (Sinkhorn's prices too), into `out`."""
     from kubernetes_tpu_torch import workload
     from kubernetes_tpu_torch.models.columnar import build_snapshot
-    from kubernetes_tpu_torch.ops import SolverSession, oracle, policy_scan, scan_kernel
-    from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
-    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
 
-    out = {"card_vs_cpu": []}
     # The small clusters have assigned pods past their nodes' capacity:
     # the oracle's validity replay refuses a zero-request pod on such an
     # overcommitted node, which the reference's predicates (and the scan)
     # allow, so these are held card against CPU only; validity is checked
-    # on the synthetic backlogs below, which have no overcommitted node.
+    # on the synthetic backlogs, which have no overcommitted node.
     for seed in range(8):
         pending, nodes, assigned, services = workload.small_cluster(seed)
         snap = build_snapshot(pending, nodes, assigned, services)
@@ -2646,40 +2698,75 @@ def run_windowed(torch, device, mode, placed_names, scan_placed):
     if mode == "sinkhorn":
         out["prices"] = _prices_card_vs_cpu(torch, device, snap)
 
-    runs = []
-    for r in range(MAIN_REPEATS + 1):
-        pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2 + r)
-        timer = PhaseTimer()
-        torch.cuda.synchronize()
-        scan_kernel.scan_with_state.launches = policy_scan.policy_scan_with_state.launches = 0
-        t0 = time.perf_counter()
-        names = solve_backlog_pipelined(pending, nodes, services=services, mode=mode, device=device,
-                                        timer=timer)
-        wall = time.perf_counter() - t0
-        hand = scan_kernel.scan_with_state.launches + policy_scan.policy_scan_with_state.launches
-        if hand:
-            fail(mode, f"the {mode} pipeline launched {hand} scan kernels")
-        snap = build_snapshot(pending, nodes, services=services)
-        assignment = _assignment_of(snap, names)
-        _valid(mode, snap, assignment, f"50k run {r}")
-        placed = int((assignment >= 0).sum())
-        run = {"run": "warmup" if r == 0 else f"timed{r}", "seed": 2 + r, "wall_s": wall,
-               "placed": placed, "pods_per_s": N_PODS / wall, "phases_s": timer.seconds,
-               **timer.stats}
-        if r == 0:
-            # Every pod the scan placed, as the quality gate's "placed".
-            if placed < scan_placed:
-                fail(mode, f"placed {placed} pods of the backlog the scan placed {scan_placed} of")
-            t0 = time.perf_counter()
-            q = oracle.assignment_quality(snap, assignment)
-            q["seconds"] = time.perf_counter() - t0
-            bounds = QUALITY[mode]
-            if (q["feasible_in_order"] < 0.99 or q["mean_regret"] > bounds["mean_regret"]
-                    or q["p99_regret"] > bounds["p99_regret"]
-                    or q["greedy_match"] < bounds["greedy_match"]):
-                fail(mode, f"quality outside {bounds}: {q}")
-            out["quality"] = {**q, "bounds": bounds, "scan_placed": scan_placed}
-        runs.append(run)
+
+def _windowed_run(torch, device, mode, r):
+    """Run `r` of the windowed mode on the 50k x 5k backlog (seed 2 + r):
+    the pipeline timed by the host clock, then its placements held to
+    the oracle's validity replay. Returns the run's record, its snapshot
+    and its assignment."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.columnar import build_snapshot
+    from kubernetes_tpu_torch.ops import policy_scan, scan_kernel
+    from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
+    from kubernetes_tpu_torch.utils.tracing import PhaseTimer
+
+    pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2 + r)
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    scan_kernel.scan_with_state.launches = policy_scan.policy_scan_with_state.launches = 0
+    t0 = time.perf_counter()
+    names = solve_backlog_pipelined(pending, nodes, services=services, mode=mode, device=device,
+                                    timer=timer)
+    wall = time.perf_counter() - t0
+    hand = scan_kernel.scan_with_state.launches + policy_scan.policy_scan_with_state.launches
+    if hand:
+        fail(mode, f"the {mode} pipeline launched {hand} scan kernels")
+    snap = build_snapshot(pending, nodes, services=services)
+    assignment = _assignment_of(snap, names)
+    _valid(mode, snap, assignment, f"50k run {r}")
+    placed = int((assignment >= 0).sum())
+    run = {"run": "warmup" if r == 0 else f"timed{r}", "seed": 2 + r, "wall_s": wall,
+           "placed": placed, "pods_per_s": N_PODS / wall, "phases_s": timer.seconds,
+           **timer.stats}
+    return run, snap, assignment
+
+
+def start_windowed(torch, device, modes, scan_placed):
+    """Each windowed mode's warm-up run, its quality scored in a child
+    process; the card-against-CPU cases while the children run; then the
+    scores held to QUALITY. Returns each mode's partial line, so that
+    its timed runs (run_windowed) start on a quiet host."""
+    from kubernetes_tpu_torch.ops import oracle
+
+    started = {}
+    for mode in modes:
+        run, snap, assignment = _windowed_run(torch, device, mode, 0)
+        # Every pod the scan placed, as the quality gate's "placed".
+        if run["placed"] < scan_placed:
+            fail(mode, f"placed {run['placed']} pods of the backlog the scan placed {scan_placed} of")
+        started[mode] = ({"card_vs_cpu": [], "runs": [run]},
+                         cpu_check(oracle.assignment_quality, snap, assignment))
+    for mode, (out, _) in started.items():
+        _windowed_card_vs_cpu(torch, device, mode, out)
+    for mode, (out, quality) in started.items():
+        q, q["seconds"] = quality.result()
+        bounds = QUALITY[mode]
+        if (q["feasible_in_order"] < 0.99 or q["mean_regret"] > bounds["mean_regret"]
+                or q["p99_regret"] > bounds["p99_regret"]
+                or q["greedy_match"] < bounds["greedy_match"]):
+            fail(mode, f"quality outside {bounds}: {q}")
+        out["quality"] = {**q, "bounds": bounds, "scan_placed": scan_placed}
+    return {mode: out for mode, (out, _) in started.items()}
+
+
+def run_windowed(torch, device, mode, placed_names, out):
+    """The windowed mode end to end after start_windowed's warm-up and
+    checks (`out`): the timed runs, then the session's churn ticks."""
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.ops import SolverSession
+
+    runs = out.pop("runs")
+    runs += [_windowed_run(torch, device, mode, r)[0] for r in range(1, MAIN_REPEATS + 1)]
     timed = [x["wall_s"] for x in runs[1:]]
     out.update(runs=runs, wall_s_median=statistics.median(timed),
                pods_per_s_median=N_PODS / statistics.median(timed), validity="100% (ops/oracle.py)")
@@ -3015,7 +3102,8 @@ def _rebalance_cases(placed_names):
 def run_rebalance(torch, device, placed_names):
     """build_plan on five worklists (the main path's placement at budget
     32, at budget D, with 50 and with every node forced; a full fleet),
-    each held in full to the NumPy twin; K2 timed by CUDA events with its
+    each held in full to the NumPy twin (run in child processes); K2
+    timed by CUDA events with its
     commits, windows, rows screened and screen/resolve split, and held to
     its plain version on the first rows of budget D; K2 swept over the
     cluster size, K and the largest window."""
@@ -3033,7 +3121,10 @@ def run_rebalance(torch, device, placed_names):
     out = {"cell": f"{N_NODES} nodes, {N_PODS} movable pods (main path's placement) or "
                    f"{len(cases[-1][3])} (full fleet), {len(cases[0][4])} probes",
            "probes": [list(p) for p in cases[0][4]]}
-    launches, staged = {}, {}
+    # Each plan's wall first, with nothing else running on the host; then
+    # the NumPy twins in child processes while K2's outputs are read here
+    # (untimed); K2 is timed once the twins have ended.
+    launches, staged, plans = {}, {}, {}
     for tag, cols, names, pods, probes, budget, forced_nodes in cases:
         timer = PhaseTimer()
         rebalance.plan_moves.launches = 0
@@ -3045,33 +3136,42 @@ def run_rebalance(torch, device, placed_names):
         launches[tag] = rebalance.plan_moves.launches
         if launches[tag] != 1:
             fail("rebalance", f"{tag}: build_plan launched K2 {launches[tag]} times, not once")
-
+        plans[tag] = (plan, wall, timer)
+    twins = {}
+    for tag, cols, names, pods, probes, budget, forced_nodes in cases:
         rows, *row_arrays = stage_rows(cols, names, pods, forced_nodes)
         args = tuple(cols[k] for k in COLUMN_KEYS) + tuple(row_arrays) + tuple(
             probe_arrays(probes)) + (np.int32(budget),)
-        tensors = stage(args[:-1], rebalance._DTYPES, device)
-        k2 = [t.cpu().numpy() for t in rebalance._launch(tensors, budget)]
-        t0 = time.perf_counter()
-        twin = plan_moves_numpy(*args)
-        twin_s = time.perf_counter() - t0
-        for i, (g, w) in enumerate(zip(k2, twin)):
+        twins[tag] = (cpu_check(plan_moves_numpy, *args), rows, row_arrays)
+        staged[tag] = (args, stage(args[:-1], rebalance._DTYPES, device))
+    k2_out = {c[0]: [t.cpu().numpy() for t in rebalance._launch(staged[c[0]][1], c[5])]
+              for c in cases}
+    checked = {}
+    for tag, cols, names, pods, probes, budget, forced_nodes in cases:
+        future, rows, row_arrays = twins[tag]
+        twin, twin_s = future.result()
+        for i, (g, w) in enumerate(zip(k2_out[tag], twin)):
             w = np.asarray(w)
             if g.shape != w.shape or g.dtype != w.dtype or not np.array_equal(g, w):
                 fail("rebalance", f"{tag}: K2's output {i} differs from the NumPy twin")
-        if plan != group_plan(rows, names, row_arrays[4], *twin[:3], budget, twin[4], twin[5]):
+        if plans[tag][0] != group_plan(rows, names, row_arrays[4], *twin[:3], budget, twin[4],
+                                       twin[5]):
             fail("rebalance", f"{tag}: the plan differs from the plan of the twin's rows")
+        checked[tag] = {"score_before": float(twin[4]), "score_after": float(twin[5]),
+                        "twin_s": twin_s, "equal_to_twin": True}
+    for tag, cols, names, pods, probes, budget, forced_nodes in cases:
+        args, tensors = staged[tag]
+        plan, wall, timer = plans[tag]
+        k2 = k2_out[tag]
         ms, ms_all, stats = _k2_ms(torch, tensors, budget)
-        evaluated = _evaluated_rows(row_arrays[3], k2[1], k2[3], budget)
+        evaluated = _evaluated_rows(twins[tag][2][3], k2[1], k2[3], budget)
         out[tag] = {
-            "budget": budget, "forced_nodes": len(forced_nodes), "rows": len(rows),
+            "budget": budget, "forced_nodes": len(forced_nodes), "rows": len(twins[tag][1]),
             "wall_s": wall, "phases_s": dict(timer.seconds), "k2_ms": ms, "k2_ms_all": ms_all,
             "evaluated_rows": evaluated, "us_per_row": ms * 1e3 / max(evaluated, 1),
             "n_moves": int(k2[3]), "planned_moves": len(plan["moves"]) if plan else 0,
-            "stats": stats, "bound": k2_bound(args, evaluated),
-            "score_before": float(twin[4]), "score_after": float(twin[5]),
-            "twin_s": twin_s, "equal_to_twin": True,
+            "stats": stats, "bound": k2_bound(args, evaluated), **checked[tag],
         }
-        staged[tag] = (args, tensors)
     if (out["forced"]["n_moves"] == 0 or out["forced_all"]["n_moves"] == 0
             or any(out[c[0]]["n_moves"] > c[5] for c in cases)):
         fail("rebalance", "a forced drain moved nothing, or a case moved past its budget")
@@ -3262,7 +3362,7 @@ def _k1_events_run(torch, device, objs, first_names, chunks):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5o: the scheduler daemon against the repo's apiserver
+# Phase 5o: the scheduler daemon against the port's apiserver
 # ---------------------------------------------------------------------------
 
 DAEMON_NODES = 5000
@@ -3297,22 +3397,51 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _cuda_context_of(pid):
+    """Whether process `pid` holds a CUDA context: listed by `nvidia-smi
+    --query-compute-apps`, or libcuda mapped in its memory.
+    Returns (holds, how it was read)."""
+    listed = None
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=30).stdout
+        listed = [int(x) for x in out.split() if x.strip().isdigit()]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            mapped = "libcuda.so" in f.read()
+    except OSError:
+        mapped = None
+    return (bool(listed and pid in listed) or bool(mapped),
+            {"compute_apps": listed, "libcuda_mapped": mapped})
+
+
 class ControlPlane:
-    """The repo's apiserver as a child process (`python -m
-    kubernetes_tpu.cmd.hyperkube apiserver`, store in memory): the
-    cluster's control plane, which the port's scheduler reaches over
-    HTTP like any client. Nothing of it is imported here. Up when
-    /healthz answers (at most APISERVER_UP_S); stopped with its whole
-    process group."""
+    """The port's apiserver as a child process (`python -m
+    kubernetes_tpu_torch.cmd.hyperkube apiserver`, store in memory
+    unless `data_dir` is given, then durable with the command's default
+    fsync): the cluster's control plane, which the
+    port's scheduler reaches over HTTP like any client. Nothing of it is
+    imported here. Up when /healthz answers (at most APISERVER_UP_S),
+    and then the phase fails if the child holds a CUDA context (the
+    apiserver is host code); stopped with its whole process group.
+    `kill()` SIGKILLs it, and `restart()` starts it again on the same
+    port and flags."""
 
-    def __init__(self, phase):
-        import tempfile
-
+    def __init__(self, phase, data_dir=None):
         self.phase = phase
         self.port = _free_port()
         self.url = f"http://127.0.0.1:{self.port}"
-        self.cmd = [sys.executable, "-m", "kubernetes_tpu.cmd.hyperkube", "apiserver",
+        self.cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", "apiserver",
                     "--port", str(self.port), "--max-requests-inflight", str(APISERVER_INFLIGHT)]
+        if data_dir:
+            self.cmd += ["--data-dir", data_dir]
+        self._spawn()
+
+    def _spawn(self):
+        import tempfile
+
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
         self._log = tempfile.TemporaryFile()
@@ -3333,6 +3462,11 @@ class ControlPlane:
                 conn.request("GET", "/healthz")
                 if conn.getresponse().status == 200:
                     conn.close()
+                    self.cuda_context, self.cuda_probe = _cuda_context_of(self.proc.pid)
+                    if self.cuda_context:
+                        self.stop()
+                        fail(self.phase, f"the apiserver child (pid {self.proc.pid}) holds a CUDA "
+                                         f"context: {self.cuda_probe}")
                     return self
                 conn.close()
             except OSError:
@@ -3345,6 +3479,22 @@ class ControlPlane:
 
     def __exit__(self, *exc):
         self.stop()
+
+    def kill(self):
+        """SIGKILL the child's process group and reap it."""
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(timeout=10)
+
+    def restart(self):
+        """Start the child again with the same command; returns once it
+        answers /healthz."""
+        self._spawn()
+        return self.__enter__()
 
     def tail(self, n=2000):
         self._log.seek(0)
@@ -4447,8 +4597,8 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False, stuck=0
 # -- the descheduler and the autoscaler on the card ------------------------------
 
 DEFRAG_SLICE = ("slice-1x3000m", 3000.0, 1024.0, 1)  # the pending pods' shape, configured
-DEFRAG_PENDING = 56  # three cycles' shards and half a fourth's
-DEFRAG_CYCLES = 4
+DEFRAG_PENDING = 24  # one cycle's shards and half a second's
+DEFRAG_CYCLES = 2
 DEFRAG_CAP = 16
 REBIND_S = 30.0  # a replacement's time to bind at its destination
 AUTOSCALE_BURST = 64
@@ -4687,7 +4837,7 @@ def _pending_placed(client, pending, request_milli):
 
 
 def run_desched_defrag(torch, device, smi):
-    """The descheduler on the card against the repo's apiserver: 5,000
+    """The descheduler on the card against the port's apiserver: 5,000
     nodes each keeping a 2,000m shard, DEFRAG_PENDING pods of 3,000m that
     fit none, the incremental daemon started, then DEFRAG_CYCLES cycles
     of `Descheduler.sync_once()` (grace 0, disruption cap 16, the JAX
@@ -4889,7 +5039,7 @@ def _polls(phase, scaler, want, limit=AUTOSCALE_POLLS):
 
 
 def run_autoscale_cycle(torch, device, smi):
-    """The autoscaler on the card against the repo's apiserver: 5,000
+    """The autoscaler on the card against the port's apiserver: 5,000
     nodes filled to 500m free, a burst of AUTOSCALE_BURST pods of 2,000m,
     polls until the pool grows by AUTOSCALE_STEP and the burst binds on
     the new nodes; then the fillers and the burst deleted, one small pod
@@ -5837,8 +5987,161 @@ def run_daemon_scalar(torch, device, smi):
     }
 
 
+DURABLE_CREATES = 256  # pods created one at a time in each store mode
+
+
+def _create_latencies(phase, url, n, prefix):
+    """Seconds of `n` single pod creates over HTTP, one after another."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+
+    client = Client(HTTPTransport(url))
+    out = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        client.create("pods", _daemon_pod_wire(f"{prefix}{i}"), namespace="default")
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _raw_list(url, path):
+    """A LIST's items in wire form, by name, with the list's version."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        body = json.loads(resp.read())
+    return ({o["metadata"]["name"]: o for o in body["items"]},
+            int(body["metadata"]["resourceVersion"]))
+
+
+def _filesystem_of(path):
+    """The type and mount point of the filesystem that holds `path`, from
+    /proc/mounts (the longest mount point that is a prefix of it)."""
+    path = os.path.realpath(path)
+    best = ("unknown", "")
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                fields = line.split()
+                if len(fields) < 3:
+                    continue
+                mnt = fields[1].replace("\\040", " ")
+                inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+                if inside and len(mnt) >= len(best[1]):
+                    best = (fields[2], mnt)
+    except OSError:
+        pass
+    return {"type": best[0], "mount": best[1]}
+
+
+def run_apiserver_durable(torch, device, smi):
+    """Leg apiserver_durable: the port's apiserver with a durable store
+    (`--data-dir`, fsync before every ack) under 5,000 nodes and the
+    daemon_parity leg's 1,024 pods bound by one schedule_batch() on the
+    card, then SIGKILLed and restarted on the same directory. Every
+    node, pod and binding LISTed after the restart equals the LIST
+    before the kill, and the next write's resourceVersion is above the
+    last acked one. Reports the create p50 and p99 with fsync (after the
+    restart) and in memory (a child with the store in memory that holds
+    the same 5,000 nodes and 1,024 pods, unbound), DURABLE_CREATES single
+    pod creates each, the restart's seconds to /healthz, the WAL and
+    snapshot bytes at the kill, and the type of the filesystem that holds
+    the data directory. The SIGKILL leaves the page cache whole, so the
+    read-back shows that the process acked only what it had written, not
+    that it reached the disk."""
+    import copy
+    import tempfile
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.ops import scan_kernel
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+    from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler, SchedulerConfig
+
+    phase = "apiserver_durable"
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _cluster(phase, client)
+        _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"),
+              [_parity_pod(i, False) for i in range(DAEMON_PARITY_PODS)])
+        memory_creates = _create_latencies(phase, cp.url, DURABLE_CREATES, "mem")
+    data_dir = tempfile.mkdtemp(prefix="apiserver-durable-")
+    filesystem = _filesystem_of(data_dir)
+    try:
+        with ControlPlane(phase, data_dir=data_dir) as cp:
+            probe = cp.cuda_probe
+            client = Client(HTTPTransport(cp.url))
+            _cluster(phase, client)
+            pods = [_parity_pod(i, False) for i in range(DAEMON_PARITY_PODS)]
+            _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"), pods)
+            cfg = SchedulerConfig(Client(HTTPTransport(cp.url))).start()
+            try:
+                if not cfg.wait_for_sync(60):
+                    fail(phase, "the daemon's caches did not sync")
+                _wait(phase, "the pending pods in the queue",
+                      lambda: len(cfg.pod_queue) == DAEMON_PARITY_PODS)
+                q = cfg.pod_queue
+                pending = copy.deepcopy([q._items[k] for k in q._queue if k in q._items])
+                nodes = cfg.nodes.store.list()
+                daemon = IncrementalBatchScheduler(cfg, max_batch=len(pending), device=device)
+                scan_kernel.scan_with_state.launches = 0
+                took = daemon.schedule_batch(timeout=1.0)
+                launches = scan_kernel.scan_with_state.launches
+                errors = daemon.device_errors
+                daemon.stop()
+            finally:
+                cfg.stop()
+            before_nodes, _ = _raw_list(cp.url, "/api/v1/nodes")
+            before_pods, acked = _raw_list(cp.url, "/api/v1/namespaces/default/pods")
+            files = {f: os.path.getsize(os.path.join(data_dir, f)) for f in os.listdir(data_dir)}
+            cp.kill()
+            t0 = time.perf_counter()
+            cp.restart()
+            recovery_s = time.perf_counter() - t0
+            after_nodes, _ = _raw_list(cp.url, "/api/v1/nodes")
+            after_pods, _ = _raw_list(cp.url, "/api/v1/namespaces/default/pods")
+            probe_after = cp.cuda_probe
+            nxt = Client(HTTPTransport(cp.url)).create(
+                "pods", _daemon_pod_wire("after-restart"), namespace="default")
+            next_version = int(nxt.metadata.resource_version)
+            fsync_creates = _create_latencies(phase, cp.url, DURABLE_CREATES, "fs")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    if took != len(pending) or launches != 1 or errors:
+        fail(phase, f"the tick took {took} of {len(pending)} pods with {launches} K1 launches "
+                    f"and {errors} errors")
+    bound = {n: (o.get("spec") or {}).get("nodeName") or None for n, o in before_pods.items()}
+    ref = schedule_backlog(pending, nodes, device=device)
+    got = [bound[p.metadata.name] for p in pending]
+    diff = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    if diff or len(ref) != len(got):
+        i = diff[0] if diff else 0
+        fail(phase, f"the bindings differ from schedule_backlog on {len(diff)} pods; first "
+                    f"{pending[i].metadata.name}: {got[i]} != {ref[i]}")
+    for what, a, b in (("nodes", before_nodes, after_nodes), ("pods", before_pods, after_pods)):
+        if a != b:
+            lost = sorted(set(a) - set(b))[:3]
+            changed = sorted(k for k in set(a) & set(b) if a[k] != b[k])[:3]
+            fail(phase, f"the {what} LISTed after the restart differ: {len(a)} before, {len(b)} "
+                        f"after, missing {lost}, changed {changed}")
+    if next_version <= acked:
+        fail(phase, f"the first write after the restart got resourceVersion {next_version}, "
+                    f"not above the last acked {acked}")
+    return {
+        "card": smi, "apiserver": " ".join(cp.cmd), "nodes": len(after_nodes),
+        "pods": len(after_pods), "bound": sum(v is not None for v in bound.values()),
+        "equal_to_schedule_backlog": True, "lists_equal_after_restart": True,
+        "last_acked_version": acked, "next_version": next_version,
+        "create_s_fsync": {"p50": _percentile(fsync_creates, 50),
+                           "p99": _percentile(fsync_creates, 99), "n": len(fsync_creates)},
+        "create_s_memory": {"p50": _percentile(memory_creates, 50),
+                            "p99": _percentile(memory_creates, 99), "n": len(memory_creates)},
+        "recovery_s": recovery_s, "data_dir_bytes": files, "data_dir_filesystem": filesystem,
+        "apiserver_cuda_context": {"before": probe, "after_restart": probe_after},
+        "k1_launches": launches,
+    }
+
+
 def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
-    """The fifteen legs, each on a fresh apiserver child (only `legs`
+    """The sixteen legs, each on a fresh apiserver child (only `legs`
     when given). `churn_stuck` pods that fit no node wait through
     daemon_churn's load."""
     plan = {
@@ -5860,6 +6163,7 @@ def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
         "daemon_ha": lambda: run_daemon_ha(torch, device, smi),
         "daemon_ha_cmd": lambda: run_daemon_ha_cmd(torch, device, smi),
         "daemon_scalar": lambda: run_daemon_scalar(torch, device, smi),
+        "apiserver_durable": lambda: run_apiserver_durable(torch, device, smi),
     }
     unknown = set(legs) - set(plan)
     if unknown:

@@ -14,16 +14,25 @@ the caller asks for it with `device="cpu"`.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import TYPE_CHECKING, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
-DeviceLike = Union[str, torch.device, None]
+#: The JAX package's version, which the apiserver's /version and swagger
+#: document report.
+__version__ = "0.1.0"
+
+# torch is imported where a device is resolved, not with the package:
+# the apiserver's process is host code and never loads it.
+DeviceLike = Union[str, "torch.device", None]
 
 
-def default_device() -> torch.device:
+def default_device() -> "torch.device":
     """The port's device: the current CUDA card. Raises when CUDA is
     unavailable (the port never falls back to the CPU on its own)."""
+    import torch
+
     if not torch.cuda.is_available():
         raise RuntimeError(
             "kubernetes_tpu_torch runs on a CUDA device and none is "
@@ -33,11 +42,13 @@ def default_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None) -> "torch.device":
     """`device` as a torch.device; None means default_device()."""
+    import torch
+
     if device is None:
         return default_device()
     return torch.device(device)
 
 
-__all__ = ["default_device", "resolve_device", "DeviceLike"]
+__all__ = ["default_device", "resolve_device", "DeviceLike", "__version__"]

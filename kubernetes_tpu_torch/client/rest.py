@@ -5,9 +5,9 @@ daemon runs (reference: pkg/client/client.go + request.go):
 
 - `LocalTransport` calls an in-process object that has the apiserver's
   method names (`list`, `get`, `create`, `watch`, `bind_bulk`, ...)
-  directly. It is duck-typed: the port has no apiserver of its own, and
-  the tests hand it the JAX package's. An error that carries `code`,
-  `reason` and `message` is raised again as the port's `APIError`.
+  directly. It is duck-typed: the port's `server.api.APIServer`, or in
+  the tests the JAX package's. An error that carries `code`, `reason`
+  and `message` is raised again as the port's `APIError`.
 - `HTTPTransport` speaks the apiserver's HTTP wire to one endpoint: the
   active trace's id in the `X-Trace-Id` header of each request, one
   keep-alive connection a thread, a free replay when a reused
@@ -16,8 +16,8 @@ daemon runs (reference: pkg/client/client.go + request.go):
   newline-delimited JSON frames read by a thread of its own.
 - `Client` types objects through `models/serde.py` and records events
   through `client/record.py`. `list_wire` and `get_wire` return the
-  apiserver's dicts as they come, for a caller that must carry fields
-  the port's typed objects do not model (the descheduler's moves).
+  apiserver's dicts as they come, for a caller that must carry every
+  field of a stored object (the descheduler's moves).
 
 A watch yields `Event`s (`.type`, `.object` as a wire dict, `.version`),
 the shape of `kubernetes_tpu/store/watch.py`'s.

@@ -4,8 +4,8 @@ A copy of `kubernetes_tpu/models/serde.py` over the port's objects (the
 role of the reference's runtime.Codec, pkg/runtime/scheme.go): every
 API object encodes to the camelCase JSON wire form and decodes back
 into the port's dataclasses, recursively, driven by type hints.
-Unknown wire fields are ignored, so the richer manifests of the
-apiserver decode into the port's subset; zero-valued fields are
+Unknown wire fields are ignored, so richer manifests still load;
+zero-valued fields are
 omitted on encode like Go's `omitempty`. Encode and decode plans are
 built once per class.
 """
@@ -21,8 +21,17 @@ from kubernetes_tpu_torch.models.quantity import Quantity, parse_quantity
 _SPECIAL_CAMEL = {
     # Wire names that simple snake->camel conversion would get wrong.
     "api_version": "apiVersion",
+    "cluster_ip": "clusterIP",
+    "pod_ip": "podIP",
+    "host_ip": "hostIP",
+    "external_ips": "externalIPs",
+    "node_port": "nodePort",
+    "target_port": "targetPort",
     "host_port": "hostPort",
     "container_port": "containerPort",
+    "image_pull_policy": "imagePullPolicy",
+    "tcp_socket": "tcpSocket",
+    "http_get": "httpGet",
     "uid": "uid",
 }
 

@@ -63,6 +63,7 @@ from kubernetes_tpu_torch.models.objects import (
 )
 from kubernetes_tpu_torch.ops.capacity import capacity_report
 from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils.debug import cold_report
 from kubernetes_tpu_torch.utils.profiler import RATIO_BUCKETS
 
 Probe = Tuple[str, float, float, int]
@@ -436,8 +437,7 @@ class CapacityMonitor:
         """The latest sample's body; `sampled: false` before the first."""
         with self._lock:
             if self._last is None:
-                return {"kind": "CapacityReport", "sampled": False, "samples": 0,
-                        "probes": [], "stranded_nodes": [], "trend": []}
+                return cold_report("capacity")
             return dict(self._last)
 
 

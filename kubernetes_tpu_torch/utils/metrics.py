@@ -86,7 +86,7 @@ class Counter(_Metric):
 
     def snapshot(self) -> Dict[Tuple[str, ...], float]:
         """Point-in-time copy of every series (the retention sampler's
-        read — kubernetes_tpu/utils/timeseries.py; one lock hold for the family)."""
+        read — utils/timeseries.py; one lock hold for the family)."""
         with self._lock:
             return dict(self._values)
 
@@ -112,7 +112,7 @@ class Gauge(_Metric):
             return self._values.get(self._key(labels), 0.0)
 
     def snapshot(self) -> Dict[Tuple[str, ...], float]:
-        """Point-in-time copy of every series (kubernetes_tpu/utils/timeseries.py)."""
+        """Point-in-time copy of every series (utils/timeseries.py)."""
         with self._lock:
             return dict(self._values)
 
@@ -206,7 +206,7 @@ def bucket_quantile(bounds, counts, total, q: float) -> float:
     linear within the bucket holding rank q*total; observations beyond
     the highest finite bound report that bound. Shared by the live
     Histogram and the retention plane's windowed bucket DELTAS
-    (kubernetes_tpu/utils/timeseries.quantile_over_time) so a windowed p99 and a
+    (utils/timeseries.quantile_over_time) so a windowed p99 and a
     lifetime p99 can never disagree about what interpolation means."""
     if total <= 0:
         return math.nan
@@ -274,7 +274,7 @@ class Histogram(_Metric):
     def snapshot(self) -> Dict[Tuple[str, ...], Tuple[int, float, Tuple[int, ...]]]:
         """Point-in-time (count, sum, raw per-bucket counts) per series
         — what the retention sampler rings so windowed quantiles can be
-        interpolated from bucket deltas (kubernetes_tpu/utils/timeseries.py)."""
+        interpolated from bucket deltas (utils/timeseries.py)."""
         with self._lock:
             return {
                 k: (s["count"], s["sum"], tuple(s["buckets"]))
@@ -321,13 +321,13 @@ class Registry:
 
     def get(self, name: str) -> Optional[_Metric]:
         """The registered metric by name, or None (the SLO engine's
-        series lookup — kubernetes_tpu/utils/slo.py)."""
+        series lookup — utils/slo.py)."""
         with self._lock:
             return self._metrics.get(name)
 
     def all(self) -> List[_Metric]:
         """Every registered metric (the retention sampler's sweep —
-        kubernetes_tpu/utils/timeseries.py)."""
+        utils/timeseries.py)."""
         with self._lock:
             return list(self._metrics.values())
 

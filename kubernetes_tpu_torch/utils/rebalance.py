@@ -51,6 +51,7 @@ from kubernetes_tpu_torch.models.objects import (
 from kubernetes_tpu_torch.ops.rebalance import plan_moves
 from kubernetes_tpu_torch.utils.capacity import COLUMN_KEYS, probe_arrays
 from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils.debug import cold_report
 from kubernetes_tpu_torch.utils.profiler import RATIO_BUCKETS
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
 
@@ -327,8 +328,7 @@ class RebalanceMonitor:
         the first cycle."""
         with self._lock:
             if self.samples == 0:
-                return {"kind": "RebalanceReport", "sampled": False, "samples": 0,
-                        "moves": [], "outcomes": {}, "trend": []}
+                return cold_report("rebalance")
             return {
                 "kind": "RebalanceReport",
                 "sampled": True,

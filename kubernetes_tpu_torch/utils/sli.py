@@ -21,17 +21,53 @@ series names:
   caches last processed a delta or re-list, set by the daemon every
   tick.
 
+- **lifecycle SLIs** (`LifecycleSLICollector`, `DEFAULT`): one
+  subscriber on the kvstore's event dispatcher (`KVStore.subscribe`,
+  the feed the apiserver's watch cache rides) turns pod events into
+  the `pod_startup_latency_seconds{milestone}` histogram (created,
+  decision from the flight recorder's decision sink, bound, running),
+  as the JAX module does; the port's `APIServer` attaches it;
+- **watch fan-out lag** (`observe_watch_lag`,
+  `watch_fanout_lag_versions{resource}`): store versions a watch
+  delivery trails the watch cache's applied watermark by.
+
 `observe_device_telemetry()` samples the build pair and device memory;
 it never raises, and on a process without a card it sets no memory
-gauge. The lifecycle SLIs and watch lag of the JAX module need the
-apiserver's store; they are not here.
+gauge. It is the one function here that touches torch; the apiserver's
+process never calls it.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from typing import Dict, List
 
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import flightrecorder, metrics
+
+#: Store key prefix of the pod resource (registry.ResourceInfo.prefix
+#: shape): the collector filters the firehose on it first thing.
+POD_PREFIX = "/registry/pods/"
+_PREFIX_LEN = len(POD_PREFIX)
+
+#: Pod lifecycle milestone watermarks, measured from the watch-visible
+#: ADDED event (density.go's pod-startup measurement, always on).
+STARTUP_LATENCY = metrics.DEFAULT.histogram(
+    "pod_startup_latency_seconds",
+    "Pod lifecycle milestone latency from watch-visible creation "
+    "(milestone: decision | bound | running)",
+    ("milestone",),
+)
+
+#: Store versions a watch connection's delivered burst trails the
+#: watch cache's applied watermark by (0 = the consumer is current).
+#: Buckets are powers of two: version counts, not seconds.
+WATCH_LAG = metrics.DEFAULT.histogram(
+    "watch_fanout_lag_versions",
+    "Store versions a watch delivery trails the applied watermark by",
+    ("resource",),
+    buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 1024, 4096, 16384, 65536),
+)
 
 #: Host<->device transfer volume of the solve pipelines, from the
 #: staged buffer sizes (direction: h2d | d2h).
@@ -88,6 +124,10 @@ def note_transfer(direction: str, nbytes: int) -> None:
         TRANSFER_BYTES.inc(float(nbytes), direction=direction)
 
 
+def observe_watch_lag(resource: str, lag_versions: int) -> None:
+    WATCH_LAG.observe(float(max(0, lag_versions)), resource=resource)
+
+
 _SEEN = {"builds": 0}
 _SEEN_LOCK = threading.Lock()
 
@@ -119,3 +159,143 @@ def observe_device_telemetry() -> None:
         if key in stats:
             DEVICE_MEMORY.set(float(stats[key]), kind=kind)
     DEVICE_MEMORY.set(float(total), kind="limit")
+
+
+class LifecycleSLICollector:
+    """Watch-fed pod-lifecycle milestone collector (informer-style:
+    state is kept current by events alone — it never lists or polls).
+
+    Feed it by attaching to a store (``attach``: the kvstore dispatcher
+    invokes ``_on_store_event`` for every event, in version order, on
+    its own thread) and by the flight-recorder decision sink registered
+    at module import (``note_decision``). Thread-safe; observations
+    happen outside the track lock."""
+
+    #: Bound on concurrently tracked (created-but-not-Running) pods;
+    #: the oldest track is evicted at the cap, so a flood of pods that
+    #: never progress cannot grow the collector without bound.
+    MAX_TRACKED = 65536
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # pod key ("ns/name") -> [created_mono, decided, bound, running]
+        self._tracks: Dict[str, List] = {}
+        self.enabled = True
+
+    # -- wiring --------------------------------------------------------
+
+    def attach(self, store) -> None:
+        """Subscribe to a kvstore's event dispatcher (the same feed the
+        apiserver watch cache rides). Idempotent per store: KVStore
+        subscribers are append-only, so attach once per store."""
+        store.subscribe(self._on_store_event)
+
+    # -- event feed (dispatcher thread) --------------------------------
+
+    def _on_store_event(self, version, etype, key, obj, prev) -> None:
+        # Hot path: runs on the store dispatcher thread for EVERY pod
+        # event — locals bound, untracked pods bail before any parsing,
+        # the lock is taken only when state actually changes (dict
+        # reads are GIL-atomic; the dispatcher is the sole writer of
+        # store-event transitions).
+        if not self.enabled or not key.startswith(POD_PREFIX):
+            return
+        pod_key = key[_PREFIX_LEN:]
+        tracks = self._tracks
+        if etype == "DELETED":
+            if pod_key in tracks:
+                with self._lock:
+                    tracks.pop(pod_key, None)
+            return
+        if not isinstance(obj, dict):
+            return
+        spec = obj.get("spec")
+        if etype == "ADDED":
+            if spec and spec.get("nodeName"):
+                return  # born bound (static pod / replay): no startup story
+            now = time.monotonic()
+            with self._lock:
+                if (
+                    len(tracks) >= self.MAX_TRACKED
+                    and pod_key not in tracks
+                ):
+                    tracks.pop(next(iter(tracks)))
+                tracks[pod_key] = [now, False, False, False]
+            return
+        # MODIFIED: bound / running transitions (tracked pods only).
+        if pod_key not in tracks:
+            return
+        bound = bool(spec and spec.get("nodeName"))
+        status = obj.get("status")
+        running = bool(status) and status.get("phase") == "Running"
+        if not (bound or running):
+            return
+        now = time.monotonic()
+        observe_bound = observe_running = False
+        with self._lock:
+            t = tracks.get(pod_key)
+            if t is None:
+                return
+            created = t[0]
+            if bound and not t[2]:
+                t[2] = observe_bound = True
+            if running and not t[3]:
+                t[3] = observe_running = True
+            if t[3]:
+                del tracks[pod_key]  # lifecycle complete: drain
+        if observe_bound:
+            STARTUP_LATENCY.observe(now - created, milestone="bound")
+        if observe_running:
+            STARTUP_LATENCY.observe(now - created, milestone="running")
+
+    # -- decision join (flight-recorder sink, scheduler thread) --------
+
+    def note_decision(self, pod_key: str, outcome: str = "") -> None:
+        """The flight recorder logged a Decision for this pod: stamp
+        the decision milestone (first one wins — retries re-decide but
+        the SLI is time-to-first-decision)."""
+        now = time.monotonic()
+        with self._lock:
+            t = self._tracks.get(pod_key)
+            if t is None or t[1]:
+                return
+            t[1] = True
+            created = t[0]
+        STARTUP_LATENCY.observe(now - created, milestone="decision")
+
+    # -- introspection -------------------------------------------------
+
+    def tracked_count(self) -> int:
+        with self._lock:
+            return len(self._tracks)
+
+    #: Bound on the oldest-unbound scan below — tracks are insertion-
+    #: ordered so the oldest unbound pod sits near the front; a cap
+    #: keeps the per-tick capacity sample O(1) even at MAX_TRACKED.
+    _AGE_SCAN_LIMIT = 1024
+
+    def oldest_unbound_age_s(self) -> float:
+        """Age (seconds) of the oldest tracked pod that has not reached
+        the bound milestone — the backlog-pressure age watermark
+        (utils/capacity.py multiplies it by the FIFO depth). 0.0 when
+        nothing is waiting."""
+        now = time.monotonic()
+        with self._lock:
+            for i, t in enumerate(self._tracks.values()):
+                if i >= self._AGE_SCAN_LIMIT:
+                    break
+                if not t[2]:  # not yet bound
+                    return max(now - t[0], 0.0)
+        return 0.0
+
+    def reset(self) -> None:
+        with self._lock:
+            self._tracks.clear()
+
+
+DEFAULT = LifecycleSLICollector()
+
+# Every Decision the flight recorder logs stamps the pod's "decision"
+# milestone (registered once at import; flightrecorder never imports
+# sli, so there is no cycle).
+flightrecorder.add_decision_sink(DEFAULT.note_decision)

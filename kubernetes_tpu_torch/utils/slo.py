@@ -3,8 +3,8 @@
 The port's copy of `kubernetes_tpu/utils/slo.py`, with the same
 objectives, targets and verdict ladder. An `Objective` names a metric
 series, a percentile and a target; `evaluate` turns the registry into
-pass / warn / burn verdicts, served at the scheduler daemon's
-`GET /debug/slo`.
+pass / warn / burn verdicts, served at `GET /debug/slo` by the
+scheduler daemon's health server and by the apiserver.
 
 Verdict ladder (worst wins):
 
@@ -22,14 +22,17 @@ Objective kinds:
     value_max     a directly supplied figure must stay <= target
     value_min     a directly supplied figure must stay >= target
 
-Only the lifetime-cumulative path is here: the JAX engine reads
-windowed figures from the retention plane (`utils/timeseries.py`) when
-its sampler runs, and that plane belongs to the apiserver's process,
-not to the scheduler's. So every entry carries `windowed: false`, as a
-JAX report does without history, and a window opens by resetting the
-series. An objective whose series this process never registers (the
-apiserver's watch and replication series) reads `no_data`, as it would
-in the JAX scheduler's own process; the lease's series is observed by
+Windows: `window_s` is real when the retention plane
+(`utils/timeseries.py`) has history, as in the JAX engine: quantile_max
+evaluates the interpolated quantile of the window's bucket deltas,
+counter_max the windowed increase, gauge_max the windowed max, so a
+recovered burn returns to `pass` within one window. Without history
+(the sampler never started: the scheduler's process, unit tests)
+objectives fall back to the lifetime-cumulative series; each entry
+carries `windowed: true|false`. The apiserver's process starts the
+sampler (`cmd/daemons.apiserver_main`). An objective whose series a
+process never registers (the apiserver's watch and replication series
+in the scheduler's process) reads `no_data`, as in JAX's; the lease's series is observed by
 the port's lease client (`utils/lease.py`), as the JAX one's is in a
 process that runs its lease-elected scheduler.
 """
@@ -76,8 +79,9 @@ class Objective:
     #: For max kinds: values above warn_ratio*target verdict "warn"
     #: before the target is breached. 0 disables the warn band.
     warn_ratio: float = 0.75
-    #: The JAX engine's evaluation window with a retention plane; carried
-    #: into the report (`windowS`), evaluated lifetime-cumulative here.
+    #: Evaluation window: when > 0 and the retention plane has history
+    #: for the series, the objective verdicts the window's deltas;
+    #: otherwise the lifetime-cumulative fallback.
     window_s: float = 0.0
     description: str = ""
 
@@ -110,11 +114,17 @@ def _matching_label_sets(metric, labels: Dict[str, str]):
             yield lm
 
 
-def evaluate_objective(obj: Objective, registry=None) -> dict:
-    """Evaluate one objective over the lifetime-cumulative series.
-    Returns the report entry: measured value, p50/p99 context, sample
-    count, and the verdict."""
+def evaluate_objective(obj: Objective, registry=None, history=None) -> dict:
+    """Evaluate one objective. Returns the report entry: measured value,
+    p50/p99 context, sample count, and the verdict. `history` is the
+    retention plane (default: `timeseries.DEFAULT`); with a window and
+    enough samples the verdict comes from the window's deltas, else
+    from the lifetime-cumulative series."""
     registry = metrics.DEFAULT if registry is None else registry
+    if history is None:
+        from kubernetes_tpu_torch.utils import timeseries
+
+        history = timeseries.DEFAULT
     labels = dict(obj.labels)
     entry = {
         "name": obj.name,
@@ -142,20 +152,47 @@ def evaluate_objective(obj: Objective, registry=None) -> dict:
     if not hasattr(metric, needed):
         entry["verdict"] = "no_data"
         return entry
+    use_window = (
+        obj.window_s > 0
+        and history is not None
+        and getattr(history, "sampled", False)
+    )
     value: Optional[float] = None
+    windowed = False
     if obj.kind == "counter_max":
-        # A counter with no series yet is zero: verdict pass, samples 0
-        # (the report's `sampled` flag stays untouched).
-        total = 0.0
-        for lm in _matching_label_sets(metric, labels):
-            total += metric.value(**lm)
-        value = total
-        entry["samples"] = int(total)
+        if use_window:
+            # Windowed increase summed across matching label sets; a
+            # series whose ring lacks two samples contributes nothing.
+            w_total: Optional[float] = None
+            for lm in _matching_label_sets(metric, labels):
+                inc = history.increase(obj.series, obj.window_s, lm)
+                if inc is not None:
+                    w_total = (w_total or 0.0) + inc
+            if w_total is not None:
+                value = w_total
+                entry["samples"] = int(w_total)
+                windowed = True
+        if not windowed:
+            # A counter with no series yet is zero: verdict pass,
+            # samples 0 (the report's `sampled` flag stays untouched).
+            total = 0.0
+            for lm in _matching_label_sets(metric, labels):
+                total += metric.value(**lm)
+            value = total
+            entry["samples"] = int(total)
     elif obj.kind == "gauge_max":
-        # Watermark: the worst live value across matching label sets.
+        # Watermark: the worst live (or windowed-max) value across
+        # matching label sets.
         n_sets = 0
         for lm in _matching_label_sets(metric, labels):
-            v = metric.value(**lm)
+            if use_window:
+                v = history.max_over_time(obj.series, obj.window_s, lm)
+                if v is not None:
+                    windowed = True
+                else:
+                    v = metric.value(**lm)
+            else:
+                v = metric.value(**lm)
             n_sets += 1
             if value is None or v > value:
                 value = v
@@ -163,18 +200,34 @@ def evaluate_objective(obj: Objective, registry=None) -> dict:
     elif obj.kind == "quantile_max":
         samples = 0
         p50 = None
-        for lm in _matching_label_sets(metric, labels):
-            q = metric.quantile(obj.percentile, **lm)
-            if math.isnan(q):
-                continue
-            # The worst matching label set carries the verdict.
-            if value is None or q > value:
-                value = q
-            q50 = metric.quantile(0.5, **lm)
-            if not math.isnan(q50) and (p50 is None or q50 > p50):
-                p50 = q50
-            count = getattr(metric, "count", None)
-            samples += count(**lm) if count is not None else 0
+        if use_window:
+            for lm in _matching_label_sets(metric, labels):
+                q = history.quantile_over_time(
+                    obj.series, obj.percentile, obj.window_s, lm
+                )
+                if q is None:
+                    continue
+                windowed = True
+                # The worst matching label set carries the verdict.
+                if value is None or q > value:
+                    value = q
+                q50 = history.quantile_over_time(obj.series, 0.5, obj.window_s, lm)
+                if q50 is not None and (p50 is None or q50 > p50):
+                    p50 = q50
+                hw = history.hist_window(obj.series, obj.window_s, lm)
+                samples += hw[0] if hw is not None else 0
+        if not windowed:
+            for lm in _matching_label_sets(metric, labels):
+                q = metric.quantile(obj.percentile, **lm)
+                if math.isnan(q):
+                    continue
+                if value is None or q > value:
+                    value = q
+                q50 = metric.quantile(0.5, **lm)
+                if not math.isnan(q50) and (p50 is None or q50 > p50):
+                    p50 = q50
+                count = getattr(metric, "count", None)
+                samples += count(**lm) if count is not None else 0
         entry["samples"] = samples
         if p50 is not None:
             entry["p50"] = round(p50, 6)
@@ -185,7 +238,7 @@ def evaluate_objective(obj: Objective, registry=None) -> dict:
         # (verdict_for_value); here they report no_data.
         entry["verdict"] = "no_data"
         return entry
-    entry["windowed"] = False
+    entry["windowed"] = windowed
     if value is not None:
         entry["value"] = round(value, 6)
     entry["verdict"] = verdict_for_value(obj, value)
@@ -320,12 +373,14 @@ BENCH_OBJECTIVES: Dict[str, Objective] = {
 }
 
 
-def evaluate(objectives: Optional[Iterable[Objective]] = None, registry=None) -> dict:
+def evaluate(objectives: Optional[Iterable[Objective]] = None, registry=None,
+             history=None) -> dict:
     """The SLOReport dict (the /debug/slo body): an entry an objective,
     the worst measured verdict overall, and whether any objective has
     samples (`sampled`)."""
     objectives = DEFAULT_OBJECTIVES if objectives is None else objectives
-    entries: List[dict] = [evaluate_objective(o, registry=registry) for o in objectives]
+    entries: List[dict] = [evaluate_objective(o, registry=registry, history=history)
+                           for o in objectives]
     # An objective with no data yet must not drag a healthy overall
     # verdict to no_data; all no_data reports no_data.
     measured = [e["verdict"] for e in entries if e["verdict"] != "no_data"]

@@ -27,7 +27,7 @@ from kubernetes_tpu_torch.controllers import autoscaler
 from kubernetes_tpu_torch.controllers.descheduler import Descheduler
 from kubernetes_tpu_torch.utils import capacity as capmod
 from kubernetes_tpu_torch.utils import rebalance as rebmod
-from tests.test_torch_descheduler import _norm, node_wire, pod_wire
+from tests.test_torch_descheduler import _norm, move_counters_kept, node_wire, pod_wire  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

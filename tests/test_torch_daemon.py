@@ -19,7 +19,9 @@ decision records (telemetry the port does not carry, departure (d))
 are switched off on its instance.
 
 One test runs the port's daemon started, over HTTP; its waits are
-bounded and it asserts no timing.
+bounded and it asserts no timing. One runs the port's daemon on the
+port's own apiserver (`kubernetes_tpu_torch.server.api.APIServer`),
+seeded through the port's client, against the JAX daemon on JAX's.
 """
 
 import copy
@@ -42,7 +44,9 @@ from kubernetes_tpu_torch.client.rest import Client, HTTPTransport, LocalTranspo
 from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL
 from kubernetes_tpu_torch.ops import RebuildRequired
 from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler, SchedulerConfig
+from kubernetes_tpu_torch.server.api import APIServer as PortAPIServer
 from kubernetes_tpu_torch.utils import capacity as capmod
+from tests.test_torch_apiserver import jax_request_latency_kept  # noqa: F401 (autouse)
 
 N_NODES, N_PODS = 64, 600
 
@@ -113,9 +117,16 @@ class Pair:
     capacity_timed = ("oldest_age_s", "pressure")
 
     def __init__(self, seed=0, n_nodes=N_NODES, n_pods=N_PODS, services=2, max_batch=256,
-                 **daemon_kw):
-        self.apis = [APIServer(), APIServer()]
-        self.setups = [JClient(JLocalTransport(a)) for a in self.apis]
+                 port_apiserver=False, **daemon_kw):
+        # With `port_apiserver`, the port's daemon runs on the port's
+        # apiserver, seeded and changed through the port's client.
+        if port_apiserver:
+            self.apis = [APIServer(), PortAPIServer()]
+            self.setups = [JClient(JLocalTransport(self.apis[0])),
+                           Client(LocalTransport(self.apis[1]))]
+        else:
+            self.apis = [APIServer(), APIServer()]
+            self.setups = [JClient(JLocalTransport(a)) for a in self.apis]
         rng = np.random.default_rng(seed)
         nodes = [node_wire(f"n{j}", rng) for j in range(n_nodes)]
         pods = [pod_wire(f"p{i}", rng) for i in range(n_pods)]
@@ -299,6 +310,30 @@ def test_deletes_and_node_churn_match_jax(pair_factory):
     bound = pair.assert_same()
     assert any(v == "late0" for v in bound.values())
     assert not any(v in ("n5", "n9") and n.startswith("q") for n, v in bound.items())
+
+
+def test_port_daemon_on_the_port_apiserver_matches_jax(pair_factory):
+    """The JAX daemon on the JAX apiserver, the port's on the port's:
+    the same bindings, events and session mirror after every round of
+    ticks, through pod deletes, node churn and a second wave."""
+    pair = pair_factory(seed=9, n_pods=700, port_apiserver=True)
+    assert pair.tick_all() == 3
+    pair.assert_same()
+    bound = sorted(n for n, v in pair.bindings(0).items() if v)
+    for name in bound[::4]:
+        pair.each("delete", "pods", name, namespace="default")
+    pair.each("create", "nodes", node_wire("late0", np.random.default_rng(9)))
+    pair.each("delete", "nodes", "n3")
+    pair.retry()
+    pair.tick_all()
+    pair.assert_same()
+    rng = np.random.default_rng(10)
+    pair.each("create_bulk", "pods", [pod_wire(f"q{i}", rng) for i in range(120)],
+              namespace="default")
+    pair.tick_all()
+    bound = pair.assert_same()
+    assert any(v == "late0" for v in bound.values())
+    assert pair.t.device_errors == 0
 
 
 def test_service_change_rebuilds_and_matches_jax(pair_factory):

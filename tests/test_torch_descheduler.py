@@ -56,6 +56,21 @@ def _one_torch_thread():
 
 
 @pytest.fixture(autouse=True)
+def move_counters_kept():
+    """Both packages' move counters (`MOVES`, `STRANDED`) as they were
+    before each test: the JAX package's exposition golden
+    (`tests/test_metrics_exposition.py`) reads its counters from a
+    process that may have run this file first. The other files that
+    drive either package's descheduler or rebalance monitor import it."""
+    saved = {c: c.snapshot() for mod in (jrebmod, rebmod) for c in (mod.MOVES, mod.STRANDED)}
+    yield
+    for c, values in saved.items():
+        with c._lock:
+            c._values.clear()
+            c._values.update(values)
+
+
+@pytest.fixture(autouse=True)
 def fresh_monitors(monkeypatch):
     monkeypatch.setattr(jrebmod, "DEFAULT", jrebmod.RebalanceMonitor())
     monkeypatch.setattr(jcapmod, "DEFAULT", jcapmod.CapacityMonitor())

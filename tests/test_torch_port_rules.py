@@ -1,7 +1,8 @@
 """Rules the port keeps: no JAX, a CUDA default, no quiet CPU fallback.
 
 - `kubernetes_tpu_torch/` and `chip_smoke.py` import neither `jax` nor
-  anything of `kubernetes_tpu` (checked on the syntax tree).
+  anything of `kubernetes_tpu`, and start no module of `kubernetes_tpu`
+  as a child process (both checked on the syntax tree).
 - Entry points with no `device` and no CUDA raise.
 - The kernel wrapper sends CPU tensors to the plain version and never
   launches there; an unknown device raises.
@@ -12,6 +13,7 @@
 import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -66,6 +68,71 @@ def test_forbidden_import_detector():
 def test_port_imports_no_jax_and_no_jax_package(path):
     bad = [name for name in _imports(path) if _forbidden(name)]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def _is_jax_module(value):
+    return value == "kubernetes_tpu" or value.startswith("kubernetes_tpu.")
+
+
+_SPAWNERS = {"Popen", "run", "call", "check_call", "check_output", "spawnv", "spawnl",
+             "execv", "execl", "execvp", "execlp", "system", "create_subprocess_exec",
+             "create_subprocess_shell"}
+
+
+def _child_jax_modules(source):
+    """JAX-package module paths that `source` would start as a child
+    process: the module after a `-m` in a list or tuple literal or a
+    call's arguments, a `-m kubernetes_tpu...` inside a command string,
+    and any `kubernetes_tpu.` module path among the arguments of a
+    subprocess, os.exec/spawn or asyncio call."""
+    tree = ast.parse(source)
+    found = []
+
+    def strings(node):
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.Constant) and isinstance(sub.value, str):
+                yield sub.value
+
+    for node in ast.walk(tree):
+        seqs = []
+        if isinstance(node, (ast.List, ast.Tuple)):
+            seqs.append(node.elts)
+        if isinstance(node, ast.Call):
+            seqs.append(node.args)
+            func = node.func
+            name = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", "")
+            if name in _SPAWNERS:
+                for arg in [*node.args, *(k.value for k in node.keywords)]:
+                    found += [v for v in strings(arg) if _is_jax_module(v)]
+        for elts in seqs:
+            for a, b in zip(elts, elts[1:]):
+                if (isinstance(a, ast.Constant) and a.value == "-m"
+                        and isinstance(b, ast.Constant) and isinstance(b.value, str)
+                        and _is_jax_module(b.value)):
+                    found.append(b.value)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            found += [m for m in re.findall(r"-m\s+(kubernetes_tpu(?:\.[\w.]+)?)\b",
+                                            node.value)]
+    return found
+
+
+def test_child_process_detector():
+    assert _child_jax_modules(
+        'cmd = [sys.executable, "-m", "kubernetes_tpu.cmd.hyperkube", "apiserver"]'
+    ) == ["kubernetes_tpu.cmd.hyperkube"]
+    assert _child_jax_modules('subprocess.Popen(["python", "x.py", "kubernetes_tpu.cli"])')
+    assert _child_jax_modules('os.system("python -m kubernetes_tpu.cmd.hyperkube apiserver")')
+    assert not _child_jax_modules(
+        'cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", "apiserver"]\n'
+        'bad = [m for m in sys.modules if m.startswith("kubernetes_tpu.")]'
+    )
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_port_starts_no_jax_module_as_a_child(path):
+    with open(path) as f:
+        bad = _child_jax_modules(f.read())
+    assert not bad, f"{os.path.relpath(path, REPO)} starts {bad} as a child process"
 
 
 @pytest.fixture
@@ -137,6 +204,25 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/utils/lease.py",
         "kubernetes_tpu_torch/utils/leaderelect.py",
         "kubernetes_tpu_torch/scheduler/standby.py",
+        "kubernetes_tpu_torch/models/validation.py",
+        "kubernetes_tpu_torch/models/apiobjects.py",
+        "kubernetes_tpu_torch/models/conversion.py",
+        "kubernetes_tpu_torch/store/__init__.py",
+        "kubernetes_tpu_torch/store/watch.py",
+        "kubernetes_tpu_torch/store/kvstore.py",
+        "kubernetes_tpu_torch/server/__init__.py",
+        "kubernetes_tpu_torch/server/allocators.py",
+        "kubernetes_tpu_torch/server/registry.py",
+        "kubernetes_tpu_torch/server/watchcache.py",
+        "kubernetes_tpu_torch/server/admission.py",
+        "kubernetes_tpu_torch/server/auth.py",
+        "kubernetes_tpu_torch/server/api.py",
+        "kubernetes_tpu_torch/server/httpserver.py",
+        "kubernetes_tpu_torch/utils/websocket.py",
+        "kubernetes_tpu_torch/utils/timeseries.py",
+        "kubernetes_tpu_torch/utils/alerts.py",
+        "kubernetes_tpu_torch/cmd/daemons.py",
+        "kubernetes_tpu_torch/cmd/hyperkube.py",
     } <= names
 
 

@@ -26,6 +26,7 @@ from kubernetes_tpu_torch.ops.rebalance import plan_moves, plan_moves_plain
 from kubernetes_tpu_torch.utils import rebalance as rebmod
 from tests.test_rebalance import _cols, _pod_wire
 from tests.test_torch_capacity import assert_outputs_equal
+from tests.test_torch_descheduler import move_counters_kept  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")
