@@ -254,8 +254,8 @@ exits non-zero and prints no result. Phases, one JSON line each:
               `capacity`. Two more legs, each on a fresh child
               at 5,000 nodes with the incremental daemon started:
               desched_defrag, every node keeping a 2,000m shard (15,000
-              bound pods), 24 pending pods of 3,000m, the slice shape
-              configured, and two cycles of the port's Descheduler
+              bound pods), 16 pending pods of 3,000m, the slice shape
+              configured, and one cycle of the port's Descheduler
               (grace 0, disruption cap 16): each cycle's K2 plan equal
               to the plain version's on the same inputs, the cap held,
               every replacement bound at its destination within 30 s,
@@ -292,7 +292,7 @@ exits non-zero and prints no result. Phases, one JSON line each:
               0 on SIGTERM. It reports the command's ticks, K1 ms a
               launch from that profile, the `explain` phase and the
               time to settle. Then the failover legs, on 5,000 nodes
-              and 5,000 bound pods: daemon_failover, five rounds of a
+              and 5,000 bound pods: daemon_failover, three rounds of a
               WarmStandbyScheduler prewarmed on the card (informers
               synced, session built with its 128-bucket warm
               launches), the active one killed, a pod created and the
@@ -324,7 +324,30 @@ exits non-zero and prints no result. Phases, one JSON line each:
               equal to the LIST before the kill, the next write's
               resourceVersion above the last acked one; the create p50
               and p99 with fsync and in memory, the restart's seconds to
-              /healthz, the WAL and snapshot bytes;
+              /healthz, the WAL and snapshot bytes. Then the replicated
+              control plane and the controller-manager:
+              apiserver_replicated, a leader and two followers, each a
+              child running REPLICA_LAUNCHER on a durable directory
+              with fsync, 5,000 nodes and the 1,024 parity pods created
+              through f1 (forwarded, acked at quorum) and bound by one
+              schedule_batch() of the daemon whose transport lists f1,
+              f2 and the leader (equal to schedule_backlog's, the three
+              LISTs equal), 256 forwarded single creates timed, the
+              leader SIGKILLed, a write through f2 failing fast, f1
+              promoted with f2 rejoined as its follower, 64 more pods
+              created and bound; every binding acked before the kill on
+              f1, f1 and f2 equal; controller_rc, `hyperkube
+              controller-manager` as a child over 5,000 nodes, 10 RCs
+              of 500 replicas bound by the started daemon (every
+              replica bound, status.replicas 500, no node over
+              capacity), one RC scaled to 100; create to bind p50 and
+              p99, bound pods a second, the controller-manager's CPU
+              seconds; controller_node_loss, 16 nodes heartbeating
+              from this process, grace 4 s and eviction 2 s, an RC of
+              32 replicas, n0's heartbeat stopped: the seconds to its
+              NotReady, to its pods' eviction and to all 32 bound again
+              elsewhere. No replica or controller-manager child holds a
+              CUDA context;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -366,7 +389,7 @@ compared by running it in turns in one command (A B B A).
 
     python3 chip_smoke.py --daemon
 
-builds the kernels and runs phase 5o alone (fifteen lines, no result
+builds the kernels and runs phase 5o alone (nineteen lines, no result
 line); `--daemon-legs daemon_churn,daemon_debug` runs only those legs,
 and `--churn-stuck N` creates N pods that fit no node before
 daemon_churn's load (they retry through it, each retry explained
@@ -631,6 +654,10 @@ def main(argv=None) -> int:
                 # The per-pod daemon runs no kernel.
                 "daemon_scalar": daemon["daemon_scalar"]["k1_launches"],
                 "apiserver_durable": daemon["apiserver_durable"]["k1_launches"],
+                "apiserver_replicated": daemon["apiserver_replicated"]["k1_launches"],
+                # The started daemon's ticks under the controller-manager.
+                "controller_rc": daemon["controller_rc"]["k1_launches"],
+                "controller_node_loss": daemon["controller_node_loss"]["k1_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -3427,7 +3454,10 @@ class ControlPlane:
     and then the phase fails if the child holds a CUDA context (the
     apiserver is host code); stopped with its whole process group.
     `kill()` SIGKILLs it, and `restart()` starts it again on the same
-    port and flags."""
+    port and flags. Subclasses start other host-only children the same
+    way (`ControllerManagerChild`, `ReplicaChild`)."""
+
+    what = "apiserver"
 
     def __init__(self, phase, data_dir=None):
         self.phase = phase
@@ -3456,7 +3486,8 @@ class ControlPlane:
         while True:
             if self.proc.poll() is not None:
                 self.stop()
-                fail(self.phase, f"the apiserver exited with {self.proc.returncode}: {self.tail()}")
+                fail(self.phase, f"the {self.what} exited with {self.proc.returncode}: "
+                                 f"{self.tail()}")
             try:
                 conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=2)
                 conn.request("GET", "/healthz")
@@ -3465,15 +3496,15 @@ class ControlPlane:
                     self.cuda_context, self.cuda_probe = _cuda_context_of(self.proc.pid)
                     if self.cuda_context:
                         self.stop()
-                        fail(self.phase, f"the apiserver child (pid {self.proc.pid}) holds a CUDA "
-                                         f"context: {self.cuda_probe}")
+                        fail(self.phase, f"the {self.what} child (pid {self.proc.pid}) holds a "
+                                         f"CUDA context: {self.cuda_probe}")
                     return self
                 conn.close()
             except OSError:
                 pass
             if time.monotonic() > deadline:
                 self.stop()
-                fail(self.phase, f"the apiserver did not answer /healthz in {APISERVER_UP_S} s: "
+                fail(self.phase, f"the {self.what} did not answer /healthz in {APISERVER_UP_S} s: "
                                  f"{self.tail()}")
             time.sleep(0.1)
 
@@ -4597,8 +4628,8 @@ def run_daemon_drill(torch, device, smi, phase, preload=0, policy=False, stuck=0
 # -- the descheduler and the autoscaler on the card ------------------------------
 
 DEFRAG_SLICE = ("slice-1x3000m", 3000.0, 1024.0, 1)  # the pending pods' shape, configured
-DEFRAG_PENDING = 24  # one cycle's shards and half a second's
-DEFRAG_CYCLES = 2
+DEFRAG_PENDING = 16  # one cycle's shards
+DEFRAG_CYCLES = 1
 DEFRAG_CAP = 16
 REBIND_S = 30.0  # a replacement's time to bind at its destination
 AUTOSCALE_BURST = 64
@@ -5474,7 +5505,7 @@ def run_daemon_debug(torch, device, smi):
     }
 
 
-FAILOVER_ROUNDS = 5
+FAILOVER_ROUNDS = 3
 FAILOVER_PREWARM_BUCKETS = 128  # the command's default: the standby's warm launches
 FAILOVER_SYNC_S = 120.0
 FAILOVER_BIND_S = 60.0  # a round's pod's time to bind after the kill
@@ -6140,8 +6171,661 @@ def run_apiserver_durable(torch, device, smi):
     }
 
 
+# ---------------------------------------------------------------------------
+# The replicated control plane and the controller-manager
+# ---------------------------------------------------------------------------
+
+#: The program each replica of leg apiserver_replicated runs
+#: (`sys.executable -c REPLICA_LAUNCHER role name port data_dir leader_url
+#: inflight`): the port's store on a durable data directory with fsync
+#: before every ack, a `ReplicationHub` (role `leader`) or a
+#: `FollowerReplica` that forwards writes to `leader_url`, and the port's
+#: `APIHTTPServer` on `port`, assembled as the JAX package's replication
+#: tests assemble theirs. It prints one JSON line when it serves, then
+#: answers each line read from stdin with one JSON line, the replication
+#: status: `follow NAME URL` adds a follower over `HTTPLink` (an empty one,
+#: bootstrapped with the store's state), `rejoin NAME URL` adds one that
+#: already holds this store's log (no bootstrap), `promote` makes this
+#: follower the leader and attaches a new hub, `leader URL` points its
+#: write forward elsewhere, `status` only reads.
+REPLICA_LAUNCHER = r"""
+import json
+import sys
+
+from kubernetes_tpu_torch.server.api import APIServer
+from kubernetes_tpu_torch.server.httpserver import APIHTTPServer
+from kubernetes_tpu_torch.store.kvstore import KVStore
+from kubernetes_tpu_torch.store.replication import FollowerReplica, HTTPLink, ReplicationHub
+
+role, name, port, data_dir, leader_url, inflight = sys.argv[1:7]
+store = KVStore(data_dir=data_dir, fsync=True)
+if role == "leader":
+    api = APIServer(store=store)
+    api.replication = ReplicationHub(store, name=name).attach()
+else:
+    replica = FollowerReplica(store=store, name=name)
+    api = APIServer(store=replica.store)
+    api.replication = replica
+    api.leader_url = leader_url
+server = APIHTTPServer(api, port=int(port), max_in_flight=int(inflight)).start()
+print(json.dumps({"serving": server.address}), flush=True)
+for line in sys.stdin:
+    command, _, arg = line.strip().partition(" ")
+    if command in ("follow", "rejoin"):
+        follower, url = arg.split()
+        api.replication.add_follower(HTTPLink(url, name=follower),
+                                     bootstrap=command == "follow")
+    elif command == "promote":
+        promoted = api.replication.promote()
+        api.leader_url = ""
+        api.replication = ReplicationHub(promoted, name=name).attach()
+    elif command == "leader":
+        api.leader_url = arg
+    elif command != "status":
+        print(json.dumps({"error": "unknown command " + command}), flush=True)
+        continue
+    print(json.dumps(api.replication.status()), flush=True)
+server.stop()
+"""
+
+REPL_CREATES = 256  # single pods created one at a time through a follower
+REPL_MORE_PODS = 64  # pods created and bound after the failover
+REPL_COMMAND_S = 60.0  # a replica's answer to one command (a bootstrap ships the whole state)
+CM_UP_S = 60.0
+RC_COUNT = 10
+RC_REPLICAS = 500
+RC_SCALED = 100  # the replicas of the RC scaled down
+RC_BIND_S = 180.0
+NODE_LOSS_NODES = 16
+NODE_LOSS_REPLICAS = 32
+NODE_LOSS_GRACE_S = 4.0
+NODE_LOSS_EVICTION_S = 2.0
+HEARTBEAT_S = 1.0
+NODE_LOSS_WAIT_S = 60.0
+
+
+class ReplicaChild(ControlPlane):
+    """One replica of the port's replicated apiserver, a child running
+    REPLICA_LAUNCHER: up when it answers /healthz (then no CUDA context),
+    `command(line)` writes one line to its stdin and returns its JSON
+    answer."""
+
+    what = "replica"
+
+    def __init__(self, phase, role, name, data_dir, leader_url=""):
+        import queue
+
+        self.phase = phase
+        self.port = _free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.name = name
+        self.cmd = [sys.executable, "-c", REPLICA_LAUNCHER, role, name, str(self.port), data_dir,
+                    leader_url, str(APISERVER_INFLIGHT)]
+        self._lines = queue.Queue()
+        self._spawn()
+
+    def _spawn(self):
+        import tempfile
+
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+        self._log = tempfile.TemporaryFile()
+        self.proc = subprocess.Popen(self.cmd, cwd=REPO, env=env, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=self._log,
+                                     start_new_session=True, text=True)
+        threading.Thread(target=self._read, args=(self.proc.stdout,), daemon=True).start()
+
+    def _read(self, stream):
+        for line in stream:
+            self._lines.put(line)
+
+    def command(self, line):
+        import queue
+
+        t0 = time.perf_counter()
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+        while True:
+            try:
+                out = json.loads(self._lines.get(timeout=REPL_COMMAND_S))
+            except queue.Empty:
+                fail(self.phase, f"replica {self.name} did not answer {line!r} in "
+                                 f"{REPL_COMMAND_S} s: {self.tail()}")
+            if "serving" not in out:
+                break
+        if "error" in out:
+            fail(self.phase, f"replica {self.name}: {out['error']}")
+        out["command_s"] = time.perf_counter() - t0
+        return out
+
+
+class ControllerManagerChild(ControlPlane):
+    """`python -m kubernetes_tpu_torch.cmd.hyperkube controller-manager`
+    as a child against the apiserver at `server`: up when its own
+    /healthz (on its --healthz-port) answers 200, then no CUDA context."""
+
+    what = "controller-manager"
+
+    def __init__(self, phase, server, grace_s, eviction_s):
+        self.phase = phase
+        self.port = _free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube",
+                    "controller-manager", "--server", server, "--node-grace-period", str(grace_s),
+                    "--node-eviction-timeout", str(eviction_s), "--healthz-port", str(self.port)]
+        self._spawn()
+
+
+def _pods_wire(url, selector=""):
+    """The default namespace's pods in wire form, by name (`selector`: a
+    label selector)."""
+    from urllib.parse import quote
+
+    query = "?labelSelector=" + quote(selector) if selector else ""
+    return _raw_list(url, "/api/v1/namespaces/default/pods" + query)[0]
+
+
+def _replication_status(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/replication/status", timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def run_apiserver_replicated(torch, device, smi):
+    """Leg apiserver_replicated: the port's apiserver as a leader and two
+    followers, each a child running REPLICA_LAUNCHER on a durable data
+    directory with fsync before every ack, the leader's hub shipping to
+    both over HTTPLink. 5,000 nodes and daemon_parity's 1,024 pods are
+    created through follower f1 (every write forwarded to the leader and
+    acked at quorum); the incremental daemon on the card, its transport
+    listing f1, f2 and the leader, binds them in one schedule_batch():
+    the bindings equal schedule_backlog's, and the three replicas' LISTs
+    are equal. Before the daemon starts, REPL_CREATES single pods created
+    and deleted one at a time through f1 time the forwarded write. Then,
+    with both followers caught up, the leader is SIGKILLed; a write
+    through f2, still pointing at it, fails at once; f1 is promoted with
+    a new hub and f2 (holding the same log) as its follower, f2 forwards to
+    f1; REPL_MORE_PODS pods are created through a client of the same
+    endpoints starting at f2 and bound by the next schedule_batch().
+    Every binding acked before the kill is on f1, and f1's and f2's LISTs
+    are equal at the end. No replica holds a CUDA context."""
+    import copy
+    import tempfile
+
+    from kubernetes_tpu_torch.client.rest import APIError, Client, HTTPTransport
+    from kubernetes_tpu_torch.scheduler.batch import schedule_backlog
+    from kubernetes_tpu_torch.scheduler.daemon import IncrementalBatchScheduler, SchedulerConfig
+
+    phase = "apiserver_replicated"
+    t_leg = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="apiserver-replicated-")
+    filesystem = _filesystem_of(root)
+    leader = f1 = f2 = None
+    try:
+        leader = ReplicaChild(phase, "leader", "leader", os.path.join(root, "leader")).__enter__()
+        f1 = ReplicaChild(phase, "follower", "f1", os.path.join(root, "f1"), leader.url).__enter__()
+        f2 = ReplicaChild(phase, "follower", "f2", os.path.join(root, "f2"), leader.url).__enter__()
+        probes = {r.name: r.cuda_probe for r in (leader, f1, f2)}
+        for f in (f1, f2):
+            leader.command(f"follow {f.name} {f.url}")
+        client = Client(HTTPTransport(f1.url))
+        t0 = time.perf_counter()
+        _cluster(phase, client)
+        pods = [_parity_pod(i, False) for i in range(DAEMON_PARITY_PODS)]
+        _bulk(phase, lambda xs: client.create_bulk("pods", xs, namespace="default"), pods)
+        setup_s = time.perf_counter() - t0
+        # Forwarded single creates and deletes, timed while this process
+        # is quiet (before the daemon, whose deferred work would share
+        # its interpreter with the client's calls).
+        creates, deletes = [], []
+        for i in range(REPL_CREATES):
+            t0 = time.perf_counter()
+            client.create("pods", _daemon_pod_wire(f"fwd{i}"), namespace="default")
+            creates.append(time.perf_counter() - t0)
+        for i in range(REPL_CREATES):
+            t0 = time.perf_counter()
+            client.delete("pods", f"fwd{i}", namespace="default")
+            deletes.append(time.perf_counter() - t0)
+        endpoints = [f1.url, f2.url, leader.url]
+        cfg = SchedulerConfig(Client(HTTPTransport(endpoints))).start()
+        try:
+            if not cfg.wait_for_sync(60):
+                fail(phase, "the daemon's caches did not sync")
+            _wait(phase, "the pending pods in the queue",
+                  lambda: len(cfg.pod_queue) == DAEMON_PARITY_PODS)
+            q = cfg.pod_queue
+            pending = copy.deepcopy([q._items[k] for k in q._queue if k in q._items])
+            nodes = cfg.nodes.store.list()
+            daemon = IncrementalBatchScheduler(cfg, max_batch=len(pending), device=device)
+            _k1_set()
+            t0 = time.perf_counter()
+            took = daemon.schedule_batch(timeout=1.0)
+            bind_s = time.perf_counter() - t0
+            first_launches = _k1_count()
+            leader_version = leader.command("status")["version"]
+            _wait(phase, "the followers at the leader's version", lambda: all(
+                _replication_status(r.url)["version"] >= leader_version for r in (f1, f2)))
+            lists = {r.name: (_raw_list(r.url, "/api/v1/nodes")[0], _pods_wire(r.url))
+                     for r in (leader, f1, f2)}
+            if not lists["leader"] == lists["f1"] == lists["f2"]:
+                fail(phase, "the replicas' LISTs differ after the bind")
+            acked = _pods_wire(leader.url)
+            # The kill is taken in a steady state: both followers journaled
+            # the leader's log and learned its commit index (a promotion
+            # keeps exactly the committed prefix it learned).
+            _wait(phase, "both followers at the leader's commit", lambda: all(
+                f["acked"] == f["commitKnown"] == st["version"]
+                for st in [leader.command("status")] for f in st["followers"]))
+            # The leader dies; a write through f2, still forwarding to it,
+            # fails at once.
+            t_kill = time.perf_counter()
+            leader.kill()
+            t0 = time.perf_counter()
+            try:
+                Client(HTTPTransport(f2.url)).create(
+                    "pods", _daemon_pod_wire("to-the-dead-leader"), namespace="default")
+                fail(phase, "a write forwarded to the killed leader was acked")
+            except APIError as e:
+                dead_forward = {"code": e.code, "seconds": time.perf_counter() - t0}
+            if dead_forward["code"] != 502 or dead_forward["seconds"] > 5.0:
+                fail(phase, f"a write forwarded to the killed leader: {dead_forward}")
+            promoted = f1.command("promote")
+            # f2 holds the same log as the promoted f1 (the steady-state
+            # kill): it rejoins without a bootstrap.
+            f2_status = f2.command("status")
+            if (f2_status["version"], f2_status["journaled"]) != (promoted["version"],) * 2:
+                fail(phase, f"f2 ({f2_status}) and the promoted f1 ({promoted}) differ")
+            rejoined = f1.command(f"rejoin f2 {f2.url}")
+            f2.command(f"leader {f1.url}")
+            rotating = Client(HTTPTransport([f2.url, f1.url, leader.url]))
+            more = []
+            first_write_s = None
+            for i in range(REPL_MORE_PODS):
+                t0 = time.perf_counter()
+                rotating.create("pods", _daemon_pod_wire(f"after{i}"), namespace="default")
+                more.append(time.perf_counter() - t0)
+                if first_write_s is None:
+                    first_write_s = time.perf_counter() - t_kill
+            _wait(phase, "the pods created after the failover in the queue",
+                  lambda: len(cfg.pod_queue) == REPL_MORE_PODS)
+            t0 = time.perf_counter()
+            took_after = daemon.schedule_batch(timeout=1.0)
+            bind_after_s = time.perf_counter() - t0
+            launches = _k1_count()
+            lag_end = f1.command("status")
+            errors = daemon.device_errors
+            daemon.stop()
+        finally:
+            cfg.stop()
+        f1_version = f1.command("status")["version"]
+        _wait(phase, "f2 at f1's version",
+              lambda: _replication_status(f2.url)["version"] >= f1_version)
+        on_f1, on_f2 = _pods_wire(f1.url), _pods_wire(f2.url)
+        probes_end = {r.name: _cuda_context_of(r.proc.pid) for r in (f1, f2)}
+    finally:
+        for r in (leader, f1, f2):
+            if r is not None:
+                r.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    if took != len(pending) or first_launches < 1 or took_after != REPL_MORE_PODS or errors:
+        fail(phase, f"ticks took {took} of {len(pending)} and {took_after} of {REPL_MORE_PODS} "
+                    f"pods with {first_launches} K1 launches in the first and {errors} errors")
+    if any(held for held, _ in probes_end.values()):
+        fail(phase, f"a replica holds a CUDA context at the end: {probes_end}")
+    bound = {n: (o.get("spec") or {}).get("nodeName") or None for n, o in lists["f1"][1].items()}
+    _same(phase, pending, [bound[p.metadata.name] for p in pending],
+          schedule_backlog(pending, nodes, device=device), "schedule_backlog")
+    lost = [n for n, o in acked.items()
+            if n not in on_f1 or (on_f1[n].get("spec") or {}).get("nodeName")
+            != (o.get("spec") or {}).get("nodeName")]
+    if lost:
+        fail(phase, f"{len(lost)} pods acked before the kill are missing or moved on f1: {lost[:3]}")
+    unbound = [f"after{i}" for i in range(REPL_MORE_PODS)
+               if not (on_f1.get(f"after{i}", {}).get("spec") or {}).get("nodeName")]
+    if unbound or on_f1 != on_f2:
+        fail(phase, f"after the failover: {len(unbound)} new pods unbound, f1 and f2 LISTs "
+                    f"{'equal' if on_f1 == on_f2 else 'differ'}")
+    return {
+        "card": smi, "replicas": {r.name: " ".join(r.cmd[3:]) for r in (leader, f1, f2)},
+        "data_dir_filesystem": filesystem, "nodes": DAEMON_NODES, "pods": len(on_f1),
+        "setup_s": setup_s, "equal_to_schedule_backlog": True, "lists_equal": True,
+        "forwarded_create_s_quorum_fsync": {"p50": _percentile(creates, 50),
+                                            "p99": _percentile(creates, 99), "n": len(creates)},
+        "forwarded_delete_s_quorum_fsync": {"p50": _percentile(deletes, 50),
+                                            "p99": _percentile(deletes, 99), "n": len(deletes)},
+        "bind_s": bind_s, "bind_after_failover_s": bind_after_s,
+        "forward_to_dead_leader": dead_forward,
+        "promote_s": promoted["command_s"], "rejoin_f2_s": rejoined["command_s"],
+        "kill_to_first_acked_write_s": first_write_s,
+        "create_after_failover_s": {"p50": _percentile(more, 50), "p99": _percentile(more, 99),
+                                    "n": len(more)},
+        "follower_lag_versions_end": {f["name"]: f["lagVersions"] for f in lag_end["followers"]},
+        "acked_before_kill_on_f1": len(acked), "k1_launches": launches,
+        "replica_cuda_context": {"start": probes,
+                                 "end": {k: v for k, (_, v) in probes_end.items()}},
+        "leg_s": time.perf_counter() - t_leg,
+        "timed": "host clock of this process: each forwarded create or delete one call through "
+                 "f1 (forward, leader WAL fsync, quorum ack) before the daemon exists; the bind "
+                 "the first schedule_batch() of this daemon (a leg run alone pays the process's "
+                 "first explain capture there); the kill from SIGKILL to the first create acked "
+                 "through the new leader; the creates after the failover with the daemon's "
+                 "deferred work in this process",
+    }
+
+
+class _CreateBindWatch:
+    """The default namespace's pods over the port's HTTP watch: for each
+    pod incarnation the monotonic second it was first seen (its ADDED
+    event here, the create stamp) and first seen bound."""
+
+    def __init__(self, url):
+        from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+
+        self.stream = Client(HTTPTransport(url)).watch("pods", namespace="default")
+        self.seen = {}  # (name, uid) -> [first seen, first bound or None]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            ev = self.stream.next(timeout=0.5)
+            if ev is None:
+                if self.stream.closed:
+                    return
+                continue
+            now = time.monotonic()
+            meta = ev.object.get("metadata", {})
+            rec = self.seen.setdefault((meta.get("name"), meta.get("uid")), [now, None])
+            if rec[1] is None and (ev.object.get("spec") or {}).get("nodeName"):
+                rec[1] = now
+
+    def close(self):
+        self._stop.set()
+        self.stream.close()
+        self._thread.join(timeout=5)
+
+
+def _rc_wire(name, replicas, cpu, mem="16Mi"):
+    """An RC in the density test's shape (tests/test_density.py rc_wire)."""
+    return {"kind": "ReplicationController", "metadata": {"name": name, "namespace": "default"},
+            "spec": {"replicas": replicas, "selector": {"app": name},
+                     "template": {"metadata": {"labels": {"app": name}},
+                                  "spec": {"containers": [{"name": "c", "image": "pause",
+                                                           "resources": {"limits": {
+                                                               "cpu": cpu, "memory": mem}}}]}}}}
+
+
+def _over_capacity(pods, nodes):
+    """Nodes whose bound pods ask for more cpu, memory or pods than they have."""
+    from kubernetes_tpu_torch.models.quantity import Quantity
+
+    used = {}
+    for p in pods.values():
+        node = (p.get("spec") or {}).get("nodeName")
+        if not node:
+            continue
+        u = used.setdefault(node, [0, 0, 0])
+        for c in p["spec"]["containers"]:
+            lim = (c.get("resources") or {}).get("limits") or {}
+            u[0] += Quantity.from_string(lim.get("cpu", "0")).milli_value()
+            u[1] += Quantity.from_string(lim.get("memory", "0")).value()
+        u[2] += 1
+    over = []
+    for name, u in used.items():
+        cap = nodes[name]["status"]["capacity"]
+        have = (Quantity.from_string(cap["cpu"]).milli_value(),
+                Quantity.from_string(cap["memory"]).value(), int(cap["pods"]))
+        if any(a > b for a, b in zip(u, have)):
+            over.append(name)
+    return over
+
+
+def run_controller_rc(torch, device, smi):
+    """Leg controller_rc: the RC path at full width. The port's apiserver
+    child with 5,000 nodes, `hyperkube controller-manager` as a child
+    (grace and eviction 600 s: nothing heartbeats the nodes until the
+    kubelet is ported, so the node lifecycle controller must not act
+    within the leg), the incremental daemon started on the card, then
+    RC_COUNT RCs of RC_REPLICAS replicas in the density test's shape
+    (cpu so that every placement moves the score, 16Mi). Enforced: every
+    replica bound, each RC's status.replicas RC_REPLICAS, no node over
+    its capacity; then one RC scaled to RC_SCALED: its other pods are
+    deleted and the rest stay bound. Reports the seconds from the first
+    RC create to the last bind, bound pods a second, create (the pod's
+    first sight on this process's watch) to bind p50 and p99, the
+    controller-manager child's CPU seconds and K1's launches."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.scheduler.daemon import SchedulerConfig
+
+    phase = "controller_rc"
+    t_leg = time.perf_counter()
+    total = RC_COUNT * RC_REPLICAS
+    cpu = f"{max(100, 4000 // (max(1, total // DAEMON_NODES) * 2))}m"
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _cluster(phase, client)
+        with ControllerManagerChild(phase, cp.url, 600, 600) as cm:
+            cfg = SchedulerConfig(Client(HTTPTransport(cp.url))).start()
+            daemon = watch = None
+            try:
+                daemon = _started_daemon(phase, torch, device, cfg, 0)
+                _k1_set()
+                daemon.start()
+                watch = _CreateBindWatch(cp.url)
+                cpu0 = cm.cpu_seconds()
+                t_first = time.monotonic()
+                for i in range(RC_COUNT):
+                    client.create("replicationcontrollers", _rc_wire(f"dense-{i}", RC_REPLICAS, cpu),
+                                  namespace="default")
+
+                def bound_count():
+                    return sum(1 for _, b in list(watch.seen.values()) if b is not None)
+
+                _wait(phase, f"{total} replicas bound", lambda: bound_count() >= total,
+                      timeout=RC_BIND_S)
+                lat = [b - a for a, b in list(watch.seen.values()) if b is not None]
+                last_bind = max(b for _, b in list(watch.seen.values()) if b is not None)
+                cm_cpu_s = cm.cpu_seconds() - cpu0
+
+                def statuses():
+                    rcs, _ = _raw_list(cp.url, "/api/v1/namespaces/default/replicationcontrollers")
+                    return {n: (o.get("status") or {}).get("replicas") for n, o in rcs.items()}
+
+                _wait(phase, "every RC's status.replicas", lambda: set(statuses().values()) == {
+                    RC_REPLICAS}, timeout=60)
+                pods = _pods_wire(cp.url)
+                nodes = _raw_list(cp.url, "/api/v1/nodes")[0]
+                over = _over_capacity(pods, nodes)
+                unbound = [n for n, o in pods.items() if not (o.get("spec") or {}).get("nodeName")]
+                if len(pods) != total or unbound or over:
+                    fail(phase, f"{len(pods)} pods of {total}, {len(unbound)} unbound, "
+                                f"{len(over)} nodes over capacity: {over[:3]}")
+                # Scale one RC down.
+                t0 = time.perf_counter()
+                client.patch("replicationcontrollers", "dense-0",
+                             {"spec": {"replicas": RC_SCALED}}, namespace="default")
+
+                def scaled():
+                    return list(_pods_wire(cp.url, "app=dense-0").values())
+
+                _wait(phase, f"dense-0 at {RC_SCALED} pods", lambda: len(scaled()) == RC_SCALED,
+                      timeout=60)
+                scale_down_s = time.perf_counter() - t0
+                _wait(phase, "dense-0's status.replicas", lambda: statuses()["dense-0"] == RC_SCALED,
+                      timeout=30)
+                left = scaled()
+                kept_bound = all((o.get("spec") or {}).get("nodeName") for o in left)
+                kept_same = all(o["metadata"]["name"] in pods
+                                and pods[o["metadata"]["name"]]["spec"].get("nodeName")
+                                == o["spec"].get("nodeName") for o in left)
+                launches = _k1_count()
+                errors = daemon.device_errors
+                probe_end = _cuda_context_of(cm.proc.pid)
+            finally:
+                if watch is not None:
+                    watch.close()
+                if daemon is not None:
+                    daemon.stop()
+                cfg.stop()
+            cm_cmd, cm_probe = cm.cmd, cm.cuda_probe
+        command = cp.cmd
+    if not (kept_bound and kept_same) or launches < 1 or errors or probe_end[0]:
+        fail(phase, f"after the scale-down: kept pods bound {kept_bound}, on their nodes "
+                    f"{kept_same}; {launches} K1 launches, {errors} errors, the "
+                    f"controller-manager's CUDA probe {probe_end[1]}")
+    return {
+        "card": smi, "apiserver": " ".join(command), "controller_manager": " ".join(cm_cmd[2:]),
+        "nodes": DAEMON_NODES, "rcs": RC_COUNT, "replicas": RC_REPLICAS, "cpu": cpu,
+        "bound": total, "over_capacity": 0,
+        "first_create_to_last_bind_s": last_bind - t_first,
+        "bound_per_s": total / (last_bind - t_first),
+        "create_to_bind_s": {"p50": _percentile(lat, 50), "p99": _percentile(lat, 99),
+                             "n": len(lat)},
+        "controller_manager_cpu_s": cm_cpu_s, "scale_down_s": scale_down_s,
+        "scaled_to": RC_SCALED, "kept_bound": True, "k1_launches": launches,
+        "controller_manager_cuda_context": {"start": cm_probe, "end": probe_end[1]},
+        "leg_s": time.perf_counter() - t_leg,
+        "timed": "host clock of this process; a pod's create is its first sight on this "
+                 "process's watch of the default namespace, its bind the first event with a "
+                 "nodeName",
+    }
+
+
+def _heartbeat_node_wire(j, beat):
+    """Node j of leg controller_node_loss (all alike: 16 cpus, 32Gi, 110
+    pods), its Ready condition stamped `beat`."""
+    return {"kind": "Node", "metadata": {"name": f"n{j}", "labels": {"zone": f"z{j % 4}"}},
+            "status": {"capacity": {"cpu": "16", "memory": "32Gi", "pods": "110"},
+                       "conditions": [{"type": "Ready", "status": "True",
+                                       "lastHeartbeatTime": beat}]}}
+
+
+def run_controller_node_loss(torch, device, smi):
+    """Leg controller_node_loss: NODE_LOSS_NODES nodes on the port's
+    apiserver child, the controller-manager child with a grace of
+    NODE_LOSS_GRACE_S and an eviction timeout of NODE_LOSS_EVICTION_S,
+    the incremental daemon started on the card. This process stands in
+    for the kubelets and writes every node's Ready heartbeat each
+    HEARTBEAT_S; one RC of NODE_LOSS_REPLICAS replicas is bound across
+    the nodes, then n0's heartbeat stops. Reports the seconds from n0's
+    last heartbeat to its NotReady, to its pods' eviction, and to all
+    replicas bound again, none on n0."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.scheduler.daemon import SchedulerConfig
+
+    phase = "controller_node_loss"
+    t_leg = time.perf_counter()
+
+    def stamp():
+        return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        _bulk(phase, lambda xs: client.create_bulk("nodes", xs),
+              [_heartbeat_node_wire(j, stamp()) for j in range(NODE_LOSS_NODES)])
+        n0_stopped = threading.Event()
+        last_beat = dict.fromkeys(range(NODE_LOSS_NODES), time.monotonic())  # the creates
+        stop = threading.Event()
+        beat_errors = []
+
+        def kubelets():
+            beats = Client(HTTPTransport(cp.url))
+            while not stop.wait(HEARTBEAT_S):
+                for j in range(NODE_LOSS_NODES):
+                    if j == 0 and n0_stopped.is_set():
+                        continue
+                    try:
+                        beats.update_status("nodes", _heartbeat_node_wire(j, stamp()))
+                        last_beat[j] = time.monotonic()
+                    except Exception as e:  # reported below: the leg fails on any
+                        beat_errors.append(repr(e))
+
+        beater = threading.Thread(target=kubelets, daemon=True)
+        beater.start()
+        try:
+            with ControllerManagerChild(phase, cp.url, NODE_LOSS_GRACE_S,
+                                        NODE_LOSS_EVICTION_S) as cm:
+                cfg = SchedulerConfig(Client(HTTPTransport(cp.url))).start()
+                daemon = None
+                try:
+                    daemon = _started_daemon(phase, torch, device, cfg, 0)
+                    _k1_set()
+                    daemon.start()
+                    client.create("replicationcontrollers",
+                                  _rc_wire("web", NODE_LOSS_REPLICAS, "500m", "64Mi"),
+                                  namespace="default")
+
+                    def placement():
+                        pods = _pods_wire(cp.url)
+                        return {n: (o.get("spec") or {}).get("nodeName") for n, o in pods.items()}
+
+                    _wait(phase, "the RC's replicas bound", lambda: (
+                        len(p := placement()) == NODE_LOSS_REPLICAS and all(p.values())),
+                        timeout=NODE_LOSS_WAIT_S)
+                    before = placement()
+                    on_n0 = sorted(n for n, node in before.items() if node == "n0")
+                    if not on_n0:
+                        fail(phase, f"no replica landed on n0: {before}")
+                    n0_stopped.set()
+                    time.sleep(2 * HEARTBEAT_S)  # a beat in flight lands
+                    t_last = last_beat[0]
+                    times, reason = {}, None
+                    deadline = time.monotonic() + NODE_LOSS_WAIT_S
+                    while len(times) < 3:
+                        if time.monotonic() > deadline:
+                            fail(phase, f"after n0's last heartbeat only {sorted(times)} within "
+                                        f"{NODE_LOSS_WAIT_S} s")
+                        now = time.monotonic()
+                        if "not_ready" not in times:
+                            node = client.get_wire("nodes", "n0")
+                            ready = [c for c in node["status"]["conditions"]
+                                     if c["type"] == "Ready"]
+                            if ready and ready[0]["status"] != "True":
+                                times["not_ready"] = now - t_last
+                                reason = ready[0].get("reason")
+                        p = placement()
+                        if "evicted" not in times and not any(n in p for n in on_n0):
+                            times["evicted"] = now - t_last
+                        if ("evicted" in times and len(p) == NODE_LOSS_REPLICAS
+                                and all(p.values()) and "n0" not in p.values()):
+                            times["rebound"] = now - t_last
+                        time.sleep(0.05)
+                    launches = _k1_count()
+                    errors = daemon.device_errors
+                    probe_end = _cuda_context_of(cm.proc.pid)
+                finally:
+                    if daemon is not None:
+                        daemon.stop()
+                    cfg.stop()
+                cm_cmd, cm_probe = cm.cmd, cm.cuda_probe
+        finally:
+            stop.set()
+            beater.join(timeout=10)
+        command = cp.cmd
+    if beat_errors or reason != "NodeStatusUnknown" or launches < 1 or errors or probe_end[0]:
+        fail(phase, f"heartbeat errors {beat_errors[:2]}, NotReady reason {reason!r}, "
+                    f"{launches} K1 launches, {errors} errors, the controller-manager's CUDA "
+                    f"probe {probe_end[1]}")
+    return {
+        "card": smi, "apiserver": " ".join(command), "controller_manager": " ".join(cm_cmd[2:]),
+        "nodes": NODE_LOSS_NODES, "replicas": NODE_LOSS_REPLICAS, "evicted_pods": len(on_n0),
+        "grace_s": NODE_LOSS_GRACE_S, "eviction_timeout_s": NODE_LOSS_EVICTION_S,
+        "heartbeat_s": HEARTBEAT_S,
+        "last_heartbeat_to_not_ready_s": times["not_ready"],
+        "last_heartbeat_to_evicted_s": times["evicted"],
+        "last_heartbeat_to_all_rebound_s": times["rebound"], "none_on_n0": True,
+        "k1_launches": launches,
+        "controller_manager_cuda_context": {"start": cm_probe, "end": probe_end[1]},
+        "leg_s": time.perf_counter() - t_leg,
+        "timed": "host clock of this process, polling the apiserver every 50 ms from the "
+                 "monotonic second n0's last heartbeat write returned",
+    }
+
+
 def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
-    """The sixteen legs, each on a fresh apiserver child (only `legs`
+    """The nineteen legs, each on a fresh apiserver child (only `legs`
     when given). `churn_stuck` pods that fit no node wait through
     daemon_churn's load."""
     plan = {
@@ -6164,6 +6848,9 @@ def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
         "daemon_ha_cmd": lambda: run_daemon_ha_cmd(torch, device, smi),
         "daemon_scalar": lambda: run_daemon_scalar(torch, device, smi),
         "apiserver_durable": lambda: run_apiserver_durable(torch, device, smi),
+        "apiserver_replicated": lambda: run_apiserver_replicated(torch, device, smi),
+        "controller_rc": lambda: run_controller_rc(torch, device, smi),
+        "controller_node_loss": lambda: run_controller_node_loss(torch, device, smi),
     }
     unknown = set(legs) - set(plan)
     if unknown:

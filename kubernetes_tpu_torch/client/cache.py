@@ -165,7 +165,11 @@ class Reflector:
 
     `store` needs add/update/delete/replace. Objects land in wire form
     unless `decode` converts them; with `decode_deleted=False` a DELETED
-    event hands the raw wire dict on (deletions need only the key).
+    event hands the raw wire dict on (deletions need only the key). With
+    a `decode`, the LIST is read in wire form too (`Client.list_wire`)
+    and decoded by it, so a controller that decodes into the whole model
+    (`models/apiobjects.py`) gets it from the LIST as from the watch;
+    without one, the LIST's objects are typed by the client.
     `last_event_mono` is when a delta or re-list was last processed
     (the daemon's informer-staleness gauge reads it)."""
 
@@ -190,6 +194,7 @@ class Reflector:
         self.namespace = namespace
         self.label_selector = label_selector
         self.field_selector = field_selector
+        self._list_wire = decode is not None and hasattr(client, "list_wire")
         self.decode = decode or (lambda o: o)
         self.on_event = on_event
         self.decode_deleted = decode_deleted
@@ -286,7 +291,7 @@ class Reflector:
     def _list(self) -> None:
         """Full LIST, store replace, and the synthesized deltas: DELETED
         for objects that vanished, ADDED for every listed one."""
-        items, version = self.client.list(
+        items, version = (self.client.list_wire if self._list_wire else self.client.list)(
             self.resource,
             namespace=self.namespace,
             label_selector=self.label_selector,

@@ -8,12 +8,15 @@ daemon runs (reference: pkg/client/client.go + request.go):
   directly. It is duck-typed: the port's `server.api.APIServer`, or in
   the tests the JAX package's. An error that carries `code`, `reason`
   and `message` is raised again as the port's `APIError`.
-- `HTTPTransport` speaks the apiserver's HTTP wire to one endpoint: the
-  active trace's id in the `X-Trace-Id` header of each request, one
-  keep-alive connection a thread, a free replay when a reused
-  connection proves stale, bounded retries of idempotent verbs on
-  connection failures and 502/503/504, and the watch as a stream of
-  newline-delimited JSON frames read by a thread of its own.
+- `HTTPTransport` speaks the apiserver's HTTP wire to one endpoint or a
+  list of them (the replicated control plane's apiservers): the active
+  trace's id in the `X-Trace-Id` header of each request, one keep-alive
+  connection a thread, a free replay when a reused connection proves
+  stale, bounded retries of idempotent verbs on connection failures and
+  502/503/504, each retry rotating to the next endpoint (a POST is
+  never replayed, so it fails on a dead endpoint and rotates nothing),
+  and the watch as a stream of newline-delimited JSON frames read by a
+  thread of its own, its dial rotating through the endpoints once.
 - `Client` types objects through `models/serde.py` and records events
   through `client/record.py`. `list_wire` and `get_wire` return the
   apiserver's dicts as they come, for a caller that must carry every
@@ -36,7 +39,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import urlencode, urlparse
 
-from kubernetes_tpu_torch.models import serde
+from kubernetes_tpu_torch.models import apiobjects, serde
 from kubernetes_tpu_torch.models.objects import Event as EventObject
 from kubernetes_tpu_torch.models.objects import (
     Endpoints,
@@ -82,7 +85,12 @@ class Resource:
     namespaced: bool = True
 
 
-#: The resources the daemon and the controllers read and write.
+#: The resources the daemons and the controllers read and write. Pods
+#: and nodes are typed with the trimmed `models/objects.py`, whose decode
+#: the scheduler's ticks pay for; the kinds only the controllers read
+#: are typed with the whole model, `models/apiobjects.py`. A controller
+#: that needs a pod's or a node's other fields decodes the wire form
+#: with `models/apiobjects.py` itself (its `Informer`'s `decode`).
 RESOURCES: Dict[str, Resource] = {
     "pods": Resource("pods", Pod),
     "podtemplates": Resource("podtemplates", PodTemplate),
@@ -93,6 +101,17 @@ RESOURCES: Dict[str, Resource] = {
     # Leader election's lock and the fencing lease (utils/leaderelect.py,
     # utils/lease.py).
     "endpoints": Resource("endpoints", Endpoints),
+    "replicationcontrollers": Resource("replicationcontrollers",
+                                       apiobjects.ReplicationController),
+    "namespaces": Resource("namespaces", apiobjects.Namespace, namespaced=False),
+    "resourcequotas": Resource("resourcequotas", apiobjects.ResourceQuota),
+    "serviceaccounts": Resource("serviceaccounts", apiobjects.ServiceAccount),
+    "secrets": Resource("secrets", apiobjects.Secret),
+    "persistentvolumes": Resource("persistentvolumes", apiobjects.PersistentVolume,
+                                  namespaced=False),
+    "persistentvolumeclaims": Resource("persistentvolumeclaims",
+                                       apiobjects.PersistentVolumeClaim),
+    "limitranges": Resource("limitranges", apiobjects.LimitRange),
 }
 
 #: Failures that mean a pooled keep-alive connection went stale.
@@ -242,17 +261,44 @@ class _HTTPWatchStream:
 
 
 class HTTPTransport(Transport):
-    """HTTP to one apiserver endpoint."""
+    """HTTP to one apiserver endpoint, or to a list of them. Requests pin
+    to one endpoint until a retry of a transient failure rotates to the
+    next; the rotation bumps a generation that makes every thread's
+    pooled connection dial the new endpoint."""
 
-    def __init__(self, base_url: str, timeout: float = 30.0, max_retries: int = 3):
-        u = urlparse(base_url)
-        if u.scheme not in ("", "http"):
-            raise ValueError(f"HTTPTransport speaks plain http, not {u.scheme!r}")
-        self.host = u.hostname or "127.0.0.1"
-        self.port = u.port or 80
+    def __init__(self, base_url, timeout: float = 30.0, max_retries: int = 3):
+        urls = [base_url] if isinstance(base_url, str) else list(base_url)
+        if not urls:
+            raise ValueError("HTTPTransport needs at least one endpoint")
+        self.endpoints: List[Tuple[str, int]] = []
+        for raw in urls:
+            u = urlparse(raw)
+            if u.scheme not in ("", "http"):
+                raise ValueError(f"HTTPTransport speaks plain http, not {u.scheme!r}")
+            self.endpoints.append((u.hostname or "127.0.0.1", u.port or 80))
+        self._ep_lock = threading.Lock()
+        self._ep_idx = 0
+        self._ep_gen = 0
         self.timeout = timeout
         self.max_retries = max_retries
         self._local = threading.local()  # one keep-alive connection a thread
+
+    @property
+    def host(self) -> str:
+        return self.endpoints[self._ep_idx][0]
+
+    @property
+    def port(self) -> int:
+        return self.endpoints[self._ep_idx][1]
+
+    def _rotate(self) -> None:
+        """Advance to the next endpoint (with one, only the pool discard)
+        and invalidate every thread's pooled connection."""
+        with self._ep_lock:
+            if len(self.endpoints) > 1:
+                self._ep_idx = (self._ep_idx + 1) % len(self.endpoints)
+            self._ep_gen += 1
+        self._discard()
 
     def _connect(self, timeout=None) -> http.client.HTTPConnection:
         conn = http.client.HTTPConnection(self.host, self.port, timeout=timeout)
@@ -265,11 +311,19 @@ class HTTPTransport(Transport):
         return conn
 
     def _pooled(self) -> Tuple[http.client.HTTPConnection, bool]:
-        """(this thread's connection, whether it was reused)."""
+        """(this thread's connection, whether it was reused); one dialed
+        before the last rotation is closed and dialed again."""
+        gen = self._ep_gen
         conn = getattr(self._local, "conn", None)
-        if conn is not None:
+        if conn is not None and getattr(self._local, "gen", -1) == gen:
             return conn, True
+        if conn is not None:
+            try:
+                conn.close()
+            except Exception:
+                pass
         conn = self._local.conn = self._connect(timeout=self.timeout)
+        self._local.gen = gen
         return conn, False
 
     def _discard(self) -> None:
@@ -314,14 +368,14 @@ class HTTPTransport(Transport):
                 if (e.code in _TRANSIENT_5XX and verb in _IDEMPOTENT_VERBS
                         and attempts < self.max_retries):
                     attempts += 1
-                    self._discard()
+                    self._rotate()  # this endpoint answered but is sick
                     self._retry_backoff(attempts)
                     continue
                 raise
             except _STALE_ERRORS:
                 if verb in _IDEMPOTENT_VERBS and attempts < self.max_retries:
                     attempts += 1
-                    self._discard()
+                    self._rotate()
                     self._retry_backoff(attempts)
                     continue
                 raise
@@ -387,6 +441,13 @@ class HTTPTransport(Transport):
             resource, namespace, name = args
             return self._do("PUT", self._collection_path(resource, namespace) + f"/{name}",
                             body=body)
+        if op == "update_status":
+            resource, namespace, name = args
+            return self._do("PUT", self._collection_path(resource, namespace) + f"/{name}/status",
+                            body=body)
+        if op == "finalize_namespace":
+            (name,) = args
+            return self._do("PUT", f"/api/v1/namespaces/{name}/finalize", body=body)
         if op == "delete":
             resource, namespace, name = args[:3]
             grace = args[3] if len(args) > 3 else None
@@ -433,10 +494,21 @@ class HTTPTransport(Transport):
         if query:
             path += "?" + query
         # Bound the dial and the response headers, then clear the socket
-        # timeout: a watch is long-lived and may be silent for minutes.
-        conn = self._connect(timeout=self.timeout)
-        conn.request("GET", path)
-        resp = conn.getresponse()
+        # timeout: a watch is long-lived and may be silent for minutes. A
+        # failed dial rotates through the other endpoints once; the
+        # Reflector resumes the watch on the one it lands on.
+        last_exc = None
+        for _ in range(len(self.endpoints)):
+            try:
+                conn = self._connect(timeout=self.timeout)
+                conn.request("GET", path)
+                resp = conn.getresponse()
+                break
+            except _STALE_ERRORS as e:
+                last_exc = e
+                self._rotate()
+        else:
+            raise last_exc
         if resp.status >= 400:
             data = json.loads(resp.read() or b"{}")
             conn.close()
@@ -500,6 +572,19 @@ class Client:
         name = wire.get("metadata", {}).get("name", "")
         return self._typed(resource, self.t.request("PUT", "update", (resource, namespace, name),
                                                     wire))
+
+    def update_status(self, resource: str, obj, namespace: str = ""):
+        """PUT the status subresource: the stored spec is kept."""
+        wire = self._wire(obj)
+        name = wire.get("metadata", {}).get("name", "")
+        return self._typed(resource, self.t.request("PUT", "update_status",
+                                                    (resource, namespace, name), wire))
+
+    def finalize_namespace(self, name: str, finalizers) -> None:
+        """PUT the namespace's `finalize` subresource with these finalizers."""
+        self.t.request("PUT", "finalize_namespace", (name,),
+                       {"kind": "Namespace", "metadata": {"name": name},
+                        "spec": {"finalizers": list(finalizers)}})
 
     def delete(self, resource: str, name: str, namespace: str = "",
                grace_period_seconds: Optional[int] = None) -> None:

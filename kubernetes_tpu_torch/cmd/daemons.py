@@ -1,4 +1,5 @@
-"""Daemon entry points: the apiserver, and a daemon's health listener.
+"""Daemon entry points: the apiserver, the controller-manager, and a
+daemon's health listener.
 
 The port's copy of the apiserver half of `kubernetes_tpu/cmd/daemons.py`
 (reference: cmd/kube-apiserver/app/server.go:82-185): `apiserver_parser`
@@ -34,6 +35,18 @@ plugin/cmd/kube-scheduler/app/server.go:105-109):
   A bad number is a 400 and an unknown view a 404 listing these, each a
   `Status` body. The apiserver's own views (`requests`, `alerts`,
   `timeseries`, `health`) are served by the apiserver.
+
+And the port's copy of the controller-manager half of JAX's module
+(reference: cmd/kube-controller-manager/app/controllermanager.go):
+`controller_manager_parser` with every flag of JAX's (`--server`,
+`--cloud-provider`, `--node-grace-period`, `--node-eviction-timeout`,
+`--healthz-port` 10252, `--leader-elect` and `--leader-elect-identity`
+over `utils/leaderelect.HAHotStandby` with the lock
+`kube-controller-manager`), `start_controller_manager`,
+`_manager_health_check` and `controller_manager_main`. The manager is
+host code (`controllers/manager.py`): its process loads neither torch
+nor numpy at start. A non-empty `--cloud-provider` exits 2: the cloud
+controllers are not yet ported.
 
 The JAX package's `ktctl explain` and `ktctl trace`, given a client on
 this listener's address, read `/debug/decisions` and `/debug/traces`
@@ -308,4 +321,79 @@ def apiserver_main(argv: Optional[List[str]] = None) -> int:
     finally:
         timeseries.SAMPLER.stop()
         srv.stop()
+    return 0
+
+
+# -- controller manager ----------------------------------------------
+
+
+def controller_manager_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="tpu-controller-manager")
+    p.add_argument("--server", "-s", default="http://127.0.0.1:8080",
+                   help="apiserver base URL")
+    p.add_argument("--cloud-provider", default="",
+                   help="cloud provider name (e.g. 'tpu', 'fake'); not yet ported")
+    p.add_argument("--node-grace-period", type=float, default=40.0)
+    p.add_argument("--node-eviction-timeout", type=float, default=20.0)
+    p.add_argument("--healthz-port", type=int, default=10252,
+                   help="own /healthz + /metrics port (negative disables)")
+    p.add_argument("--leader-elect", action="store_true",
+                   help="run hot-standby: only the lease holder is active")
+    p.add_argument("--leader-elect-identity", default="")
+    return p
+
+
+def start_controller_manager(args, client=None):
+    """The started ControllerManager, or under `--leader-elect` a started
+    `HAHotStandby` that builds and starts one while it holds the
+    `kube-controller-manager` lock."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.cmd.scheduler import _maybe_ha
+    from kubernetes_tpu_torch.controllers.manager import ControllerManager
+
+    client = client or Client(HTTPTransport(args.server))
+
+    def factory():
+        return ControllerManager(
+            client,
+            # A name raises CloudControllersNotPorted (the command exits 2 first).
+            cloud_provider=args.cloud_provider or None,
+            node_grace_period=args.node_grace_period,
+            node_eviction_timeout=args.node_eviction_timeout,
+        ).start()
+
+    return _maybe_ha(args, client, "kube-controller-manager", factory)
+
+
+def _manager_health_check(mgr) -> Check:
+    def check():
+        if not hasattr(mgr, "controllers"):
+            # The leader-election wrapper: no controllers of its own
+            # while standby; the live manager is inside it when leading.
+            return True, "ok"
+        running = getattr(mgr, "running", True)
+        n = len(mgr.controllers or [])
+        if not running:
+            return False, "controller manager stopped"
+        return n > 0, f"{n} controllers running" if n else "no controllers"
+
+    return check
+
+
+def controller_manager_main(argv: Optional[List[str]] = None) -> int:
+    args = controller_manager_parser().parse_args(argv)
+    if args.cloud_provider:
+        print(f"error: --cloud-provider {args.cloud_provider!r}: the cloud controllers "
+              "(cloudnodes, servicelb, routes) are not yet ported to kubernetes_tpu_torch",
+              file=sys.stderr)
+        return 2
+    mgr = start_controller_manager(args)
+    health = _start_health(args, [_manager_health_check(mgr)])
+    print(f"controller-manager running against {args.server}", flush=True)
+    try:
+        _wait_forever()
+    finally:
+        mgr.stop()
+        if health:
+            health.stop()
     return 0

@@ -2,11 +2,12 @@
 
 The port's copy of `kubernetes_tpu/cmd/hyperkube.py` (reference:
 cmd/hyperkube/main.go:34-38). Routes: `apiserver`
-(`cmd/daemons.apiserver_main`) and `scheduler` (`cmd/scheduler.main`).
-A server of the JAX command that the port does not have yet
-(controller-manager, kubelet, proxy, ktctl, local-up-cluster) exits
-with code 2 and names itself as not yet ported; nothing falls through
-to the JAX package.
+(`cmd/daemons.apiserver_main`), `controller-manager`
+(`cmd/daemons.controller_manager_main`) and `scheduler`
+(`cmd/scheduler.main`). A server of the JAX command that the port does
+not have yet (kubelet, proxy, ktctl, local-up-cluster) exits with code
+2 and names itself as not yet ported; nothing falls through to the JAX
+package.
 
 Usage:
     python -m kubernetes_tpu_torch.cmd.hyperkube <server> [flags...]
@@ -24,16 +25,23 @@ def _apiserver(argv: List[str]) -> int:
     return daemons.apiserver_main(argv)
 
 
+def _controller_manager(argv: List[str]) -> int:
+    from kubernetes_tpu_torch.cmd import daemons
+
+    return daemons.controller_manager_main(argv)
+
+
 def _scheduler(argv: List[str]) -> int:
     from kubernetes_tpu_torch.cmd import scheduler
 
     return scheduler.main(argv)
 
 
-SERVERS = {"apiserver": _apiserver, "scheduler": _scheduler}
+SERVERS = {"apiserver": _apiserver, "controller-manager": _controller_manager,
+           "scheduler": _scheduler}
 
 #: The JAX command's other servers, which the port has not ported yet.
-NOT_PORTED = ("controller-manager", "kubelet", "proxy", "ktctl", "local-up-cluster")
+NOT_PORTED = ("kubelet", "proxy", "ktctl", "local-up-cluster")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -17,9 +17,10 @@ All objects cross this boundary in wire form (camelCase dicts); typed
 callers use the client layer.
 
 A copy of `kubernetes_tpu/server/api.py` on a plain reentrant lock
-(no lock sanitizer); with no replication handle (the port has no
-`store/replication.py` yet). `APIServer.__init__` attaches the port's
-lifecycle SLI collector (`utils/sli.py`) to its store, as JAX's does.
+(no lock sanitizer). `replication` and `leader_url` are the HA plane's
+handles (`store/replication.py`, read by `server/httpserver.py`).
+`APIServer.__init__` attaches the port's lifecycle SLI collector
+(`utils/sli.py`) to its store, as JAX's does.
 """
 
 from __future__ import annotations
@@ -389,6 +390,16 @@ class APIServer:
         # Live component health checks (componentstatuses probes on
         # read; pkg/registry/componentstatus/rest.go).
         self._component_checks: Dict[str, object] = {}
+        # HA control plane handle (store/replication.py): a
+        # ReplicationHub when this apiserver fronts the leader store, a
+        # FollowerReplica when it fronts a replica. Drives the /healthz
+        # replication subcheck, /replication/append ingest, and the
+        # follower's mutating-verb forward (httpserver.py). None =
+        # single-node, the historical shape.
+        self.replication = None
+        # A follower apiserver forwards writes here (the leader's base
+        # URL); set alongside `replication` by the HA wiring.
+        self.leader_url = ""
         # Service allocation pools (pkg/master/master.go:440-455) with
         # the reference's restart repair pass: rebuild the bitmaps from
         # whatever services the (possibly pre-existing) store holds

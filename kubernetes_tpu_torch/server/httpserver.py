@@ -17,12 +17,13 @@ Plus /healthz, /metrics, /version, /api.
 Watch responses are chunked newline-delimited JSON frames
 {"type": ..., "object": ...} — same wire shape as the reference.
 
-A copy of `kubernetes_tpu/server/httpserver.py`. It differs in three
-places: the `/debug/*` views other than `health` are rendered by
-`utils.debug.render_view`, which the daemons' health servers share;
-`/replication/*` answers as the JAX apiserver does with no replica
-configured, and no follower forwards writes (the port has no
-`store/replication.py` yet); `/version` reports platform `gpu`.
+A copy of `kubernetes_tpu/server/httpserver.py`, the replication plane
+included (`/replication/append` and `/replication/status`, a follower's
+write forward to its leader, the replication subcheck of `/healthz` and
+component of `/debug/health`). It differs in two places: the `/debug/*`
+views other than `health` are rendered by `utils.debug.render_view`,
+which the daemons' health servers share; `/version` reports platform
+`gpu`.
 Nothing here touches the card: `/debug/device-profile` answers as the
 scheduler's health server does (503 when the profiler is unavailable).
 """
@@ -224,8 +225,8 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_text(200, body, ctype)
 
     def _health_checks(self) -> dict:
-        """The /healthz subcheck dict (kvstore, watch hub, flight
-        recorder) — also the component half of the /debug/health
+        """The /healthz subcheck dict (kvstore, watch hub, replication,
+        flight recorder) — also the component half of the /debug/health
         rollup, so the probe and the rollup can never disagree about a
         dependency's state."""
         from kubernetes_tpu_torch.utils import flightrecorder
@@ -255,6 +256,37 @@ class _Handler(BaseHTTPRequestHandler):
             )
         except Exception as e:
             checks["watchHub"] = {"status": "unhealthy", "message": str(e)}
+        rep = getattr(self.api, "replication", None)
+        if rep is not None:
+            # HA subcheck: role + commit index + per-follower lag
+            # (leader side) or journaled/commit watermarks (follower).
+            # A dead follower link flips the check unhealthy — the
+            # load balancer should stop preferring this replica's
+            # writes before quorum stalls, not after.
+            try:
+                st = rep.status()
+                followers = st.get("followers", [])
+                dead = [
+                    f["name"] for f in followers if not f.get("alive", True)
+                ]
+                check = {
+                    "status": "unhealthy" if dead else "ok",
+                    "role": st.get("role", ""),
+                    "commitIndex": st.get("commitIndex", 0),
+                    "followerLag": {
+                        f["name"]: f.get("lagVersions", 0)
+                        for f in followers
+                    },
+                }
+                if dead:
+                    check["message"] = (
+                        "unreachable followers: " + ", ".join(dead)
+                    )
+                checks["replication"] = check
+            except Exception as e:
+                checks["replication"] = {
+                    "status": "unhealthy", "message": str(e),
+                }
         try:
             size, cap = flightrecorder.DEFAULT.ring_stats()
             checks["flightRecorder"] = (
@@ -288,6 +320,10 @@ class _Handler(BaseHTTPRequestHandler):
             },
         )
 
+    #: A follower trailing the leader's commit index by more than this
+    #: many versions verdicts the replication component "warn" before
+    #: the link actually dies (mirrors the alert rule's threshold).
+    _REPLICATION_LAG_WARN = 1024
     #: A lease record whose renew timestamp is older than this reads
     #: stale — holders renew every ~1s against 5s windows, so 30s of
     #: silence means the tier is leaderless or wedged.
@@ -295,7 +331,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _serve_debug_health(self) -> None:
         """GET /debug/health: the HA-aware rollup. Joins the /healthz
-        subchecks, the lease records in kube-system, the SLO report, and
+        subchecks, /replication/status (role, commit index, follower
+        lag), the lease records in kube-system, the SLO report, and
         the alert engine into per-component pass/warn/burn verdicts
         plus one overall worst — the `ktctl top health` data source.
         `sampled` keys the miss contract: an unmeasured cluster (no
@@ -308,6 +345,15 @@ class _Handler(BaseHTTPRequestHandler):
             comp = dict(c)
             comp["verdict"] = "pass" if c.get("status") == "ok" else "burn"
             components[name] = comp
+        rep = components.get("replication")
+        if rep is not None and rep["verdict"] == "pass":
+            # Alive links can still be falling behind: sustained lag is
+            # the pre-quorum-loss signal (warn, not burn — the link is
+            # up and catching up is still possible).
+            lag = max(rep.get("followerLag", {}).values(), default=0)
+            if lag > self._REPLICATION_LAG_WARN:
+                rep["verdict"] = "warn"
+                rep["message"] = f"follower lag {lag} versions"
         # Lease tier: every lease record in kube-system (scheduler
         # standby, kvstore tiers) with holder/token/age. A stale or
         # holderless lease is warn — the tier is between leaders, which
@@ -410,22 +456,105 @@ class _Handler(BaseHTTPRequestHandler):
         )
 
     def _serve_replication(self, verb: str, rest: Tuple[str, ...]) -> None:
-        """The WAL-shipping plane's endpoints, answered as the JAX
-        apiserver answers them with no replica configured: the port has
-        no `store/replication.py` yet, so this apiserver neither leads
-        nor follows."""
+        """The WAL-shipping ingest plane (store/replication.py).
+
+        POST /replication/append — leader hub -> this follower:
+        {"lines": [...], "commit": N} journals + applies; {"bootstrap":
+        state} installs a dump_state() snapshot; commit=-1 is a pure
+        status probe. Bodies are internal wire format — no version
+        conversion, no auth (peer plane, like /healthz).
+        GET /replication/status — role/commit/lag introspection."""
+        rep = getattr(self.api, "replication", None)
         if rest == ("status",) and verb == "GET":
-            raise APIError(404, "NotFound", "replication not configured")
+            if rep is None:
+                raise APIError(
+                    404, "NotFound", "replication not configured"
+                )
+            self._send_json(200, rep.status())
+            return
         if rest != ("append",) or verb != "POST":
             raise APIError(
                 404, "NotFound",
                 "replication endpoints: POST /replication/append, "
                 "GET /replication/status",
             )
-        raise APIError(
-            409, "Conflict",
-            "this apiserver does not front a follower replica",
+        from kubernetes_tpu_torch.store.replication import (
+            FollowerReplica,
+            ReplicationError,
         )
+
+        if not isinstance(rep, FollowerReplica):
+            raise APIError(
+                409, "Conflict",
+                "this apiserver does not front a follower replica",
+            )
+        length = int(self.headers.get("Content-Length", 0) or 0)
+        try:
+            body = json.loads(self.rfile.read(length) or b"{}")
+        except json.JSONDecodeError as e:
+            raise APIError(400, "BadRequest", f"invalid JSON body: {e}")
+        try:
+            if "bootstrap" in body:
+                rep.bootstrap(body["bootstrap"])
+                journaled = rep.store.journaled_version
+            else:
+                journaled = rep.append(
+                    list(body.get("lines", ())),
+                    int(body.get("commit", -1)),
+                )
+        except ReplicationError as e:
+            # 409: the shipper must NOT retry into a promoted follower
+            # (a stale leader's stream) — it surfaces as a dead link.
+            raise APIError(409, "Conflict", str(e))
+        self._send_json(200, dict(rep.status(), journaled=journaled))
+
+    def _forward_leader(self, verb: str) -> Tuple[str, int]:
+        """Follower write path: relay the request verbatim to the
+        leader apiserver and pass its response through. The follower
+        stays a pure read fan-out — its store is a replica and refuses
+        local mutation; clients keep one endpoint list and never need
+        to know who leads (the reference gets this for free from etcd:
+        any member proxies writes to the raft leader)."""
+        import urllib.error
+        import urllib.request
+
+        url = self.api.leader_url.rstrip("/") + self.path
+        length = int(self.headers.get("Content-Length", 0) or 0)
+        data = self.rfile.read(length) if length else None
+        headers = {}
+        for h in ("Content-Type", "Authorization"):
+            if self.headers.get(h):
+                headers[h] = self.headers[h]
+        # One trace end-to-end across the hop: reuse the client's
+        # X-Trace-Id when it stamped one; otherwise mint an id HERE so
+        # the follower's request-log entry and the leader's carry the
+        # same trace id (before this, an unstamped forwarded mutation
+        # appeared as two unrelated requests at /debug/requests).
+        tid = (
+            self.headers.get(tracing.TRACE_HEADER)
+            or tracing.current_trace_id()
+            or tracing.new_trace_id()
+        )
+        headers[tracing.TRACE_HEADER] = tid
+        self._request_trace_id = tid
+        req = urllib.request.Request(
+            url, data=data, headers=headers, method=verb
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                body = resp.read()
+                code = resp.status
+                ctype = resp.headers.get("Content-Type", "application/json")
+        except urllib.error.HTTPError as e:
+            body = e.read()
+            code = e.code
+            ctype = e.headers.get("Content-Type", "application/json")
+        except urllib.error.URLError as e:
+            raise APIError(
+                502, "BadGateway", f"leader forward failed: {e}"
+            )
+        self._send_text(code, body, ctype)
+        return "forwarded", code
 
     def _route(self) -> Tuple[str, ...]:
         parsed = urlparse(self.path)
@@ -481,8 +610,10 @@ class _Handler(BaseHTTPRequestHandler):
                 self._serve_healthz()
                 return
             if parts and parts[0] == "replication":
-                # The replication plane's peer endpoints, ahead of the
-                # auth chain like /healthz.
+                # Internal replication plane (store/replication.py
+                # HTTPLink): peer traffic, ahead of the auth chain like
+                # /healthz — the WAL stream must keep flowing while the
+                # user-facing auth config churns.
                 self._serve_replication(verb, parts[1:])
                 return
             if parts == ("metrics",):
@@ -674,6 +805,16 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _api_v1(self, verb: str, rest: Tuple[str, ...]) -> Tuple[str, int]:
         api = self.api
+        if (
+            verb in ("POST", "PUT", "DELETE", "PATCH")
+            and api.leader_url
+            and getattr(api.store, "replica", False)
+        ):
+            # Stateless-apiserver write path: this replica's store is
+            # read-only; every mutation forwards to the leader. Reads
+            # and watches stay local (the watch cache fans out on every
+            # replica — that's the whole point of N apiservers).
+            return self._forward_leader(verb)
         q = self.query
         lsel = q.get("labelSelector", "")
         fsel = q.get("fieldSelector", "")

@@ -4,9 +4,14 @@
 answers /healthz, serves creates and LISTs, loads neither torch nor
 anything of the JAX package, takes the auth files (basic and token under
 an ABAC policy) and, with `--data-dir`, recovers every object after a
-SIGKILL. `scheduler` is the port's command; a server the port does not
-have yet exits 2 naming itself; an unknown one exits 1. The apiserver's
-flags are JAX's.
+SIGKILL. `scheduler` is the port's command. `controller-manager
+--server URL` runs the port's controllers against the apiserver child:
+its /healthz answers while they run, an RC gets its pods and its status,
+and its process loads neither torch nor the JAX package; with a
+`--cloud-provider` it exits 2, the cloud controllers not being ported.
+A server the port does not have yet exits 2 naming itself; an unknown
+one exits 1. The apiserver's and the controller-manager's flags are
+JAX's.
 """
 
 import base64
@@ -154,6 +159,11 @@ def test_durable_apiserver_recovers_after_sigkill(tmp_path):
         srv.stop()
 
 
+#: Arguments a server case runs with: the controller-manager is ported,
+#: and only its cloud provider is not.
+SERVER_ARGS = {"controller-manager": ["--cloud-provider", "fake"]}
+
+
 @pytest.mark.parametrize("server,rc,says", [
     ("controller-manager", 2, "not yet ported"), ("kubelet", 2, "not yet ported"),
     ("proxy", 2, "not yet ported"), ("ktctl", 2, "not yet ported"),
@@ -161,7 +171,8 @@ def test_durable_apiserver_recovers_after_sigkill(tmp_path):
 def test_unported_and_unknown_servers(server, rc, says):
     from kubernetes_tpu_torch.cmd import hyperkube
 
-    proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", server],
+    proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", server,
+                           *SERVER_ARGS.get(server, [])],
                           cwd=REPO, env=_env(), capture_output=True, text=True, timeout=60)
     assert proc.returncode == rc and says in proc.stderr
     assert set(hyperkube.SERVERS) | set(hyperkube.NOT_PORTED) >= {
@@ -176,7 +187,7 @@ def test_scheduler_route_is_the_ports_command():
     assert proc.returncode == 0 and "--batch-incremental" in proc.stdout
     proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube"],
                           cwd=REPO, env=_env(), capture_output=True, text=True, timeout=60)
-    assert proc.returncode == 1 and "apiserver, scheduler" in proc.stdout
+    assert proc.returncode == 1 and "apiserver, controller-manager, scheduler" in proc.stdout
 
 
 def test_apiserver_flags_are_jax_flags():
@@ -189,6 +200,8 @@ def test_apiserver_flags_are_jax_flags():
                       for a in parser._actions if a.dest != "help")
 
     assert flags(daemons.apiserver_parser()) == flags(jax_daemons.apiserver_parser())
+    assert flags(daemons.controller_manager_parser()) == flags(
+        jax_daemons.controller_manager_parser())
 
 
 def test_apiserver_path_imports_no_jax_package_and_no_torch():
@@ -206,3 +219,90 @@ def test_apiserver_path_imports_no_jax_package_and_no_torch():
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[] False"
+
+
+def _get_text(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_controller_manager_gives_an_rc_its_pods():
+    """`hyperkube controller-manager --server URL` against the port's
+    apiserver child: /healthz is 200 while its controllers run, an RC of
+    3 replicas gets 3 pods from its template and status.replicas 3, and
+    scaled to 1 it keeps one; its process maps neither torch nor CUDA."""
+    srv = Apiserver()
+    health = _free_port()
+    cm = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", "controller-manager",
+         "--server", f"http://127.0.0.1:{srv.port}", "--healthz-port", str(health)],
+        cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            assert cm.poll() is None, cm.stdout.read()
+            try:
+                if _get_text(health, "/healthz") == (200, "ok"):
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "the controller-manager's /healthz never answered"
+            time.sleep(0.1)
+        rc = {"kind": "ReplicationController", "metadata": {"name": "web"},
+              "spec": {"replicas": 3, "selector": {"app": "web"},
+                       "template": {"metadata": {"labels": {"app": "web"}},
+                                    "spec": {"containers": [{"name": "c", "image": "nginx"}]}}}}
+        rcs = "/api/v1/namespaces/default/replicationcontrollers"
+        assert _request(srv.port, "POST", rcs, rc)[0] == 201
+
+        def state():
+            pods = _request(srv.port, "GET", "/api/v1/namespaces/default/pods")[1]["items"]
+            got = _request(srv.port, "GET", rcs + "/web")[1]
+            return (sorted(p["metadata"]["generateName"] for p in pods),
+                    (got.get("status") or {}).get("replicas"))
+
+        deadline = time.monotonic() + 60
+        while state() != (["web-"] * 3, 3):
+            assert time.monotonic() < deadline, state()
+            time.sleep(0.1)
+        code, got = _request(srv.port, "GET", rcs + "/web")
+        got["spec"]["replicas"] = 1
+        assert _request(srv.port, "PUT", rcs + "/web", got)[0] == 200
+        deadline = time.monotonic() + 60
+        while state() != (["web-"], 1):
+            assert time.monotonic() < deadline, state()
+            time.sleep(0.1)
+        code, metrics = _get_text(health, "/metrics")
+        assert code == 200 and "replication_controller_syncs_total" in metrics
+        with open(f"/proc/{cm.pid}/maps") as f:
+            maps = f.read()
+        assert "libtorch" not in maps and "libcuda" not in maps
+    finally:
+        cm.send_signal(signal.SIGTERM)
+        assert cm.wait(timeout=30) == 0
+        cm.stdout.close()
+        srv.stop()
+
+
+def test_controller_manager_path_imports_no_jax_package_and_no_torch():
+    """Building and starting every controller of the manager loads
+    neither torch (nor numpy) nor anything of the JAX package."""
+    code = (
+        "import sys\n"
+        "from kubernetes_tpu_torch.client.rest import Client, LocalTransport\n"
+        "from kubernetes_tpu_torch.cmd import daemons, hyperkube\n"
+        "from kubernetes_tpu_torch.server.api import APIServer\n"
+        "args = daemons.controller_manager_parser().parse_args([])\n"
+        "mgr = daemons.start_controller_manager(args, Client(LocalTransport(APIServer())))\n"
+        "n = len(mgr.controllers)\n"
+        "mgr.stop()\n"
+        "print(sorted(m for m in sys.modules if m == 'kubernetes_tpu'\n"
+        "             or m.startswith('kubernetes_tpu.')), 'torch' in sys.modules, n)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] False 9"

@@ -2,7 +2,9 @@
 
 - `kubernetes_tpu_torch/` and `chip_smoke.py` import neither `jax` nor
   anything of `kubernetes_tpu`, and start no module of `kubernetes_tpu`
-  as a child process (both checked on the syntax tree).
+  as a child process (both checked on the syntax tree). Every program
+  `chip_smoke.py` passes to `python -c` is one of its module-level
+  `*_LAUNCHER` string constants, and each is held to the same rules.
 - Entry points with no `device` and no CUDA raise.
 - The kernel wrapper sends CPU tensors to the plain version and never
   launches there; an unknown device raises.
@@ -43,7 +45,11 @@ def _port_sources():
 
 def _imports(path):
     with open(path) as f:
-        tree = ast.parse(f.read(), path)
+        yield from _imports_of(f.read(), path)
+
+
+def _imports_of(source, name="<string>"):
+    tree = ast.parse(source, name)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -135,6 +141,58 @@ def test_port_starts_no_jax_module_as_a_child(path):
     assert not bad, f"{os.path.relpath(path, REPO)} starts {bad} as a child process"
 
 
+def _launchers(source):
+    """{name: program} of the module-level string constants named
+    `*_LAUNCHER` in `source`."""
+    out = {}
+    for node in ast.parse(source).body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)
+                and node.targets[0].id.endswith("_LAUNCHER")
+                and isinstance(node.value, ast.Constant) and isinstance(node.value.value, str)):
+            out[node.targets[0].id] = node.value.value
+    return out
+
+
+def _dash_c_programs(source):
+    """What follows each "-c" in a list or tuple literal of `source`."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, (ast.List, ast.Tuple)):
+            for a, b in zip(node.elts, node.elts[1:]):
+                if isinstance(a, ast.Constant) and a.value == "-c":
+                    found.append(b)
+    return found
+
+
+def test_launcher_detector():
+    bad = 'X_LAUNCHER = "import kubernetes_tpu.server.api"\ncmd = [sys.executable, "-c", X_LAUNCHER]'
+    programs = _launchers(bad)
+    assert list(programs) == ["X_LAUNCHER"]
+    assert [m for m in _imports_of(programs["X_LAUNCHER"]) if _forbidden(m)]
+    assert [n.id for n in _dash_c_programs(bad)] == ["X_LAUNCHER"]
+
+
+def test_smoke_launcher_programs_import_no_jax_and_start_none():
+    """The replicas of the smoke's replicated control plane run a program
+    given to `python -c` (REPLICA_LAUNCHER): it imports neither `jax`
+    nor anything of `kubernetes_tpu` and starts no JAX module, and no
+    other program reaches `-c` in the smoke."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        source = f.read()
+    programs = _launchers(source)
+    assert "REPLICA_LAUNCHER" in programs
+    for name, program in programs.items():
+        imported = list(_imports_of(program, name))
+        assert "kubernetes_tpu_torch.store.replication" in imported or name != "REPLICA_LAUNCHER"
+        bad = [m for m in imported if _forbidden(m)]
+        assert not bad, f"{name} imports {bad}"
+        assert not _child_jax_modules(program), name
+    given = _dash_c_programs(source)
+    assert given and all(isinstance(n, ast.Name) and n.id in programs for n in given), [
+        ast.dump(n) for n in given]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -223,6 +281,17 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/utils/alerts.py",
         "kubernetes_tpu_torch/cmd/daemons.py",
         "kubernetes_tpu_torch/cmd/hyperkube.py",
+        "kubernetes_tpu_torch/store/replication.py",
+        "kubernetes_tpu_torch/controllers/manager.py",
+        "kubernetes_tpu_torch/controllers/replication.py",
+        "kubernetes_tpu_torch/controllers/endpoints.py",
+        "kubernetes_tpu_torch/controllers/nodelifecycle.py",
+        "kubernetes_tpu_torch/controllers/namespace.py",
+        "kubernetes_tpu_torch/controllers/serviceaccounts.py",
+        "kubernetes_tpu_torch/controllers/resourcequota.py",
+        "kubernetes_tpu_torch/controllers/gangs.py",
+        "kubernetes_tpu_torch/controllers/volumeclaimbinder.py",
+        "kubernetes_tpu_torch/controllers/pvrecycler.py",
     } <= names
 
 

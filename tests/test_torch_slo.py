@@ -22,6 +22,43 @@ from kubernetes_tpu.utils import metrics as jmetrics
 from kubernetes_tpu.utils import slo as jslo
 from kubernetes_tpu_torch.utils import metrics, slo
 
+@pytest.fixture(autouse=True)
+def no_apiserver_series_kept():
+    """The port's apiserver and replication series (`sli.WATCH_LAG`,
+    `replication.FOLLOWER_LAG` and `COMMIT_INDEX`) and the retention
+    plane's history, empty during each test and as they were after it:
+    an earlier test in the same process that served a port apiserver's
+    watch or replicated a store fed them, and this file evaluates the
+    objectives of a process that never did."""
+    from kubernetes_tpu_torch.store import replication
+    from kubernetes_tpu_torch.utils import sli, timeseries
+
+    series = [(sli.WATCH_LAG, "_stats"), (replication.FOLLOWER_LAG, "_values"),
+              (replication.COMMIT_INDEX, "_values")]
+    saved = []
+    for metric, attr in series:
+        with metric._lock:
+            saved.append(dict(getattr(metric, attr)))
+            getattr(metric, attr).clear()
+    hist = timeseries.DEFAULT
+    with hist._lock:
+        saved_hist = (dict(hist._rings), dict(hist._meta), hist._samples)
+        hist._rings.clear()
+        hist._meta.clear()
+        hist._samples = 0
+    yield
+    for (metric, attr), values in zip(series, saved):
+        with metric._lock:
+            getattr(metric, attr).clear()
+            getattr(metric, attr).update(values)
+    with hist._lock:
+        hist._rings.clear()
+        hist._rings.update(saved_hist[0])
+        hist._meta.clear()
+        hist._meta.update(saved_hist[1])
+        hist._samples = saved_hist[2]
+
+
 #: A retention plane that never sampled: the JAX engine's lifetime path.
 NO_HISTORY = types.SimpleNamespace(sampled=False)
 #: Objectives whose description the port words differently.
