@@ -376,7 +376,24 @@ exits non-zero and prints no result. Phases, one JSON line each:
               a request's latency. No replica, kubelet, proxy or
               controller-manager child holds a CUDA context or maps
               libtorch, and the local addresses and mounts are as they
-              were;
+              were. Then the cloud and the whole cluster:
+              cloud_controllers, `hyperkube controller-manager
+              --cloud-provider gpu` as a child (it reads the card
+              inventory): node gpu-host-0 registered with the cards'
+              name and count as nvidia-smi lists them, a LoadBalancer
+              service's ingress published, a podCIDR on the node synced
+              by the route controller, the ingress cleared by a type
+              change and the deleted service synced, no sync error,
+              exit 0 on SIGTERM; the child's start to the registration,
+              create to ingress and the other steps' seconds;
+              local_up, `hyperkube local-up-cluster --batch-scheduler
+              --nodes 4 --kubelet-http --cluster-dns --no-kube-proxy
+              --port 0` as a child on the card: an RC of 200 replicas
+              Running on its kubelets, K1 launched in the child past its
+              prewarm (its /debug/kernels), the RC's service resolved by
+              the DNS addon on the port the child printed, SIGINT to
+              exit 0 with no process of its group left; create to
+              Running p50 and p99, K1's launches;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -418,8 +435,8 @@ compared by running it in turns in one command (A B B A).
 
     python3 chip_smoke.py --daemon
 
-builds the kernels and runs phase 5o alone (twenty-one lines, no result
-line); `--daemon-legs daemon_churn,daemon_debug` runs only those legs,
+builds the kernels and runs phase 5o alone (twenty-three lines, no
+result line); `--daemon-legs daemon_churn,daemon_debug` runs only those legs,
 and `--churn-stuck N` creates N pods that fit no node before
 daemon_churn's load (they retry through it, each retry explained
 inline). Each drill line carries the process's thread switch interval;
@@ -471,7 +488,12 @@ def emit(phase: str, **fields) -> None:
 
 
 def fail(phase: str, message: str) -> None:
+    """The phase's failure line, on stdout and, so that the end of the
+    error stream names it too, on stderr; then the check pool is
+    stopped and the script exits 1."""
     emit(phase, ok=False, error=message)
+    print(f"chip_smoke: phase {phase} failed: {message}", file=sys.stderr, flush=True)
+    stop_cpu_checks()
     sys.exit(1)
 
 
@@ -690,6 +712,8 @@ def main(argv=None) -> int:
                 # The started daemon's ticks under the port's kubelets.
                 "kubelet_density": daemon["kubelet_density"]["k1_launches"],
                 "kubelet_service": daemon["kubelet_service"]["k1_launches"],
+                # The local-up-cluster child's own process, past its prewarm.
+                "local_up": daemon["local_up"]["k1_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -3476,6 +3500,15 @@ def _cuda_context_of(pid):
             {"compute_apps": listed, "libcuda_mapped": mapped})
 
 
+def _log_tail(log, n):
+    """The last `n` characters of a child's output file. Read with
+    `os.pread`: the child writes through the same open file, so a seek
+    here would move its write offset and its next line would overwrite
+    the start of the file."""
+    fd = log.fileno()
+    return os.pread(fd, os.fstat(fd).st_size, 0).decode(errors="replace")[-n:]
+
+
 class ControlPlane:
     """The port's apiserver as a child process (`python -m
     kubernetes_tpu_torch.cmd.hyperkube apiserver`, store in memory
@@ -3487,9 +3520,11 @@ class ControlPlane:
     apiserver is host code); stopped with its whole process group.
     `kill()` SIGKILLs it, and `restart()` starts it again on the same
     port and flags. Subclasses start other host-only children the same
-    way (`ControllerManagerChild`, `ReplicaChild`)."""
+    way (`ControllerManagerChild`, `ReplicaChild`); one whose command
+    reads the card (`CloudManagerChild`) sets `host_only` False."""
 
     what = "apiserver"
+    host_only = True
 
     def __init__(self, phase, data_dir=None):
         self.phase = phase
@@ -3526,7 +3561,7 @@ class ControlPlane:
                 if conn.getresponse().status == 200:
                     conn.close()
                     self.cuda_context, self.cuda_probe = _cuda_context_of(self.proc.pid)
-                    if self.cuda_context:
+                    if self.cuda_context and self.host_only:
                         self.stop()
                         fail(self.phase, f"the {self.what} child (pid {self.proc.pid}) holds a "
                                          f"CUDA context: {self.cuda_probe}")
@@ -3560,8 +3595,7 @@ class ControlPlane:
         return self.__enter__()
 
     def tail(self, n=2000):
-        self._log.seek(0)
-        return self._log.read().decode(errors="replace")[-n:]
+        return _log_tail(self._log, n)
 
     def cpu_seconds(self):
         """User + system seconds of the child so far (/proc/<pid>/stat)."""
@@ -3639,12 +3673,15 @@ def _cluster(phase, client, pods=0, hostname=False, n_nodes=DAEMON_NODES):
     return names
 
 
-def _wait(phase, what, cond, timeout=30.0):
-    deadline = time.monotonic() + timeout
+def _wait(phase, what, cond, timeout=30.0, interval=0.05):
+    """Seconds until `cond()` holds, polled every `interval`; fails the
+    phase after `timeout`."""
+    t0 = time.monotonic()
     while not cond():
-        if time.monotonic() > deadline:
+        if time.monotonic() - t0 > timeout:
             fail(phase, f"timed out waiting for {what}")
-        time.sleep(0.05)
+        time.sleep(interval)
+    return time.monotonic() - t0
 
 
 def _listed(client):
@@ -5257,8 +5294,7 @@ class _Scheduler:
                                      start_new_session=True)
 
     def tail(self, n=3000):
-        self._log.seek(0)
-        return self._log.read().decode(errors="replace")[-n:]
+        return _log_tail(self._log, n)
 
     def get(self, path, timeout=60):
         """(status, body) of a GET on the command's server."""
@@ -7367,11 +7403,34 @@ def run_kubelet_service(torch, device, smi):
                     and len(proxy.lb.endpoints_for(("default", "echo", ""))) == SERVICE_PODS),
                     timeout=SERVICE_WAIT_S)
 
+                def dropped(i, error, took):
+                    """Fail the phase on a request the portal dropped, with
+                    what the proxy, Endpoints and the pods showed then."""
+                    state = {n: {"phase": (p.get("status") or {}).get("phase"),
+                                 "ready": [c.get("ready") for c in
+                                           (p.get("status") or {}).get("containerStatuses") or []],
+                                 "restarts": [c.get("restartCount") for c in
+                                              (p.get("status") or {}).get("containerStatuses") or []]}
+                             for n, p in _pods_wire(cp.url).items()}
+                    logs = {}
+                    for n in state:
+                        try:
+                            logs[n] = _http_get(("127.0.0.1", cp.port),
+                                                f"/api/v1/namespaces/default/pods/{n}/log")[1][-600:]
+                        except OSError as e:
+                            logs[n] = repr(e)
+                    fail(phase, f"request {i} through the portal: {error!r} after {took:.3f} s; "
+                                f"the proxy's endpoints {proxy.lb.endpoints_for(('default', 'echo', ''))}, "
+                                f"Endpoints echo {endpoint_ports()}, pods {state}, logs {logs}")
+
                 def requests(n):
                     out, lat = [], []
-                    for _ in range(n):
+                    for i in range(n):
                         t0 = time.perf_counter()
-                        code, body = _http_get(proxy.resolve_portal(cluster_ip, 80))
+                        try:
+                            code, body = _http_get(proxy.resolve_portal(cluster_ip, 80))
+                        except OSError as e:  # http.client's RemoteDisconnected among them
+                            dropped(i, e, time.perf_counter() - t0)
                         lat.append(time.perf_counter() - t0)
                         out.append((code, body))
                     return out, lat
@@ -7578,8 +7637,328 @@ def run_controller_node_loss(torch, device, smi):
     }
 
 
+# ---------------------------------------------------------------------------
+# The cloud controllers and local-up-cluster (legs of phase 5o)
+# ---------------------------------------------------------------------------
+
+
+CLOUD_WAIT_S = 60.0  # each cloud state after its cause (the child's start: imports, inventory)
+LOCAL_UP_NODES = 4
+LOCAL_UP_REPLICAS = 200
+LOCAL_UP_WAIT_S = 120.0  # the RC's pods to Running, and the child's stop
+
+
+def _card_names():
+    """The cards' names as `nvidia-smi` lists them, one a card."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def _sample(text, key):
+    """The value of the Prometheus sample `key` (name and labels) in
+    `text`, 0 when absent."""
+    for line in text.splitlines():
+        if line.startswith(key + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+class CloudManagerChild(ControllerManagerChild):
+    """`hyperkube controller-manager --cloud-provider gpu` as a child: the
+    provider reads the card inventory through torch.cuda, so this is the
+    one controller-manager child that may hold a CUDA context."""
+
+    what = "cloud controller-manager"
+    host_only = False
+
+    def __init__(self, phase, server):
+        self.phase = phase
+        self.port = _free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube",
+                    "controller-manager", "--server", server, "--healthz-port", str(self.port),
+                    "--cloud-provider", "gpu"]
+        self._spawn()
+
+    def metrics(self):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + "/metrics", timeout=30) as resp:
+            return resp.read().decode()
+
+
+def run_cloud_controllers(torch, device, smi):
+    """Leg cloud_controllers: `hyperkube controller-manager --cloud-provider
+    gpu` against the port's apiserver child. The card's host registers as
+    node gpu-host-0 labelled with the cards' name and count as nvidia-smi
+    lists them; a LoadBalancer service gets its ingress; a podCIDR set on
+    the node is synced by the route controller; the service turned
+    ClusterIP loses its ingress and, deleted, is synced away; no sync
+    errs; SIGTERM stops the child with 0."""
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+    from kubernetes_tpu_torch.cloudprovider import gpu
+    from kubernetes_tpu_torch.controllers import cloudnodes
+
+    phase = "cloud_controllers"
+    t_leg = time.perf_counter()
+    cards = _card_names()
+    with ControlPlane(phase) as cp:
+        client = Client(HTTPTransport(cp.url))
+        t0 = time.monotonic()
+        cm = CloudManagerChild(phase, cp.url)
+        try:
+            cm.__enter__()
+            up_s = time.monotonic() - t0
+            registered_s = up_s + _wait(phase, "gpu-host-0 registered", lambda: "gpu-host-0" in
+                                        _raw_list(cp.url, "/api/v1/nodes")[0],
+                                        CLOUD_WAIT_S, interval=0.02)
+            labels = client.get_wire("nodes", "gpu-host-0")["metadata"].get("labels") or {}
+            want = {gpu.LABEL_PLATFORM: "gpu", gpu.LABEL_CHIP: cards[0].replace(" ", "-"),
+                    gpu.LABEL_CHIPS: str(len(cards)), gpu.LABEL_HOST: "0",
+                    cloudnodes.LABEL_MANAGED: "cloud"}
+            wrong = {k: (labels.get(k), v) for k, v in want.items() if labels.get(k) != v}
+            if wrong:
+                fail(phase, f"gpu-host-0's labels against nvidia-smi's {cards}: {wrong}")
+
+            def ingress():
+                got = client.get_wire("services", "edge", namespace="default")
+                return ((got.get("status") or {}).get("loadBalancer") or {}).get("ingress")
+
+            # A LoadBalancer service: its ingress is published.
+            client.create("services", {"kind": "Service", "metadata": {"name": "edge"},
+                                       "spec": {"type": "LoadBalancer",
+                                                "selector": {"app": "edge"},
+                                                "ports": [{"port": 80}]}}, namespace="default")
+            ingress_s = _wait(phase, "the service's ingress", ingress, CLOUD_WAIT_S,
+                              interval=0.02)
+            published = ingress()
+            # A podCIDR on the node: the route controller syncs it.
+            key = 'route_syncs_total{action="ok"}'
+            before = _sample(cm.metrics(), key)
+            node = client.get_wire("nodes", "gpu-host-0")
+            node.setdefault("spec", {})["podCIDR"] = "10.244.0.0/24"
+            client.update("nodes", node)
+            route_s = _wait(phase, "a route sync after the podCIDR",
+                            lambda: _sample(cm.metrics(), key) > before, CLOUD_WAIT_S,
+                            interval=0.02)
+            after = client.get_wire("nodes", "gpu-host-0")
+            if (after.get("spec") or {}).get("podCIDR") != "10.244.0.0/24" or (
+                    after["metadata"].get("labels") != labels):
+                fail(phase, f"gpu-host-0 lost its podCIDR or labels: {after}")
+            # Turned ClusterIP: the ingress goes; deleted: synced away.
+            svc = client.get_wire("services", "edge", namespace="default")
+            svc["spec"]["type"] = "ClusterIP"
+            client.update("services", svc, namespace="default")
+            cleared_s = _wait(phase, "the ingress cleared", lambda: not ingress(), CLOUD_WAIT_S,
+                              interval=0.02)
+            lb_key = 'service_lb_syncs_total{action="ok"}'
+            before = _sample(cm.metrics(), lb_key)
+            client.delete("services", "edge", namespace="default")
+            deleted_s = _wait(phase, "a balancer sync after the delete",
+                              lambda: _sample(cm.metrics(), lb_key) > before, CLOUD_WAIT_S,
+                              interval=0.02)
+            text = cm.metrics()
+            errors = {k: _sample(text, f'{k}{{action="error"}}')
+                      for k in ("cloud_node_syncs_total", "service_lb_syncs_total",
+                                "route_syncs_total")}
+            if any(errors.values()):
+                fail(phase, f"cloud controller sync errors: {errors}")
+            registers = _sample(text, 'cloud_node_syncs_total{action="register"}')
+            if registers != 1:
+                fail(phase, f"cloud_node_syncs_total{{action=\"register\"}} is {registers}, not 1")
+            probe = cm.cuda_probe
+        finally:
+            cm.stop()
+        if cm.proc.returncode != 0:
+            fail(phase, f"the controller-manager exited with {cm.proc.returncode} on SIGTERM: "
+                        f"{cm.tail()}")
+    return {
+        "card": smi, "cards": cards, "labels": {k: labels[k] for k in sorted(want)},
+        "instance_type": labels.get(cloudnodes.LABEL_INSTANCE_TYPE),
+        "start_to_healthz_s": up_s, "start_to_registered_s": registered_s,
+        "create_to_ingress_s": ingress_s, "ingress": published,
+        "pod_cidr_to_route_sync_s": route_s, "type_change_to_ingress_cleared_s": cleared_s,
+        "delete_to_balancer_sync_s": deleted_s, "sync_errors": errors,
+        "controller_manager_cuda_context": probe, "exit_code": cm.proc.returncode,
+        "leg_s": time.perf_counter() - t_leg,
+        "timed": "host clock of this process, polling the apiserver and the child's /metrics "
+                 "every 20 ms from the child's spawn or each request's answer",
+    }
+
+
+def _dns_query(port, name, txid=0x4B54):
+    """The A answer for `name` from the DNS server on 127.0.0.1:`port`,
+    None for no answer."""
+    import socket
+    import struct
+
+    q = struct.pack(">HHHHHH", txid, 0x0100, 1, 0, 0, 0)
+    q += b"".join(bytes([len(p)]) + p.encode() for p in name.strip(".").split("."))
+    q += b"\x00" + struct.pack(">HH", 1, 1)
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.settimeout(5.0)
+    try:
+        s.sendto(q, ("127.0.0.1", port))
+        data = s.recvfrom(512)[0]
+    finally:
+        s.close()
+    if data[:2] != q[:2] or not struct.unpack(">H", data[6:8])[0]:
+        return None
+    return socket.inet_ntoa(data[-4:])
+
+
+def _group_members(pgid):
+    """Live pids whose process group is `pgid` (/proc/<pid>/stat)."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            out.append(int(name))
+    return out
+
+
+class LocalUpChild(_Scheduler):
+    """`hyperkube local-up-cluster --batch-scheduler --kubelet-http
+    --cluster-dns --no-kube-proxy --port 0` as a child in its own
+    session, its output in a temporary file: up when it has printed its
+    apiserver's address (then `url`) and the DNS addon's port."""
+
+    def __init__(self, phase, device):
+        import tempfile
+
+        self.phase = phase
+        self.cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", "local-up-cluster",
+                    "--batch-scheduler", "--nodes", str(LOCAL_UP_NODES), "--kubelet-http",
+                    "--cluster-dns", "--no-kube-proxy", "--port", "0"]
+        if device.type != "cuda":  # a dry run on the CPU
+            self.cmd += ["--device", "cpu"]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+        self._log = tempfile.TemporaryFile()
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(self.cmd, cwd=REPO, env=env, stdin=subprocess.DEVNULL,
+                                     stdout=self._log, stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+
+    def wait_up(self):
+        """(the DNS addon's port, seconds from the spawn)."""
+        import re
+
+        while True:
+            out = self.tail(1 << 20)
+            url = re.search(r"cluster up: apiserver at (\S+)", out)
+            dns = re.search(r"DNS serves on 127\.0\.0\.1:(\d+) only", out)
+            if url and dns:
+                self.url = url.group(1)
+                return int(dns.group(1)), time.monotonic() - self.t0
+            if self.proc.poll() is not None or time.monotonic() - self.t0 > DEBUG_UP_S:
+                self.kill()
+                fail(self.phase, f"local-up-cluster did not come up in {DEBUG_UP_S} s "
+                                 f"(exit {self.proc.returncode}): {self.tail()}")
+            time.sleep(0.05)
+
+
+def run_local_up(torch, device, smi):
+    """Leg local_up: `hyperkube local-up-cluster` as a child on the card
+    (the batch scheduler on it, LOCAL_UP_NODES kubelets over HTTP, the DNS
+    addon on its own port, no kube-proxy). An RC of LOCAL_UP_REPLICAS
+    reaches Running on its kubelets through K1 in the child (its
+    /debug/kernels calls past the prewarm's), the DNS addon resolves the
+    RC's service, and SIGINT stops the child with 0 and no process of its
+    group left."""
+    import signal
+
+    from kubernetes_tpu_torch.client.rest import Client, HTTPTransport
+
+    phase = "local_up"
+    t_leg = time.perf_counter()
+    child = LocalUpChild(phase, device)
+    watch = None
+    try:
+        dns_port, up_s = child.wait_up()
+        settled = _settled_k1_calls(child)  # the session's prewarm launches
+
+        def ready_nodes():
+            nodes = _raw_list(child.url, "/api/v1/nodes")[0]
+            return sorted(n for n, o in nodes.items() if _ready_node(o).get("status") == "True")
+
+        _wait(phase, f"{LOCAL_UP_NODES} nodes Ready",
+              lambda: len(ready_nodes()) == LOCAL_UP_NODES, LOCAL_UP_WAIT_S)
+        ready = ready_nodes()
+        client = Client(HTTPTransport(child.url))
+        watch = _CreateBindWatch(child.url)
+        client.create("services", {"kind": "Service", "metadata": {"name": "web"},
+                                   "spec": {"selector": {"app": "web"}, "ports": [{"port": 80}]}},
+                      namespace="default")
+        client.create("replicationcontrollers", _rc_wire("web", LOCAL_UP_REPLICAS, "10m"),
+                      namespace="default")
+        all_running_s = _wait(phase, f"{LOCAL_UP_REPLICAS} pods Running", lambda: sum(
+            _pod_running(p) for p in _pods_wire(child.url, "app=web").values())
+            == LOCAL_UP_REPLICAS, LOCAL_UP_WAIT_S, interval=0.02)
+        k1 = _k1_calls(child.get_json("/debug/kernels")) - settled
+        if k1 <= 0:
+            fail(phase, f"K1 was not launched for the RC's pods (calls {settled} before)")
+        pods = _pods_wire(child.url, "app=web")
+        on = sorted({p["spec"]["nodeName"] for p in pods.values()})
+
+        def watched():
+            """(name, uid) of the RC's pods this watch has seen reach Running."""
+            return [k for k in list(watch.running) if k[0] in pods and k in watch.seen]
+
+        # The LIST can show the last pods Running before this process's
+        # watch thread has read their events.
+        _wait(phase, f"the watch to see the {LOCAL_UP_REPLICAS} pods Running",
+              lambda: len(watched()) >= LOCAL_UP_REPLICAS, LOCAL_UP_WAIT_S)
+        lat = sorted(watch.running[k] - watch.seen[k][0] for k in watched())
+        if len(lat) != LOCAL_UP_REPLICAS:
+            fail(phase, f"the watch saw {len(lat)} of {LOCAL_UP_REPLICAS} pods reach Running")
+        ip = client.get_wire("services", "web", namespace="default")["spec"]["clusterIP"]
+        answers = {name: _dns_query(dns_port, name) for name in (
+            "web.default.svc.cluster.local", "web.default", "nope.default.svc.cluster.local")}
+        if answers != {"web.default.svc.cluster.local": ip, "web.default": ip,
+                       "nope.default.svc.cluster.local": None}:
+            fail(phase, f"DNS answers {answers}, the service's clusterIP {ip}")
+        probe = _cuda_context_of(child.proc.pid)[1]
+        watch.close()
+        watch = None
+        t_stop = time.monotonic()
+        child.proc.send_signal(signal.SIGINT)
+        try:
+            rc = child.proc.wait(timeout=LOCAL_UP_WAIT_S)
+        except subprocess.TimeoutExpired:
+            fail(phase, f"SIGINT did not stop the child in {LOCAL_UP_WAIT_S} s: {child.tail()}")
+        stop_s = time.monotonic() - t_stop
+        left = _group_members(child.proc.pid)
+        if rc != 0 or left or "cluster stopped" not in child.tail():
+            fail(phase, f"SIGINT: exit {rc}, processes left {left}: {child.tail()}")
+    finally:
+        if watch is not None:
+            watch.close()
+        child.kill()
+    return {
+        "card": smi, "nodes": ready, "pods_on": on, "replicas": LOCAL_UP_REPLICAS,
+        "start_to_up_s": up_s, "prewarm_k1_launches": settled, "k1_launches": k1,
+        "create_to_running_p50_s": _pct(lat, 0.5), "create_to_running_p99_s": _pct(lat, 0.99),
+        "create_to_running_max_s": lat[-1], "first_create_to_all_running_s": all_running_s,
+        "running_pods_per_s": LOCAL_UP_REPLICAS / all_running_s, "dns": answers,
+        "dns_port": dns_port, "sigint_to_exit_s": stop_s, "exit_code": rc,
+        "child_cuda_context": probe, "leg_s": time.perf_counter() - t_leg,
+        "timed": "host clock of this process: create = the pod's first sight on this "
+                 "process's watch, Running = its first event with phase Running; the child's "
+                 "K1 calls read from its /debug/kernels once its prewarm's settled and after "
+                 "all Running",
+    }
+
+
 def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
-    """The twenty-one legs, each on a fresh apiserver child (only `legs`
+    """The twenty-three legs, each on a fresh apiserver child (only `legs`
     when given). `churn_stuck` pods that fit no node wait through
     daemon_churn's load."""
     plan = {
@@ -7607,6 +7986,8 @@ def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
         "controller_node_loss": lambda: run_controller_node_loss(torch, device, smi),
         "kubelet_density": lambda: run_kubelet_density(torch, device, smi),
         "kubelet_service": lambda: run_kubelet_service(torch, device, smi),
+        "cloud_controllers": lambda: run_cloud_controllers(torch, device, smi),
+        "local_up": lambda: run_local_up(torch, device, smi),
     }
     unknown = set(legs) - set(plan)
     if unknown:

@@ -344,9 +344,9 @@ class HTTPTransport(Transport):
         return f"/api/v1/{info.name}"
 
     def _do(self, verb: str, path: str, query: Optional[dict] = None, body=None,
-            content_type: str = "application/json"):
+            content_type: str = "application/json", raw: bool = False):
         """One request over the thread's keep-alive connection, the
-        JSON-decoded body back. Connection failures and 502/503/504
+        JSON-decoded body back (`raw`: the body's text, a pod's log). Connection failures and 502/503/504
         retry idempotent verbs up to max_retries times with capped,
         jittered backoff; a POST whose connection died after send
         raises UnknownOutcomeError."""
@@ -362,7 +362,7 @@ class HTTPTransport(Transport):
         attempts = 0
         while True:
             try:
-                return self._attempt(verb, path, payload, headers)
+                return self._attempt(verb, path, payload, headers, raw)
             except _ReplayStale:
                 continue
             except APIError as e:
@@ -386,7 +386,7 @@ class HTTPTransport(Transport):
         delay = min(0.05 * (2 ** (attempt - 1)), 1.0)
         time.sleep(delay * (0.5 + 0.5 * _RETRY_RNG.random()))
 
-    def _attempt(self, verb, path, payload, headers):
+    def _attempt(self, verb, path, payload, headers, raw=False):
         conn, reused = self._pooled()
         try:
             conn.request(verb, path, body=payload, headers=headers)
@@ -425,6 +425,8 @@ class HTTPTransport(Transport):
                 data = {}
             raise APIError(data.get("code", resp.status), data.get("reason", "Unknown"),
                            data.get("message", f"HTTP {resp.status}"))
+        if raw:
+            return raw_body.decode(errors="replace")
         return json.loads(raw_body or b"{}")
 
     def request(self, verb, op, args, body=None, patch_type=None):
@@ -479,6 +481,12 @@ class HTTPTransport(Transport):
             resource, namespace = args
             return self._do("POST", self._collection_path(resource, namespace) + ":bulk",
                             body={"items": body})
+        if op == "pod_log":
+            namespace, name, container, tail = args
+            return self._do("GET", f"/api/v1/namespaces/{namespace or 'default'}/pods/{name}/log",
+                            query={"container": container,
+                                   "tailLines": str(tail) if tail is not None else ""},
+                            raw=True)
         raise ValueError(f"unknown op {op!r}")
 
     def watch(self, resource, namespace, since, lsel, fsel):
@@ -617,6 +625,12 @@ class Client:
         out = self.t.request("PATCH", "patch", (resource, namespace, name), patch,
                              patch_type="merge")
         return self._typed(resource, out)
+
+    def pod_logs(self, name: str, namespace: str = "default", container: str = "",
+                 tail: Optional[int] = None) -> str:
+        """GET /pods/{name}/log (relayed through the apiserver from the
+        pod's kubelet)."""
+        return self.t.request("GET", "pod_log", (namespace, name, container, tail))
 
     def bind(self, pod_name: str, node_name: str, namespace: str = "default") -> None:
         """POST one Binding (the per-pod scheduler's commit;

@@ -45,8 +45,11 @@ over `utils/leaderelect.HAHotStandby` with the lock
 `kube-controller-manager`), `start_controller_manager`,
 `_manager_health_check` and `controller_manager_main`. The manager is
 host code (`controllers/manager.py`): its process loads neither torch
-nor numpy at start. A non-empty `--cloud-provider` exits 2: the cloud
-controllers are not yet ported.
+nor numpy at start. `--cloud-provider NAME` resolves through the port's
+registry (`cloudprovider.get_provider`: `fake` or `gpu`; an unknown
+name raises its `KeyError`) and adds the cloud controllers; `gpu`
+reads the card inventory, which loads torch and opens a CUDA context
+in this process.
 
 And the port's copy of the node half (reference: cmd/kubelet/app and
 cmd/kube-proxy/app): `kubelet_parser`, `start_kubelet` and
@@ -348,7 +351,7 @@ def controller_manager_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tpu-controller-manager")
     _server_flag(p)
     p.add_argument("--cloud-provider", default="",
-                   help="cloud provider name (e.g. 'tpu', 'fake'); not yet ported")
+                   help="cloud provider name (e.g. 'gpu', 'fake')")
     p.add_argument("--node-grace-period", type=float, default=40.0)
     p.add_argument("--node-eviction-timeout", type=float, default=20.0)
     p.add_argument("--healthz-port", type=int, default=10252,
@@ -368,12 +371,16 @@ def start_controller_manager(args, client=None):
     from kubernetes_tpu_torch.controllers.manager import ControllerManager
 
     client = client or Client(HTTPTransport(args.server))
+    provider = None
+    if args.cloud_provider:
+        from kubernetes_tpu_torch import cloudprovider
+
+        provider = cloudprovider.get_provider(args.cloud_provider)
 
     def factory():
         return ControllerManager(
             client,
-            # A name raises CloudControllersNotPorted (the command exits 2 first).
-            cloud_provider=args.cloud_provider or None,
+            cloud_provider=provider,
             node_grace_period=args.node_grace_period,
             node_eviction_timeout=args.node_eviction_timeout,
         ).start()
@@ -398,11 +405,6 @@ def _manager_health_check(mgr) -> Check:
 
 def controller_manager_main(argv: Optional[List[str]] = None) -> int:
     args = controller_manager_parser().parse_args(argv)
-    if args.cloud_provider:
-        print(f"error: --cloud-provider {args.cloud_provider!r}: the cloud controllers "
-              "(cloudnodes, servicelb, routes) are not yet ported to kubernetes_tpu_torch",
-              file=sys.stderr)
-        return 2
     mgr = start_controller_manager(args)
     health = _start_health(args, [_manager_health_check(mgr)])
     print(f"controller-manager running against {args.server}", flush=True)

@@ -4,11 +4,11 @@ The port's copy of `kubernetes_tpu/cmd/hyperkube.py` (reference:
 cmd/hyperkube/main.go:34-38). Routes: `apiserver`
 (`cmd/daemons.apiserver_main`), `controller-manager`
 (`cmd/daemons.controller_manager_main`), `kubelet`
-(`cmd/daemons.kubelet_main`), `proxy` (`cmd/daemons.proxy_main`) and
-`scheduler` (`cmd/scheduler.main`). A server of the JAX command that the
-port does not have yet (ktctl, local-up-cluster) exits with code 2 and
-names itself as not yet ported; nothing falls through to the JAX
-package.
+(`cmd/daemons.kubelet_main`), `proxy` (`cmd/daemons.proxy_main`),
+`scheduler` (`cmd/scheduler.main`) and `local-up-cluster`
+(`cmd/localup.main`). A server of the JAX command that the port does
+not have yet (ktctl) exits with code 2 and names itself as not yet
+ported; nothing falls through to the JAX package.
 
 Usage:
     python -m kubernetes_tpu_torch.cmd.hyperkube <server> [flags...]
@@ -44,6 +44,12 @@ def _proxy(argv: List[str]) -> int:
     return daemons.proxy_main(argv)
 
 
+def _local_up_cluster(argv: List[str]) -> int:
+    from kubernetes_tpu_torch.cmd import localup
+
+    return localup.main(argv)
+
+
 def _scheduler(argv: List[str]) -> int:
     from kubernetes_tpu_torch.cmd import scheduler
 
@@ -51,10 +57,11 @@ def _scheduler(argv: List[str]) -> int:
 
 
 SERVERS = {"apiserver": _apiserver, "controller-manager": _controller_manager,
-           "kubelet": _kubelet, "proxy": _proxy, "scheduler": _scheduler}
+           "kubelet": _kubelet, "local-up-cluster": _local_up_cluster, "proxy": _proxy,
+           "scheduler": _scheduler}
 
 #: The JAX command's other servers, which the port has not ported yet.
-NOT_PORTED = ("ktctl", "local-up-cluster")
+NOT_PORTED = ("ktctl",)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

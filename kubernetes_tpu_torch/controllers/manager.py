@@ -8,9 +8,10 @@ endpoints, node lifecycle, namespace, resource quota, service accounts
 with the token controller when given a token manager, gangs sharing the
 replication manager's pods informer, the descheduler and the autoscaler
 behind `enable_descheduler` and `autoscaler_pool`, the claim binder and
-the recycler). The cloud controllers (cloud nodes, service load
-balancers, routes) are not ported yet: a `cloud_provider` raises
-`CloudControllersNotPorted` rather than run without them.
+the recycler), led by the cloud controllers when given a
+`cloud_provider` (`cloudprovider/`): cloud nodes always, the service
+load balancers when the provider has a load-balancer surface, and
+routes when it has a route table.
 """
 
 from __future__ import annotations
@@ -31,11 +32,6 @@ from kubernetes_tpu_torch.controllers.pvrecycler import PersistentVolumeRecycler
 from kubernetes_tpu_torch.controllers.volumeclaimbinder import (
     PersistentVolumeClaimBinder,
 )
-
-
-class CloudControllersNotPorted(NotImplementedError):
-    """A cloud provider was given: the cloud controllers it would run
-    are not in the port yet."""
 
 
 class ControllerManager:
@@ -66,10 +62,18 @@ class ControllerManager:
         self.controllers: List = []
         self.running = False  # live health signal (componentstatuses)
         if cloud_provider is not None:
-            raise CloudControllersNotPorted(
-                "the cloud controllers (cloudnodes, servicelb, routes) are not yet "
-                "ported to kubernetes_tpu_torch; run without a cloud provider"
-            )
+            from kubernetes_tpu_torch.controllers.cloudnodes import CloudNodeController
+            from kubernetes_tpu_torch.controllers.routes import RouteController
+            from kubernetes_tpu_torch.controllers.servicelb import ServiceController
+
+            self.cloud_nodes = CloudNodeController(client, cloud_provider)
+            self.controllers.append(self.cloud_nodes)
+            if cloud_provider.load_balancer() is not None:
+                self.service_lb = ServiceController(client, cloud_provider)
+                self.controllers.append(self.service_lb)
+            if cloud_provider.routes() is not None:
+                self.route_controller = RouteController(client, cloud_provider)
+                self.controllers.append(self.route_controller)
         if enable_replication:
             self.replication = ReplicationManager(client)
             self.controllers.append(self.replication)

@@ -10,7 +10,15 @@ connections and a load-balanced backend endpoint
 The listener sockets and the copy loop here are real; only the DNAT
 hop is the in-memory PortalRuleTable (see ruletable.py).
 
-The port's copy of `kubernetes_tpu/proxy/proxier.py`.
+The port's copy of `kubernetes_tpu/proxy/proxier.py`. One departure: a
+TCP connection's two copy directions end as the reference's do
+(proxysocket.go proxyTCP/copyBytes): each half-closes (the source's read
+side, the destination's write side), and the sockets are closed once,
+after both directions have ended. JAX's copy loop shuts down and closes
+both sockets in whichever direction ends first, while the other may be
+inside a call on the same descriptor; once closed, the descriptor's
+number goes to the next accepted connection, which that call can then
+shut down before it is answered.
 """
 
 from __future__ import annotations
@@ -321,10 +329,19 @@ class Proxier:
         except (ErrMissingServiceEntry, ErrMissingEndpoints, OSError):
             client.close()
             return
-        for a, b in ((client, backend), (backend, client)):
-            threading.Thread(
-                target=self._copy_bytes, args=(a, b), daemon=True
-            ).start()
+        replies = threading.Thread(
+            target=self._copy_bytes, args=(backend, client), daemon=True
+        )
+        replies.start()
+        self._copy_bytes(client, backend)
+        replies.join()
+        # Closed only here, after both directions: no call of either
+        # copy can reach a descriptor number already handed on.
+        for s in (client, backend):
+            try:
+                s.close()
+            except OSError:
+                pass
 
     def _connect_backend_wait(
         self,
@@ -369,6 +386,10 @@ class Proxier:
 
     @staticmethod
     def _copy_bytes(src, dst) -> None:
+        """One direction of a connection until `src` ends or fails, then
+        its half-close (reference copyBytes: dest.CloseWrite,
+        src.CloseRead), which also wakes the other direction when the
+        peer has gone. The caller closes the sockets."""
         try:
             while True:
                 data = src.recv(_BUFSIZE)
@@ -378,13 +399,9 @@ class Proxier:
         except OSError:
             pass
         finally:
-            for s in (src, dst):
+            for s, how in ((dst, socket.SHUT_WR), (src, socket.SHUT_RD)):
                 try:
-                    s.shutdown(socket.SHUT_RDWR)
-                except OSError:
-                    pass
-                try:
-                    s.close()
+                    s.shutdown(how)
                 except OSError:
                     pass
 

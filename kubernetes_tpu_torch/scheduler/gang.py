@@ -21,14 +21,16 @@ rollbacks, in `gang_solve_outcomes_total` (OUTCOMES).
 
 `drop_partial_gang_preemptions` guards preemption grants: a gang
 member preempts for the whole gang or not at all.
+
+NumPy is imported where a solve counts members, not at import: the
+controller-manager's gang controller imports this module for
+`OUTCOMES` and `pod_is_live`, and its process loads no numpy.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
-
-import numpy as np
 
 from kubernetes_tpu_torch.models.objects import POD_GROUP_LABEL, Pod, pod_full_key
 from kubernetes_tpu_torch.utils import metrics
@@ -112,6 +114,8 @@ def member_counts_host(
     placed: np.ndarray, group_ids: np.ndarray, num_groups: int
 ) -> np.ndarray:
     """NumPy twin of `ops.matrices.gang_member_counts`."""
+    import numpy as np
+
     mask = placed & (group_ids >= 0)
     return np.bincount(
         group_ids[mask], minlength=num_groups
@@ -142,6 +146,8 @@ def gang_solve(
     capacity a rejected gang would have taken goes to the rest. It ends
     within len(groups) + 1 rounds: each round converges or rejects at
     least one more group."""
+    import numpy as np
+
     counts_fn = counts_fn or member_counts_host
     n = len(pending)
     if not groups:

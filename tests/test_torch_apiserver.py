@@ -632,14 +632,22 @@ def test_health_metrics_swagger_and_debug_views(twin):
     twin.same("POST", "/api/v1/namespaces/default/pods?req-marker=b", _pod("m1"), code=201)
     twin.same("GET", "/healthz?req-marker=c", code=200)
     twin.same("GET", "/api/v1/namespaces/default/pods?req-marker=d&labelSelector=x%3Dy")
+    # Both servers write a request's row after its response has gone
+    # out, so a row may land after the next request's: poll until each
+    # log holds all four marked rows, then compare them as sorted lists.
     rows = {}
-    for name, (code, text) in twin.both("GET", "/debug/requests").items():
-        assert code == 200
-        lines = text.splitlines()
-        # TIME (two columns) and MS vary; CODE, TRACE, VERB and PATH do not.
-        rows[name] = [lines[0]] + [(ln.split()[2], *ln.split()[4:]) for ln in lines[1:]
-                                   if "req-marker" in ln]
-    assert rows["port"] == rows["jax"] and len(rows["port"]) == 5
+    deadline = time.monotonic() + 5
+    while True:
+        for name, (code, text) in twin.both("GET", "/debug/requests").items():
+            assert code == 200
+            lines = text.splitlines()
+            # TIME (two columns) and MS vary; CODE, TRACE, VERB and PATH do not.
+            rows[name] = (lines[0], sorted((ln.split()[2], *ln.split()[4:])
+                                           for ln in lines[1:] if "req-marker" in ln))
+        if all(len(r[1]) == 4 for r in rows.values()) or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    assert rows["port"] == rows["jax"] and len(rows["port"][1]) == 4
     (jv, jbody), (pv, pbody) = (twin.both("GET", "/version")[k] for k in ("jax", "port"))
     assert jv == pv == 200 and jbody["gitVersion"] == pbody["gitVersion"]
     assert (jbody["platform"], pbody["platform"]) == ("tpu", "gpu")

@@ -762,9 +762,22 @@ def test_controller_manager_builds_jax_set_for_every_flag_combination(monkeypatc
 
 
 def test_controller_manager_refuses_a_cloud_provider():
-    client = port_rest.Client(port_rest.LocalTransport(port_api.APIServer()))
-    with pytest.raises(port_manager.CloudControllersNotPorted, match="cloudnodes"):
-        port_manager.ControllerManager(client, cloud_provider=object())
+    """Kept under its name from when the port refused a cloud provider:
+    now a provider puts the cloud controllers first, as in JAX's
+    manager, and the other controllers follow unchanged
+    (`tests/test_torch_cloud.py` holds the controllers themselves)."""
+    from kubernetes_tpu.cloudprovider.fake import FakeCloudProvider as JaxFake
+
+    from kubernetes_tpu_torch.cloudprovider.fake import FakeCloudProvider as PortFake
+
+    got = {}
+    for pkg, provider in ((JAX, JaxFake()), (PORT, PortFake())):
+        client = pkg.rest.Client(pkg.rest.LocalTransport(pkg.api_mod.APIServer()))
+        mgr = pkg.manager.ControllerManager(client, cloud_provider=provider)
+        got[pkg.name] = [type(c).__name__ for c in mgr.controllers]
+    assert got["port"] == got["jax"]
+    assert got["port"][:4] == ["CloudNodeController", "ServiceController", "RouteController",
+                               "ReplicationManager"]
 
 
 def test_started_manager_reconciles_an_rc_as_jax():

@@ -7,13 +7,14 @@ an ABAC policy) and, with `--data-dir`, recovers every object after a
 SIGKILL. `scheduler` is the port's command. `controller-manager
 --server URL` runs the port's controllers against the apiserver child:
 its /healthz answers while they run, an RC gets its pods and its status,
-and its process loads neither torch nor the JAX package; with a
-`--cloud-provider` it exits 2, the cloud controllers not being ported.
+and its process loads neither torch nor the JAX package; with
+`--cloud-provider fake` it runs the cloud controllers beside them.
 `kubelet` and `proxy` are the port's commands: `--help` names each, a
 `--fake-runtime` kubelet child registers its node with an in-process
 apiserver, and a `--no-real-portals` proxy child answers /healthz; both
-processes map neither torch nor CUDA. A server the port does not have
-yet exits 2 naming itself; an unknown one exits 1. The apiserver's and
+processes map neither torch nor CUDA. `local-up-cluster` is the port's
+command. A server the port does not have yet (ktctl) exits 2 naming
+itself; an unknown one exits 1. The apiserver's and
 the controller-manager's flags are JAX's.
 """
 
@@ -163,24 +164,38 @@ def test_durable_apiserver_recovers_after_sigkill(tmp_path):
         srv.stop()
 
 
-#: Arguments a server case runs with: the controller-manager is ported,
-#: and only its cloud provider is not.
-SERVER_ARGS = {"controller-manager": ["--cloud-provider", "fake"]}
-
-
 @pytest.mark.parametrize("server,rc,says", [
-    ("controller-manager", 2, "not yet ported"), ("ktctl", 2, "not yet ported"),
-    ("local-up-cluster", 2, "not yet ported"), ("frobnicator", 1, "unknown server")])
+    ("ktctl", 2, "not yet ported"), ("frobnicator", 1, "unknown server")])
 def test_unported_and_unknown_servers(server, rc, says):
     from kubernetes_tpu_torch.cmd import hyperkube
 
-    proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", server,
-                           *SERVER_ARGS.get(server, [])],
+    proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", server],
                           cwd=REPO, env=_env(), capture_output=True, text=True, timeout=60)
     assert proc.returncode == rc and says in proc.stderr
     assert set(hyperkube.SERVERS) | set(hyperkube.NOT_PORTED) >= {
         "apiserver", "scheduler", "controller-manager", "kubelet", "proxy", "ktctl",
         "local-up-cluster"}
+    assert hyperkube.NOT_PORTED == ("ktctl",)
+
+
+def test_local_up_cluster_route_is_the_ports_command():
+    """`hyperkube local-up-cluster` reaches the port's `cmd/localup`:
+    its `--help` names the port's flag `--device`; without a card a
+    batch cluster raises before it serves, and nothing of the JAX
+    package runs."""
+    from kubernetes_tpu_torch.cmd import hyperkube, localup
+
+    assert hyperkube.SERVERS["local-up-cluster"].__name__ == "_local_up_cluster"
+    proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube",
+                           "local-up-cluster", "--help"],
+                          cwd=REPO, env=_env(), capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0 and "tpu-local-up-cluster" in proc.stdout
+    assert "--device {cuda,cpu}" in proc.stdout and "--cluster-dns" in proc.stdout
+    assert localup.build_parser().parse_args([]).device == "cuda"
+    proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube",
+                           "local-up-cluster", "--batch-scheduler", "--port", "0"],
+                          cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr and "cluster up" not in proc.stdout
 
 
 def test_scheduler_route_is_the_ports_command():
@@ -190,8 +205,8 @@ def test_scheduler_route_is_the_ports_command():
     assert proc.returncode == 0 and "--batch-incremental" in proc.stdout
     proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube"],
                           cwd=REPO, env=_env(), capture_output=True, text=True, timeout=60)
-    assert proc.returncode == 1 and ("apiserver, controller-manager, kubelet, proxy, scheduler"
-                                     in proc.stdout)
+    assert proc.returncode == 1 and ("apiserver, controller-manager, kubelet, local-up-cluster, "
+                                     "proxy, scheduler" in proc.stdout)
 
 
 def test_apiserver_flags_are_jax_flags():
@@ -281,6 +296,42 @@ def test_controller_manager_gives_an_rc_its_pods():
             time.sleep(0.1)
         code, metrics = _get_text(health, "/metrics")
         assert code == 200 and "replication_controller_syncs_total" in metrics
+        with open(f"/proc/{cm.pid}/maps") as f:
+            maps = f.read()
+        assert "libtorch" not in maps and "libcuda" not in maps
+    finally:
+        cm.send_signal(signal.SIGTERM)
+        assert cm.wait(timeout=30) == 0
+        cm.stdout.close()
+        srv.stop()
+
+
+def test_controller_manager_runs_the_cloud_controllers_with_a_provider():
+    """`hyperkube controller-manager --cloud-provider fake` against the
+    port's apiserver child serves /healthz with the three cloud
+    controllers among its controllers, their sync counters on /metrics,
+    maps neither torch nor CUDA, and stops on SIGTERM with 0."""
+    srv = Apiserver()
+    health = _free_port()
+    cm = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", "controller-manager",
+         "--server", f"http://127.0.0.1:{srv.port}", "--healthz-port", str(health),
+         "--cloud-provider", "fake"],
+        cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            assert cm.poll() is None, cm.stdout.read()
+            try:
+                code, text = _get_text(health, "/metrics")
+                if code == 200 and "route_syncs_total{" in text and (
+                        "service_lb_syncs_total{" in text):
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "the cloud controllers never synced"
+            time.sleep(0.1)
+        assert _get_text(health, "/healthz") == (200, "ok")
         with open(f"/proc/{cm.pid}/maps") as f:
             maps = f.read()
         assert "libtorch" not in maps and "libcuda" not in maps

@@ -310,6 +310,20 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/proxy/proxier.py",
         "kubernetes_tpu_torch/proxy/roundrobin.py",
         "kubernetes_tpu_torch/proxy/ruletable.py",
+        "kubernetes_tpu_torch/cloudprovider/__init__.py",
+        "kubernetes_tpu_torch/cloudprovider/interface.py",
+        "kubernetes_tpu_torch/cloudprovider/fake.py",
+        "kubernetes_tpu_torch/cloudprovider/gpu.py",
+        "kubernetes_tpu_torch/controllers/cloudnodes.py",
+        "kubernetes_tpu_torch/controllers/servicelb.py",
+        "kubernetes_tpu_torch/controllers/routes.py",
+        "kubernetes_tpu_torch/addons/__init__.py",
+        "kubernetes_tpu_torch/addons/__main__.py",
+        "kubernetes_tpu_torch/addons/dns.py",
+        "kubernetes_tpu_torch/addons/logging.py",
+        "kubernetes_tpu_torch/addons/monitoring.py",
+        "kubernetes_tpu_torch/cmd/localup.py",
+        "kubernetes_tpu_torch/cmd/clusterup.py",
     } <= names
 
 
@@ -363,6 +377,47 @@ def test_node_commands_load_no_torch_and_no_jax_package(server):
         "      'numpy' in sys.modules)\n")], timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[] False False"
+
+
+def test_cloud_controller_manager_loads_no_torch_and_no_jax_package():
+    """`hyperkube controller-manager --cloud-provider fake`: the command
+    module, the registry and the started manager with its cloud
+    controllers load neither torch nor numpy nor anything of the JAX
+    package; only the `gpu` provider's inventory read would load torch."""
+    proc = _python(["-c", (
+        "import sys\n"
+        "from kubernetes_tpu_torch.client.rest import Client, LocalTransport\n"
+        "from kubernetes_tpu_torch.cmd import daemons, hyperkube\n"
+        "from kubernetes_tpu_torch.server.api import APIServer\n"
+        "args = daemons.controller_manager_parser().parse_args(['--cloud-provider', 'fake'])\n"
+        "mgr = daemons.start_controller_manager(args, Client(LocalTransport(APIServer())))\n"
+        "names = [type(c).__name__ for c in mgr.controllers][:3]\n"
+        "mgr.stop()\n"
+        "print(sorted(m for m in sys.modules if m == 'kubernetes_tpu'\n"
+        "             or m.startswith('kubernetes_tpu.')), 'torch' in sys.modules,\n"
+        "      'numpy' in sys.modules, names)\n")], timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == (
+        "[] False False ['CloudNodeController', 'ServiceController', 'RouteController']")
+
+
+def test_gpu_cloud_provider_raises_without_cuda(no_cuda):
+    """The card inventory has no CPU fallback: no card, no provider."""
+    from kubernetes_tpu_torch.cloudprovider import GPUCloudProvider, get_provider
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPUCloudProvider()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_provider("gpu")
+
+
+def test_local_up_batch_scheduler_raises_without_cuda(no_cuda):
+    """`LocalCluster` with a batch scheduler and no `--device cpu`
+    raises before it builds or serves anything."""
+    from kubernetes_tpu_torch.cmd.localup import LocalCluster, build_parser
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalCluster(build_parser().parse_args(["--batch-scheduler", "--port", "0"]))
 
 
 def test_standby_raises_without_cuda(no_cuda):
@@ -741,3 +796,27 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert not _printed_result(proc.stdout)
+
+
+def test_chip_smoke_log_tail_leaves_the_childs_offset():
+    """A child's output file read while the child writes: every line
+    lands once and in order. The child writes through the same open
+    file, so a reader that seeks moves the child's write offset, and
+    the child's next line overwrites the start of the file."""
+    import importlib.util
+    import tempfile
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n = 400
+    with tempfile.TemporaryFile() as log:
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import time\n"
+             f"for i in range({n}):\n    print(f'line {{i}}', flush=True)\n    time.sleep(0.001)"],
+            stdout=log, stderr=subprocess.STDOUT)
+        while child.poll() is None:
+            smoke._log_tail(log, 100)
+        child.wait(timeout=60)
+        assert smoke._log_tail(log, 1 << 20).splitlines() == [f"line {i}" for i in range(n)]

@@ -421,3 +421,50 @@ def test_proxy_server_follows_the_apiserver_like_jax(backends):
         seen[pkg.name] = (ip, first, after, gone)
     assert seen["port"][1:] == seen["jax"][1:]
     assert seen["port"][1:] == ([b"A:", b"B:", b"A:", b"B:"], [b"C:"] * 3, None)
+
+
+class _AnswerAtEOF(socketserver.BaseRequestHandler):
+    """Reads the whole request (to the client's half-close), then answers
+    and closes, as a request-to-EOF protocol does."""
+
+    def handle(self):
+        data = b""
+        while True:
+            chunk = self.request.recv(4096)
+            if not chunk:
+                break
+            data += chunk
+        self.request.sendall(b"got " + data)
+
+
+@pytest.mark.parametrize("size", [1, 3000, 200_000])
+def test_portal_keeps_the_reply_after_the_client_half_closes(size):
+    """A client that half-closes after its request still gets the whole
+    reply: each direction of the port's copy loop only half-closes, and
+    the sockets close once both are done (the reference's copyBytes; a
+    departure from JAX's loop, which closes both sockets as soon as the
+    client's side ends, before the backend has answered)."""
+    srv = _Echo(("127.0.0.1", 0), _AnswerAtEOF)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    payload = bytes(random.Random(size).randrange(256) for _ in range(size))
+    p = PORT.proxier.Proxier()
+    try:
+        p.on_update([_typed(PORT, "Service", _service_wire(
+            "eof", "10.0.0.9", [{"name": "", "port": 80}]))])
+        p.lb.on_update([_typed(PORT, "Endpoints", _endpoints_wire(
+            "eof", [("127.0.0.1", srv.server_address[1])]))])
+        for _ in range(3):
+            with socket.create_connection(p.rules.resolve("10.0.0.9", 80), timeout=10) as s:
+                s.sendall(payload)
+                s.shutdown(socket.SHUT_WR)
+                got = b""
+                while True:
+                    chunk = s.recv(65536)
+                    if not chunk:
+                        break
+                    got += chunk
+            assert got == b"got " + payload
+    finally:
+        p.stop()
+        srv.shutdown()
+        srv.server_close()
