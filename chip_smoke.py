@@ -393,7 +393,19 @@ exits non-zero and prints no result. Phases, one JSON line each:
               prewarm (its /debug/kernels), the RC's service resolved by
               the DNS addon on the port the child printed, SIGINT to
               exit 0 with no process of its group left; create to
-              Running p50 and p99, K1's launches;
+              Running p50 and p99, K1's launches; ktctl, the port's CLI
+              (`python -m kubernetes_tpu_torch.cli`, a fresh process a
+              command, the server found through its kubeconfig) against
+              `hyperkube local-up-cluster --batch-scheduler --nodes 2
+              --kubelet-http --process-runtime --no-kube-proxy --port 0`
+              as a child on the card: config, create -f (an RC of 3 and
+              a service, JSON) to Running through K1 in the child,
+              explain, top nodes and capacity, logs, exec, a
+              port-forward child answering a GET, scale to 4,
+              rolling-update --image, stop leaving no pod in the
+              apiserver or the runtimes, SIGINT to exit 0; each
+              command's wall (p50, max), create and scale to Running,
+              the rolling update's and the stop's walls, K1's launches;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -435,7 +447,7 @@ compared by running it in turns in one command (A B B A).
 
     python3 chip_smoke.py --daemon
 
-builds the kernels and runs phase 5o alone (twenty-three lines, no
+builds the kernels and runs phase 5o alone (twenty-four lines, no
 result line); `--daemon-legs daemon_churn,daemon_debug` runs only those legs,
 and `--churn-stuck N` creates N pods that fit no node before
 daemon_churn's load (they retry through it, each retry explained
@@ -714,6 +726,8 @@ def main(argv=None) -> int:
                 "kubelet_service": daemon["kubelet_service"]["k1_launches"],
                 # The local-up-cluster child's own process, past its prewarm.
                 "local_up": daemon["local_up"]["k1_launches"],
+                # The same, driven by the port's CLI.
+                "ktctl": daemon["ktctl"]["k1_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -7826,17 +7840,20 @@ def _group_members(pgid):
 
 class LocalUpChild(_Scheduler):
     """`hyperkube local-up-cluster --batch-scheduler --kubelet-http
-    --cluster-dns --no-kube-proxy --port 0` as a child in its own
-    session, its output in a temporary file: up when it has printed its
-    apiserver's address (then `url`) and the DNS addon's port."""
+    --cluster-dns --no-kube-proxy --port 0` (or the given `flags`) as a
+    child in its own session, its output in a temporary file: up when
+    it has printed its apiserver's address (then `url`) and, with
+    --cluster-dns, the DNS addon's port."""
 
-    def __init__(self, phase, device):
+    def __init__(self, phase, device, flags=None):
         import tempfile
 
         self.phase = phase
+        flags = flags or ["--batch-scheduler", "--nodes", str(LOCAL_UP_NODES), "--kubelet-http",
+                          "--cluster-dns", "--no-kube-proxy", "--port", "0"]
+        self.dns = "--cluster-dns" in flags
         self.cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", "local-up-cluster",
-                    "--batch-scheduler", "--nodes", str(LOCAL_UP_NODES), "--kubelet-http",
-                    "--cluster-dns", "--no-kube-proxy", "--port", "0"]
+                    *flags]
         if device.type != "cuda":  # a dry run on the CPU
             self.cmd += ["--device", "cpu"]
         env = dict(os.environ)
@@ -7848,16 +7865,16 @@ class LocalUpChild(_Scheduler):
                                      start_new_session=True)
 
     def wait_up(self):
-        """(the DNS addon's port, seconds from the spawn)."""
+        """(the DNS addon's port or None, seconds from the spawn)."""
         import re
 
         while True:
             out = self.tail(1 << 20)
             url = re.search(r"cluster up: apiserver at (\S+)", out)
             dns = re.search(r"DNS serves on 127\.0\.0\.1:(\d+) only", out)
-            if url and dns:
+            if url and (dns or not self.dns):
                 self.url = url.group(1)
-                return int(dns.group(1)), time.monotonic() - self.t0
+                return int(dns.group(1)) if dns else None, time.monotonic() - self.t0
             if self.proc.poll() is not None or time.monotonic() - self.t0 > DEBUG_UP_S:
                 self.kill()
                 fail(self.phase, f"local-up-cluster did not come up in {DEBUG_UP_S} s "
@@ -7957,8 +7974,320 @@ def run_local_up(torch, device, smi):
     }
 
 
+# ---------------------------------------------------------------------------
+# The port's CLI against the port's local-up-cluster (a leg of phase 5o)
+# ---------------------------------------------------------------------------
+
+
+KTCTL_NODES = 2
+KTCTL_REPLICAS = 3
+KTCTL_SCALED = 4
+KTCTL_POLL_S = 0.2  # between two `get pods` of a wait, and the rolling update's poll
+KTCTL_WAIT_S = 60.0  # each wait of the leg for pods, counts or a port
+KTCTL_CMD_S = 120.0  # one CLI process, the rolling update included
+
+#: The program each pod of the leg's RC runs (`sys.executable -c
+#: SLEEPER_LAUNCHER`): one line with its pod's name (the pod's log), then
+#: it sleeps until its kubelet stops it.
+SLEEPER_LAUNCHER = r"""
+import os
+import time
+
+print(f"hello from {os.environ['KUBERNETES_POD_NAME']}", flush=True)
+while True:
+    time.sleep(3600)
+"""
+
+#: The leg's port-forward target (`sys.executable -c HTTP_LAUNCHER port`):
+#: an HTTP server on 127.0.0.1:port answering every GET with its pod's
+#: name, like ECHO_LAUNCHER without the secret.
+HTTP_LAUNCHER = r"""
+import http.server
+import os
+import sys
+
+port = int(sys.argv[1])
+pod = os.environ["KUBERNETES_POD_NAME"]
+
+
+class Name(http.server.BaseHTTPRequestHandler):
+    def log_message(self, *args):
+        pass
+
+    def do_GET(self):
+        body = pod.encode()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+
+http.server.ThreadingHTTPServer(("127.0.0.1", port), Name).serve_forever()
+"""
+
+
+class KtctlRunner:
+    """The port's CLI as fresh interpreters, `python -m
+    kubernetes_tpu_torch.cli ARGV`, the way a user runs it: its kubeconfig
+    in `KTCONFIG` (no `--server` once the config is written), each call's
+    wall (the interpreter's start included) kept under its command. A
+    call that exits with another code than `expect` fails the phase."""
+
+    def __init__(self, phase, config):
+        self.phase = phase
+        self.env = dict(os.environ, KTCONFIG=config)
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
+        self.walls = {}
+
+    def argv(self, *args):
+        return [sys.executable, "-m", "kubernetes_tpu_torch.cli", *args]
+
+    def __call__(self, *args, expect=0):
+        t0 = time.monotonic()
+        try:
+            proc = subprocess.run(self.argv(*args), cwd=REPO, env=self.env, capture_output=True,
+                                  text=True, timeout=KTCTL_CMD_S)
+        except subprocess.TimeoutExpired:
+            fail(self.phase, f"ktctl {' '.join(args)} did not end in {KTCTL_CMD_S} s")
+        wall = time.monotonic() - t0
+        name = " ".join(args[:2]) if args[0] in ("config", "top", "profile") else args[0]
+        self.walls.setdefault(name, []).append(wall)
+        if proc.returncode != expect:
+            fail(self.phase, f"ktctl {' '.join(args)} exited {proc.returncode} (wanted {expect}): "
+                             f"{proc.stderr[-800:]} {proc.stdout[-400:]}")
+        return proc.stdout
+
+    def json(self, *args):
+        return json.loads(self(*args, "-o", "json"))
+
+    def pods(self, selector):
+        """The default namespace's pods with `selector`, by name, as
+        `get pods -l selector -o json` prints them."""
+        out = self.json("get", "pods", "-l", selector)
+        items = out["items"] if out.get("kind") == "List" else [out]
+        return {p["metadata"]["name"]: p for p in items}
+
+    def wait_running(self, selector, n):
+        """Seconds until exactly `n` pods with `selector` are Running
+        and ready (`get pods` polled); their wire forms."""
+        t0 = time.monotonic()
+        while True:
+            pods = self.pods(selector)
+            if len(pods) == n and all(_pod_running(p) for p in pods.values()):
+                return time.monotonic() - t0, pods
+            if time.monotonic() - t0 > KTCTL_WAIT_S:
+                fail(self.phase, f"{n} pods {selector} not Running in {KTCTL_WAIT_S} s: "
+                                 f"{ {k: (v.get('status') or {}).get('phase') for k, v in pods.items()} }")
+            time.sleep(KTCTL_POLL_S)
+
+    def k1_calls(self):
+        """K1's launches in the cluster's ledger, as `profile kernels -o
+        json` reads them from its /debug/kernels."""
+        return _k1_calls(self.json("profile", "kernels"))
+
+    def figures(self):
+        return {name: {"calls": len(w), "p50_s": statistics.median(w), "max_s": max(w)}
+                for name, w in sorted(self.walls.items())}
+
+
+def _sleeper_rc(name, replicas, image="sleeper:v1"):
+    return {"kind": "ReplicationController", "metadata": {"name": name},
+            "spec": {"replicas": replicas, "selector": {"app": name},
+                     "template": {"metadata": {"labels": {"app": name}},
+                                  "spec": {"containers": [{
+                                      "name": "main", "image": image,
+                                      "command": [sys.executable, "-c", SLEEPER_LAUNCHER],
+                                      "resources": {"limits": {"cpu": "10m",
+                                                               "memory": "16Mi"}}}]}}}}
+
+
+def run_ktctl(torch, device, smi):
+    """Leg ktctl: the port's CLI drives the port's `hyperkube
+    local-up-cluster --batch-scheduler --nodes 2 --kubelet-http
+    --process-runtime --no-kube-proxy --port 0` child on the card, each
+    command a fresh `python -m kubernetes_tpu_torch.cli` process that
+    finds the server through its kubeconfig alone. An RC of
+    KTCTL_REPLICAS pods running SLEEPER_LAUNCHER is created from JSON
+    with its service and reaches Running through K1 in the child (its
+    launches past the prewarm, read by `profile kernels`); `explain`
+    names a pod's node, `top nodes` both nodes, `top capacity` a sample;
+    `logs` and `exec` answer from a pod; a `port-forward` child tunnels
+    a GET to a pod running HTTP_LAUNCHER; `scale` to KTCTL_SCALED,
+    `rolling-update --image`, then `stop` leaves no pod in the apiserver
+    or the kubelets' runtimes; SIGINT stops the child with 0 and no
+    process of its group left."""
+    import importlib.util
+    import signal
+    import tempfile
+    import types
+
+    phase = "ktctl"
+    t_leg = time.perf_counter()
+    pyyaml = importlib.util.find_spec("yaml") is not None
+    child = LocalUpChild(phase, device, flags=[
+        "--batch-scheduler", "--nodes", str(KTCTL_NODES), "--kubelet-http", "--process-runtime",
+        "--no-kube-proxy", "--port", "0"])
+    forward = None
+    with tempfile.TemporaryDirectory(prefix="ktctl-leg-") as tmp:
+        try:
+            _, up_s = child.wait_up()
+            cli = KtctlRunner(phase, os.path.join(tmp, "config"))
+            # 1. the kubeconfig: every later call finds the server there.
+            cli("config", "set-cluster", "local", "--server-url", child.url)
+            cli("config", "set-context", "local", "--cluster", "local")
+            cli("config", "use-context", "local")
+            if json.loads(cli("config", "view"))["current-context"] != "local":
+                fail(phase, "use-context did not set the current context")
+            nodes = cli.json("get", "nodes")["items"]
+            if len(nodes) != KTCTL_NODES:
+                _wait(phase, f"{KTCTL_NODES} nodes", lambda: len(
+                    cli.json("get", "nodes")["items"]) == KTCTL_NODES, KTCTL_WAIT_S)
+            settled = _settled_k1_calls(types.SimpleNamespace(
+                phase=phase, get_json=lambda path: cli.json("profile", "kernels")))
+            # 2. an RC and a service from JSON, to Running through K1.
+            rc_file, svc_file = os.path.join(tmp, "rc.json"), os.path.join(tmp, "svc.json")
+            with open(rc_file, "w") as f:
+                json.dump(_sleeper_rc("web", KTCTL_REPLICAS), f)
+            with open(svc_file, "w") as f:
+                json.dump({"kind": "Service", "metadata": {"name": "web"},
+                           "spec": {"selector": {"app": "web"}, "ports": [{"port": 80}]}}, f)
+            t0 = time.monotonic()
+            if cli("create", "-f", rc_file) != "replicationcontrollers/web created\n":
+                fail(phase, "create -f rc.json did not say so")
+            cli("create", "-f", svc_file)
+            running_s, pods = cli.wait_running("app=web", KTCTL_REPLICAS)
+            create_to_running_s = time.monotonic() - t0
+            k1 = cli.k1_calls() - settled
+            if k1 <= 0:
+                fail(phase, f"K1 was not launched for the RC's pods (calls {settled} before)")
+            # 3. the scheduler's record, the nodes and the capacity plane.
+            first = sorted(pods)[0]
+            decision = cli.json("explain", "pod", first)["decisions"][0]
+            if decision.get("node") != pods[first]["spec"]["nodeName"]:
+                fail(phase, f"explain names {decision.get('node')}, the pod is on "
+                            f"{pods[first]['spec']['nodeName']}")
+            top = cli("top", "nodes")
+            node_names = sorted(n["metadata"]["name"] for n in nodes)
+            if not all(n in top for n in node_names):
+                fail(phase, f"top nodes does not list {node_names}: {top}")
+            if "fragmentation:" not in cli("top", "capacity"):
+                fail(phase, "top capacity printed no sample")
+            # 4. logs, exec, and a port-forward to an HTTP pod.
+            logs = cli("logs", first)
+            if logs != f"hello from {first}\n":
+                fail(phase, f"logs {first}: {logs!r}")
+            said = cli("exec", first, "--", "printenv", "KUBERNETES_POD_NAME")
+            if said != f"{first}\n":
+                fail(phase, f"exec {first}: {said!r}")
+            backend, local = _free_port(), _free_port()
+            pod_file = os.path.join(tmp, "http.json")
+            with open(pod_file, "w") as f:
+                json.dump({"kind": "Pod", "metadata": {"name": "http-0",
+                                                       "labels": {"app": "http"}},
+                           "spec": {"containers": [{
+                               "name": "http", "image": "http",
+                               "command": [sys.executable, "-c", HTTP_LAUNCHER],
+                               "args": [str(backend)], "ports": [{"containerPort": backend}],
+                               "readinessProbe": {"httpGet": {"path": "/", "port": backend}}}]}},
+                          f)
+            cli("create", "-f", pod_file)
+            cli.wait_running("app=http", 1)
+            forward_log = open(os.path.join(tmp, "forward.log"), "w+")
+            t_forward = time.monotonic()
+            forward = subprocess.Popen(cli.argv("port-forward", "http-0", f"{local}:{backend}"),
+                                       cwd=REPO, env=cli.env, stdin=subprocess.DEVNULL,
+                                       stdout=forward_log, stderr=subprocess.STDOUT,
+                                       start_new_session=True)
+
+            def through():
+                try:
+                    return _http_get(("127.0.0.1", local))
+                except OSError:
+                    if forward.poll() is not None:
+                        fail(phase, f"port-forward exited {forward.returncode}: "
+                                    f"{_log_tail(forward_log, 800)}")
+                    return None
+
+            _wait(phase, "a GET through port-forward", lambda: through() is not None,
+                  KTCTL_WAIT_S, interval=0.1)
+            forwarded = through()
+            forward_s = time.monotonic() - t_forward
+            if forwarded != (200, "http-0"):
+                fail(phase, f"GET through port-forward: {forwarded}")
+            forward.send_signal(signal.SIGINT)
+            try:
+                forward_rc = forward.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                fail(phase, "port-forward did not stop on SIGINT")
+            forward = None
+            forward_log.close()
+            cli("delete", "pod", "http-0")
+            # 5. scale, rolling update, stop.
+            t0 = time.monotonic()
+            cli("scale", "rc", "web", "--replicas", str(KTCTL_SCALED))
+            cli.wait_running("app=web", KTCTL_SCALED)
+            scale_to_running_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            progress = cli("rolling-update", "web", "--image", "sleeper:v2", "--poll-interval",
+                           str(KTCTL_POLL_S))
+            rolling_update_s = time.monotonic() - t0
+            if not progress.endswith("replicationcontroller/web rolling updated\n"):
+                fail(phase, f"rolling-update said {progress[-300:]!r}")
+            rc = cli.json("get", "rc", "web")
+            selector = ",".join(f"{k}={v}" for k, v in sorted(rc["spec"]["selector"].items()))
+            _, updated = cli.wait_running(selector, KTCTL_SCALED)
+            images = {p["spec"]["containers"][0]["image"] for p in updated.values()}
+            left = set(cli.pods("app=web")) - set(updated)
+            if images != {"sleeper:v2"} or left:
+                fail(phase, f"after the rolling update: images {images}, other pods {left}")
+            t0 = time.monotonic()
+            cli("stop", "rc", "web")
+            stop_s = time.monotonic() - t0
+            _wait(phase, "no pod in the apiserver", lambda: not cli.json("get", "pods")["items"],
+                  KTCTL_WAIT_S, interval=KTCTL_POLL_S)
+            _wait(phase, "no pod in the kubelets' runtimes",
+                  lambda: cli("top", "pods").strip().count("\n") == 0, KTCTL_WAIT_S,
+                  interval=KTCTL_POLL_S)
+            stop_to_gone_s = time.monotonic() - t0
+            # 6. SIGINT stops the cluster.
+            t_stop = time.monotonic()
+            child.proc.send_signal(signal.SIGINT)
+            try:
+                rc_exit = child.proc.wait(timeout=KTCTL_WAIT_S)
+            except subprocess.TimeoutExpired:
+                fail(phase, f"SIGINT did not stop the child in {KTCTL_WAIT_S} s: {child.tail()}")
+            sigint_s = time.monotonic() - t_stop
+            group = _group_members(child.proc.pid)
+            if rc_exit != 0 or group or "cluster stopped" not in child.tail():
+                fail(phase, f"SIGINT: exit {rc_exit}, processes left {group}: {child.tail()}")
+        finally:
+            if forward is not None and forward.poll() is None:
+                os.killpg(forward.pid, signal.SIGKILL)
+                forward.wait(timeout=10)
+            child.kill()
+    walls = cli.figures()
+    return {
+        "card": smi, "pyyaml_importable": pyyaml, "nodes": node_names,
+        "replicas": KTCTL_REPLICAS, "scaled": KTCTL_SCALED, "start_to_up_s": up_s,
+        "prewarm_k1_launches": settled, "k1_launches": k1,
+        "create_to_running_s": create_to_running_s, "running_wait_s": running_s,
+        "scale_to_running_s": scale_to_running_s, "rolling_update_s": rolling_update_s,
+        "stop_s": stop_s, "stop_to_gone_s": stop_to_gone_s, "forward_first_get_s": forward_s,
+        "port_forward_exit": forward_rc, "sigint_to_exit_s": sigint_s, "exit_code": rc_exit,
+        "explained_node": decision.get("node"), "command_walls": walls,
+        "commands": sum(v["calls"] for v in walls.values()),
+        "leg_s": time.perf_counter() - t_leg,
+        "timed": "host clock of this process around each CLI process (the interpreter's "
+                 "start included) and from each command's start to the state it asks for, "
+                 "polled with `get pods` every 0.2 s; K1's launches from the child's "
+                 "/debug/kernels through `profile kernels` once the prewarm's settled and "
+                 "after all Running",
+    }
+
+
 def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
-    """The twenty-three legs, each on a fresh apiserver child (only `legs`
+    """The twenty-four legs, each on a fresh apiserver child (only `legs`
     when given). `churn_stuck` pods that fit no node wait through
     daemon_churn's load."""
     plan = {
@@ -7988,6 +8317,7 @@ def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
         "kubelet_service": lambda: run_kubelet_service(torch, device, smi),
         "cloud_controllers": lambda: run_cloud_controllers(torch, device, smi),
         "local_up": lambda: run_local_up(torch, device, smi),
+        "ktctl": lambda: run_ktctl(torch, device, smi),
     }
     unknown = set(legs) - set(plan)
     if unknown:

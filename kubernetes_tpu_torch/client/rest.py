@@ -9,8 +9,11 @@ daemon runs (reference: pkg/client/client.go + request.go):
   the tests the JAX package's. An error that carries `code`, `reason`
   and `message` is raised again as the port's `APIError`.
 - `HTTPTransport` speaks the apiserver's HTTP wire to one endpoint or a
-  list of them (the replicated control plane's apiservers): the active
-  trace's id in the `X-Trace-Id` header of each request, one keep-alive
+  list of them (the replicated control plane's apiservers): static
+  headers (a kubeconfig's credentials) and the active trace's id in the
+  `X-Trace-Id` header of each request, watches included; TLS for an
+  `https://` URL or a given `ssl_context`; `get_json` and `get_text`
+  for the non-resource paths (`/debug/*`); one keep-alive
   connection a thread, a free replay when a reused connection proves
   stale, bounded retries of idempotent verbs on connection failures and
   502/503/504, each retry rotating to the next endpoint (a POST is
@@ -21,9 +24,11 @@ daemon runs (reference: pkg/client/client.go + request.go):
   through `client/record.py`. `list_wire`, `get_wire` and
   `update_status_wire` return the apiserver's dicts as they come, for a
   caller that must carry every field of a stored object (the
-  descheduler's moves, the kubelet's node).
+  descheduler's moves, the kubelet's node). `pod_exec` runs a command
+  in a pod's container through the apiserver's exec subresource.
 
-A watch yields `Event`s (`.type`, `.object` as a wire dict, `.version`),
+JAX's `serialize` option (one shared connection behind a lock) is not
+carried. A watch yields `Event`s (`.type`, `.object` as a wire dict, `.version`),
 the shape of `kubernetes_tpu/store/watch.py`'s.
 """
 
@@ -34,6 +39,7 @@ import json
 import queue
 import random
 import socket
+import ssl
 import threading
 import time
 from dataclasses import dataclass
@@ -113,6 +119,10 @@ RESOURCES: Dict[str, Resource] = {
     "persistentvolumeclaims": Resource("persistentvolumeclaims",
                                        apiobjects.PersistentVolumeClaim),
     "limitranges": Resource("limitranges", apiobjects.LimitRange),
+    "priorityclasses": Resource("priorityclasses", apiobjects.PriorityClass,
+                                namespaced=False),
+    "componentstatuses": Resource("componentstatuses", apiobjects.ComponentStatus,
+                                  namespaced=False),
 }
 
 #: Failures that mean a pooled keep-alive connection went stale.
@@ -121,6 +131,7 @@ _STALE_ERRORS = (
     http.client.CannotSendRequest,
     ConnectionError,
     BrokenPipeError,
+    ssl.SSLError,
 )
 
 #: Verbs replayed when a reused connection dies before any response
@@ -260,6 +271,13 @@ class _HTTPWatchStream:
     def closed(self) -> bool:
         return self._closed
 
+    def __iter__(self):
+        while True:
+            ev = self.next()
+            if ev is None:
+                return
+            yield ev
+
 
 class HTTPTransport(Transport):
     """HTTP to one apiserver endpoint, or to a list of them. Requests pin
@@ -267,16 +285,26 @@ class HTTPTransport(Transport):
     next; the rotation bumps a generation that makes every thread's
     pooled connection dial the new endpoint."""
 
-    def __init__(self, base_url, timeout: float = 30.0, max_retries: int = 3):
+    def __init__(self, base_url, timeout: float = 30.0,
+                 headers: Optional[Dict[str, str]] = None, ssl_context=None,
+                 max_retries: int = 3):
         urls = [base_url] if isinstance(base_url, str) else list(base_url)
         if not urls:
             raise ValueError("HTTPTransport needs at least one endpoint")
+        scheme = ""
         self.endpoints: List[Tuple[str, int]] = []
         for raw in urls:
             u = urlparse(raw)
-            if u.scheme not in ("", "http"):
-                raise ValueError(f"HTTPTransport speaks plain http, not {u.scheme!r}")
-            self.endpoints.append((u.hostname or "127.0.0.1", u.port or 80))
+            scheme = scheme or u.scheme
+            self.endpoints.append((u.hostname or "127.0.0.1",
+                                   u.port or (443 if u.scheme == "https" else 80)))
+        #: Sent with every request and every watch (a kubeconfig's auth).
+        self.headers = dict(headers or {})
+        # An https:// URL, or a given context (a client certificate for
+        # x509 authentication), switches to HTTPSConnection.
+        self.ssl_context = ssl_context
+        if scheme == "https" and ssl_context is None:
+            self.ssl_context = ssl.create_default_context()
         self._ep_lock = threading.Lock()
         self._ep_idx = 0
         self._ep_gen = 0
@@ -302,7 +330,11 @@ class HTTPTransport(Transport):
         self._discard()
 
     def _connect(self, timeout=None) -> http.client.HTTPConnection:
-        conn = http.client.HTTPConnection(self.host, self.port, timeout=timeout)
+        if self.ssl_context is not None:
+            conn = http.client.HTTPSConnection(self.host, self.port, timeout=timeout,
+                                               context=self.ssl_context)
+        else:
+            conn = http.client.HTTPConnection(self.host, self.port, timeout=timeout)
         conn.connect()
         try:
             # Nagle with delayed ACKs stalls keep-alive round trips.
@@ -353,7 +385,9 @@ class HTTPTransport(Transport):
         if query:
             path = path + "?" + urlencode({k: v for k, v in query.items() if v})
         payload = json.dumps(body).encode() if body is not None else None
-        headers = {"Content-Type": content_type} if payload else {}
+        headers = dict(self.headers)
+        if payload:
+            headers["Content-Type"] = content_type
         # Dapper hop: the apiserver records its handling of this request
         # under the active trace's id.
         tid = tracing.current_trace_id()
@@ -429,6 +463,15 @@ class HTTPTransport(Transport):
             return raw_body.decode(errors="replace")
         return json.loads(raw_body or b"{}")
 
+    def get_json(self, path: str, query: Optional[Dict[str, str]] = None):
+        """GET a path outside the resource verbs (`/debug/*`), decoded;
+        the same connection, headers and retries as every request."""
+        return self._do("GET", path, query=query)
+
+    def get_text(self, path: str, query: Optional[Dict[str, str]] = None) -> str:
+        """`get_json`'s text sibling (`/debug/profile`, `/metrics`)."""
+        return self._do("GET", path, query=query, raw=True)
+
     def request(self, verb, op, args, body=None, patch_type=None):
         if op == "create":
             resource, namespace = args
@@ -487,6 +530,10 @@ class HTTPTransport(Transport):
                             query={"container": container,
                                    "tailLines": str(tail) if tail is not None else ""},
                             raw=True)
+        if op == "pod_exec":
+            namespace, name, container = args
+            return self._do("POST", f"/api/v1/namespaces/{namespace or 'default'}/pods/{name}/exec",
+                            query={"container": container}, body=body)
         raise ValueError(f"unknown op {op!r}")
 
     def watch(self, resource, namespace, since, lsel, fsel):
@@ -510,7 +557,7 @@ class HTTPTransport(Transport):
         for _ in range(len(self.endpoints)):
             try:
                 conn = self._connect(timeout=self.timeout)
-                conn.request("GET", path)
+                conn.request("GET", path, headers=self.headers)
                 resp = conn.getresponse()
                 break
             except _STALE_ERRORS as e:
@@ -631,6 +678,13 @@ class Client:
         """GET /pods/{name}/log (relayed through the apiserver from the
         pod's kubelet)."""
         return self.t.request("GET", "pod_log", (namespace, name, container, tail))
+
+    def pod_exec(self, name: str, command: List[str], namespace: str = "default",
+                 container: str = "") -> dict:
+        """POST /pods/{name}/exec: {"exitCode", "output"} of `command`
+        run in the container (relayed to the pod's kubelet)."""
+        return self.t.request("POST", "pod_exec", (namespace, name, container),
+                              {"command": list(command)})
 
     def bind(self, pod_name: str, node_name: str, namespace: str = "default") -> None:
         """POST one Binding (the per-pod scheduler's commit;

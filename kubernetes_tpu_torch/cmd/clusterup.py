@@ -39,7 +39,7 @@ port's, launched as `python -m kubernetes_tpu_torch.cmd.hyperkube
 `bin/hyperkube`, which starts the JAX package); the inventory's
 `"device"` (default `"cuda"`) is passed to each scheduler as
 `--device`, where its batch daemon solves; the last hint names the
-apiserver's node list, since the port has no ktctl yet.
+port's CLI, `python -m kubernetes_tpu_torch.cli`.
 """
 
 from __future__ import annotations
@@ -214,7 +214,7 @@ def up(inv: dict, state_dir: str, provider: str = "local",
         return 1
     print(f"cluster up: {server} ({len(steps)} components; "
           f"state in {state_dir})")
-    print(f"  try: curl {server}/api/v1/nodes")
+    print(f"  try: python -m kubernetes_tpu_torch.cli get nodes --server {server}")
     return 0
 
 

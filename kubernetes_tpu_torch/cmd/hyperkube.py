@@ -5,10 +5,9 @@ cmd/hyperkube/main.go:34-38). Routes: `apiserver`
 (`cmd/daemons.apiserver_main`), `controller-manager`
 (`cmd/daemons.controller_manager_main`), `kubelet`
 (`cmd/daemons.kubelet_main`), `proxy` (`cmd/daemons.proxy_main`),
-`scheduler` (`cmd/scheduler.main`) and `local-up-cluster`
-(`cmd/localup.main`). A server of the JAX command that the port does
-not have yet (ktctl) exits with code 2 and names itself as not yet
-ported; nothing falls through to the JAX package.
+`scheduler` (`cmd/scheduler.main`), `local-up-cluster`
+(`cmd/localup.main`) and `ktctl` (`cli/ktctl.main`, the CLI).
+Nothing falls through to the JAX package.
 
 Usage:
     python -m kubernetes_tpu_torch.cmd.hyperkube <server> [flags...]
@@ -56,12 +55,15 @@ def _scheduler(argv: List[str]) -> int:
     return scheduler.main(argv)
 
 
-SERVERS = {"apiserver": _apiserver, "controller-manager": _controller_manager,
-           "kubelet": _kubelet, "local-up-cluster": _local_up_cluster, "proxy": _proxy,
-           "scheduler": _scheduler}
+def _ktctl(argv: List[str]) -> int:
+    from kubernetes_tpu_torch.cli.ktctl import main as ktctl_main
 
-#: The JAX command's other servers, which the port has not ported yet.
-NOT_PORTED = ("ktctl",)
+    return ktctl_main(argv)
+
+
+SERVERS = {"apiserver": _apiserver, "controller-manager": _controller_manager,
+           "kubelet": _kubelet, "ktctl": _ktctl, "local-up-cluster": _local_up_cluster,
+           "proxy": _proxy, "scheduler": _scheduler}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -70,10 +72,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"usage: hyperkube <server> [flags]\nservers: {', '.join(sorted(SERVERS))}")
         return 0 if argv else 1
     name, rest = argv[0], argv[1:]
-    if name in NOT_PORTED:
-        print(f"error: server {name!r} is not yet ported to kubernetes_tpu_torch",
-              file=sys.stderr)
-        return 2
     fn = SERVERS.get(name)
     if fn is None:
         print(f"error: unknown server {name!r}", file=sys.stderr)

@@ -369,7 +369,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     cluster = LocalCluster(args).start()
     try:
         print(f"cluster up: apiserver at {cluster.http.address}", flush=True)
-        print(f"  ktctl --server {cluster.http.address} get nodes", flush=True)
+        print(f"  python -m kubernetes_tpu_torch.cli --server {cluster.http.address} "
+              "get nodes", flush=True)
         from kubernetes_tpu_torch.cmd.daemons import _wait_forever
 
         _wait_forever()

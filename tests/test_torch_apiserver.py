@@ -22,6 +22,7 @@ import http.client
 import itertools
 import json
 import re
+import sys
 import time
 import types
 
@@ -73,8 +74,11 @@ def jax_request_latency_kept():
 def same_uids_and_stamps(monkeypatch):
     """One uid counter a package, the same fixed stamp in both, the same
     wall clock in both `server/api.py`s (a graceful delete stamps its
-    deadline from it), and both flight recorders empty (their ring sizes
-    are in /healthz)."""
+    deadline from it), both flight recorders empty (their ring sizes
+    are in /healthz), and each package's capacity and rebalance monitors
+    that this process has loaded fresh, as in an apiserver's process:
+    another file's daemons in this worker may have sampled them, and
+    /debug/capacity and /debug/rebalance read them."""
     wall = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time)
                                     if not k.startswith("_")})
     wall.time = lambda: 1_767_225_600.0
@@ -90,6 +94,11 @@ def same_uids_and_stamps(monkeypatch):
             monkeypatch.setattr(mod, "now_iso", lambda: STAMP)
     for rec in (jax_flightrecorder.DEFAULT, port_flightrecorder.DEFAULT):
         rec.clear()
+    for name in ("kubernetes_tpu.utils.capacity", "kubernetes_tpu.utils.rebalance",
+                 "kubernetes_tpu_torch.utils.capacity", "kubernetes_tpu_torch.utils.rebalance"):
+        monitor = sys.modules.get(name)
+        if monitor is not None:
+            monkeypatch.setattr(monitor, "DEFAULT", type(monitor.DEFAULT)())
 
 
 def _call(port, method, path, body=None, headers=None):

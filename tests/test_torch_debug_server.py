@@ -11,7 +11,7 @@ capture already running and the 503 of an unavailable profiler. A 404
 lists the port's own views. `/healthz` turns 500 once the daemon's loop
 thread dies, and the JAX package's `ktctl explain` and `ktctl trace`,
 given a client on the port's address, print what they print against the
-JAX apiserver.
+JAX apiserver; so does the port's CLI over the port's client.
 
 Also here: the port's HTTP client stamps the tick's trace id on its
 requests, so the apiserver records the bind under the tick's id, as
@@ -235,6 +235,28 @@ def test_ktctl_reads_the_port_s_views(servers, capsys, argv):
     out = []
     for addr in (jaddr, taddr):
         rc = ktctl.main(list(argv), client=JClient(JHTTPTransport(addr)))
+        cap = capsys.readouterr()
+        out.append((rc, cap.out, cap.err))
+    assert out[1] == out[0]
+    assert (out[0][0] == 1) == ("missing" in argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["explain", "pod", "p1"], ["explain", "pod", "web", "-n", "ns1", "--limit", "4"],
+    ["explain", "pod", "moved"], ["explain", "pod", "p1", "-o", "yaml"],
+    ["explain", "pod", "missing"], ["trace"], ["trace", "p1", "-o", "json"],
+    ["trace", "missing"],
+])
+def test_port_ktctl_reads_the_port_s_views_as_jax_ktctl_reads_jax_s(servers, capsys, argv):
+    """The port's CLI over the port's HTTP transport on the port's views
+    prints what JAX's CLI prints on JAX's."""
+    from kubernetes_tpu_torch.cli import ktctl as port_ktctl
+
+    jaddr, taddr = servers
+    out = []
+    for main, client in ((ktctl.main, JClient(JHTTPTransport(jaddr))),
+                         (port_ktctl.main, Client(HTTPTransport(taddr)))):
+        rc = main(list(argv), client=client)
         cap = capsys.readouterr()
         out.append((rc, cap.out, cap.err))
     assert out[1] == out[0]

@@ -13,8 +13,8 @@ and its process loads neither torch nor the JAX package; with
 `--fake-runtime` kubelet child registers its node with an in-process
 apiserver, and a `--no-real-portals` proxy child answers /healthz; both
 processes map neither torch nor CUDA. `local-up-cluster` is the port's
-command. A server the port does not have yet (ktctl) exits 2 naming
-itself; an unknown one exits 1. The apiserver's and
+command, and so is `ktctl` (the port's CLI); an unknown server exits 1.
+The apiserver's and
 the controller-manager's flags are JAX's.
 """
 
@@ -165,17 +165,21 @@ def test_durable_apiserver_recovers_after_sigkill(tmp_path):
 
 
 @pytest.mark.parametrize("server,rc,says", [
-    ("ktctl", 2, "not yet ported"), ("frobnicator", 1, "unknown server")])
+    # No subcommand: the port's ktctl parser asks for one (argparse's 2).
+    ("ktctl", 2, "usage: ktctl"), ("frobnicator", 1, "unknown server")])
 def test_unported_and_unknown_servers(server, rc, says):
+    """Every server of the JAX command is routed to the port's (ktctl to
+    `cli/ktctl.main`); an unknown one exits 1."""
     from kubernetes_tpu_torch.cmd import hyperkube
 
     proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", server],
                           cwd=REPO, env=_env(), capture_output=True, text=True, timeout=60)
     assert proc.returncode == rc and says in proc.stderr
-    assert set(hyperkube.SERVERS) | set(hyperkube.NOT_PORTED) >= {
+    assert "not yet ported" not in proc.stderr
+    assert set(hyperkube.SERVERS) == {
         "apiserver", "scheduler", "controller-manager", "kubelet", "proxy", "ktctl",
         "local-up-cluster"}
-    assert hyperkube.NOT_PORTED == ("ktctl",)
+    assert not hasattr(hyperkube, "NOT_PORTED")
 
 
 def test_local_up_cluster_route_is_the_ports_command():
@@ -205,8 +209,8 @@ def test_scheduler_route_is_the_ports_command():
     assert proc.returncode == 0 and "--batch-incremental" in proc.stdout
     proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube"],
                           cwd=REPO, env=_env(), capture_output=True, text=True, timeout=60)
-    assert proc.returncode == 1 and ("apiserver, controller-manager, kubelet, local-up-cluster, "
-                                     "proxy, scheduler" in proc.stdout)
+    assert proc.returncode == 1 and ("apiserver, controller-manager, ktctl, kubelet, "
+                                     "local-up-cluster, proxy, scheduler" in proc.stdout)
 
 
 def test_apiserver_flags_are_jax_flags():
@@ -407,7 +411,7 @@ def test_node_routes_are_the_ports_commands(server):
     from kubernetes_tpu_torch.server.api import APIServer
     from kubernetes_tpu_torch.server.httpserver import APIHTTPServer
 
-    assert server in hyperkube.SERVERS and server not in hyperkube.NOT_PORTED
+    assert server in hyperkube.SERVERS
     cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.hyperkube", server]
     proc = subprocess.run(cmd + ["--help"], cwd=REPO, env=_env(), capture_output=True, text=True,
                           timeout=60)
