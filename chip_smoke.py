@@ -406,6 +406,20 @@ exits non-zero and prints no result. Phases, one JSON line each:
               apiserver or the runtimes, SIGINT to exit 0; each
               command's wall (p50, max), create and scale to Running,
               the rolling update's and the stop's walls, K1's launches;
+              soak, last, in this process with the port's lock sanitizer
+              on from before the cluster is built: the port's hollow-node
+              soak (`kubernetes_tpu_torch.soak.run_soak`, 200 nodes, seed
+              7, fsync on a temporary data dir, the incremental daemon,
+              the descheduler and the autoscaler on the card) over
+              SOAK_EPOCHS (`--soak-epochs all` the full 11) with its
+              seeded fault schedule; zero invariant violations, every
+              expected alert fired and resolved, the apiserver and the
+              daemon restarted, K1's and K2's ledger calls risen, no
+              sanitizer finding and no lock held by a dead thread, no
+              non-daemon thread left, the registry disarmed, and each
+              armed site fired where its rule and seeded stream say;
+              each epoch's wall, binds and bind p99, firings per site,
+              K1 and K2 launches, the sanitizer's locks and edges;
   6. kernels  per kernel: launches on the main path, its time by CUDA
               events at the main path's shape, the plain version's time
               on the same inputs, and the bound for that work; for the
@@ -565,6 +579,9 @@ def main(argv=None) -> int:
     parser.add_argument("--daemon-legs", default="",
                         help="with --daemon: the comma-separated legs of phase 5o to run "
                              "(default all)")
+    parser.add_argument("--soak-epochs", default="",
+                        help="the soak leg's epochs, comma-separated, or `all` for the full "
+                             "schedule (default: SOAK_EPOCHS)")
     parser.add_argument("--churn-stuck", type=int, default=0,
                         help="pods that fit no node, created before daemon_churn's load "
                              "(default 0)")
@@ -610,7 +627,7 @@ def main(argv=None) -> int:
 
     if args.daemon:
         run_daemon(torch, device, smi, legs=set(filter(None, args.daemon_legs.split(","))),
-                   churn_stuck=args.churn_stuck)
+                   churn_stuck=args.churn_stuck, soak_epochs=args.soak_epochs)
         print(smi, flush=True)
         return 0
 
@@ -679,7 +696,7 @@ def main(argv=None) -> int:
                                                          placed_names))
 
     # -- 5o. the scheduler daemon against the port's apiserver --------------------
-    daemon = run_daemon(torch, device, smi)
+    daemon = run_daemon(torch, device, smi, soak_epochs=args.soak_epochs)
 
     # -- 6. kernels --------------------------------------------------------
     ptxas = "\n".join(str(r["log"]) for r in records if r["name"] == "scan_kernel")
@@ -728,6 +745,9 @@ def main(argv=None) -> int:
                 "local_up": daemon["local_up"]["k1_launches"],
                 # The same, driven by the port's CLI.
                 "ktctl": daemon["ktctl"]["k1_launches"],
+                # The soak's daemons (the killed ones, the fresh ones and
+                # the warm standby) under its fault schedule.
+                "soak": daemon["soak"]["k1_launches"],
             },
             "max_abs_err": max(parity["summary"]["max_abs_err"], parity_in_place["max_abs_err"]),
             "ms": timing["ms"],
@@ -773,7 +793,8 @@ def main(argv=None) -> int:
             "launches_by_path": {**{f"rebalance_{k}": v for k, v in rebalance_line["launches"].items()},
                                  **k2_launches, "rebalance_parity": rebalance_parity["launches"],
                                  "desched_defrag": daemon["desched_defrag"]["k2_launches"],
-                                 "autoscale_cycle": daemon["autoscale_cycle"]["k2_launches"]},
+                                 "autoscale_cycle": daemon["autoscale_cycle"]["k2_launches"],
+                                 "soak": daemon["soak"]["k2_launches"]},
             "max_abs_err": max(rebalance_parity["max_abs_err"], rebalance_line["k2"]["max_abs_err"]),
             # ms, plain_ms and bound_ms: the same first rows of case budget_d.
             "ms": rebalance_line["k2"]["ms"],
@@ -8286,10 +8307,219 @@ def run_ktctl(torch, device, smi):
     }
 
 
-def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
-    """The twenty-four legs, each on a fresh apiserver child (only `legs`
-    when given). `churn_stuck` pods that fit no node wait through
-    daemon_churn's load."""
+SOAK_NODES = 200  # the harness's default fleet
+SOAK_SEED = 7
+#: The epochs the leg runs unless `--soak-epochs` says otherwise: the
+#: full schedule took longer than this leg's room (PERF.md section 4), so
+#: the subset that keeps K1, preemption and K2 on the path.
+SOAK_EPOCHS = ("baseline", "apiserver_restart", "daemon_restart_mid_gang", "preemption_storm",
+               "defrag_daemon_crash", "final")
+
+
+def _ledger_calls(kernel):
+    """The kernel's calls on the card in the port's ledger."""
+    from kubernetes_tpu_torch.ops import ledger
+
+    return sum(r["calls"] for r in ledger.DEFAULT.rows()
+               if r["kernel"] == kernel and r["impl"] == "cuda")
+
+
+def _expected_firings(rule, seed, calls_at_site):
+    """The per-site call indices at which the p-rule `rule` fires when
+    armed over the calls `calls_at_site` (its first and last per-site
+    index), from the rule and the site's seeded stream alone: what a
+    second `build_schedule(seed)` arms there. The rule draws once a call
+    from `Random(f"{seed}:{site}")` until its budget is spent."""
+    import random
+
+    first, last = calls_at_site
+    rng = random.Random(f"{seed}:{rule['site']}")
+    times = rule.get("times")
+    out = []
+    for call in range(first, last + 1):
+        if times is not None and len(out) >= times:
+            break
+        if rng.random() < rule["p"]:
+            out.append(call)
+    return out
+
+
+class _SoakSteps:
+    """Seconds in each of the soak's driver verbs, checks and restarts
+    while in the block, summed by name: where an epoch's wall goes."""
+
+    STEPS = {
+        "ChurnDriver": ("create_pods", "reconcile_missing", "wait_bound", "delete_pods",
+                        "delete_group"),
+        "InvariantChecker": ("quiesce", "_check_store_vs_mirror", "_check_gangs",
+                             "_check_nominations", "_check_move_journal", "_check_slo_epoch",
+                             "_check_capacity_epoch", "_check_alerts_epoch"),
+        "SoakCluster": ("restart_apiserver", "restart_scheduler"),
+    }
+
+    def __init__(self, soak):
+        self.soak, self.seconds, self._saved = soak, {}, []
+
+    def __enter__(self):
+        for cls_name, names in self.STEPS.items():
+            cls = getattr(self.soak, cls_name)
+            for name in names:
+                fn = getattr(cls, name)
+                self._saved.append((cls, name, fn))
+                setattr(cls, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def _k2_count():
+    """K2's wrapper count (a CPU dry run patches it, as `_k1_count`)."""
+    from kubernetes_tpu_torch.ops import rebalance
+
+    return rebalance.plan_moves.launches
+
+
+def run_soak_leg(torch, device, smi, soak_epochs=""):
+    """Leg soak: the port's whole control plane through the soak's
+    seeded fault schedule, in this process, on the card, sanitized."""
+    import tempfile
+
+    from kubernetes_tpu_torch import soak
+    from kubernetes_tpu_torch.ops import rebalance
+    from kubernetes_tpu_torch.utils import capacity, faults, flightrecorder, sanitizer
+    from kubernetes_tpu_torch.utils import rebalance as rebal_utils
+
+    phase = "soak"
+    if soak_epochs == "all":
+        epochs = list(soak.EPOCHS)
+    else:
+        epochs = list(filter(None, soak_epochs.split(","))) or list(SOAK_EPOCHS)
+    # The process-wide monitors at their defaults: earlier legs set the
+    # slice shapes and the recorder's limits.
+    capacity.DEFAULT.reset()
+    rebal_utils.DEFAULT.reset()
+    _fresh_recorder()
+    flightrecorder.DEFAULT.clear()
+    sanitizer.enable()
+    sanitizer.reset()
+    k1_calls0, k2_calls0 = _ledger_calls("scan_kernel"), _ledger_calls("rebalance_kernel")
+    threads0 = {t.ident for t in threading.enumerate()}
+    on_card = torch.device(device).type == "cuda"
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    _k1_set(0)
+    rebalance.plan_moves.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="soak-leg-") as data_dir, _SoakSteps(soak) as steps:
+        art = soak.run_soak(n_nodes=SOAK_NODES, seed=SOAK_SEED, epochs=epochs,
+                            data_dir=data_dir, fsync=True, verbose=False, device=device)
+    wall = time.perf_counter() - t0
+
+    def fresh(daemon):
+        return [t.name for t in threading.enumerate()
+                if t.ident not in threads0 and t.is_alive() and t.daemon == daemon]
+
+    _wait(phase, "the soak's non-daemon threads to end", lambda: not fresh(False), timeout=10)
+    if on_card:
+        torch.cuda.synchronize()
+    mem_left = (torch.cuda.memory_allocated() - mem0) if on_card else 0
+    k1, k2 = _k1_count(), _k2_count()
+    k1_calls = _ledger_calls("scan_kernel") - k1_calls0
+    k2_calls = _ledger_calls("rebalance_kernel") - k2_calls0
+    found, leaked = sanitizer.findings(), sanitizer.leaked_locks()
+    edges, locks = sanitizer.edges(), sanitizer.held_locks()
+    lock_names = sorted({n for e in edges for n in (e["from"], e["to"])})
+    sanitizer.disable()
+    if art["invariant_violations"]:
+        fail(phase, f"invariant violations: {art['invariant_violations'][:5]}")
+    if found or leaked:
+        fail(phase, f"sanitizer findings {found[:3]}, locks held by dead threads {leaked[:5]}")
+    if faults.enabled():
+        fail(phase, "the fault registry is still armed")
+    want_api = sum(e in epochs for e in ("apiserver_restart", "leader_kill_each_tier"))
+    if art["restarts"]["apiserver"] != want_api or art["restarts"]["scheduler"] < 1:
+        fail(phase, f"restarts {art['restarts']}, want {want_api} apiserver and a daemon")
+    if k1_calls <= 0 or k2_calls <= 0 or k1 <= 0 or k2 <= 0:
+        fail(phase, f"K1 {k1_calls} ledger calls ({k1} launches), K2 {k2_calls} ({k2})")
+    # The alert oracle, read from the transitions: every declared rule
+    # went to firing, and each one's last transition is a resolve.
+    timeline = art["alerts"]["timeline"]
+    expected = sorted({r for e in art["schedule"] for r in e.get("expected_alerts", ())})
+    for rule in expected:
+        moves = [t for t in timeline if t["rule"] == rule]
+        if not any(t["to"] == "firing" for t in moves) or moves[-1]["to"] != "resolved":
+            fail(phase, f"alert {rule}: transitions {moves}")
+    if art["alerts"]["firing_at_end"]:
+        fail(phase, f"still firing: {art['alerts']['firing_at_end']}")
+    # The realized firings against a second build_schedule(seed).
+    schedule = soak.build_schedule(SOAK_SEED, epochs, n_nodes=SOAK_NODES)
+    if schedule != art["schedule"]:
+        fail(phase, "build_schedule is not pure")
+    fired_at: dict = {}
+    for site, call in art["fault_timeline"]:
+        fired_at.setdefault(site, []).append(call)
+    armed = {e["rule"]["site"]: e["rule"] for e in schedule if "rule" in e}
+    if set(fired_at) - set(armed):
+        fail(phase, f"sites fired that no rule armed: {sorted(set(fired_at) - set(armed))}")
+    firings = {}
+    for site, rule in armed.items():
+        got = fired_at.get(site, [])
+        firings[site] = len(got)
+        if rule.get("times") == 1 and len(got) != 1:
+            fail(phase, f"{site} fired {len(got)} times, its epoch needs 1")
+        if rule.get("times") is not None and len(got) > rule["times"]:
+            fail(phase, f"{site} fired {len(got)} times past its budget {rule['times']}")
+        if got and rule.get("every", 0) > 0:
+            # The site's calls count from the run's start, armed or not:
+            # the rule fires at consecutive multiples of `every` from
+            # the first one after its arming.
+            want = list(range(got[0], got[0] + rule["every"] * len(got), rule["every"]))
+            if got[0] % rule["every"] or got != want:
+                fail(phase, f"{site} fired at {got}, its rule at {want}")
+        elif got:
+            # A p-rule draws once a call while armed: the gaps between its
+            # firings are those between the draws under p.
+            want = _expected_firings(rule, SOAK_SEED, (got[0], got[0] + 100000))
+            shift = got[0] - want[0]
+            if [c + shift for c in want[:len(got)]] != got:
+                fail(phase, f"{site} fired at {got}, its seeded stream at "
+                            f"{[c + shift for c in want[:len(got)]]}")
+    return {
+        "card": smi, "nodes": SOAK_NODES, "seed": SOAK_SEED, "epochs": epochs,
+        "epoch_walls_s": {e["epoch"]: e["wall_s"] for e in art["epochs"]},
+        "pods_bound": art["pods_bound"], "bind_p50_s": art["bind_p50_s"],
+        "bind_p99_s": art["bind_p99_s"], "post_fault_bind_p99_s": art["post_fault_bind_p99_s"],
+        "restarts": art["restarts"], "firings": firings,
+        "fault_calls": {k: v["calls"] for k, v in art["faults_injected"].items()},
+        "alerts_fired": expected, "k1_launches": k1, "k2_launches": k2,
+        "k1_ledger_calls": k1_calls, "k2_ledger_calls": k2_calls,
+        "sanitizer": {"locks": len(lock_names), "edges": len(edges), "held_at_end": len(locks),
+                      "lock_names": lock_names},
+        "failover_to_first_bind_s": art["failover_to_first_bind_s"],
+        "rebalance_cycles": len(art["rebalance_cycles"]),
+        "daemon_threads_left": len(fresh(True)), "card_bytes_left": mem_left,
+        "soak_wall_s": art["wall_s"], "leg_s": wall,
+        "step_seconds": {k: round(v, 3) for k, v in sorted(steps.seconds.items())},
+        "timed": "host clock of this process: each epoch from its arming to its invariant "
+                 "check's end; binds by the soak's watch mirror",
+    }
+
+
+def run_daemon(torch, device, smi, legs=(), churn_stuck=0, soak_epochs=""):
+    """The twenty-five legs, the first twenty-four each on a fresh
+    apiserver child, the soak in this process (only `legs` when given).
+    `churn_stuck` pods that fit no node wait through daemon_churn's
+    load; `soak_epochs` as `--soak-epochs`."""
     plan = {
         "daemon_parity": lambda: {"card": smi, **run_daemon_parity(torch, device)},
         "daemon_parity_wide": lambda: run_daemon_parity(torch, device, wide=True),
@@ -8318,6 +8548,7 @@ def run_daemon(torch, device, smi, legs=(), churn_stuck=0):
         "cloud_controllers": lambda: run_cloud_controllers(torch, device, smi),
         "local_up": lambda: run_local_up(torch, device, smi),
         "ktctl": lambda: run_ktctl(torch, device, smi),
+        "soak": lambda: run_soak_leg(torch, device, smi, soak_epochs),
     }
     unknown = set(legs) - set(plan)
     if unknown:

@@ -1,10 +1,13 @@
-"""List/watch cache substrate: ThreadSafeStore, FIFO, Reflector, Informer.
+"""List/watch cache substrate: ThreadSafeStore/Indexer, FIFO/DeltaFIFO,
+ExpirationCache, UndeltaStore, Reflector, Informer.
 
-A copy of the part of `kubernetes_tpu/client/cache.py` the scheduler
-daemon runs (reference: pkg/client/cache/ store.go, fifo.go,
-reflector.go:80-268, and pkg/controller/framework/controller.go
-NewInformer). The Reflector lists, primes its store, then applies watch
-deltas from the list's version; a transport failure resumes the watch
+A copy of `kubernetes_tpu/client/cache.py` (reference: pkg/client/cache/
+store.go, index.go, fifo.go, delta_fifo.go, expiration_cache.go,
+undelta_store.go, reflector.go:80-268, and
+pkg/controller/framework/controller.go NewInformer), its locks from the
+sanitizer's factory under JAX's names (`informer.store`,
+`informer.fifo`, `informer.deltafifo`). The Reflector lists, primes
+its store, then applies watch deltas from the list's version; a transport failure resumes the watch
 from the last version seen, a 410 (history compacted) re-lists, and a
 re-list hands objects that vanished meanwhile to the handlers as
 DELETED, so delta subscribers never keep phantom state.
@@ -17,6 +20,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from kubernetes_tpu_torch.client.rest import ADDED, DELETED, ERROR, MODIFIED, APIError
+from kubernetes_tpu_torch.utils import sanitizer
 
 
 def meta_namespace_key(obj) -> str:
@@ -34,7 +38,7 @@ class ThreadSafeStore:
     """Keyed object cache (reference: cache.ThreadSafeStore)."""
 
     def __init__(self, key_func: Callable = meta_namespace_key):
-        self._lock = threading.RLock()
+        self._lock = sanitizer.rlock("informer.store")
         self._items: Dict[str, Any] = {}
         self.key_func = key_func
 
@@ -70,13 +74,170 @@ class ThreadSafeStore:
             return len(self._items)
 
 
+class Indexer(ThreadSafeStore):
+    """ThreadSafeStore with named secondary indexes (reference:
+    cache.Indexer, index.go). An index func maps an object to a list
+    of index values; by_index(name, value) returns every object whose
+    func emitted that value — e.g. pods by node, endpoints by service."""
+
+    def __init__(
+        self,
+        indexers: Optional[Dict[str, Callable[[Any], List[str]]]] = None,
+        key_func: Callable = meta_namespace_key,
+    ):
+        super().__init__(key_func)
+        self.indexers = dict(indexers or {})
+        # index name -> value -> set of object keys
+        self._indices: Dict[str, Dict[str, set]] = {
+            name: {} for name in self.indexers
+        }
+        # Reverse map: key -> [(index name, value), ...] it was indexed
+        # under, so unindexing is O(entries for that key) instead of a
+        # scan over every bucket of every index (which would serialize
+        # readers behind thousands of set.discards per pod update).
+        self._indexed_under: Dict[str, List[tuple]] = {}
+
+    def _unindex(self, key: str) -> None:
+        for name, value in self._indexed_under.pop(key, ()):
+            bucket = self._indices[name].get(value)
+            if bucket is not None:
+                bucket.discard(key)
+                if not bucket:
+                    del self._indices[name][value]
+
+    def _index(self, key: str, obj: Any) -> None:
+        under = []
+        for name, fn in self.indexers.items():
+            for value in fn(obj):
+                self._indices[name].setdefault(value, set()).add(key)
+                under.append((name, value))
+        if under:
+            self._indexed_under[key] = under
+
+    def add(self, obj) -> None:
+        with self._lock:
+            key = self.key_func(obj)
+            self._unindex(key)
+            self._items[key] = obj
+            self._index(key, obj)
+
+    def delete(self, obj) -> None:
+        with self._lock:
+            key = self.key_func(obj)
+            self._unindex(key)
+            self._items.pop(key, None)
+
+    def replace(self, objs: List[Any]) -> None:
+        with self._lock:
+            self._items = {self.key_func(o): o for o in objs}
+            self._indices = {name: {} for name in self.indexers}
+            self._indexed_under = {}
+            for key, obj in self._items.items():
+                self._index(key, obj)
+
+    def by_index(self, name: str, value: str) -> List[Any]:
+        with self._lock:
+            keys = self._indices.get(name, {}).get(value, ())
+            return [self._items[k] for k in keys if k in self._items]
+
+    def index_values(self, name: str) -> List[str]:
+        with self._lock:
+            return sorted(
+                v for v, keys in self._indices.get(name, {}).items() if keys
+            )
+
+
+class ExpirationCache(ThreadSafeStore):
+    """TTL store: entries vanish ttl seconds after their last add
+    (reference: cache.ExpirationCache, expiration_cache.go — backs the
+    scheduler's assumed-pods window)."""
+
+    def __init__(self, ttl: float, key_func: Callable = meta_namespace_key):
+        super().__init__(key_func)
+        self.ttl = ttl
+        self._stamps: Dict[str, float] = {}
+
+    def _expire_locked(self) -> None:
+        now = time.monotonic()
+        for key in [k for k, t in self._stamps.items() if now - t > self.ttl]:
+            del self._stamps[key]
+            self._items.pop(key, None)
+
+    def add(self, obj) -> None:
+        with self._lock:
+            self._expire_locked()
+            key = self.key_func(obj)
+            self._items[key] = obj
+            self._stamps[key] = time.monotonic()
+
+    def delete(self, obj) -> None:
+        with self._lock:
+            key = self.key_func(obj)
+            self._items.pop(key, None)
+            self._stamps.pop(key, None)
+
+    def get(self, key: str):
+        with self._lock:
+            self._expire_locked()
+            return self._items.get(key)
+
+    def list(self) -> List[Any]:
+        with self._lock:
+            self._expire_locked()
+            return list(self._items.values())
+
+    def keys(self) -> List[str]:
+        with self._lock:
+            self._expire_locked()
+            return list(self._items.keys())
+
+    def __len__(self) -> int:
+        with self._lock:
+            self._expire_locked()
+            return len(self._items)
+
+
+class UndeltaStore(ThreadSafeStore):
+    """Store that pushes the FULL current state to a callback on every
+    change (reference: cache.UndeltaStore, undelta_store.go — feeds
+    consumers that want snapshots, e.g. the proxy's OnUpdate).
+
+    The snapshot is captured AND delivered under the store lock
+    (reentrant), so pushes arrive in mutation order and the last push
+    always reflects the final state; the callback must not block or
+    mutate the store."""
+
+    def __init__(
+        self,
+        push: Callable[[List[Any]], None],
+        key_func: Callable = meta_namespace_key,
+    ):
+        super().__init__(key_func)
+        self.push = push
+
+    def add(self, obj) -> None:
+        with self._lock:
+            super().add(obj)
+            self.push(self.list())
+
+    def delete(self, obj) -> None:
+        with self._lock:
+            super().delete(obj)
+            self.push(self.list())
+
+    def replace(self, objs: List[Any]) -> None:
+        with self._lock:
+            super().replace(objs)
+            self.push(self.list())
+
+
 class FIFO:
     """Producer/consumer queue with key dedup: a pop returns the latest
     version of each enqueued object (reference: cache.FIFO,
     fifo.go:49-184)."""
 
     def __init__(self, key_func: Callable = meta_namespace_key):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("informer.fifo")
         self._cond = threading.Condition(self._lock)
         self._items: Dict[str, Any] = {}
         self._queue: List[str] = []
@@ -158,6 +319,85 @@ class FIFO:
         """The queued objects (a snapshot)."""
         with self._lock:
             return list(self._items.values())
+
+
+class DeltaFIFO:
+    """FIFO of per-key DELTA LISTS (reference: cache.DeltaFIFO,
+    delta_fifo.go). Unlike FIFO — whose key dedup silently drops
+    deletions that race a pending add — a pop returns the ordered
+    [(type, object), ...] history for one key since its last pop, so
+    consumers observe every transition including Deleted. replace()
+    emits Sync deltas and synthesizes Deleted for keys that vanished."""
+
+    SYNC = "SYNC"
+
+    def __init__(self, key_func: Callable = meta_namespace_key):
+        self.key_func = key_func
+        self._cond = threading.Condition(sanitizer.lock("informer.deltafifo"))
+        self._deltas: Dict[str, List[tuple]] = {}
+        self._queue: List[str] = []
+        self._known: Dict[str, Any] = {}  # last object seen per key
+        self._closed = False
+
+    def _append(self, key: str, etype: str, obj: Any) -> None:
+        if key not in self._deltas:
+            self._deltas[key] = []
+            self._queue.append(key)
+        self._deltas[key].append((etype, obj))
+        self._cond.notify()
+
+    def add(self, obj) -> None:
+        with self._cond:
+            key = self.key_func(obj)
+            etype = MODIFIED if key in self._known else ADDED
+            self._known[key] = obj
+            self._append(key, etype, obj)
+
+    def update(self, obj) -> None:
+        self.add(obj)
+
+    def delete(self, obj) -> None:
+        with self._cond:
+            key = self.key_func(obj)
+            self._known.pop(key, None)
+            self._append(key, DELETED, obj)
+
+    def replace(self, objs: List[Any]) -> None:
+        with self._cond:
+            new = {self.key_func(o): o for o in objs}
+            for key, old in list(self._known.items()):
+                if key not in new:
+                    self._known.pop(key)
+                    self._append(key, DELETED, old)
+            for key, obj in new.items():
+                self._known[key] = obj
+                self._append(key, self.SYNC, obj)
+
+    def pop(self, timeout: Optional[float] = None) -> Optional[List[tuple]]:
+        """Oldest key's delta list, or None on close/timeout."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while True:
+                if self._queue:
+                    key = self._queue.pop(0)
+                    return self._deltas.pop(key)
+                if self._closed:
+                    return None
+                wait = None
+                if deadline is not None:
+                    wait = deadline - time.monotonic()
+                    if wait <= 0:
+                        return None
+                self._cond.wait(timeout=wait)
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def __len__(self) -> int:
+        with self._cond:
+            return len(self._queue)
 
 
 class Reflector:

@@ -28,7 +28,9 @@ daemon runs (reference: pkg/client/client.go + request.go):
   in a pod's container through the apiserver's exec subresource.
 
 JAX's `serialize` option (one shared connection behind a lock) is not
-carried. A watch yields `Event`s (`.type`, `.object` as a wire dict, `.version`),
+carried. The chaos seams `http.request.latency`, `http.request.reset`
+and `http.request.error5xx` (`utils/faults.py`) sit inside the retry
+loop before each attempt, as JAX's do. A watch yields `Event`s (`.type`, `.object` as a wire dict, `.version`),
 the shape of `kubernetes_tpu/store/watch.py`'s.
 """
 
@@ -56,7 +58,7 @@ from kubernetes_tpu_torch.models.objects import (
     PodTemplate,
     Service,
 )
-from kubernetes_tpu_torch.utils import tracing
+from kubernetes_tpu_torch.utils import faults, tracing
 
 # Watch event types (reference: pkg/watch Event{Added,Modified,Deleted,Error}).
 ADDED = "ADDED"
@@ -396,6 +398,14 @@ class HTTPTransport(Transport):
         attempts = 0
         while True:
             try:
+                if faults.enabled():
+                    # Chaos seams (client/chaos.py's policy transport
+                    # wraps whole transports; these sites sit INSIDE
+                    # the retry loop so injected resets/5xx exercise
+                    # the same recovery a real outage would).
+                    faults.fire(faults.HTTP_DELAY, path)
+                    faults.fire(faults.HTTP_RESET, path)
+                    faults.fire(faults.HTTP_5XX, path)
                 return self._attempt(verb, path, payload, headers, raw)
             except _ReplayStale:
                 continue

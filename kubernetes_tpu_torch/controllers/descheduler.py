@@ -49,9 +49,11 @@ Departures from the JAX controller:
   the JAX loop does for any error. Nothing falls back to the plain
   version. The port's `fragment_score` never returns None, so the
   measured score is never the plan's forecast.
-- No `DESCHED_MOVE_CRASH` fault seam (the daemon's departure (c)).
 - `rebalance_moves_total{outcome="planned"}` is counted by `build_plan`
   for every plan (see `utils/rebalance.py`).
+
+The `descheduler.move.crash` chaos seam (`utils/faults.py`) sits where
+JAX's does, between the eviction and the replacement's create.
 
 `device` (None: the CUDA card, raising without one) is where K2 and the
 score run. Phases of an attached `PhaseTimer` (`tracing.timing`):
@@ -75,7 +77,7 @@ from kubernetes_tpu_torch.models.objects import (
     parse_iso,
 )
 from kubernetes_tpu_torch.utils import capacity as capacity_mon
-from kubernetes_tpu_torch.utils import flightrecorder, metrics, tracing
+from kubernetes_tpu_torch.utils import faults, flightrecorder, metrics, tracing
 from kubernetes_tpu_torch.utils import rebalance as rebalance_mon
 from kubernetes_tpu_torch.utils.capacity import cluster_columns
 from kubernetes_tpu_torch.utils.rebalance import DEFAULT_MOVE_BUDGET, build_plan, fragment_score
@@ -368,6 +370,12 @@ class Descheduler:
                 source="descheduler", namespace=ns)
         except APIError:
             pass
+
+        # THE crash window: the pod is evicted, the replacement does
+        # not exist yet. Only the journal stands between a crash here
+        # and a stranded pod — which is exactly what the chaos soak's
+        # mid-defrag kill epoch asserts.
+        faults.fire(faults.DESCHED_MOVE_CRASH, m["pod"])
 
         if not self._wait_gone(name, ns):
             # Terminating, not yet gone: the journal stays, and recovery

@@ -24,10 +24,15 @@ Departures from the JAX kubelet:
   back through the trimmed model would lose its addresses and its
   kubelet port, and the apiserver's log and exec relay would have
   nowhere to go.
-- No chaos seams: the JAX kubelet's heartbeat-drop and terminating-stall
-  fault points are not carried. Tests fault the kubelet from outside
-  (stop its heartbeat thread, wrap its client to drop a write).
-- The sync pool's lock is a plain `threading.Lock`.
+- A Terminating pod that the server still holds Pending while its
+  containers run gets its status written once before the kill
+  (`_report_lagging_status`); the JAX kubelet writes none for it.
+- The sync pool starts its workers after releasing its lock (JAX's
+  starts them under it, a blocking wait the lock sanitizer reports).
+
+The chaos seams (`kubelet.heartbeat.drop`, `kubelet.terminating.stall`;
+`utils/faults.py`) and the sanitizer's `kubelet.syncpool` lock sit where
+JAX's do.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from kubernetes_tpu_torch.models.apiobjects import (
 )
 from kubernetes_tpu_torch.models.quantity import parse_quantity
 from kubernetes_tpu_torch.kubelet.runtime import ContainerRuntime, FakeRuntime
-from kubernetes_tpu_torch.utils import metrics, tracing
+from kubernetes_tpu_torch.utils import faults, metrics, sanitizer, tracing
 
 _LOG = logging.getLogger("kubernetes_tpu_torch.kubelet")
 
@@ -107,7 +112,7 @@ class _SyncPool:
 
         self._sync = sync_fn
         self._q: "queue.Queue[Optional[str]]" = queue.Queue()
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("kubelet.syncpool")
         self._pending: Dict[str, Pod] = {}  # key -> latest un-synced spec
         self._running: set = set()  # keys currently inside sync_fn
         self._max = max_workers
@@ -115,16 +120,20 @@ class _SyncPool:
         self._idle = 0
         self._stopping = False
         for _ in range(workers):
-            self._spawn_locked(transient=False)
+            self._spawn_locked(transient=False).start()
 
-    def _spawn_locked(self, transient: bool) -> None:
-        # caller holds self._lock (or init, pre-concurrency)
+    def _spawn_locked(self, transient: bool) -> threading.Thread:
+        # caller holds self._lock (or init, pre-concurrency) and starts
+        # the worker once it has released it: Thread.start waits for the
+        # thread to run, a wait the sanitizer reports under a lock (JAX's
+        # pool starts it under the lock).
         self._nworkers += 1
-        threading.Thread(
+        return threading.Thread(
             target=self._worker, args=(transient,), daemon=True
-        ).start()
+        )
 
     def update(self, key: str, pod: Pod) -> None:
+        spawned = None
         with self._lock:
             if self._stopping:
                 return
@@ -133,13 +142,15 @@ class _SyncPool:
             if queued or key in self._running:
                 return  # will be picked up by the queued entry / re-run
             if self._idle == 0 and self._nworkers < self._max:
-                self._spawn_locked(transient=True)
+                spawned = self._spawn_locked(transient=True)
             # Enqueue UNDER the lock: a timing-out transient worker's
             # retire path checks queue emptiness under this same lock,
             # so a key can never land unseen between its last check and
             # its exit (which would strand the pod until some other
             # pod's update spawned a worker).
             self._q.put(key)
+        if spawned is not None:
+            spawned.start()
 
     def forget(self, key: str) -> None:
         with self._lock:
@@ -414,6 +425,10 @@ class Kubelet:
         # needed on the first beat or after an error (node deleted /
         # apiserver restarted). At 100 kubelets the get+put pair doubled
         # heartbeat traffic exactly when delayed beats read as death.
+        if faults.enabled() and faults.fire(
+            faults.KUBELET_HEARTBEAT_DROP, self.node_name
+        ):
+            return  # chaos seam: a lost beat, not a dead kubelet
         node = self._hb_node
         if node is None:
             try:
@@ -639,6 +654,10 @@ class Kubelet:
         deadline, then this kubelet kills it and confirms with a
         grace-0 delete so watchers see exactly one DELETED."""
         uid = pod.metadata.uid or pod.metadata.name
+        # Chaos seam: the confirm path stalls (wedged volume teardown,
+        # slow runtime kill) — grace handling and the exactly-one-
+        # DELETED contract must survive the lag, not race it.
+        faults.fire(faults.KUBELET_TERMINATING_STALL, uid)
         if not self._terminating.get(uid):
             self._terminating[uid] = True
             try:
@@ -677,6 +696,7 @@ class Kubelet:
 
         start = time.monotonic()
         if pod.metadata.deletion_timestamp:
+            self._report_lagging_status(pod)
             self._sync_terminating(pod)
             return
         if pod.status.phase in ("Succeeded", "Failed"):
@@ -730,7 +750,34 @@ class Kubelet:
                 restarted = True
         if restarted:
             containers = self.runtime.sync_pod(pod)  # refresh statuses
+        self._write_status(pod, uid, containers)
+        _SYNC_LATENCY.observe(time.monotonic() - start, node=self.node_name)
 
+    def _report_lagging_status(self, pod: Pod) -> None:
+        """A Terminating pod keeps its containers through its grace
+        period. When the server still holds it Pending while they run
+        (its Running write was lost to an apiserver crash, and the delete
+        came before the next sync), the status is written once before the
+        kill, so the server never shows a pod that ran as one that never
+        started. Departure from the JAX kubelet, which writes no status
+        for a Terminating pod (found by the soak's apiserver_restart
+        epoch: ROADMAP queue 3)."""
+        import copy as _copy
+
+        if pod.status.phase != "Pending":
+            return
+        uid = pod.metadata.uid or pod.metadata.name
+        containers = self.runtime.list_pods().get(uid) or []
+        if not any(c.state == "running" for c in containers):
+            return
+        pod = _copy.copy(pod)
+        pod.status = _copy.deepcopy(pod.status)
+        self._write_status(pod, uid, containers)
+
+    def _write_status(self, pod: Pod, uid: str, containers) -> None:
+        """The pod's status from its containers, written unless the
+        server or the last successful write already holds it. `pod` is a
+        private copy (its status is changed here)."""
         phase = self._pod_phase(pod, containers)
         statuses = [
             ContainerStatus(
@@ -802,7 +849,6 @@ class Kubelet:
                 self._last_status[uid] = new_wire
             except APIError:
                 self._last_status.pop(uid, None)  # retry next resync
-        _SYNC_LATENCY.observe(time.monotonic() - start, node=self.node_name)
 
     def _pod_ip(self, uid: str) -> str:
         # Deterministic fake pod IP from the uid (dataplane tests use it).

@@ -32,7 +32,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import metrics, sanitizer
 
 #: Wall seconds spent building kernel libraries, by kernel (the JAX
 #: package's series, there fed by XLA compiles).
@@ -59,7 +59,7 @@ class KernelLedger:
     process (`DEFAULT`); the launch wrappers and `ops/build.py` share it."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("ledger.rows")
         self._rows: Dict[Tuple[str, str], dict] = {}
 
     def _row(self, kernel: str, impl: str) -> dict:

@@ -42,7 +42,7 @@ from kubernetes_tpu_torch.ops.matrices import (
 from kubernetes_tpu_torch.ops.sinkhorn import solve_sinkhorn_with_state
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, explain_rows, solve_with_state
 from kubernetes_tpu_torch.ops.wave import solve_waves_with_state
-from kubernetes_tpu_torch.utils import flightrecorder, sli
+from kubernetes_tpu_torch.utils import flightrecorder, sanitizer, sli
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
 
 # The JAX package's chunk: 50k pods in four chunks, each padded to a
@@ -110,6 +110,7 @@ def solve_backlog_pipelined(
     "wave" and "sinkhorn" are the JAX package's windowed solvers (the
     wave bit-identical to it, Sinkhorn within its rounding), with every
     capacity, port and volume invariant of the scan."""
+    sanitizer.check_blocking("kernel-dispatch", "solve_backlog_pipelined")
     tele = []
     if mode == "scan":
         step = lambda dpods, carry: solve_with_state(dpods, carry, weights)  # noqa: E731

@@ -62,6 +62,7 @@ from kubernetes_tpu_torch.scheduler.types import (
     StaticPodLister,
     StaticServiceLister,
 )
+from kubernetes_tpu_torch.utils import sanitizer
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
 
 _AUTO_WARNED = False
@@ -141,6 +142,10 @@ def schedule_backlog(
     (default: the CUDA card; raises without one). A non-default `spec`
     lowers the configured predicate/priority set (UnloweredPolicyError
     when it cannot) and solves it on the policy scan kernel."""
+    # A kernel dispatch blocks on device work and, the first time, on a
+    # kernel build: ktsan treats it like any other blocking call, never
+    # under a sanitized lock.
+    sanitizer.check_blocking("kernel-dispatch", "schedule_backlog")
     device = resolve_device(device)
     with timing(timer):
         with phase("lower", pods=len(pending)):
@@ -186,6 +191,7 @@ def schedule_backlog_wave(
     policy: many pods committed per device step, at the cost of exact
     decision-order parity (placements stay valid). Runs on `device`
     (default: the CUDA card; raises without one)."""
+    sanitizer.check_blocking("kernel-dispatch", "schedule_backlog_wave")
     return _schedule_windowed(wave_assignments, pending, nodes, assigned, services, device, timer)
 
 
@@ -201,6 +207,7 @@ def schedule_backlog_sinkhorn(
     (`ops/sinkhorn.py`): capacity-capped congestion prices before each
     wave's choice, fewer waves than the plain wave solver on big
     backlogs; placements stay valid."""
+    sanitizer.check_blocking("kernel-dispatch", "schedule_backlog_sinkhorn")
     return _schedule_windowed(sinkhorn_assignments, pending, nodes, assigned, services, device,
                               timer)
 

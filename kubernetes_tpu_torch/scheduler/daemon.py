@@ -118,7 +118,9 @@ Departures from the JAX daemons:
   and sidecar routes: `preempt_backlog_scalar`, as in JAX); its errors
   propagate as in (a). On the commit worker the error is kept and
   raised by the next `schedule_batch`.
-- (c) No chaos seams (`faults.fire`) and no lock sanitizer wrappers.
+- (c) Closed: the chaos seams (`scheduler.commit.crash`,
+  `scheduler.evict.error`) and the sanitizer's `scheduler.capacity` lock
+  sit where JAX's do (`utils/faults.py`, `utils/sanitizer.py`).
 - (d) Telemetry errors. An error of the explain readback on the card
   is a tick error as in (a) (inline), or a commit worker error as in
   (b) (the deferred half); an error of the capacity sample is a tick
@@ -153,6 +155,10 @@ Departures from the JAX daemons:
   session built with `prewarm_buckets` also runs the explain readback
   once, on one node, so the first pod explained pays no first use of
   the readback's operations on the card.
+- (i) A tick's decisions reach the decision sinks (the lifecycle
+  collector's decision milestone) before its binds land, and again with
+  its records; the JAX daemon announces them after its binds, which a
+  hollow kubelet can outrun (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -216,7 +222,16 @@ from kubernetes_tpu_torch.scheduler.plugins import (
     spec_for_provider,
 )
 from kubernetes_tpu_torch.scheduler.types import StaticServiceLister
-from kubernetes_tpu_torch.utils import capacity, flightrecorder, metrics, profiler, sli, tracing
+from kubernetes_tpu_torch.utils import (
+    capacity,
+    faults,
+    flightrecorder,
+    metrics,
+    profiler,
+    sanitizer,
+    sli,
+    tracing,
+)
 from kubernetes_tpu_torch.utils.ratelimit import Backoff, TokenBucket
 
 _LOG = logging.getLogger("kubernetes_tpu_torch.scheduler")
@@ -434,7 +449,9 @@ class Scheduler:
         # capacity event (the incremental daemon's pod DELETED or node
         # ADDED delta) bumps the epoch, releasing every backlogged pod.
         # The other daemons have no delta feed: their waits run out.
-        self._capacity_cond = threading.Condition(threading.Lock())
+        self._capacity_cond = threading.Condition(
+            sanitizer.lock("scheduler.capacity")
+        )
         self._capacity_epoch = 0
 
     # -- lifecycle ----------------------------------------------------
@@ -782,6 +799,12 @@ class BatchScheduler(Scheduler):
         outcome of each placed pod by key (bound, bind_conflict or
         bind_error)."""
         cfg = self.config
+        # The decision milestone is announced before any bind lands: a
+        # hollow kubelet can run a pod before the tick's records do, and
+        # the lifecycle collector drops a pod's track once it runs, so a
+        # decision announced after the bind is lost (the JAX daemon
+        # announces after its binds; the soak's SLO check then flakes).
+        flightrecorder.notify_decision_sinks((_key(pod), "") for pod, _dest in decided)
         by_ns: Dict[str, List] = {}
         group_binds: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {}
         placed: List[Tuple[Pod, str]] = []
@@ -919,6 +942,11 @@ class BatchScheduler(Scheduler):
             for vkey in dec.victims:
                 vns, _, vname = vkey.partition("/")
                 try:
+                    # Chaos seam: an injected eviction failure takes the
+                    # broad-except path a real transport outage takes:
+                    # counted evict_failed below, no nomination recorded,
+                    # retried next tick.
+                    faults.fire(faults.SCHED_EVICT_ERROR, vkey)
                     cfg.client.evict(vname, namespace=vns,
                                      grace_period_seconds=self.eviction_grace_seconds)
                 except APIError as e:
@@ -1588,6 +1616,11 @@ class IncrementalBatchScheduler(BatchScheduler):
         routed back to the solve loop, the preemption pass, requeues.
         Runs on the commit worker while the pipeline is live, inline
         otherwise; never touches the session."""
+        # Chaos seam: the daemon "dies" between solve and commit. The job
+        # raises before any bind lands, the session keeps charges for pods
+        # that never bound, and recovery is a daemon restart that rebuilds
+        # its session from LIST+watch (the soak's daemon_restart_mid_gang).
+        faults.fire(faults.SCHED_COMMIT_CRASH)
         results, ctx = job
         cfg = self.config
         by_key = {_key(p): p for p in ctx["pending"]}

@@ -15,13 +15,14 @@ import time
 from typing import Callable, Dict, List
 
 from kubernetes_tpu_torch.models.objects import Pod
+from kubernetes_tpu_torch.utils import sanitizer
 
 
 class SimpleModeler:
     def __init__(self, scheduled_pods: Callable[[], List[Pod]], ttl: float = 30.0):
         self._scheduled = scheduled_pods
         self._ttl = ttl
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("scheduler.modeler")
         self._assumed: Dict[str, tuple] = {}  # key -> (pod, expiry)
 
     @staticmethod

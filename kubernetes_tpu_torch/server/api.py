@@ -16,8 +16,8 @@ semantics (pkg/apiserver/resthandler.go):
 All objects cross this boundary in wire form (camelCase dicts); typed
 callers use the client layer.
 
-A copy of `kubernetes_tpu/server/api.py` on a plain reentrant lock
-(no lock sanitizer). `replication` and `leader_url` are the HA plane's
+A copy of `kubernetes_tpu/server/api.py`, its state lock the
+sanitizer's `apiserver.state` rlock (`utils/sanitizer.py`). `replication` and `leader_url` are the HA plane's
 handles (`store/replication.py`, read by `server/httpserver.py`).
 `APIServer.__init__` attaches the port's lifecycle SLI collector
 (`utils/sli.py`) to its store, as JAX's does.
@@ -53,6 +53,7 @@ from kubernetes_tpu_torch.store import (
     NotFoundError,
 )
 from kubernetes_tpu_torch.store.watch import WatchStream
+from kubernetes_tpu_torch.utils import sanitizer
 
 _LOG = logging.getLogger("kubernetes_tpu_torch.apiserver")
 
@@ -381,7 +382,7 @@ class APIServer:
         sli.DEFAULT.attach(self.store)
         # Reentrant: admission plugins may issue writes of their own
         # (NamespaceAutoprovision creates the namespace mid-admission).
-        self._lock = threading.RLock()
+        self._lock = sanitizer.rlock("apiserver.state")
         self._rand = random.Random(0xC0FFEE)
         # Admission chain (kubernetes_tpu_torch.server.admission.Chain); None
         # means admit everything (reference default --admission-control

@@ -28,8 +28,9 @@ a full json.dumps per request becomes a byte join. Watch frames are
 cached the same way (`frame_bytes`): one event fanned out to N watch
 connections is encoded once, keyed by its globally unique version.
 
-A copy of `kubernetes_tpu/server/watchcache.py` on plain `threading`
-locks (the JAX module's lock sanitizer is left out).
+A copy of `kubernetes_tpu/server/watchcache.py`, its locks from the
+sanitizer's factory under JAX's names (`watchcache.resource`, `.set`,
+`.applied`, `.frames`, `.bufroute`; `utils/sanitizer.py`).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ import json
 import threading
 import time as _time
 from typing import Callable, Dict, List, Optional, Tuple
+
+from kubernetes_tpu_torch.utils import sanitizer
 
 
 class _Entry:
@@ -56,7 +59,7 @@ class ResourceCache:
         self.prefix = prefix
         self._store = store
         self._set = cache_set
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("watchcache.resource")
         self._items: Dict[str, _Entry] = {}
         self._sorted: Optional[List[str]] = None  # lazily (re)sorted keys
         # Everything <= seed_version is reflected (from the seed list);
@@ -215,19 +218,19 @@ class WatchCacheSet:
 
     def __init__(self, store):
         self._store = store
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("watchcache.set")
         self._caches: Dict[str, ResourceCache] = {}  # prefix -> cache
         self._routes: List[Tuple[str, object]] = []
         self.applied = 0  # highest event version processed by the feed
         self._applied_cond = threading.Condition(
-            threading.Lock()
+            sanitizer.lock("watchcache.applied")
         )
         # Encoded watch frames keyed by (event type, version): the
         # store's version clock is global, so within one store the key
         # uniquely identifies the frame bytes. One event fanned out to
         # N watch connections is json.dumps'd once. Per-set (per-store)
         # on purpose: two stores' clocks both start at 1.
-        self._frame_lock = threading.Lock()
+        self._frame_lock = sanitizer.lock("watchcache.frames")
         self._frames: Dict[Tuple[str, int], bytes] = {}
         # Per-resource applied watermark: highest event version seen
         # FOR each resource (keyed by the '/registry/<res>/' segment).
@@ -324,7 +327,7 @@ class _BufferingRoute:
 
     def __init__(self, prefix: str):
         self.prefix = prefix
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("watchcache.bufroute")
         self._buf: List[tuple] = []
         self._target: Optional[ResourceCache] = None
 

@@ -39,10 +39,10 @@ single raft-apply loop, in spirit.
 A copy of `kubernetes_tpu/store/kvstore.py`. The on-disk format (the
 JSON-lines WAL, the snapshot file, the lock file) is the JAX store's
 byte for byte, so a data directory written by either package recovers
-in the other. Left out: the chaos seams (`faults.fire` at the torn
-WAL append, the WAL fsync and the snapshot rename; the torn-write
-rollback they needed) and the lock sanitizer (plain `threading`
-locks). The port's tests cut a WAL by truncating the file.
+in the other, a WAL torn by either's `kvstore.wal.torn_write` seam
+included. The chaos seams (`kvstore.wal.torn_write` with its rollback,
+`kvstore.wal.fsync`, `kvstore.snapshot.rename`; `utils/faults.py`) and
+the sanitizer's locks and `allow_blocking` grants sit where JAX's do.
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.store.watch import ADDED, DELETED, Event, MODIFIED, WatchStream
+from kubernetes_tpu_torch.utils import faults, sanitizer
 
 
 class StoreError(Exception):
@@ -261,7 +262,7 @@ class KVStore:
         snapshot_every: int = 4096,
         serialized_writes: bool = False,
     ):
-        self._lock = threading.RLock()
+        self._lock = sanitizer.rlock("kvstore.lock")
         self._data: Dict[str, Tuple[dict, int]] = {}  # key -> (wire obj, version)
         self._ttl: Dict[str, float] = {}  # key -> expiry wall-clock time
         self._version = 0
@@ -359,8 +360,9 @@ class KVStore:
         self._wal_count = 0
         self._wal_seq = 0  # records appended (group-commit cursor)
         self._synced_seq = 0  # records known durable
-        # Serializes the group-commit fsync.
-        self._sync_lock = threading.Lock()
+        # io_gate: this lock EXISTS to serialize the group-commit fsync
+        # (ktsan's blocking-under-lock check exempts it by declaration).
+        self._sync_lock = sanitizer.lock("kvstore.sync", io_gate=True)
         self._closed = False
         self._lockfd: Optional[int] = None
         if data_dir:
@@ -480,6 +482,24 @@ class KVStore:
                 rec["e"] = exp
         data = json.dumps(rec, separators=(",", ":")) + "\n"
         if self._wal_file is not None:
+            if faults.enabled() and faults.fire(faults.WAL_TORN_WRITE, key):
+                # Mid-append process death: a PREFIX of the record
+                # reaches the file (no newline), the write is never
+                # acked (raise), and recovery must truncate back to the
+                # last intact record. The store is DEAD from here
+                # (_closed): a torn line only exists because the
+                # process died mid-write, so later appends must never
+                # fuse onto the torn bytes — a live continuation would
+                # make replay truncate ACKED records that landed after
+                # it. Pair with crash() + a fresh store on the same
+                # data dir. The raise also happens BEFORE the WAL taps:
+                # a torn record must never reach a follower.
+                self._wal_file.write(data[: max(1, len(data) // 2)])
+                self._wal_file.flush()
+                self._closed = True
+                raise faults.FaultInjected(
+                    f"kvstore.wal.torn_write: died mid-append of {key}"
+                )
             self._wal_file.write(data)
             # flush=False is the batch path (create_many/
             # atomic_update_many and friends): records accumulate in
@@ -574,6 +594,13 @@ class KVStore:
                         "store closed before this write became durable"
                     )
                 try:
+                    # Chaos seam: an injected fsync failure surfaces to
+                    # the acking writer as a real I/O error — flushed
+                    # but not durable. INSIDE this try on purpose: like
+                    # a genuine OSError, it must be forgiven when a
+                    # concurrent snapshot rotation already made the
+                    # write durable (the rotated-handle branch below).
+                    faults.fire(faults.WAL_FSYNC)
                     os.fsync(wal.fileno())
                 except (ValueError, OSError):
                     with self._lock:
@@ -599,7 +626,8 @@ class KVStore:
 
         Runs (fsyncs included) under self._lock on purpose: compaction
         is stop-the-world for writers — rotating the WAL handle while
-        appends proceed would lose records. Everything else in the
+        appends proceed would lose records. The ktsan allow_blocking
+        grant below documents that exception; everything else in the
         store honors "no blocking I/O under kvstore.lock".
         """
         items = [
@@ -607,11 +635,18 @@ class KVStore:
             for key, (obj, ver) in sorted(self._data.items())
         ]
         tmp = self._snap_path + ".tmp"
-        with open(tmp, "w", encoding="utf-8") as f:
-            json.dump({"version": self._version, "items": items}, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, self._snap_path)
+        with sanitizer.allow_blocking(
+            "snapshot compaction is stop-the-world by design"
+        ):
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump({"version": self._version, "items": items}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            # Chaos seam: crash-before-rename leaves only the .tmp file
+            # — recovery must keep serving the previous snapshot plus
+            # the (untruncated) WAL.
+            faults.fire(faults.SNAPSHOT_RENAME)
+            os.replace(tmp, self._snap_path)
         if self._wal_file is not None:
             self._wal_file.close()
         self._wal_file = open(self._wal_path, "w", encoding="utf-8")
@@ -620,7 +655,10 @@ class KVStore:
             # Power-loss ordering: the snapshot rename's directory
             # entry must be durable BEFORE new WAL appends land, or a
             # crash could pair the old snapshot with a truncated WAL.
-            self._fsync_dir()
+            with sanitizer.allow_blocking(
+                "snapshot compaction is stop-the-world by design"
+            ):
+                self._fsync_dir()
             # Everything appended so far is folded into the (fsync'd)
             # snapshot: waiting group-commit callers are already
             # durable without touching the fresh WAL.
@@ -723,7 +761,7 @@ class KVStore:
         prev: Optional[dict] = None, flush: bool = True,
     ) -> None:
         """Journal one mutation; the _locked suffix IS the contract
-        (callers hold self._lock). The write
+        (callers hold self._lock; ktsan checks it at runtime). The write
         path only appends: WAL, history ring, dispatch queue. The
         per-event copy and per-watcher filter/push work happens on the
         dispatcher thread, so a write's lock hold is O(obj-serialize)
@@ -731,7 +769,31 @@ class KVStore:
         count. `obj` is the just-stored object (never mutated in place
         after storage); history shares the ref and replay copies it
         per delivery (watch())."""
-        self._wal_append_locked(version, etype, key, obj, flush=flush)
+        try:
+            self._wal_append_locked(version, etype, key, obj, flush=flush)
+        except faults.FaultInjected:
+            # Torn-write chaos site: the "process" died mid-append, so
+            # the in-memory apply (made by the caller just before this
+            # journal step) must roll back — the dead store's reads
+            # would otherwise serve an object watchers never saw and
+            # replay will not reconstruct. Stored objects carry their
+            # stamped resourceVersion, so the previous tuple rebuilds
+            # exactly. (TTL bookkeeping is left to the heap's lazy
+            # invalidation; the version-counter gap is harmless.)
+            if etype == ADDED:
+                self._data.pop(key, None)
+                self._ttl.pop(key, None)
+            elif etype == MODIFIED and prev is not None:
+                self._data[key] = (
+                    prev,
+                    int(prev.get("metadata", {}).get("resourceVersion", 0)),
+                )
+            elif etype == DELETED:
+                self._data[key] = (
+                    obj,
+                    int(obj.get("metadata", {}).get("resourceVersion", 0)),
+                )
+            raise
         self._publish_locked(version, etype, key, obj, prev)
 
     def _publish_locked(
@@ -1307,12 +1369,15 @@ class KVStore:
             self._repl_pending.clear()
             self._repl_journaled = self._version
             if self._wal_file is not None and dropped:
-                # Stop-the-world, like snapshot compaction.
-                self._wal_file.flush()
-                size = os.path.getsize(self._wal_path)
-                os.truncate(self._wal_path, max(0, size - dropped))
-                if self._fsync:
-                    os.fsync(self._wal_file.fileno())
+                with sanitizer.allow_blocking(
+                    "promotion truncates the uncommitted tail; "
+                    "stop-the-world like snapshot compaction"
+                ):
+                    self._wal_file.flush()
+                    size = os.path.getsize(self._wal_path)
+                    os.truncate(self._wal_path, max(0, size - dropped))
+                    if self._fsync:
+                        os.fsync(self._wal_file.fileno())
             self._replica = False
             return self._version
 
@@ -1465,7 +1530,7 @@ class KVStore:
         Fidelity note: file buffers still flush on handle close (we
         share the page cache with any successor store, so OS-level loss
         of flushed-not-fsynced bytes is not simulatable in-process).
-        A WAL cut mid-record models death mid-append; this
+        The WAL_TORN_WRITE fault site models death MID-append; this
         method models death between append and fsync."""
         with self._lock:
             self._closed = True
@@ -1513,8 +1578,12 @@ class KVStore:
                 # fsync-by-default promises can't happen.
                 if self._fsync:
                     try:
-                        self._wal_file.flush()
-                        os.fsync(self._wal_file.fileno())
+                        with sanitizer.allow_blocking(
+                            "close() is terminal; no writer can make "
+                            "progress past a closed store anyway"
+                        ):
+                            self._wal_file.flush()
+                            os.fsync(self._wal_file.fileno())
                         self._synced_seq = self._wal_seq
                     except OSError:
                         pass  # racing writers will refuse their acks

@@ -33,6 +33,13 @@ bench/test harness) and ``HTTPLink`` (POSTs to a follower apiserver's
 ``/replication/append``, riding the same HTTP plane as every other
 verb). Both are driven by the hub's per-follower shipper threads, so a
 slow follower lags alone instead of convoying the others.
+
+A copy of `kubernetes_tpu/store/replication.py`, its locks the
+sanitizer's `replication.hub` and `replication.follower` (io_gate).
+Departure: `attach` and `add_follower` read the store's version before
+taking the hub's lock and start a shipper after releasing it. JAX's
+read it under the lock while the WAL tap takes that lock under the
+store's, an inversion the sanitizer reports (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from collections import deque
 from typing import Dict, List, Optional
 
 from kubernetes_tpu_torch.store.kvstore import KVStore, StoreError
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import metrics, sanitizer
 
 COMMIT_INDEX = metrics.DEFAULT.gauge(
     "replication_commit_index",
@@ -171,7 +178,7 @@ class ReplicationHub:
         self.name = name
         self.store = store
         self.ack_timeout_s = ack_timeout_s
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("replication.hub")
         self._cv = threading.Condition(self._lock)
         self._buf: deque = deque()  # raw lines, in version order
         self._base = 0  # buffer offset of _buf[0]
@@ -185,11 +192,16 @@ class ReplicationHub:
 
     def attach(self, gate_writes: bool = True) -> "ReplicationHub":
         """Tap the store's WAL; optionally gate its acks on quorum."""
+        # The store's version is read before the hub's lock is taken:
+        # the WAL tap takes the hub's lock under the store's, so reading
+        # the store under the hub's is an inversion (JAX's hub reads it
+        # under its lock; the port's sanitizer reports the cycle).
+        version = self.store.version
         with self._cv:
             if self._attached:
                 return self
             self._attached = True
-            self._last_version = self.store.version
+            self._last_version = version
             self._commit = self._last_version
         self.store.add_wal_tap(self._tap)
         if gate_writes:
@@ -222,16 +234,20 @@ class ReplicationHub:
                 link._replica.bootstrap(state)
             else:
                 link._request({"bootstrap": state})  # type: ignore[attr-defined]
+        # Outside the hub's lock, as in attach().
+        acked = self.store.version if bootstrap else 0
         with self._cv:
             f = _Follower(link, start=self._base + len(self._buf))
-            f.acked = self.store.version if bootstrap else 0
+            f.acked = acked
             self._followers.append(f)
             self._recompute_commit_locked()
             f.thread = threading.Thread(
                 target=self._ship_loop, args=(f,), daemon=True,
                 name=f"repl-ship-{link.name}",
             )
-            f.thread.start()
+        # Started outside the lock: Thread.start waits for the thread to
+        # run, a wait the sanitizer reports under a lock.
+        f.thread.start()
 
     def stop(self) -> None:
         self.store.set_commit_gate(None)
@@ -389,7 +405,7 @@ class FollowerReplica:
         self.store.set_replica_mode(True)
         # append() fsyncs the follower WAL under this lock by design: it
         # serializes the (single-shipper) ingest order.
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("replication.follower", io_gate=True)
         self._commit = 0
         self._promoted = False
 

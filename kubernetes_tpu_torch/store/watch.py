@@ -5,10 +5,9 @@ watch.Interface) and the etcd->watch translation in
 pkg/tools/etcd_helper_watch.go. A WatchStream is a bounded queue the
 store pushes into; consumers iterate or poll with timeouts.
 
-A copy of `kubernetes_tpu/store/watch.py` without its chaos seams
-(`faults.fire` at the watch drop and delay sites) and its lock
-sanitizer: the port's daemons carry neither, and its tests cut what
-a seam would cut by hand.
+A copy of `kubernetes_tpu/store/watch.py`, with its chaos seams
+(`watch.stream.drop`, `watch.stream.delay`; `utils/faults.py`) and the
+sanitizer's `watch.broadcaster` lock where JAX's are.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Iterator, List, Optional
 
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import faults, metrics, sanitizer
 
 ADDED = "ADDED"
 MODIFIED = "MODIFIED"
@@ -95,6 +94,14 @@ class WatchStream:
             return False
         if ev.version and ev.version <= self.floor:
             return True  # already covered by replay — drop, stay open
+        if faults.enabled() and self.resource and self.resource != "broadcast":
+            # Chaos seams, store-fed streams only (anonymous broadcast
+            # streams have no re-list recovery path to exercise): a
+            # forced slow-consumer drop takes the exact branch below;
+            # the delay site stalls delivery on the dispatcher thread.
+            if faults.fire(faults.WATCH_DROP, self.resource):
+                return self._drop_slow_consumer()
+            faults.fire(faults.WATCH_DELAY, self.resource)
         try:
             self._q.put_nowait(ev)
             depth = self._q.qsize()
@@ -155,7 +162,7 @@ class Broadcaster:
     """Fan-out of events to many streams (reference: pkg/watch/mux.go)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("watch.broadcaster")
         self._streams: List[WatchStream] = []
 
     def watch(self, maxsize: int = 4096) -> WatchStream:

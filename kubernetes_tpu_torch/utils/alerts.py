@@ -32,7 +32,11 @@ Surfaces: ``GET /debug/alerts`` / ``ktctl alerts`` render
 (timeseries.SAMPLER) so rule evaluation shares the retention cadence.
 
 A copy of `kubernetes_tpu/utils/alerts.py` over the port's registry
-and retention plane, on a plain lock (no lock sanitizer).
+and retention plane, on the sanitizer's `alerts.engine` lock
+(`utils/sanitizer.py`). Departure: `evaluate` posts a pass's transition
+Events after it releases that lock (JAX's posts them under it: a client
+request, and the recorder's first thread start, under a lock, which the
+sanitizer reports).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
-from kubernetes_tpu_torch.utils import metrics, timeseries
+from kubernetes_tpu_torch.utils import metrics, sanitizer, timeseries
 
 FIRING = metrics.DEFAULT.gauge(
     "alerts_firing",
@@ -169,7 +173,7 @@ class AlertEngine:
         if clock_scale is None:
             clock_scale = float(os.environ.get("KT_ALERT_SCALE", "1.0"))
         self.clock_scale = clock_scale
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("alerts.engine")
         self._state: Dict[str, dict] = {}
         self._transitions: List[dict] = []
         self._evaluations = 0
@@ -303,12 +307,6 @@ class AlertEngine:
             del self._transitions[: -self.MAX_TRANSITIONS]
         TRANSITIONS.inc(rule=rule.name, state=new)
         FIRING.set(1.0 if new == "firing" else 0.0, rule=rule.name)
-        post = self._post_event
-        if post is not None:
-            try:
-                post(rule, old, new, value)
-            except Exception:
-                pass  # events are observability, never control flow
         return row
 
     def evaluate(self, now: Optional[float] = None) -> List[dict]:
@@ -317,6 +315,7 @@ class AlertEngine:
         alerting costs exactly one pass per retention sweep."""
         t = time.monotonic() if now is None else now
         out: List[dict] = []
+        rules: Dict[str, AlertRule] = {}
         with self._lock:
             self._evaluations += 1
             for rule in self.rules:
@@ -328,6 +327,7 @@ class AlertEngine:
                 st["value"] = value
                 st["window"] = hit
                 state = st["state"]
+                rules[rule.name] = rule
                 if active:
                     st["clear_since"] = None
                     if state in ("inactive", "resolved"):
@@ -361,6 +361,17 @@ class AlertEngine:
                             out.append(
                                 self._transition(st, rule, "resolved", t, value)
                             )
+        # Transition Events post after the lock is released: a post is a
+        # client request (a socket round trip over HTTP), and it starts
+        # the recorder's thread the first time. Departure from JAX's
+        # engine, which posts under its lock (a sanitizer finding).
+        post = self._post_event
+        if post is not None:
+            for row in out:
+                try:
+                    post(rules[row["rule"]], row["from"], row["to"], row["value"])
+                except Exception:
+                    pass  # events are observability, never control flow
         return out
 
     # -- introspection -------------------------------------------------

@@ -25,8 +25,9 @@ The solve telemetry lands here too: the iterations a solve ran
 (`scheduler_sinkhorn_residual`), and the figures parked for the daemon
 that ran the solve (`take_last_solve_telemetry`, consumed once).
 
-A plain `threading.Lock` guards the rings (the JAX module's lock
-sanitizer is not carried, the daemon's departure (c)).
+The sanitizer's `flightrecorder.ring` lock guards the rings and
+`flightrecorder.lastsolve` the parked solve figures, under JAX's names
+(`utils/sanitizer.py`).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import metrics, sanitizer
 
 #: Decision outcome events recorded, by outcome: one a drained pod a
 #: tick (bound / unschedulable / bind_error / bind_conflict /
@@ -65,7 +66,7 @@ SOLVE_ITERATIONS = metrics.DEFAULT.histogram(
     buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096),
 )
 
-_LAST_SOLVE_LOCK = threading.Lock()
+_LAST_SOLVE_LOCK = sanitizer.lock("flightrecorder.lastsolve")
 _LAST_SOLVE: Optional[dict] = None
 
 
@@ -265,7 +266,7 @@ class FlightRecorder:
     """Bounded rings of decisions and solve records (newest win)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("flightrecorder.ring")
         self._decisions: List[Decision] = []
         self._solves: List[SolveRecord] = []
         self._tick = 0

@@ -14,11 +14,12 @@ partitioned, or on a slow clock) cannot write after a takeover even
 while it still believes it leads.
 
 The clock is injectable: the tests drive whole renew/expire/steal
-schedules without sleeping, and make a renew's write vanish or a
-holder's clock run slow through the clock and the client they hand in.
-The JAX module's fault seams (`lease.renew.lost`, `lease.clock.skew`)
-are not carried (departure (c) of `scheduler/daemon.py`): nothing in
-the port injects faults.
+schedules without sleeping. The JAX module's fault seams sit where
+its do (`utils/faults.py`): `lease.renew.lost` loses a holder's renew
+CAS in flight, and the holder must believe only until the window
+lapses on its own clock; `lease.clock.skew` runs the holder's clock
+slow by one lease duration, so it believes an expired lease is live,
+and the fencing token keeps its stale writes out.
 
 `LeaseElector` wraps the client in the renew/steal loop (the shape of
 `LeaderElector`, with the token threaded into the callbacks); it gates
@@ -36,7 +37,7 @@ import time
 from typing import Callable, Optional
 
 from kubernetes_tpu_torch.client.rest import APIError
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import faults, metrics
 
 _LOG = logging.getLogger("kubernetes_tpu_torch.utils.lease")
 
@@ -105,9 +106,15 @@ class LeaseClient:
         self._held_token: Optional[int] = None
         self._renewed_local = 0.0
         self._last_op = "acquire"
+        # The LEASE_CLOCK_SKEW fault makes this identity's view of its
+        # clock run slow by one lease duration from the moment it fires;
+        # the record always carries true clock times.
+        self._skew = 0.0
 
     def now(self) -> float:
-        return self._clock()
+        if faults.enabled() and faults.fire(faults.LEASE_CLOCK_SKEW, self.identity):
+            self._skew += self.lease_duration
+        return self._clock() - self._skew
 
     # -- record I/O ---------------------------------------------------
 
@@ -185,6 +192,11 @@ class LeaseClient:
         if not renewing and not expired:
             return self.held_token()  # someone else holds a live lease
         token = rec.token if renewing and not expired else rec.token + 1
+        if renewing:
+            # The renew CAS can be lost in flight (partition from the
+            # lease store): the record write never lands, and the
+            # holder's belief decays on its own clock.
+            faults.fire(faults.LEASE_RENEW_LOST, self.identity)
         try:
             # CAS against the resourceVersion of the read the decision
             # used: any rival write in between conflicts.

@@ -5,7 +5,8 @@ gauges, summaries and histograms with label sets, `bucket_quantile`,
 and a `Registry` (`DEFAULT`, the process-wide one) rendered in the
 Prometheus text exposition format. The names, buckets and text are the
 JAX module's, so a scrape of either package reads the same series.
-Series locks are plain `threading.Lock`s.
+Series and registry locks come from the sanitizer's factory under JAX's
+names (`metrics.series`, `metrics.registry`; `utils/sanitizer.py`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import math
 import random
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from kubernetes_tpu_torch.utils import sanitizer
 
 #: Module-level RNG so reservoir sampling is seedable in tests
 #: (metrics._RNG.seed(...)) and the hot observe() path never re-imports.
@@ -37,7 +40,7 @@ class _Metric:
         self.name = name
         self.help = help_
         self.label_names = tuple(label_names)
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("metrics.series")
 
     def _key(self, labels: Dict[str, str]) -> Tuple[str, ...]:
         return tuple(labels.get(k, "") for k in self.label_names)
@@ -312,7 +315,7 @@ class Histogram(_Metric):
 
 class Registry:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("metrics.registry")
         self._metrics: Dict[str, _Metric] = {}
 
     def register(self, metric: _Metric) -> _Metric:

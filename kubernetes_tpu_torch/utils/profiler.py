@@ -31,7 +31,7 @@ import threading
 import time
 from typing import Callable, Optional, Tuple
 
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import metrics, sanitizer
 
 #: Ratio ladders: duty and overlap are in [0, 1] by construction.
 RATIO_BUCKETS = (
@@ -82,7 +82,7 @@ class TraceInProgress(RuntimeError):
     cannot nest)."""
 
 
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = sanitizer.lock("profiler.capture")
 _CAPTURE_ACTIVE = [False]
 
 #: Capture length clamp.

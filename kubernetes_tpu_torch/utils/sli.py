@@ -43,7 +43,7 @@ import threading
 import time
 from typing import Dict, List
 
-from kubernetes_tpu_torch.utils import flightrecorder, metrics
+from kubernetes_tpu_torch.utils import flightrecorder, metrics, sanitizer
 
 #: Store key prefix of the pod resource (registry.ResourceInfo.prefix
 #: shape): the collector filters the firehose on it first thing.
@@ -129,7 +129,9 @@ def observe_watch_lag(resource: str, lag_versions: int) -> None:
 
 
 _SEEN = {"builds": 0}
-_SEEN_LOCK = threading.Lock()
+# The counterpart of JAX's `sli.xla` lock (its XLA compile-cache count),
+# named for what it guards here: the kernel builds already reported.
+_SEEN_LOCK = sanitizer.lock("sli.device")
 
 
 def observe_device_telemetry() -> None:
@@ -177,7 +179,7 @@ class LifecycleSLICollector:
     MAX_TRACKED = 65536
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("sli.collector")
         # pod key ("ns/name") -> [created_mono, decided, bound, running]
         self._tracks: Dict[str, List] = {}
         self.enabled = True

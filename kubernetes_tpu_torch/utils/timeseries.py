@@ -30,8 +30,11 @@ and every SLO-feeding latency series is a Histogram precisely so
 windows CAN be taken (utils/metrics.py docstring).
 
 A copy of `kubernetes_tpu/utils/timeseries.py` over the port's metrics
-registry, without the sampler's chaos seam (`timeseries.sample.skip`)
-and the lock sanitizer.
+registry, with the sampler's chaos seam (`timeseries.sample.skip`) and
+the sanitizer's `timeseries.retention` and `timeseries.sampler` locks
+where JAX's are. Departure: `Sampler.start` starts its thread after
+releasing its lock (a thread's start waits for it to run, a blocking
+wait the sanitizer reports under a lock).
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import faults, metrics, sanitizer
 
 #: Sampler cadence / per-series ring bound (env-tunable; soak and the
 #: check.sh smoke shrink the cadence to make minutes-long windows run
@@ -72,7 +75,7 @@ class Retention:
 
     def __init__(self, retain_samples: int = DEFAULT_RETAIN_SAMPLES):
         self.retain_samples = int(retain_samples)
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("timeseries.retention")
         # metric name -> label tuple -> ring of (t_mono, payload).
         # Payload: float for counter/gauge; (count, sum, buckets) for
         # histograms.
@@ -90,6 +93,8 @@ class Retention:
         retention lock (snapshots are collected first, appended after)."""
         registry = metrics.DEFAULT if registry is None else registry
         now = time.monotonic() if now is None else now
+        if faults.enabled() and faults.fire(faults.TIMESERIES_SAMPLE_SKIP):
+            return 0
         collected = []
         for m in registry.all():
             snap = getattr(m, "snapshot", None)
@@ -370,7 +375,7 @@ class Sampler:
         self._hooks: List[Callable[[], None]] = []
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self._lock = threading.Lock()
+        self._lock = sanitizer.lock("timeseries.sampler")
 
     @property
     def running(self) -> bool:
@@ -403,13 +408,17 @@ class Sampler:
         with self._lock:
             if interval_s is not None:
                 self.interval_s = float(interval_s)
-            if self._thread is not None and self._thread.is_alive():
-                return self
+            t = self._thread
+            if t is not None and (t.ident is None or t.is_alive()):
+                return self  # running, or about to be started
             self._stop.clear()
-            self._thread = threading.Thread(
+            t = self._thread = threading.Thread(
                 target=self._run, daemon=True, name="kt-timeseries-sampler"
             )
-            self._thread.start()
+        # Started outside the lock: Thread.start waits for the thread
+        # to run, a wait the sanitizer reports under a lock (JAX's
+        # sampler starts it under its lock).
+        t.start()
         return self
 
     def stop(self) -> None:

@@ -46,6 +46,7 @@ from kubernetes_tpu_torch.server.registry import unique_resources as port_unique
 from kubernetes_tpu_torch.store.kvstore import KVStore as PortKVStore
 from kubernetes_tpu_torch.utils import flightrecorder as port_flightrecorder
 from kubernetes_tpu_torch.utils import websocket as ws
+from tests.torch_ktsan import torch_ktsan  # noqa: F401
 
 PACKAGES = {
     "jax": (jax_api, jax_http, jax_admission, jax_auth, JaxKVStore, jax_objects),
@@ -539,6 +540,7 @@ def _ws_frames(port, path):
     return frames
 
 
+@pytest.mark.usefixtures("torch_ktsan")
 def test_watch_from_a_version_as_json_and_websocket(twin):
     pods = "/api/v1/namespaces/default/pods"
     twin.same("POST", pods, _pod("w0", {"app": "web"}), code=201)
@@ -564,6 +566,7 @@ def test_watch_from_a_version_as_json_and_websocket(twin):
     twin.same("GET", "/api/v1/watch/bad/path/x", code=404)
 
 
+@pytest.mark.usefixtures("torch_ktsan")
 def test_watch_after_compaction_is_gone():
     twin = Twin(history_limit=4)
     try:

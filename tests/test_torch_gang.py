@@ -37,6 +37,7 @@ from kubernetes_tpu_torch.scheduler.gang import (
 )
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer
 from tests.test_solver_parity import mk_node, mk_pod
+from tests.torch_ktsan import torch_ktsan_guard  # noqa: F401 (runs the file sanitized)
 
 
 def _keys(groups):

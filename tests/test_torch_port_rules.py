@@ -1,7 +1,7 @@
 """Rules the port keeps: no JAX, a CUDA default, no quiet CPU fallback.
 
 - `kubernetes_tpu_torch/` and `chip_smoke.py` import neither `jax` nor
-  anything of `kubernetes_tpu`, and start no module of `kubernetes_tpu`
+  anything of `kubernetes_tpu` or of its `tools/`, and start no module of `kubernetes_tpu`
   as a child process (both checked on the syntax tree). Every program
   `chip_smoke.py` passes to `python -c` is one of its module-level
   `*_LAUNCHER` string constants, and each is held to the same rules.
@@ -62,12 +62,14 @@ def _imports_of(source, name="<string>"):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "kubernetes_tpu") or top.startswith("jax.")
+    return top in ("jax", "jaxlib", "kubernetes_tpu", "tools") or top.startswith("jax.")
 
 
 def test_forbidden_import_detector():
     assert _forbidden("jax.numpy") and _forbidden("kubernetes_tpu.ops")
     assert _forbidden("jaxlib") and not _forbidden("kubernetes_tpu_torch.ops")
+    # The JAX package's tools (its soak harness, ktlint) are not the port's.
+    assert _forbidden("tools.soak") and _forbidden("tools")
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -259,6 +261,10 @@ def test_new_modules_fall_under_the_import_check():
         "kubernetes_tpu_torch/controllers/__init__.py",
         "kubernetes_tpu_torch/controllers/descheduler.py",
         "kubernetes_tpu_torch/controllers/autoscaler.py",
+        "kubernetes_tpu_torch/utils/faults.py",
+        "kubernetes_tpu_torch/utils/sanitizer.py",
+        "kubernetes_tpu_torch/client/chaos.py",
+        "kubernetes_tpu_torch/soak.py",
         "kubernetes_tpu_torch/utils/lease.py",
         "kubernetes_tpu_torch/utils/leaderelect.py",
         "kubernetes_tpu_torch/scheduler/standby.py",

@@ -47,6 +47,7 @@ from kubernetes_tpu_torch.ops.preemption import (
 from kubernetes_tpu_torch.scheduler.batch import preempt_backlog, preempt_backlog_scalar
 from kubernetes_tpu_torch.scheduler.gang import GangGroup, drop_partial_gang_preemptions
 from tests.test_solver_parity import TestPreemptionParity
+from tests.torch_ktsan import torch_ktsan_guard  # noqa: F401 (runs the file sanitized)
 
 
 @pytest.fixture(autouse=True, scope="module")

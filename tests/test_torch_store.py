@@ -20,6 +20,7 @@ import pytest
 from kubernetes_tpu.store import kvstore as jax_kv
 
 from kubernetes_tpu_torch.store import kvstore as port_kv
+from tests.torch_ktsan import torch_ktsan_guard  # noqa: F401 (runs the file sanitized)
 
 PACKAGES = {"jax": jax_kv, "port": port_kv}
 
