@@ -188,6 +188,24 @@ exits non-zero and prints no result. Phases, one JSON line each:
               overlap and the profiled tick's busy share; the series as
               the metrics registry holds them (no daemon has fed the
               duty and overlap series yet: their count is 0);
+  5p. mesh    the node-sharded mesh (`ops.matrices.host_mesh`): four
+              shards on cuda:0-3 with four or more cards, else four
+              shards on cuda:0 (line `mesh_devices` says which, with the
+              device count). The shard-step kernel K1S on the first 4,096
+              pods of the 50k x 5k backlog (5,120 nodes, 1,280 a shard)
+              held exactly to its plain version (the eager shard step)
+              and to K1's unsharded solve, decisions and carry; K1S
+              timed (median of two, per pod too) with its launches;
+              `schedule_backlog(mesh=)` on those pods against the
+              unsharded one, its K1S launches counted; the wave over the
+              whole 50k x 5k backlog (`solve_backlog_pipelined(mode=
+              "wave", mesh=)`) equal to the unsharded wave; Sinkhorn the
+              same with at least 99% of the pods agreeing, its sharded
+              prices within 1e-4 of the unsharded ones, and its
+              placements on an 8,192 x 1,024 backlog valid by the
+              oracle; `resolve_batch_mode("auto", mesh)` must pick the
+              wave, and `schedule_backlog_wave(mesh=)` on that backlog
+              equal the unsharded one. Walls, device memory at peak;
   5o. daemon  the port's scheduler daemon against the port's apiserver,
               started for each leg as a child process (`python -m
               kubernetes_tpu_torch.cmd.hyperkube apiserver`, store in
@@ -459,6 +477,10 @@ assigned pods alone, and the churn ticks' phases (phase 5b's
 synchronous replay). One JSON line a measurement. Two checkouts are
 compared by running it in turns in one command (A B B A).
 
+    python3 chip_smoke.py --mesh
+
+builds the kernels and runs phase 5p alone, then its kernel line.
+
     python3 chip_smoke.py --daemon
 
 builds the kernels and runs phase 5o alone (twenty-four lines, no
@@ -576,6 +598,8 @@ def main(argv=None) -> int:
     parser.add_argument("--runs", type=int, default=MAIN_REPEATS)
     parser.add_argument("--daemon", action="store_true",
                         help="build, then run only phase 5o (the scheduler daemon)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="build, then run only phase 5p (the node-sharded mesh)")
     parser.add_argument("--daemon-legs", default="",
                         help="with --daemon: the comma-separated legs of phase 5o to run "
                              "(default all)")
@@ -625,6 +649,12 @@ def main(argv=None) -> int:
         ],
     )
 
+    if args.mesh:
+        mesh = run_mesh(torch, device, smi)
+        emit("mesh", ok=True, card=smi, **mesh)
+        print(json.dumps({"kernels": [mesh_kernel_line(mesh)]}), flush=True)
+        print(smi, flush=True)
+        return 0
     if args.daemon:
         run_daemon(torch, device, smi, legs=set(filter(None, args.daemon_legs.split(","))),
                    churn_stuck=args.churn_stuck, soak_epochs=args.soak_epochs)
@@ -694,6 +724,10 @@ def main(argv=None) -> int:
     # -- 5n. the telemetry plane -------------------------------------------------
     emit("telemetry", ok=True, card=smi, **run_telemetry(torch, device, main_result, churn,
                                                          placed_names))
+
+    # -- 5p. the node-sharded mesh ------------------------------------------------
+    mesh = run_mesh(torch, device, smi)
+    emit("mesh", ok=True, card=smi, **mesh)
 
     # -- 5o. the scheduler daemon against the port's apiserver --------------------
     daemon = run_daemon(torch, device, smi, soak_epochs=args.soak_epochs)
@@ -810,6 +844,7 @@ def main(argv=None) -> int:
             "worklists": rebalance_line["k2"]["worklists"],
             "plan": rebalance_line["k2"]["plan"],
         },
+        mesh_kernel_line(mesh),
     ]
     emit("kernel_timing", ok=True, card=smi, **timing, policy_sweep=policy_sweep)
     stop_cpu_checks()
@@ -8702,6 +8737,224 @@ def time_kernel(torch, device, chunk_state, chunk_result, ptxas):
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "timed": "the wrapper's launch on the first pipeline chunk, layout conversion included",
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 5p: the node-sharded mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_CHUNK_PODS = 4096  # pods of the 50k backlog K1S is held and timed on
+MESH_REPEATS = 2  # timed K1S runs on that chunk
+MESH_CHECK = (8192, 1024, 7)  # pods, nodes, seed of the auto-mode and validity backlog
+
+
+def mesh_devices(torch):
+    """The shards' devices: cuda:0-3 with four or more cards, else all
+    four shards on cuda:0; and the words that say which."""
+    if torch.cuda.device_count() >= MESH_SHARDS:
+        devices = tuple(torch.device("cuda", i) for i in range(MESH_SHARDS))
+        return devices, f"{MESH_SHARDS} shards on cuda:0-{MESH_SHARDS - 1}"
+    return (torch.device("cuda", 0),) * MESH_SHARDS, f"{MESH_SHARDS} shards on cuda:0"
+
+
+def _sync_mesh(torch, mesh):
+    for dev in set(mesh.devices):
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_timed(torch, mesh, fn):
+    """(result, ms by CUDA events on the mesh's first device, host
+    seconds) of fn(), every device synchronised before and after. The
+    first device's stream waits on every cross-device copy, so its
+    events span the other devices' work too."""
+    _sync_mesh(torch, mesh)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with torch.cuda.device(mesh.first):
+        ev0.record()
+        out = fn()
+        ev1.record()
+    _sync_mesh(torch, mesh)
+    return out, ev0.elapsed_time(ev1), time.perf_counter() - t0
+
+
+def run_mesh(torch, device, smi):
+    """Phase 5p (see the module text)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.models.columnar import SnapshotBuilder, build_snapshot
+    from kubernetes_tpu_torch.ops import scan_kernel, shard_scan, sinkhorn
+    from kubernetes_tpu_torch.ops.matrices import (
+        ShardedNodes, device_nodes, device_pods, device_snapshot, host_mesh, shard_nodes)
+    from kubernetes_tpu_torch.ops.pipeline import solve_backlog_pipelined
+    from kubernetes_tpu_torch.ops.wave import strip_assignments
+    from kubernetes_tpu_torch.scheduler import batch
+
+    devices, kind = mesh_devices(torch)
+    mesh = host_mesh(MESH_SHARDS, devices=devices)
+    if mesh is None:
+        fail("mesh", f"host_mesh({MESH_SHARDS}, devices={devices}) formed no mesh")
+    emit("mesh_devices", ok=True, mesh=kind, device_count=torch.cuda.device_count(),
+         devices=[str(d) for d in devices], card=smi)
+    for dev in set(devices):
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {"mesh": kind, "device_count": torch.cuda.device_count(), "shards": MESH_SHARDS}
+
+    # -- K1S on the first chunk: against its plain version and against K1 ----
+    pending, nodes, services = workload.synthetic_objects(N_PODS, N_NODES, seed=2)
+    builder = SnapshotBuilder(pending, nodes, (), services)
+    flat = device_nodes(builder.node_columns(), mesh.first)
+    pods = device_pods(builder.pod_columns(0, MESH_CHUNK_PODS), mesh.first)
+    ref, ref_nodes = scan_kernel.scan_with_state(pods, _copy(flat))
+    _, k1_ms, _ = _mesh_timed(torch, mesh, lambda: scan_kernel.scan_with_state(pods, _copy(flat)))
+    (got, got_nodes), k1s_ms, k1s_s = _mesh_timed(
+        torch, mesh, lambda: shard_scan.sharded_scan_with_state(pods, shard_nodes(flat, mesh)))
+    err = _compare(torch, "K1S against K1's unsharded solve", got, got_nodes.stitched(), ref,
+                   ref_nodes, phase="mesh")
+    (plain, plain_nodes), plain_ms, plain_s = _mesh_timed(
+        torch, mesh,
+        lambda: shard_scan.plain_sharded_scan_with_state(pods, shard_nodes(flat, mesh)))
+    err = max(err, _compare(torch, "K1S against its plain version", got, got_nodes.stitched(),
+                            plain, plain_nodes.stitched(), phase="mesh"))
+    times = [k1s_ms]
+    for _ in range(MESH_REPEATS - 1):
+        (again, again_nodes), t, _ = _mesh_timed(
+            torch, mesh, lambda: shard_scan.sharded_scan_with_state(pods, shard_nodes(flat, mesh)))
+        _compare(torch, "K1S repeated", again, again_nodes.stitched(), ref, ref_nodes,
+                 phase="mesh")
+        times.append(t)
+    ms = statistics.median(times)
+    P, N = pods["cpu"].shape[0], flat["cpu_cap"].shape[0]
+    pin = pods["pinned"]
+    placeable = int(((pin == -1) | ((pin >= 0) & (pin < N))).sum().item())
+    bound = _bound(shard_scan.cost(
+        P, N, flat["svc_counts"].shape[1], pods["sel"].shape[1], pods["port"].shape[1],
+        pods["vol_any"].shape[1], pods["svc_ids"].shape[1], MESH_SHARDS, placeable),
+        placeable_pods=placeable)
+    out["k1s"] = {
+        "pods": P, "nodes": N, "nodes_per_shard": N // MESH_SHARDS,
+        "threads": shard_scan.threads_for(N // MESH_SHARDS),
+        "ms": ms, "ms_all": times, "us_per_pod": ms * 1e3 / P, "host_s_first": k1s_s,
+        "plain_ms": plain_ms, "plain_host_s": plain_s, "max_abs_err": err,
+        "k1_ms_same_pods": k1_ms,
+        "tolerance": "exact (torch.equal), decisions and the nine carry fields",
+        **bound,
+        "timed": "the wrapper's whole chain on the chunk (P + 2 launches a shard and the "
+                 "slots' exchange), CUDA events on the first device",
+    }
+
+    # -- the main path of the phase: a user's sharded scan, its K1S launches ----
+    chunk = pending[:MESH_CHUNK_PODS]
+    k1_before = scan_kernel.scan_with_state.launches
+    shard_scan.sharded_scan_with_state.launches = 0
+    t0 = time.perf_counter()
+    names = batch.schedule_backlog(chunk, nodes, (), services, mesh=mesh)
+    _sync_mesh(torch, mesh)
+    sharded_s = time.perf_counter() - t0
+    launches = shard_scan.sharded_scan_with_state.launches
+    if launches == 0:
+        fail("mesh", "schedule_backlog(mesh=) launched K1S no time")
+    if scan_kernel.scan_with_state.launches != k1_before:
+        fail("mesh", "schedule_backlog(mesh=) fell back to K1's unsharded solve")
+    t0 = time.perf_counter()
+    want = batch.schedule_backlog(chunk, nodes, (), services, device=device)
+    flat_s = time.perf_counter() - t0
+    if names != want:
+        bad = sum(a != b for a, b in zip(names, want))
+        fail("mesh", f"schedule_backlog(mesh=): {bad} of {len(want)} pods differ from the "
+                     "unsharded scan")
+    out["schedule_backlog"] = {"pods": len(chunk), "wall_s": sharded_s, "unsharded_wall_s": flat_s,
+                               "k1s_launches": launches,
+                               "placed": sum(n is not None for n in names)}
+    out["launches"] = launches
+
+    # -- the wave and Sinkhorn over the whole 50k x 5k backlog ------------------
+    for mode in ("wave", "sinkhorn"):
+        t0 = time.perf_counter()
+        sharded = solve_backlog_pipelined(pending, nodes, (), services, mode=mode, mesh=mesh)
+        _sync_mesh(torch, mesh)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        unsharded = solve_backlog_pipelined(pending, nodes, (), services, mode=mode, device=device)
+        flat_wall = time.perf_counter() - t0
+        agree = float(np.mean([a == b for a, b in zip(sharded, unsharded)]))
+        if mode == "wave" and agree < 1.0:
+            fail("mesh", f"the sharded wave differs from the unsharded one on "
+                         f"{1 - agree:.6f} of the pods")
+        if agree < AGREEMENT:
+            fail("mesh", f"sharded Sinkhorn agrees with the unsharded one on {agree:.4f} only")
+        out[mode] = {"pods": N_PODS, "nodes": N_NODES, "wall_s": wall, "unsharded_wall_s": flat_wall,
+                     "agreement": agree, "placed": sum(n is not None for n in sharded)}
+
+    # Sinkhorn's sharded prices against the unsharded ones, on the card.
+    worst = 0.0
+    for seed in range(4):
+        masked, valid, capacity = _congested_matrix(seed)
+        m, v, c = (torch.from_numpy(x).to(mesh.first) for x in (masked, valid, capacity))
+        g, i, r = sinkhorn._congestion_prices(m, v, c, 2.0, 20, 0.0)
+        cut = [torch.from_numpy(x).to(mesh.first)
+               for x in np.array_split(np.arange(masked.shape[1]), MESH_SHARDS)]
+        holder = ShardedNodes(mesh, [{"cpu_cap": torch.zeros(len(x), device=dev)}
+                                     for x, dev in zip(cut, mesh.devices)])
+        gs, is_, rs = sinkhorn._congestion_prices_sharded(
+            [m[:, x].to(dev) for x, dev in zip(cut, mesh.devices)], v,
+            [c[x].to(dev) for x, dev in zip(cut, mesh.devices)], holder, 2.0, 20, 0.0)
+        perr = float((torch.cat([x.to(mesh.first) for x in gs]) - g).abs().max())
+        rerr = abs(float(rs) - float(r))
+        if int(is_) != int(i) or perr > PRICE_ATOL or rerr > PRICE_ATOL:
+            fail("mesh", f"sharded prices, congested seed {seed}: iterations {int(is_)} and "
+                         f"{int(i)}, price error {perr}, residual error {rerr}")
+        worst = max(worst, perr, rerr)
+    out["sinkhorn"]["price_max_abs_err"] = worst
+
+    # -- auto on a mesh picks the wave; Sinkhorn's placements are valid --------
+    mode = batch.resolve_batch_mode("auto", mesh)
+    if mode != "wave":
+        fail("mesh", f"resolve_batch_mode('auto', mesh) resolved to {mode!r}, not the wave")
+    n_pods, n_nodes, seed = MESH_CHECK
+    cpending, cnodes, cservices = workload.synthetic_objects(n_pods, n_nodes, seed=seed)
+    solver = {"wave": batch.schedule_backlog_wave}[mode]
+    t0 = time.perf_counter()
+    got_names = solver(cpending, cnodes, (), cservices, mesh=mesh)
+    auto_s = time.perf_counter() - t0
+    if got_names != solver(cpending, cnodes, (), cservices, device=device):
+        fail("mesh", "schedule_backlog_wave(mesh=) differs from the unsharded wave")
+    snap = build_snapshot(cpending, cnodes, services=cservices)
+    d = device_snapshot(snap, mesh=mesh)
+    a, _ = sinkhorn.solve_sinkhorn(d.pods, d.nodes)
+    _valid("mesh", snap, strip_assignments(d, a), "sharded Sinkhorn")
+    out["auto"] = {"resolved": mode, "pods": n_pods, "nodes": n_nodes, "wall_s": auto_s,
+                   "placed": sum(n is not None for n in got_names),
+                   "sinkhorn_valid_on": f"{n_pods} x {n_nodes}"}
+    out["peak_memory_bytes"] = {str(dev): torch.cuda.max_memory_allocated(dev)
+                                for dev in set(devices)}
+    return out
+
+
+def mesh_kernel_line(mesh):
+    """K1S's entry of the kernels line, from phase 5p's result."""
+    k = mesh["k1s"]
+    return {
+        "name": "shard_scan_kernel",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/shard_scan_kernel.cu",
+        # An XLA function of the JAX package under a mesh, not a Pallas kernel.
+        "replaces": "kubernetes_tpu/ops/solver.py:304 (_scan_solve under a mesh; XLA, "
+                    "not a Pallas kernel)",
+        "launches": mesh["launches"],
+        "launches_by_path": {"mesh_schedule_backlog": mesh["launches"]},
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        # No single PyTorch call computes the sequential solve.
+        "library_ms": None,
+        "us_per_pod": k["us_per_pod"],
+        "mesh": mesh["mesh"],
     }
 
 

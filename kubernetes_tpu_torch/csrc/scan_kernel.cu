@@ -85,25 +85,18 @@
 #include <cstdint>
 
 #include "scan_async.cuh"
+#include "scan_step.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace ktt_step;
+
 constexpr int kMaxCluster = 16;
 constexpr int kMaxThreads = 1024;
 constexpr int kTileShift = 7;  // 128 pods staged per tile, the unrolled instance's
 constexpr int kRows = 4;    // count rows in shared memory: the pod's and the next three
-
-// A pod's row in the packed (P, row_words) int32 matrix the wrapper
-// builds: scalars, then the sel, port, vol_any, vol_rw words and the
-// service ids, zero-padded to a multiple of 4 words.
-constexpr int kRowCpu = 0;   // f32 bits
-constexpr int kRowMem = 1;   // f32 bits
-constexpr int kRowZero = 2;  // 0 or 1
-constexpr int kRowPin = 3;
-constexpr int kRowSvc = 4;
-constexpr int kRowBits = 5;
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -170,55 +163,6 @@ struct ScanArgs {
   int w_lr, w_bra, w_spread;
   Layout L;
 };
-
-// int32 arithmetic that wraps like JAX's instead of being undefined.
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-__device__ __forceinline__ int wmul(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
-
-// JAX's `//` for a positive divisor.
-__device__ __forceinline__ int floor_div(int a, int b) {
-  int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
-// priorities.go:31-40: ((cap - req) * 10) // cap, 0 if cap == 0 or
-// req > cap (and 0 for cap < 0, where JAX's where() gives 0 too).
-__device__ __forceinline__ int least_requested(int req, int cap) {
-  if (cap <= 0 || req > cap) return 0;
-  return floor_div(wmul(wsub(cap, req), 10), cap);
-}
-
-// req / max(cap, 1) as JAX computes an int32 true division: both
-// operands converted to f32, then one IEEE divide; 1.0 when cap == 0.
-__device__ __forceinline__ float fraction(int req, int cap) {
-  if (cap == 0) return 1.0f;
-  return __fdiv_rn(__int2float_rn(req), __int2float_rn(cap > 1 ? cap : 1));
-}
-
-// (value, node) -> a key whose signed order is value first, then the
-// LOWER node index.
-__device__ __forceinline__ long long make_key(int value, int node) {
-  unsigned long long hi = (unsigned long long)(unsigned)value << 32;
-  return (long long)(hi | (unsigned long long)(0xffffffffu - (unsigned)node));
-}
-
-// Warp-wide max of 64-bit keys: the score half, then the index half
-// among the lanes that hold the best score (two redux instructions).
-__device__ __forceinline__ long long warp_max_key(long long v) {
-  const int hi = (int)(v >> 32);
-  const int best_hi = __reduce_max_sync(0xffffffffu, hi);
-  const unsigned best_lo = __reduce_max_sync(0xffffffffu, hi == best_hi ? (unsigned)v : 0u);
-  return (long long)(((unsigned long long)(unsigned)best_hi << 32) | best_lo);
-}
-
-__device__ __forceinline__ int warp_max_int(int v) { return __reduce_max_sync(0xffffffffu, v); }
 
 // Widths kSW, kPW, kVW, kK > 0 are compile-time constants (the bitset
 // and service-id loops unroll); 0 takes the width from the arguments.
@@ -471,14 +415,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
       // -- predicates (solver._feasible, default spec) -----------------
       const float cap_c = cpu_cap[j];
       const float cap_m = mem_cap[j];
-      const float cap_p = pods_cap[j];
-      const float used_p = pods_used[j];
-      const bool fits_cpu = cap_c == 0.0f || __fadd_rn(cpu_fit[j], cpu) <= cap_c;
-      const bool fits_mem = cap_m == 0.0f || __fadd_rn(mem_fit[j], mem) <= cap_m;
-      const bool fits_count = __fadd_rn(used_p, 1.0f) <= cap_p;
-      const bool nonzero_ok = (over[j] == 0) & fits_cpu & fits_mem & fits_count;
-      const bool zero_ok = used_p < cap_p;
-      bool ok = (sched[j] != 0) & (zero ? zero_ok : nonzero_ok);
+      bool ok = (sched[j] != 0) &
+                resources_fit(cap_c, cap_m, pods_cap[j], pods_used[j], cpu_fit[j], mem_fit[j],
+                              over[j] != 0, cpu, mem, zero);
       for (int w = 0; w < SW; ++w) {
         const int sw = sel[w];
         ok &= (sw & labels[w * ws + j * ns_sel]) == sw;
@@ -491,25 +430,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) scan_kernel(const ScanArgs a) 
       ok &= (pin == -1) | (pin == n);
 
       // -- priorities (solver._component_scores) -----------------------
-      const int icap_c = __float2int_rz(cap_c);
-      const int icap_m = __float2int_rz(cap_m);
-      const int req_c = __float2int_rz(__fadd_rn(cpu_used[j], cpu));
-      const int req_m = __float2int_rz(__fadd_rn(mem_used[j], mem));
-      const int lr = floor_div(
-          wadd(least_requested(req_c, icap_c), least_requested(req_m, icap_m)), 2);
-      const float cf = fraction(req_c, icap_c);
-      const float mf = fraction(req_m, icap_m);
-      int bra = 0;
-      if (!(cf >= 1.0f || mf >= 1.0f)) {
-        const float d = __fmul_rn(fabsf(__fsub_rn(cf, mf)), 10.0f);
-        bra = __float2int_rz(__fadd_rn(__fsub_rn(10.0f, d), 1e-5f));
-      }
-      int spread = 10;
-      if (svc >= 0 && m != 0) {
-        spread = floor_div(wmul(10, wsub(m, count_of(p, j))), m > 1 ? m : 1);
-      }
-      const int total =
-          wadd(wadd(wmul(lr, a.w_lr), wmul(bra, a.w_bra)), wmul(spread, a.w_spread));
+      const int total = default_total(cap_c, cap_m, cpu_used[j], mem_used[j], cpu, mem, svc, m,
+                                      [&] { return count_of(p, j); }, a.w_lr, a.w_bra,
+                                      a.w_spread);
 
       const long long key = make_key(ok ? total : -1, n);
       best = key > best ? key : best;

@@ -43,8 +43,13 @@ What differs from the JAX session:
 - Modes "wave" and "sinkhorn" run `ops/wave.py` / `ops/sinkhorn.py` on
   the resident carry, whose wave loop reads one flag back a wave, so
   their `solve_async` returns once the tick's waves are done; the
-  tick's telemetry lands in `last_stats` at `result()`, as in JAX. No
-  mesh: the port runs on one card.
+  tick's telemetry lands in `last_stats` at `result()`, as in JAX.
+- On a mesh (`mesh=`, `matrices.host_mesh`) the node rows are a
+  `matrices.ShardedNodes`: uploaded sharded, each dirty row scattered to
+  the shard that owns it, the pending pods staged on the mesh's first
+  device (the solvers copy them to the others), and a tick solves over
+  every slot, as the JAX session does on its mesh. The slot axis is
+  padded to a multiple of the mesh size.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ from kubernetes_tpu_torch.models.objects import (
     Pod,
     Service,
 )
-from kubernetes_tpu_torch.ops.matrices import BITSET_KEYS
+from kubernetes_tpu_torch.ops.matrices import BITSET_KEYS, ShardedNodes, shard_nodes, shardings_for
 from kubernetes_tpu_torch.ops.matrices import pow2_bucket as _bucket
 from kubernetes_tpu_torch.ops.matrices import state_from_numpy
 from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device
@@ -274,8 +279,9 @@ def vocab_widths(nodes: Sequence[Node], pods: Sequence[Pod]) -> Tuple[int, int, 
 
 class SolverSession:
     """Long-lived incremental scheduling session over one cluster, on
-    `device` (default: the CUDA card; raises without one). `timer`, if
-    given, collects the upload/solve/readback/commit wall seconds of
+    `device` (default: the CUDA card; raises without one), or with its
+    node rows sharded over `mesh` (then `device` is not read). `timer`,
+    if given, collects the upload/solve/readback/commit wall seconds of
     each tick."""
 
     #: (key, pad value, torch dtype, trailing width attribute) of the
@@ -307,13 +313,15 @@ class SolverSession:
         pod_bucket: int = 0,
         device: DeviceLike = None,
         timer: Optional[PhaseTimer] = None,
+        mesh=None,
     ):
         # Tick solver: "scan" replays the sequential-parity policy;
         # "wave" and "sinkhorn" batch each tick's backlog.
         if mode not in ("scan", "wave", "sinkhorn"):
             raise ValueError(f"unknown session mode {mode!r}")
         self.mode = mode
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        _, self.device = shardings_for(mesh, device)
         self.timer = timer
         nodes = list(nodes)
         self.services = list(services)
@@ -324,6 +332,8 @@ class SolverSession:
         self.S = max(1, len(self.services))
         self._matcher = ServiceMatcher(self.services)
         self.N_cap = _bucket(max(node_capacity, len(nodes), 1))
+        if mesh is not None:
+            self.N_cap = -(-self.N_cap // mesh.size) * mesh.size
         self.label_vocab, self.port_vocab, self.vol_vocab = Vocab(), Vocab(), Vocab()
 
         self.node_names: List[Optional[str]] = [None] * self.N_cap
@@ -543,14 +553,30 @@ class SolverSession:
     # -- device transfer ----------------------------------------------
 
     def _upload_all(self) -> Tensors:
-        """The whole host mirror as fresh device tensors."""
+        """The whole host mirror as fresh device tensors (sharded over
+        the mesh when there is one)."""
         sli.note_transfer("h2d", sli.nbytes_of(self.h))
+        if self.mesh is not None:
+            return shard_nodes(state_from_numpy({}, self.h, "cpu")[1], self.mesh)
         return state_from_numpy({}, self.h, self.device)[1]
 
     def _scatter_rows(self, dev: Tensors, idx: List[int]) -> None:
         """dev[k][idx] = h[k][idx] for every key: the rows are staged
         with their indices, copied up, and written by one index_copy_
-        per key, all on the current stream."""
+        per key, all on the current stream. On a mesh each shard gets
+        the rows it owns, at their local indices."""
+        if isinstance(dev, ShardedNodes):
+            rows = np.asarray(idx, np.int64)
+            for shard_dev, (lo, hi), shard in zip(dev.mesh.devices, dev.ranges, dev.shards):
+                mine = rows[(rows >= lo) & (rows < hi)]
+                if not len(mine):
+                    continue
+                moved = state_from_numpy({}, {k: col[mine] for k, col in self.h.items()},
+                                         shard_dev)[1]
+                at = torch.from_numpy(mine - lo).to(shard_dev)
+                for k, r in moved.items():
+                    shard[k].index_copy_(0, at, r)
+            return
         stage = self._row_staging
         turn = stage.take()
         width = len(idx)
@@ -586,7 +612,10 @@ class SolverSession:
 
     def _launch_view(self) -> Tensors:
         """Prefix views of the device rows a tick launches over: the
-        kernel's in-place carry update lands in self.dev."""
+        kernel's in-place carry update lands in self.dev. On a mesh the
+        tick solves over every slot (self.dev itself)."""
+        if self.mesh is not None:
+            return self.dev
         n = self.n_launch
         return {k: v[:n] for k, v in self.dev.items()}
 
@@ -756,8 +785,7 @@ class SolverSession:
         top = max(bucket, _bucket(max_pod_bucket)) if max_pod_bucket else 0
         while bucket <= top:
             pods = self._stage_arrays([], bucket, reuse=False)
-            carry = {k: v.clone() for k, v in self._launch_view().items()}
-            self._dispatch(pods, carry)
+            self._dispatch(pods, self._scratch(self._launch_view()))
             warmed += 1
             bucket *= 2
         width = 8
@@ -766,13 +794,20 @@ class SolverSession:
             default=0,
         )
         while width <= min(max_scatter_width, self.N_cap):
-            carry = {k: v.clone() for k, v in self.dev.items()}
-            self._scatter_rows(carry, [idx_max] * width)
+            self._scatter_rows(self._scratch(self.dev), [idx_max] * width)
             warmed += 1
             width *= 2
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         return warmed
+
+    @staticmethod
+    def _scratch(rows):
+        """A throwaway copy of device rows (sharded or not) to warm on."""
+        if isinstance(rows, ShardedNodes):
+            return ShardedNodes(rows.mesh, [{k: v.clone() for k, v in shard.items()}
+                                            for shard in rows.shards])
+        return {k: v.clone() for k, v in rows.items()}
 
     def solve_gang(
         self, gangs: Sequence[SessionGang]

@@ -12,14 +12,18 @@ torch's uint32 lacks most operators, so on the device they are int32
 tensors holding the same bits (`np.ndarray.view(np.int32)`);
 `state_to_numpy` views them back as u32.
 
-There is no counterpart of `host_mesh` / `shardings_for`: the port runs
-on one card, and node-axis sharding over several is later work.
+The node axis may be sharded over a `Mesh` (`host_mesh`), as the JAX
+package shards it over a `jax.sharding.Mesh`. The mesh is
+single-controller, as JAX's is: one process drives every shard, each
+shard's node tensors live on its device, and the cross-shard reductions
+of the solvers are small copies into the mesh's first device. A sharded
+node dict is a `ShardedNodes`; the pod tensors stay whole.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,11 +139,112 @@ def _put(arrs: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.T
     return out
 
 
+@dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh over the node axis, driven from one process: shard s
+    lives on `devices[s]`. The counterpart of the JAX package's
+    `jax.sharding.Mesh` from `host_mesh`, with its `shape` and
+    `axis_names`. Unlike JAX's, one device may hold several shards
+    (`host_mesh(n, devices=...)`)."""
+
+    devices: Tuple[torch.device, ...]
+    axis: str = "nodes"
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis: self.size}
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return (self.axis,)
+
+    @property
+    def first(self) -> torch.device:
+        """The device that holds the pod tensors and takes the
+        cross-shard reductions."""
+        return self.devices[0]
+
+    def ranges(self, n_padded: int) -> Tuple[Tuple[int, int], ...]:
+        """Each shard's global node range [lo, hi) of a padded node axis:
+        contiguous and equal, as JAX's sharding cuts it."""
+        if n_padded % self.size:
+            raise ValueError(
+                f"a node axis of {n_padded} does not divide over {self.size} shards")
+        per = n_padded // self.size
+        return tuple((s * per, (s + 1) * per) for s in range(self.size))
+
+
+class ShardedNodes:
+    """A node dict cut along the node axis over a `Mesh`: `shards[s]`
+    holds the global rows `ranges[s]` = [lo, hi) of every node-axis
+    tensor, on `mesh.devices[s]`, under the unsharded dict's keys. The
+    per-service carry (`anchor`, `svc_total`) is whole in every shard.
+    The solvers take it wherever they take a node dict
+    (`ops/solver.py`, `ops/wave.py`, `ops/sinkhorn.py`)."""
+
+    def __init__(self, mesh: Mesh, shards: List[Dict[str, torch.Tensor]]):
+        self.mesh = mesh
+        self.shards = shards
+        ranges, lo = [], 0
+        for shard in shards:
+            hi = lo + int(shard["cpu_cap"].shape[0])
+            ranges.append((lo, hi))
+            lo = hi
+        self.ranges: Tuple[Tuple[int, int], ...] = tuple(ranges)
+
+    @property
+    def n_padded(self) -> int:
+        return self.ranges[-1][1]
+
+    def keys(self):
+        return self.shards[0].keys()
+
+    def items_of(self, key: str) -> List[torch.Tensor]:
+        """Every shard's tensor of one key, in shard order."""
+        return [shard[key] for shard in self.shards]
+
+    def with_carry_cloned(self) -> "ShardedNodes":
+        """The same shards with their carry tensors cloned, for a solve
+        that leaves this state as it was."""
+        carry = CARRY_KEYS + POLICY_CARRY_KEYS
+        return ShardedNodes(self.mesh, [
+            {k: (v.clone() if k in carry else v) for k, v in shard.items()}
+            for shard in self.shards
+        ])
+
+    def stitched(self, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+        """The unsharded dict on `device` (default: the mesh's first):
+        the shards' rows in order, the per-service carry from shard 0."""
+        device = self.mesh.first if device is None else resolve_device(device)
+        return {
+            k: (self.shards[0][k].to(device) if k in POLICY_CARRY_KEYS
+                else torch.cat([t.to(device) for t in self.items_of(k)]))
+            for k in self.keys()
+        }
+
+
+def shard_nodes(nodes: Dict[str, torch.Tensor], mesh: Mesh) -> ShardedNodes:
+    """An unsharded node dict cut over `mesh`: each shard's rows copied
+    to its device (fresh tensors, so the shards never alias the input),
+    the per-service carry copied whole to every shard."""
+    ranges = mesh.ranges(int(nodes["cpu_cap"].shape[0]))
+    return ShardedNodes(mesh, [
+        {k: (v if k in POLICY_CARRY_KEYS else v[lo:hi]).to(dev, copy=True).contiguous()
+         for k, v in nodes.items()}
+        for dev, (lo, hi) in zip(mesh.devices, ranges)
+    ])
+
+
 @dataclass
 class DeviceSnapshot:
     """Device-resident scheduling problem. `pods`/`nodes` are dicts of
     tensors; padded entries are masked off (pods: pinned == -2 never
-    fits anywhere; nodes: sched == False)."""
+    fits anywhere; nodes: sched == False). On a mesh `nodes` is a
+    `ShardedNodes` and `pods` lives on the mesh's first device."""
 
     pods: Dict[str, torch.Tensor]
     nodes: Dict[str, torch.Tensor]
@@ -147,6 +252,7 @@ class DeviceSnapshot:
     n_nodes: int
     lowered: LoweredSpec = DEFAULT_LOWERED
     weights: Tuple[int, int, int] = (1, 1, 1)
+    mesh: Optional[Mesh] = None
 
     @property
     def pod_count_padded(self) -> int:
@@ -186,9 +292,15 @@ def device_pods(p, device: DeviceLike = None, pad_to: int = 128) -> Dict[str, to
     return _put(pods, resolve_device(device))
 
 
-def device_nodes(n, device: DeviceLike = None, pad_to: int = 128) -> Dict[str, torch.Tensor]:
-    """NodeColumns -> device dict (axis 0 padded to a pad_to multiple)."""
-    NP = _round_up(n.count, pad_to)
+def device_nodes(
+    n, device: DeviceLike = None, pad_to: int = 128, mesh: Optional[Mesh] = None
+):
+    """NodeColumns -> device dict (axis 0 padded to a pad_to multiple).
+    On a mesh the axis pads to `node_axis_multiple(mesh, pad_to)`, so
+    it divides evenly over the shards (the padding nodes, unschedulable,
+    sit at its end, on the last shards), and a `ShardedNodes` comes
+    back, each shard's rows staged straight to its device."""
+    NP = _round_up(n.count, node_axis_multiple(mesh, pad_to))
     nodes = {
         "cpu_cap": _pad(n.cpu_cap, NP),
         "mem_cap": _pad(n.mem_cap, NP),
@@ -215,14 +327,66 @@ def device_nodes(n, device: DeviceLike = None, pad_to: int = 128) -> Dict[str, t
         nodes["aff_vid"] = _pad(n.aff_vid, NP, fill=-1)
     if n.aa_zone is not None:
         nodes["aa_zone"] = _pad(n.aa_zone, NP, fill=-1)
-    return _put(nodes, resolve_device(device))
+    if mesh is None:
+        return _put(nodes, resolve_device(device))
+    return ShardedNodes(mesh, [
+        _put({k: v[lo:hi] for k, v in nodes.items()}, dev)
+        for dev, (lo, hi) in zip(mesh.devices, mesh.ranges(NP))
+    ])
+
+
+def node_axis_multiple(mesh: Optional[Mesh], pad_to: int = 128) -> int:
+    """Node-axis padding multiple: must divide evenly across mesh shards
+    (the JAX package's rule: the larger of pad_to and the mesh size)."""
+    if mesh is None:
+        return pad_to
+    return max(pad_to, mesh.size)
+
+
+def host_mesh(
+    n: int, axis: str = "nodes", devices: Optional[Sequence[DeviceLike]] = None
+) -> Optional[Mesh]:
+    """The mesh constructor: a 1-D mesh over the first `n` visible CUDA
+    devices, or None when a mesh is not viable (n < 2, or fewer than n
+    devices), as the JAX package's `host_mesh` over `jax.devices()`.
+
+    `devices` departs from JAX: it names the shards' devices itself, and
+    one device may hold several shards. The CPU tests pass
+    `("cpu",) * n`; on one card `("cuda:0",) * n` runs every shard, and
+    the cross-shard reductions, on that card. None again when it names
+    fewer than n devices."""
+    if n < 2:
+        return None
+    if devices is None:
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible < n:
+            return None
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < n:
+        return None
+    return Mesh(tuple(devices[:n]), axis)
+
+
+def shardings_for(mesh: Optional[Mesh], device: DeviceLike = None):
+    """(node placement, pod placement) for a mesh: the shards' devices
+    and the mesh's first device; without one, `device` (default: the
+    card) for both."""
+    if mesh is not None:
+        return mesh.devices, mesh.first
+    device = resolve_device(device)
+    return device, device
 
 
 def device_snapshot(
-    snap: Snapshot, device: DeviceLike = None, pad_to: int = 128
+    snap: Snapshot, device: DeviceLike = None, pad_to: int = 128,
+    mesh: Optional[Mesh] = None,
 ) -> DeviceSnapshot:
-    device = resolve_device(device)
-    nodes = device_nodes(snap.nodes, device, pad_to=pad_to)
+    """Stage a snapshot on `device`, or over `mesh` (then `device` is
+    not read): node tensors sharded, pod tensors on the mesh's first
+    device, the per-service carry whole in every shard."""
+    node_devices, pod_device = shardings_for(mesh, device)
+    nodes = device_nodes(snap.nodes, pod_device, pad_to=pad_to, mesh=mesh)
     if snap.anchor_init is not None:
         # ServiceAffinity/AntiAffinity carry seeds plus one scratch slot
         # (the last index), as the JAX package stages them.
@@ -231,14 +395,20 @@ def device_snapshot(
         anchor[: snap.anchor_init.shape[0]] = snap.anchor_init
         total = np.zeros(SP + 1, dtype=np.float32)
         total[: snap.svc_total_init.shape[0]] = snap.svc_total_init
-        nodes.update(_put({"anchor": anchor, "svc_total": total}, device))
+        carry = {"anchor": anchor, "svc_total": total}
+        if mesh is None:
+            nodes.update(_put(carry, pod_device))
+        else:
+            for dev, shard in zip(node_devices, nodes.shards):
+                shard.update(_put(carry, dev))
     return DeviceSnapshot(
-        pods=device_pods(snap.pods, device, pad_to=pad_to),
+        pods=device_pods(snap.pods, pod_device, pad_to=pad_to),
         nodes=nodes,
         n_pods=snap.pods.count,
         n_nodes=snap.nodes.count,
         lowered=snap.lowered or DEFAULT_LOWERED,
         weights=snap.weights or (1, 1, 1),
+        mesh=mesh,
     )
 
 
@@ -257,7 +427,10 @@ def state_from_numpy(
 
 def state_to_numpy(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's tensors -> numpy with the JAX package's dtypes
-    (bitset words back to u32)."""
+    (bitset words back to u32). A `ShardedNodes` is stitched back in
+    shard order."""
+    if isinstance(tensors, ShardedNodes):
+        tensors = tensors.stitched("cpu")
     out = {}
     for k, t in tensors.items():
         a = t.detach().cpu().numpy()

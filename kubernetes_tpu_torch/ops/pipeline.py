@@ -18,6 +18,10 @@ so there the host waits on the card inside "solve".
 `gang_member_counts_device` is the device half of gang acceptance
 (`scheduler/gang.py`), and `explain_matrix` / `explain_backlog` the
 explain readback, as in the JAX package's pipeline module.
+
+Each takes `mesh=` as the JAX package's do: the node columns are
+staged once, sharded over the mesh (`matrices.ShardedNodes`), the pod
+chunks go to the mesh's first device, and the solvers run sharded.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from kubernetes_tpu_torch.ops.matrices import (
     device_snapshot,
     gang_member_counts,
     pow2_bucket,
+    shardings_for,
 )
 from kubernetes_tpu_torch.ops.sinkhorn import solve_sinkhorn_with_state
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, explain_rows, solve_with_state
@@ -99,9 +104,11 @@ def solve_backlog_pipelined(
     mode: str = "scan",
     device: DeviceLike = None,
     timer: Optional[PhaseTimer] = None,
+    mesh=None,
 ) -> List[Optional[str]]:
     """Schedule the backlog; returns node names (None = unschedulable).
-    Runs on `device` (default: the CUDA card; raises without one).
+    Runs on `device` (default: the CUDA card; raises without one), or
+    over `mesh` (`matrices.host_mesh`; then `device` is not read).
     `timer` collects the lower/upload/solve/readback wall seconds and,
     for the windowed modes, `stats`: the waves of all chunks, and for
     Sinkhorn the total price iterations and the last chunk's residual.
@@ -126,7 +133,7 @@ def solve_backlog_pipelined(
             return a, c
     else:
         raise ValueError(f"unknown pipeline mode {mode!r}")
-    device = resolve_device(device)
+    _, device = shardings_for(mesh, device)
     # Phases wrap whole host segments, never per-pod work: a few clock
     # reads a chunk. Launches return at once, so a chunk's "solve"
     # measures its launches and the device time drains into "readback".
@@ -134,7 +141,7 @@ def solve_backlog_pipelined(
         with phase("lower", pods=len(pending)):
             builder = SnapshotBuilder(pending, nodes, assigned, services)
         with phase("upload"):
-            carry = device_nodes(builder.node_columns(), device)
+            carry = device_nodes(builder.node_columns(), device, mesh=mesh)
         P = len(builder.pending)
         outs = []
         for ci, start in enumerate(range(0, max(P, 1), chunk)):
@@ -184,6 +191,7 @@ def explain_matrix(
     assigned: Sequence[Pod] = (),
     services: Sequence[Service] = (),
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Raw explain readback for a backlog against one FIXED cluster state
     (`assigned` pods charge occupancy; `pending` pods commit nothing, so
@@ -192,9 +200,11 @@ def explain_matrix(
     dict of i32[P, N]): bit i of bits[p, n] set means
     matrices.EXPLAIN_PREDICATES[i] rejected node n for pod p; bits == 0
     is feasibility under the default pipeline. One batched evaluation
-    and one readback, never on the solve path."""
+    and one readback, never on the solve path. Over `mesh` each shard
+    evaluates its nodes and the columns are stitched on its first
+    device."""
     snap = build_snapshot(pending, nodes, assigned_pods=assigned, services=services)
-    dsnap = device_snapshot(snap, resolve_device(device))
+    dsnap = device_snapshot(snap, device, mesh=mesh)
     bits, lr, bra, spread = explain_rows(dsnap.pods, dsnap.nodes)
     P, N = dsnap.n_pods, dsnap.n_nodes
     host = lambda t: t[:P, :N].cpu().numpy()
@@ -213,6 +223,7 @@ def explain_backlog(
     device: DeviceLike = None,
     top_k: int = 3,
     max_failed: int = 16,
+    mesh=None,
 ) -> List[dict]:
     """Bounded per-pod explain verdicts, the flight recorder's shape, as
     the JAX package's `explain_backlog` builds them. For each pending pod
@@ -224,7 +235,8 @@ def explain_backlog(
     pending = list(pending)
     if not pending:
         return []
-    names, bits, comps = explain_matrix(pending, nodes, assigned, services, device=device)
+    names, bits, comps = explain_matrix(pending, nodes, assigned, services, device=device,
+                                        mesh=mesh)
     total = comps["leastRequested"] + comps["balanced"] + comps["spreading"]
     out: List[dict] = []
     n_nodes = len(names)

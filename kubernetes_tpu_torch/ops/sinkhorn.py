@@ -23,18 +23,27 @@ for the device. `torch.logsumexp` and `jax.nn.logsumexp` may round
 differently in the last place, so the prices agree with the JAX
 package's within a tolerance, not bit for bit, and a near tie of the
 priced argmax may go the other way; placements stay valid.
+
+On a mesh (`ops/wave.py` says how the window is sharded) each shard
+keeps the prices of its nodes. A row's log-sum-exp over the node axis
+combines the shards' own (a log-sum-exp over the shards, on the mesh's
+first device), the residual's max over columns reduces across shards,
+and each column's mass stays local. Those sums run in another order
+than the unsharded row's, so a price may move in its last bits: the
+sharded solve is held to the same bound against the JAX package.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
-from kubernetes_tpu_torch.ops.matrices import DeviceSnapshot
+from kubernetes_tpu_torch.ops.matrices import DeviceSnapshot, ShardedNodes
 from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS
-from kubernetes_tpu_torch.ops.wave import Tensors, _scratch_carry, _tie_hash, run_windowed, strip_assignments
+from kubernetes_tpu_torch.ops.wave import (
+    Tensors, _scratch_carry, _tie_hash, run_windowed, shard_argmax, strip_assignments)
 from kubernetes_tpu_torch.utils import flightrecorder
 from kubernetes_tpu_torch.utils.tracing import phase
 
@@ -81,10 +90,64 @@ def _congestion_prices(
     return g, i, torch.where(torch.isinf(res), 0.0, res)
 
 
+def _congestion_prices_sharded(
+    masked: List[torch.Tensor],  # f32[W, n_s] a shard
+    valid: torch.Tensor,  # bool[W] on the mesh's first device
+    capacity: List[torch.Tensor],  # f32[n_s] a shard
+    nodes: ShardedNodes,
+    eps: float,
+    iters: int,
+    tol: float = 0.0,
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """`_congestion_prices` over a mesh: (g f32[n_s] a shard, iterations
+    run, residual), the last two on the first device. A row's
+    log-sum-exp is the log-sum-exp of the shards' own; the residual's
+    max reduces across shards; column masses stay on their shard."""
+    first = nodes.mesh.first
+    devices = nodes.mesh.devices
+    logits = [torch.where(m >= 0, m / eps, _NEG) for m in masked]
+    any_feasible = torch.stack([(m >= 0).any(dim=1).to(first) for m in masked]).any(dim=0)
+    ships = valid & any_feasible
+    log_a = [torch.where(ships, 0.0, _NEG).to(dev) for dev in devices]
+    log_b = [torch.where(c > 0, torch.log(c.clamp(min=1e-9)), _NEG) for c in capacity]
+    g = [torch.zeros_like(c) for c in capacity]
+    i = torch.zeros((), dtype=torch.int32, device=first)
+    res = torch.full((), float("inf"), dtype=torch.float32, device=first)
+    for _ in range(iters):
+        running = res > tol
+        rows = [lg + gs[None, :] / eps for lg, gs in zip(logits, g)]
+        lse = torch.logsumexp(
+            torch.stack([torch.logsumexp(r, dim=1).to(first) for r in rows]), dim=0)
+        excess = []
+        for s, dev in enumerate(devices):
+            log_t = log_a[s][:, None] + rows[s] - lse.to(dev).clamp(min=_NEG)[:, None]
+            col_mass = torch.logsumexp(log_t, dim=0)
+            excess.append(torch.where(capacity[s] > 0, (col_mass - log_b[s]).clamp(min=0.0),
+                                      0.0).max().to(first))
+            g[s] = torch.where(running.to(dev), g[s] + (log_b[s] - col_mass).clamp(max=0.0) * eps,
+                               g[s])
+        del rows
+        i = i + running.to(torch.int32)
+        res = torch.where(running, torch.stack(excess).max(), res)
+    return g, i, torch.where(torch.isinf(res), 0.0, res)
+
+
 def _priced_choose(masked, idx, valid, carry, N, *, eps, iters, price_cap, tol=0.0):
     """Sinkhorn-priced choice: the argmax of S_ij + g_j with a small
     deterministic jitter (the wave's tie hash times 1e-6) as tie-break.
-    Returns (choice, iterations run, residual)."""
+    Returns (choice, iterations run, residual). On a mesh `masked` is
+    the shards' list and `carry` the `ShardedNodes`."""
+    if isinstance(carry, ShardedNodes):
+        remaining = [(sh["pods_cap"] - sh["pods_used"]).clamp(min=0.0) for sh in carry.shards]
+        fmasked = [m.to(torch.float32) for m in masked]
+        g, iters_run, residual = _congestion_prices_sharded(
+            fmasked, valid, remaining, carry, eps, iters, tol)
+        priced = [
+            torch.where(m >= 0, fm + gs.clamp(min=-float(price_cap))[None, :], float("-inf"))
+            + _tie_hash(idx.to(m.device), m.shape[1], lo).to(torch.float32) * 1e-6
+            for m, fm, gs, (lo, _) in zip(masked, fmasked, g, carry.ranges)
+        ]
+        return shard_argmax(priced, carry), iters_run, residual
     remaining = (carry["pods_cap"] - carry["pods_used"]).clamp(min=0.0)
     fmasked = masked.to(torch.float32)
     g, iters_run, residual = _congestion_prices(fmasked, valid, remaining, eps, iters, tol)

@@ -48,8 +48,9 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.models.algspec import DEFAULT_LOWERED, LoweredSpec
-from kubernetes_tpu_torch.ops import policy_scan, scan_kernel
-from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, POLICY_CARRY_KEYS, DeviceSnapshot
+from kubernetes_tpu_torch.ops import policy_scan, scan_kernel, shard_scan
+from kubernetes_tpu_torch.ops.matrices import (
+    CARRY_KEYS, POLICY_CARRY_KEYS, DeviceSnapshot, ShardedNodes)
 from kubernetes_tpu_torch.utils import sli
 
 Tensors = Dict[str, torch.Tensor]
@@ -155,14 +156,27 @@ def _service_counts(svc: torch.Tensor, nodes: Tensors) -> torch.Tensor:
     col = svc.clamp(min=0).to(torch.int64)
     if col.dim():
         col = col[..., 0]
-    return nodes["svc_counts"].T[col].to(torch.int32)
+    # index_select, not indexing by the tensor: a 0-dim index tensor is
+    # read back to the host, which waits for the device every pod.
+    rows = nodes["svc_counts"].index_select(1, col.reshape(-1)).T.to(torch.int32)
+    return rows.reshape(col.shape + rows.shape[1:])
+
+
+def max_service_count(svc: torch.Tensor, nodes: Tensors) -> torch.Tensor:
+    """ServiceSpreading's divisor: the max over these nodes of each
+    node's count of the pod's first service, int32 () for one pod,
+    (P, 1) for a batch. On a mesh each shard's is one candidate, and the
+    solvers reduce them across shards before any score is taken."""
+    return _service_counts(svc, nodes).max(dim=-1, keepdim=True).values
 
 
 def _component_scores(
-    pod: Tensors, nodes: Tensors
+    pod: Tensors, nodes: Tensors, maxc: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The three default priority columns (LeastRequested,
     BalancedResourceAllocation, ServiceSpreading) as int32[N] each.
+    `maxc` is ServiceSpreading's max count over the whole node axis
+    (default: over `nodes`, which is the whole axis unless sharded).
 
     Resource columns are integer-valued f32 below 2^24, so the casts to
     int32 are exact and the Go integer division is reproduced exactly."""
@@ -193,7 +207,8 @@ def _component_scores(
     # 10 * (maxc - count) // maxc over the pod's first service.
     svc = pod["svc"]
     counts = _service_counts(svc, nodes)
-    maxc = counts.max(dim=-1, keepdim=True).values
+    if maxc is None:
+        maxc = counts.max(dim=-1, keepdim=True).values
     spread_raw = _floordiv(10 * (maxc - counts), maxc.clamp(min=1))
     spread = torch.where((svc < 0) | (maxc == 0), 10, spread_raw)
     return lr, bra, spread
@@ -205,8 +220,10 @@ def _scores(
     weights,
     ls: LoweredSpec = DEFAULT_LOWERED,
     feas: Optional[torch.Tensor] = None,
+    maxc: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Weighted configured priorities as one int32[N] score vector.
+    """Weighted configured priorities as one int32[N] score vector
+    (`maxc` as `_component_scores` takes it).
 
     `feas` is the pod's feasibility mask: the reference prioritizes over
     the filtered node list (generic_scheduler.go:80-86), which matters
@@ -215,7 +232,7 @@ def _scores(
     w_lr, w_bra, w_spread = weights
     total = torch.zeros(nodes["cpu_cap"].shape[0], dtype=torch.int32, device=nodes["cpu_cap"].device)
     if w_lr or w_bra or w_spread:
-        lr, bra, spread = _component_scores(pod, nodes)
+        lr, bra, spread = _component_scores(pod, nodes, maxc)
     if w_lr:
         total = total + lr * w_lr
     if w_bra:
@@ -340,7 +357,11 @@ def solve_with_state(
     tensors hold the new state afterwards. CUDA tensors run a CUDA
     kernel (the scan kernel for the default spec, the policy scan
     kernel for any other), CPU tensors the plain per-pod loop; both
-    make the same decisions bit for bit."""
+    make the same decisions bit for bit. A `ShardedNodes` takes the
+    sharded scan (`ops/shard_scan.py`, default spec only), with the
+    same decisions and carry."""
+    if isinstance(nodes, ShardedNodes):
+        return shard_scan.sharded_scan_with_state(pods, nodes, weights, lspec)
     if lspec == DEFAULT_LOWERED:
         return scan_kernel.scan_with_state(pods, nodes, weights)
     return policy_scan.policy_scan_with_state(pods, nodes, weights, lspec)
@@ -354,6 +375,8 @@ def solve(
 ) -> torch.Tensor:
     """i32[P] node indices (-1 = unschedulable); `nodes` is left as it
     was (the solve runs on a copy of the carry)."""
+    if isinstance(nodes, ShardedNodes):
+        return solve_with_state(pods, nodes.with_carry_cloned(), weights, lspec)[0]
     scratch = dict(nodes)
     for k in CARRY_KEYS + POLICY_CARRY_KEYS:
         if k in nodes:
@@ -362,7 +385,8 @@ def solve(
     return choice
 
 
-def _explain_row(pod: Tensors, nodes: Tensors, idx: torch.Tensor):
+def _explain_row(pod: Tensors, nodes: Tensors, idx: torch.Tensor,
+                 maxc: Optional[torch.Tensor] = None):
     """Pods' per-node verdicts against a FIXED occupancy state: packed
     predicate-failure bits (bit i set = matrices.EXPLAIN_PREDICATES[i]
     rejected the node) and the default priority components, from the
@@ -379,7 +403,7 @@ def _explain_row(pod: Tensors, nodes: Tensors, idx: torch.Tensor):
                        device=idx.device)
     for i, ok in enumerate(preds):
         bits = bits | ((~ok).to(torch.int32) << i)
-    lr, bra, spread = _component_scores(pod, nodes)
+    lr, bra, spread = _component_scores(pod, nodes, maxc)
     return bits, lr, bra, spread
 
 
@@ -389,11 +413,34 @@ def explain_rows(pods: Tensors, nodes: Tensors):
     each (the bits are the JAX package's u32 words, `state_to_numpy`
     views them back). The occupancy state `nodes` is fixed (no
     commits); padding is the caller's to strip
-    (`ops.pipeline.explain_matrix`)."""
-    idx = torch.arange(nodes["cpu_cap"].shape[0], dtype=torch.int32, device=nodes["cpu_cap"].device)
+    (`ops.pipeline.explain_matrix`). On a `ShardedNodes` each shard
+    evaluates its columns with global node indices and the max counts
+    reduced over every shard, and the columns come back whole on the
+    mesh's first device."""
     # Scalar columns as (P, 1) against the node axis; bitsets stay (P, W).
     batch = {k: v[:, None] if v.dim() == 1 else v for k, v in pods.items()}
-    return _explain_row(batch, nodes, idx)
+    if not isinstance(nodes, ShardedNodes):
+        idx = torch.arange(nodes["cpu_cap"].shape[0], dtype=torch.int32,
+                           device=nodes["cpu_cap"].device)
+        return _explain_row(batch, nodes, idx)
+    first = nodes.mesh.first
+    batches = {dev: {k: v.to(dev) for k, v in batch.items()} for dev in set(nodes.mesh.devices)}
+    maxc = sharded_max_service_count(batches, nodes)
+    parts = []
+    for dev, (lo, hi), shard in zip(nodes.mesh.devices, nodes.ranges, nodes.shards):
+        idx = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        parts.append(_explain_row(batches[dev], shard, idx, maxc.to(dev)))
+    return tuple(torch.cat([p[i].to(first) for p in parts], dim=1) for i in range(4))
+
+
+def sharded_max_service_count(pods_by_device, nodes: ShardedNodes) -> torch.Tensor:
+    """`max_service_count` over every shard of a mesh, on the mesh's
+    first device: each shard's max, gathered there and reduced.
+    `pods_by_device` maps each device of the mesh to the pods there."""
+    first = nodes.mesh.first
+    part = [max_service_count(pods_by_device[dev]["svc"], shard).to(first)
+            for dev, shard in zip(nodes.mesh.devices, nodes.shards)]
+    return torch.stack(part).max(dim=0).values
 
 
 def solve_assignments(

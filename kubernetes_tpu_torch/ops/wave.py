@@ -31,17 +31,27 @@ tie hash is integer arithmetic, and every f32 sum adds integer values
 below 2^24, so no order of the adds changes a bit. Decisions differ
 from the scan's by design (the scan stays the parity path); placements
 stay valid.
+
+On a mesh (`nodes` a `matrices.ShardedNodes`) each shard evaluates the
+window against its nodes with global indices (the tie hash hashes the
+global index), ServiceSpreading's per-row max count and each pod's
+argmax reduce across shards on the mesh's first device (the first
+shard holding the row's max wins, which is the lowest global index),
+the packer reads the chosen nodes' rows from their owner shards, and
+each shard commits the accepted pods that chose its nodes. Decisions
+and carry equal the unsharded wave's bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, DeviceSnapshot
-from kubernetes_tpu_torch.ops.solver import DEFAULT_WEIGHTS, _feasible, _scores
+from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, DeviceSnapshot, ShardedNodes
+from kubernetes_tpu_torch.ops.solver import (
+    DEFAULT_WEIGHTS, _feasible, _scores, sharded_max_service_count)
 from kubernetes_tpu_torch.utils import flightrecorder
 from kubernetes_tpu_torch.utils.tracing import phase
 
@@ -100,6 +110,55 @@ def _batched_eval(wpods: Tensors, nodes: Tensors, weights) -> Tuple[torch.Tensor
     return _feasible(batch, nodes, idx), _scores(batch, nodes, weights)
 
 
+def _sharded_eval(wpods: Tensors, nodes: ShardedNodes, weights) -> List[torch.Tensor]:
+    """The window's masked scores on every shard, int32[W, n_s] each (-1
+    where infeasible): `_batched_eval` with the shard's global node
+    indices and ServiceSpreading's max counts reduced over every shard
+    first."""
+    batch = {k: v[:, None] if v.dim() == 1 else v for k, v in wpods.items()}
+    batches = {dev: {k: v.to(dev) for k, v in batch.items()} for dev in set(nodes.mesh.devices)}
+    maxc = sharded_max_service_count(batches, nodes)
+    out = []
+    for dev, (lo, hi), shard in zip(nodes.mesh.devices, nodes.ranges, nodes.shards):
+        idx = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        feas = _feasible(batches[dev], shard, idx)
+        out.append(torch.where(feas, _scores(batches[dev], shard, weights, maxc=maxc.to(dev)), -1))
+    return out
+
+
+def shard_argmax(values: List[torch.Tensor], nodes: ShardedNodes) -> torch.Tensor:
+    """int32[W] on the mesh's first device: each row's argmax over the
+    whole node axis, from its shards' (W, n_s) values, ties to the
+    lowest global index (each shard's first max, then the first shard
+    that holds the row's max), as torch.argmax over the unsharded row."""
+    first = nodes.mesh.first
+    best_v, best_i = [], []
+    for v, (lo, _) in zip(values, nodes.ranges):
+        arg = torch.argmax(v, dim=1)
+        best_v.append(v.gather(1, arg[:, None])[:, 0].to(first))
+        best_i.append((arg + lo).to(first))
+    V, I = torch.stack(best_v), torch.stack(best_i)
+    shard = torch.argmax((V == V.max(dim=0).values).to(torch.int32), dim=0)
+    return I.gather(0, shard[None, :])[0].to(torch.int32)
+
+
+def gather_at(values: List[torch.Tensor], choice: torch.Tensor, nodes: ShardedNodes) -> torch.Tensor:
+    """values[w, choice[w]] for each window row, from the shard that owns
+    the node, on the mesh's first device (row 0's value of shard 0 where
+    choice is -1). `values` are per-shard (W, n_s) tensors, or per-shard
+    (n_s,) node columns read at each row's node."""
+    first = nodes.mesh.first
+    out = None
+    for v, dev, (lo, hi) in zip(values, nodes.mesh.devices, nodes.ranges):
+        c = choice.to(dev).to(torch.int64)
+        local = (c - lo).clamp(0, hi - lo - 1)
+        got = v[local] if v.dim() == 1 else v.gather(1, local[:, None])[:, 0]
+        got = got.to(first)
+        mine = ((choice >= lo) & (choice < hi)).to(first)
+        out = got if out is None else torch.where(mine, got, out)
+    return out
+
+
 def _has_bits(wpods: Tensors) -> torch.Tensor:
     """bool[W]: the pod carries hostPort or volume bits."""
     return (
@@ -107,6 +166,10 @@ def _has_bits(wpods: Tensors) -> torch.Tensor:
         | (wpods["vol_any"] != 0).any(dim=1)
         | (wpods["vol_rw"] != 0).any(dim=1)
     )
+
+
+#: The node columns the packer reads at each pod's chosen node.
+_PACK_KEYS = ("cpu_cap", "mem_cap", "cpu_fit", "mem_fit", "pods_cap", "pods_used")
 
 
 def _pack_window(
@@ -122,6 +185,12 @@ def _pack_window(
 ) -> torch.Tensor:
     """bool[W]: which window pods commit this wave (capacity-aware FIFO
     packing per node)."""
+    # The chosen nodes' columns, read from their owner shards on a mesh.
+    if isinstance(nodes, ShardedNodes):
+        rows = {k: gather_at(nodes.items_of(k), choice, nodes) for k in _PACK_KEYS}
+    else:
+        node = choice.clamp(min=0).to(torch.int64)
+        rows = {k: nodes[k][node] for k in _PACK_KEYS}
     device = choice.device
     pos = torch.arange(W, dtype=torch.int64, device=device)
     contending = choice >= 0
@@ -151,12 +220,12 @@ def _pack_window(
     rank = seg_prefix_before(torch.ones(W, dtype=torch.float32, device=device))
     bits_before = seg_prefix_before(s_bits)
 
-    node = s_choice.clamp(min=0).to(torch.int64)
-    cap_cpu = nodes["cpu_cap"][node]
-    cap_mem = nodes["mem_cap"][node]
-    rem_cpu = torch.where(cap_cpu > 0, cap_cpu - nodes["cpu_fit"][node], FMAX)
-    rem_mem = torch.where(cap_mem > 0, cap_mem - nodes["mem_fit"][node], FMAX)
-    rem_count = nodes["pods_cap"][node] - nodes["pods_used"][node]
+    at = {k: v[perm] for k, v in rows.items()}
+    cap_cpu = at["cpu_cap"]
+    cap_mem = at["mem_cap"]
+    rem_cpu = torch.where(cap_cpu > 0, cap_cpu - at["cpu_fit"], FMAX)
+    rem_mem = torch.where(cap_mem > 0, cap_mem - at["mem_fit"], FMAX)
+    rem_count = at["pods_cap"] - at["pods_used"]
 
     # Zero-request pods fit by pod count alone (predicates.go:146).
     resources_ok = s_zero | (
@@ -180,7 +249,15 @@ def _pack_window(
 
 def _commit_wave(nodes: Tensors, wpods: Tensors, choice: torch.Tensor, accepted: torch.Tensor) -> None:
     """Bulk commit of every accepted (pod -> node) pair into the carry
-    tensors of `nodes`, in place."""
+    tensors of `nodes`, in place. On a mesh each shard commits the
+    accepted pods that chose one of its nodes, at the node's local row."""
+    if isinstance(nodes, ShardedNodes):
+        for dev, (lo, hi), shard in zip(nodes.mesh.devices, nodes.ranges, nodes.shards):
+            c = choice.to(dev)
+            mine = accepted.to(dev) & (c >= lo) & (c < hi)
+            _commit_wave(shard, {k: v.to(dev) for k, v in wpods.items()},
+                         torch.where(mine, c - lo, -1), mine)
+        return
     N = nodes["cpu_cap"].shape[0]
     j = torch.where(accepted, choice, 0).to(torch.int64)
     f = accepted.to(torch.float32)
@@ -214,13 +291,14 @@ def _commit_wave(nodes: Tensors, wpods: Tensors, choice: torch.Tensor, accepted:
     counts.view(-1).index_add_(0, flat.reshape(-1), valid.to(torch.float32).reshape(-1))
 
 
-def _tie_hash(idx: torch.Tensor, N: int) -> torch.Tensor:
+def _tie_hash(idx: torch.Tensor, N: int, lo: int = 0) -> torch.Tensor:
     """int32[W, N] in [0, 2^16): JAX's u32 pod x node hash
-    ((idx * 2654435761) ^ (node * 40503)) & 0xFFFF. Only the low 16 bits
+    ((idx * 2654435761) ^ (node * 40503)) & 0xFFFF for the nodes lo ..
+    lo + N - 1 (a shard's global indices). Only the low 16 bits
     survive, and the low bits of a product or XOR depend only on the
     operands' low bits, so each factor is reduced first, in int64."""
     a = (idx.to(torch.int64) * 2654435761) & 0xFFFF
-    b = (torch.arange(N, dtype=torch.int64, device=idx.device) * 40503) & 0xFFFF
+    b = (torch.arange(lo, lo + N, dtype=torch.int64, device=idx.device) * 40503) & 0xFFFF
     return (a[:, None] ^ b[None, :]).to(torch.int32)
 
 
@@ -229,11 +307,17 @@ def _argmax_choose(masked, idx, valid, carry, N):
     the low 16 bits (masked << 16 | hash, written as a product: scores
     are small, so it is exact). torch.argmax takes the first maximal
     index, as jnp.argmax. The zero telemetry fits the choose contract
-    (Sinkhorn's priced choice reports real ones)."""
-    combined = masked * 65536 + _tie_hash(idx, N)
-    choice = torch.argmax(combined, dim=1).to(torch.int32)
-    zero_i = torch.zeros((), dtype=torch.int32, device=masked.device)
-    zero_f = torch.zeros((), dtype=torch.float32, device=masked.device)
+    (Sinkhorn's priced choice reports real ones). On a mesh `masked` is
+    the shards' list and `carry` the `ShardedNodes`."""
+    if isinstance(carry, ShardedNodes):
+        combined = [m * 65536 + _tie_hash(idx.to(m.device), m.shape[1], lo)
+                    for m, (lo, _) in zip(masked, carry.ranges)]
+        choice = shard_argmax(combined, carry)
+    else:
+        combined = masked * 65536 + _tie_hash(idx, N)
+        choice = torch.argmax(combined, dim=1).to(torch.int32)
+    zero_i = torch.zeros((), dtype=torch.int32, device=idx.device)
+    zero_f = torch.zeros((), dtype=torch.float32, device=idx.device)
     return choice, zero_i, zero_f
 
 
@@ -251,9 +335,12 @@ def run_windowed(
     residual); the last two are device scalars. `choose(masked, idx,
     valid, carry, N) -> (int32[W], int32, f32)` picks each window pod's
     candidate node and reports its telemetry; windowing, packing, the
-    bulk commit and finalization are common to the wave family."""
+    bulk commit and finalization are common to the wave family. On a
+    mesh (`nodes` a `ShardedNodes`, `pods` on its first device) `choose`
+    gets the shards' (W, n_s) lists and the `ShardedNodes`."""
     P = pods["cpu"].shape[0]
-    N = nodes["cpu_cap"].shape[0]
+    sharded = isinstance(nodes, ShardedNodes)
+    N = nodes.n_padded if sharded else nodes["cpu_cap"].shape[0]
     W = min(window, P)
     device = pods["cpu"].device
     # One slot more than pods: the window's padding fill (P) writes it.
@@ -270,11 +357,16 @@ def run_windowed(
         idx = _first_undecided(undecided, W)
         valid = idx < P
         wpods = _window_rows(pods, idx)
-        feas, score = _batched_eval(wpods, nodes, weights)
-        masked = torch.where(feas, score, -1)
-        del feas, score
-        best, c_iters, c_residual = choose(masked, idx, valid, nodes, N)
-        feasible = masked.gather(1, best[:, None].to(torch.int64))[:, 0] >= 0
+        if sharded:
+            masked = _sharded_eval(wpods, nodes, weights)
+            best, c_iters, c_residual = choose(masked, idx, valid, nodes, N)
+            feasible = gather_at(masked, best, nodes) >= 0
+        else:
+            feas, score = _batched_eval(wpods, nodes, weights)
+            masked = torch.where(feas, score, -1)
+            del feas, score
+            best, c_iters, c_residual = choose(masked, idx, valid, nodes, N)
+            feasible = masked.gather(1, best[:, None].to(torch.int64))[:, 0] >= 0
         del masked
         choice = torch.where(valid & feasible, best, -1)
         accepted = _pack_window(
@@ -301,6 +393,8 @@ def run_windowed(
 def _scratch_carry(nodes: Tensors) -> Tensors:
     """`nodes` with its carry tensors cloned, for a solve that leaves the
     caller's state as it was."""
+    if isinstance(nodes, ShardedNodes):
+        return nodes.with_carry_cloned()
     scratch = dict(nodes)
     for k in CARRY_KEYS:
         scratch[k] = nodes[k].clone()

@@ -12,13 +12,16 @@ rule, the yardstick it is held to. `schedule_backlog_scalar` is the
 JAX module's scalar backlog loop over the port's copy of the plugins:
 the full re-lower daemon runs it for a policy that has no device
 lowering, never as a fallback from the card. `resolve_batch_mode`
-resolves `auto` for one card.
+resolves `auto` by the mesh the solve runs on, and `env_mesh` is the
+JAX package's `KT_MESH_DEVICES` escape hatch. Each backlog entry point
+takes `mesh=` (`ops.matrices.host_mesh`), as the JAX ones do.
 """
 
 from __future__ import annotations
 
 import copy
 import logging
+import os
 from functools import partial
 from typing import List, Optional, Sequence
 
@@ -39,7 +42,7 @@ from kubernetes_tpu_torch.models.objects import (
     pod_is_terminating,
     pod_priority,
 )
-from kubernetes_tpu_torch.ops.matrices import device_snapshot
+from kubernetes_tpu_torch.ops.matrices import device_snapshot, host_mesh, shardings_for
 from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device
 from kubernetes_tpu_torch.ops.preemption import (
     PreemptionDecision,
@@ -65,27 +68,78 @@ from kubernetes_tpu_torch.scheduler.types import (
 from kubernetes_tpu_torch.utils import sanitizer
 from kubernetes_tpu_torch.utils.tracing import PhaseTimer, phase, timing
 
-_AUTO_WARNED = False
+_AUTO_NO_MESH_WARNED = False
+_ENV_MESH_WARNED = False
 
 #: The batch modes a daemon runs; `auto` resolves to one of them.
 BATCH_MODES = ("scan", "wave", "sinkhorn")
 
 
-def resolve_batch_mode(mode: str) -> str:
-    """`--batch-mode auto` for one card: the scan, exact and the
-    fastest backlog mode there (the JAX package picks the wave only for
-    a solve sharded over a device mesh, which the port's daemons never
-    build). Any other mode is returned as it is, for the caller to
-    check. Warns once, as the JAX package does."""
+def _warn_env_once(msg: str) -> None:
+    global _ENV_MESH_WARNED
+    if not _ENV_MESH_WARNED:
+        _ENV_MESH_WARNED = True
+        logging.getLogger(__name__).warning(msg)
+
+
+def env_mesh():
+    """The KT_MESH_DEVICES=N escape hatch, parsed as the JAX package
+    parses it: a mesh over the first N visible CUDA devices
+    (`ops.matrices.host_mesh`), or None when the variable is unset, not
+    an integer, below 2, or names more devices than are visible. Every
+    failure but unset and =1 (an explicit "no mesh") warns, and the
+    first warning is the only one, as in JAX."""
+    raw = os.environ.get("KT_MESH_DEVICES")
+    if raw is None:
+        return None
+    try:
+        n = int(raw)
+    except ValueError:
+        _warn_env_once(
+            f"KT_MESH_DEVICES={raw!r} is not an integer — ignoring the "
+            "escape hatch (unsharded solve)"
+        )
+        return None
+    if n < 2:
+        if n != 1:
+            _warn_env_once(
+                f"KT_MESH_DEVICES={n} < 2 cannot form a mesh — ignoring "
+                "the escape hatch (unsharded solve)"
+            )
+        return None
+    mesh = host_mesh(n)
+    if mesh is None:
+        _warn_env_once(
+            f"KT_MESH_DEVICES={n} requested but fewer CUDA devices are "
+            "visible — ignoring the escape hatch (unsharded solve)"
+        )
+    return mesh
+
+
+def resolve_batch_mode(mode: str, mesh=None) -> str:
+    """`--batch-mode auto` by the mesh the solve will run on, as the JAX
+    package resolves it: no mesh, the scan (exact, and the fastest
+    backlog mode on one card); a mesh, the wave, whose few windowed
+    commits a backlog cost far fewer cross-shard rounds than the scan's
+    one a pod. With no mesh given, auto consults `env_mesh()`. The
+    daemons build no mesh of their own, as JAX's do not, so there auto
+    is the scan unless KT_MESH_DEVICES names one; that case warns once.
+    Any other mode is returned as it is, for the caller to check."""
     if mode != "auto":
         return mode
-    global _AUTO_WARNED
-    if not _AUTO_WARNED:
-        _AUTO_WARNED = True
-        logging.getLogger(__name__).warning(
-            "--batch-mode auto resolved to 'scan': the port's daemons solve on one card, "
-            "with no device mesh")
-    return "scan"
+    if mesh is None:
+        mesh = env_mesh()
+    if mesh is None:
+        global _AUTO_NO_MESH_WARNED
+        if not _AUTO_NO_MESH_WARNED:
+            _AUTO_NO_MESH_WARNED = True
+            logging.getLogger(__name__).warning(
+                "--batch-mode auto resolved to 'scan': no device mesh is threaded "
+                "through this scheduler and KT_MESH_DEVICES is unset, so auto selects "
+                "scan; the wave path engages only when a solve runs over a mesh (or "
+                "the KT_MESH_DEVICES=N escape hatch builds one)")
+        return "scan"
+    return "wave"
 
 
 def schedule_backlog_scalar(
@@ -136,24 +190,27 @@ def schedule_backlog(
     device: DeviceLike = None,
     timer: Optional[PhaseTimer] = None,
     spec: Optional[AlgorithmSpec] = None,
+    mesh=None,
 ) -> List[Optional[str]]:
     """Node name per pending pod (None = unschedulable), with the
     reference's sequential decision semantics. Runs on `device`
-    (default: the CUDA card; raises without one). A non-default `spec`
-    lowers the configured predicate/priority set (UnloweredPolicyError
-    when it cannot) and solves it on the policy scan kernel."""
+    (default: the CUDA card; raises without one), or sharded over
+    `mesh` (then `device` is not read; the default spec only). A
+    non-default `spec` lowers the configured predicate/priority set
+    (UnloweredPolicyError when it cannot) and solves it on the policy
+    scan kernel."""
     # A kernel dispatch blocks on device work and, the first time, on a
     # kernel build: ktsan treats it like any other blocking call, never
     # under a sanitized lock.
     sanitizer.check_blocking("kernel-dispatch", "schedule_backlog")
-    device = resolve_device(device)
+    _, device = shardings_for(mesh, device)
     with timing(timer):
         with phase("lower", pods=len(pending)):
             snap = build_snapshot(
                 pending, nodes, assigned_pods=assigned, services=services, spec=spec
             )
         with phase("upload"):
-            dsnap = device_snapshot(snap, device)
+            dsnap = device_snapshot(snap, device, mesh=mesh)
         with phase("solve", mode="scan"):
             # solve_assignments copies the result to the host, so this
             # phase includes the device time.
@@ -163,13 +220,13 @@ def schedule_backlog(
             return [names[i] if i >= 0 else None for i in assignment]
 
 
-def _schedule_windowed(solve, pending, nodes, assigned, services, device, timer):
-    device = resolve_device(device)
+def _schedule_windowed(solve, pending, nodes, assigned, services, device, timer, mesh):
+    _, device = shardings_for(mesh, device)
     with timing(timer):
         with phase("lower", pods=len(pending)):
             snap = build_snapshot(pending, nodes, assigned_pods=assigned, services=services)
         with phase("upload"):
-            dsnap = device_snapshot(snap, device)
+            dsnap = device_snapshot(snap, device, mesh=mesh)
         # The solver opens "solve" itself and reads the result back in it.
         assignment, waves = solve(dsnap)
         if timer is not None:
@@ -186,13 +243,15 @@ def schedule_backlog_wave(
     services: Sequence[Service] = (),
     device: DeviceLike = None,
     timer: Optional[PhaseTimer] = None,
+    mesh=None,
 ) -> List[Optional[str]]:
     """Schedule via the wave-commit solver (`ops/wave.py`), default
     policy: many pods committed per device step, at the cost of exact
     decision-order parity (placements stay valid). Runs on `device`
-    (default: the CUDA card; raises without one)."""
+    (default: the CUDA card; raises without one), or over `mesh`."""
     sanitizer.check_blocking("kernel-dispatch", "schedule_backlog_wave")
-    return _schedule_windowed(wave_assignments, pending, nodes, assigned, services, device, timer)
+    return _schedule_windowed(wave_assignments, pending, nodes, assigned, services, device, timer,
+                              mesh)
 
 
 def schedule_backlog_sinkhorn(
@@ -202,14 +261,16 @@ def schedule_backlog_sinkhorn(
     services: Sequence[Service] = (),
     device: DeviceLike = None,
     timer: Optional[PhaseTimer] = None,
+    mesh=None,
 ) -> List[Optional[str]]:
     """Schedule via the Sinkhorn-matched wave solver
     (`ops/sinkhorn.py`): capacity-capped congestion prices before each
     wave's choice, fewer waves than the plain wave solver on big
-    backlogs; placements stay valid."""
+    backlogs; placements stay valid. Runs on `device`, or over
+    `mesh`."""
     sanitizer.check_blocking("kernel-dispatch", "schedule_backlog_sinkhorn")
     return _schedule_windowed(sinkhorn_assignments, pending, nodes, assigned, services, device,
-                              timer)
+                              timer, mesh)
 
 
 def schedule_backlog_gang(
@@ -221,16 +282,17 @@ def schedule_backlog_gang(
     device: DeviceLike = None,
     timer: Optional[PhaseTimer] = None,
     spec: Optional[AlgorithmSpec] = None,
+    mesh=None,
 ):
     """Gang-accepting backlog solve on `device` (default: the CUDA card;
-    raises without one): `schedule_backlog` each round, under `spec`,
-    the group counts by the masked segment sum on the device. Returns
-    (destinations, accepted_groups, rejected_groups); see
-    `scheduler.gang.gang_solve`."""
-    device = resolve_device(device)
+    raises without one), or over `mesh`: `schedule_backlog` each round,
+    under `spec`, the group counts by the masked segment sum on the
+    device (the mesh's first). Returns (destinations, accepted_groups,
+    rejected_groups); see `scheduler.gang.gang_solve`."""
+    _, device = shardings_for(mesh, device)
 
     def solver(p, n, a, s):
-        return schedule_backlog(p, n, a, s, device=device, timer=timer, spec=spec)
+        return schedule_backlog(p, n, a, s, device=device, timer=timer, spec=spec, mesh=mesh)
 
     return gang_solve(
         solver, pending, nodes, assigned, services, groups,

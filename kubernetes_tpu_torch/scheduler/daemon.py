@@ -88,9 +88,12 @@ was never started ticks synchronously, one `schedule_batch()` a call,
 with commits inline. The JAX incremental daemon's fixed-tick mode
 (`microticks=False`) and its tuning arguments (`pod_bucket`,
 `coalesce_min`, `commit_depth`) are not carried: the port runs their
-defaults. `--batch-mode auto` resolves to the scan in both daemons
-(`scheduler.batch.resolve_batch_mode`): the port solves on one card and
-builds no device mesh, where the JAX package would pick the wave.
+defaults. `--batch-mode auto` resolves as in JAX
+(`scheduler.batch.resolve_batch_mode`): the daemons thread no device
+mesh through their solves, as JAX's do not, so auto is the scan unless
+`KT_MESH_DEVICES=N` names a mesh of N CUDA devices (`env_mesh`); then
+it is the wave, run unsharded in the daemon's one process, as in JAX.
+A sharded solve is the backlog entry points' `mesh=`.
 
 Departures from the JAX daemons:
 

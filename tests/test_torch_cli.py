@@ -22,6 +22,7 @@ torch, numpy nor JAX. The departures the port's docstrings state
 
 import contextlib
 import copy
+import faulthandler
 import io
 import itertools
 import json
@@ -481,31 +482,72 @@ def test_record_miss_contracts_match_jax(twins):
     assert misses[("top", "cluster")][0] == 0
 
 
-def test_watch_streams_changes_as_jax(twins):
-    """`get pods -w` lists, then prints one row an event; `--watch-only`
-    skips the list."""
-    outs = {}
-    for pkg in BOTH:
-        client = twins.client[pkg.name]
+#: How long a watch test waits for its stream or its events before it
+#: fails with every thread's stack.
+WATCH_DEADLINE_S = 60.0
 
-        def later(names, client=client):
-            time.sleep(0.3)
+
+def run_watch(twins, pkg, argv, names):
+    """One `get -w` call of `pkg` while a thread creates `names`. The
+    creates start once the command's watch stream exists (a fixed sleep
+    raced the command's own start under a loaded machine: a
+    `--watch-only` stream opened after the creates waits for them
+    forever), and a watchdog closes the stream if the events have not
+    all come within WATCH_DEADLINE_S, dumping every thread's stack and
+    failing the test."""
+    client = twins.client[pkg.name]
+    opened, expired = threading.Event(), threading.Event()
+    streams = []
+
+    def watch(*args, **kw):
+        stream = type(client).watch(client, *args, **kw)
+        streams.append(stream)
+        opened.set()
+        return stream
+
+    def later():
+        if opened.wait(WATCH_DEADLINE_S):
             for name in names:
                 client.create("pods", {"kind": "Pod", "metadata": {"name": name},
                                        "spec": {"containers": [{"name": "c", "image": "x"}]}},
                               namespace="default")
 
-        got = []
-        for argv, names in ((["get", "pods", "-w", "--watch-events", "2", "-o", "name"],
-                             ("w1", "w2")),
-                            (["get", "pods", "--watch-only", "--watch-events", "1"], ("w3",)),
-                            (["get", "pods", "w4", "-w", "--watch-events", "1", "-o", "json"],
-                             ("w5", "w4"))):
-            t = threading.Thread(target=later, args=(names,))
-            t.start()
-            got.append(twins.run(pkg, argv))
-            t.join()
-        outs[pkg.name] = got
+    def expire():
+        expired.set()
+        faulthandler.dump_traceback(file=sys.__stderr__, all_threads=True)
+        for stream in streams:
+            stream.close()
+
+    client.watch = watch
+    t = threading.Thread(target=later, daemon=True)
+    watchdog = threading.Timer(WATCH_DEADLINE_S, expire)
+    t.start()
+    watchdog.start()
+    try:
+        got = twins.run(pkg, argv)
+    finally:
+        watchdog.cancel()
+        del client.watch
+        t.join(WATCH_DEADLINE_S)
+    assert opened.is_set() and not expired.is_set(), (
+        f"{pkg.name} {argv}: the watch got no stream or not all of {names} within "
+        f"{WATCH_DEADLINE_S} s (stacks on stderr)")
+    return got
+
+
+def test_watch_streams_changes_as_jax(twins):
+    """`get pods -w` lists, then prints one row an event; `--watch-only`
+    skips the list."""
+    outs = {}
+    for pkg in BOTH:
+        outs[pkg.name] = [
+            run_watch(twins, pkg, argv, names)
+            for argv, names in ((["get", "pods", "-w", "--watch-events", "2", "-o", "name"],
+                                 ("w1", "w2")),
+                                (["get", "pods", "--watch-only", "--watch-events", "1"], ("w3",)),
+                                (["get", "pods", "w4", "-w", "--watch-events", "1", "-o", "json"],
+                                 ("w5", "w4")))
+        ]
     assert outs["port"] == outs["jax"]
     listed, watch_only, named = outs["port"]
     assert listed[1].splitlines()[-2:] == ["pods/w1", "pods/w2"] and "pods/p-0" in listed[1]

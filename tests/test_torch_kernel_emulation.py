@@ -33,6 +33,8 @@ defrag plan kernel's default plan (1,024).
 """
 
 import ctypes
+import glob
+import os
 import shutil
 import subprocess
 
@@ -43,9 +45,10 @@ import torch
 from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.models.columnar import build_snapshot
 from kubernetes_tpu_torch.models.algspec import spec_from_policy
-from kubernetes_tpu_torch.ops import build, policy_scan, rebalance, scan_kernel
+from kubernetes_tpu_torch.ops import build, policy_scan, rebalance, scan_kernel, shard_scan
 from kubernetes_tpu_torch.ops.capacity import stage
-from kubernetes_tpu_torch.ops.matrices import CARRY_KEYS, POLICY_CARRY_KEYS, device_snapshot
+from kubernetes_tpu_torch.ops.matrices import (
+    CARRY_KEYS, POLICY_CARRY_KEYS, Mesh, device_snapshot, shard_nodes)
 
 CUDA_RUNTIME_H = r"""
 #pragma once
@@ -314,9 +317,13 @@ def _compile_emulated(tmp_path_factory, name):
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (out / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS_H)
     (out / "scan_async.cuh").write_text(SCAN_ASYNC_CUH)
-    # The source as it stands, beside the emulated scan_async.cuh.
+    # The source as it stands, beside the emulated scan_async.cuh and
+    # the kernels' own shared headers.
     src = out / f"{name}.cc"
     shutil.copy(f"{build.CSRC}/{name}.cu", src)
+    for header in glob.glob(f"{build.CSRC}/*.cuh"):
+        if os.path.basename(header) != "scan_async.cuh":
+            shutil.copy(header, out)
     lib = out / f"lib{name}_emu.so"
     subprocess.run(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
@@ -1106,3 +1113,99 @@ def test_emulated_rebalance_deferred_gains(emulated_rebalance, probes, resident)
                                 first_rows=256, max_rows=256, resident=resident)
     assert int(ref[3]) == 200 and stats["windows"] == 1
     assert stats["resolve_gains"] > 3 * rebalance.DEFER_CAP
+
+
+# ---------------------------------------------------------------------------
+# K1S: the shard step of the node-sharded scan
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def emulated_shard(tmp_path_factory):
+    """The shard-step kernel's source compiled against the emulation
+    headers: one block a launch, a launch a step of a shard."""
+    handle = _compile_emulated(tmp_path_factory, "shard_scan_kernel")
+    shard_scan._bind(handle)
+    return handle
+
+
+def _mesh_of(shards):
+    return Mesh((torch.device("cpu"),) * shards)
+
+
+def _check_shard_case(lib, pods, nodes, weights, shards):
+    """The emulated K1S chain over `shards` CPU shards against the
+    unsharded plain scan (decisions and carry) and against the sharded
+    chain of `plain_shard_step` (decisions, carry and slots' outcome)."""
+    mesh = _mesh_of(shards)
+    pad = (-nodes["cpu_cap"].shape[0]) % shards
+    if pad:
+        nodes = {k: torch.cat([v, torch.zeros((pad,) + v.shape[1:], dtype=v.dtype)])
+                 for k, v in nodes.items()}
+    got = shard_nodes(nodes, mesh)
+    plain = shard_nodes(nodes, mesh)
+    ref = {k: v.clone() for k, v in nodes.items()}
+    choice = shard_scan.kernel_chain(lib, pods, got, weights)
+    ref_choice, ref = scan_kernel.plain_scan_with_state(pods, ref, weights)
+    plain_choice, _ = shard_scan.plain_sharded_scan_with_state(pods, plain, weights)
+    assert torch.equal(choice, ref_choice), f"{int((choice != ref_choice).sum())} decisions differ"
+    assert torch.equal(choice, plain_choice), "the plain shard step decides otherwise"
+    stitched, plain_stitched = got.stitched("cpu"), plain.stitched("cpu")
+    for k in CARRY_KEYS:
+        assert torch.equal(stitched[k], ref[k]), f"carry field {k} differs"
+        assert torch.equal(plain_stitched[k], ref[k]), f"plain carry field {k} differs"
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 4])
+@pytest.mark.parametrize("seed", range(4))
+def test_emulated_shard_step_matches_plain(emulated_shard, seed, shards):
+    """Shards of one to four over the small clusters, the node axis cut
+    unevenly where it does not divide (zero rows pad it: unschedulable)."""
+    pods, nodes = _state(seed, pad_to=1)
+    _check_shard_case(emulated_shard, pods, nodes, (1, 1, 1), shards)
+
+
+@pytest.mark.parametrize("weights", [(2, 0, 3), (0, 5, 1)])
+def test_emulated_shard_step_other_weights(emulated_shard, weights):
+    pods, nodes = _state(1)
+    _check_shard_case(emulated_shard, pods, nodes, weights, 4)
+
+
+def test_emulated_shard_step_repeated_service_ids(emulated_shard):
+    """A service id listed twice commits twice, and the next pod's max
+    count folds in the winner's count plus both adds."""
+    pods, nodes = _state(0, repeat_ids=True)
+    _check_shard_case(emulated_shard, pods, nodes, (1, 1, 1), 2)
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_emulated_shard_step_ties_and_crowded_services(emulated_shard, shards):
+    """300 pods over 45 nodes of nine kinds (equal best scores on several
+    shards: the lowest global index must win) and 200 pods of two
+    services on 6 nodes (the max count rises with nearly every commit),
+    with blocks of several warps on the wide shards."""
+    for n_pods, n_nodes, seed in ((300, 45, 11), (200, 6, 9)):
+        pending, nodes, services = workload.synthetic_objects(n_pods, n_nodes, seed=seed)
+        d = device_snapshot(build_snapshot(pending, nodes, services=services), "cpu", 1)
+        _check_shard_case(emulated_shard, d.pods, d.nodes, (1, 1, 1), shards)
+
+
+def test_emulated_shard_step_unplaceable_pods_and_pins(emulated_shard):
+    """Pods pinned to -2, past the node axis, or to a node of the last
+    shard: the HostName pin is read against global indices."""
+    pods, nodes = _state(2, pad_to=1)
+    pods = {k: v.clone() for k, v in pods.items()}
+    N = nodes["cpu_cap"].shape[0]
+    pods["pinned"][1::3] = -2
+    pods["pinned"][2::7] = N + 3
+    pods["pinned"][4::9] = N - 1
+    _check_shard_case(emulated_shard, pods, nodes, (1, 1, 1), 3)
+
+
+def test_emulated_shard_step_multi_warp_shards(emulated_shard):
+    """Two shards of 100 nodes: 128-thread blocks whose key and max count
+    reduce across four warps."""
+    pending, nodes, services = workload.synthetic_objects(120, 200, seed=4)
+    d = device_snapshot(build_snapshot(pending, nodes, services=services), "cpu", 1)
+    assert shard_scan.threads_for(100) == 128
+    _check_shard_case(emulated_shard, d.pods, d.nodes, (1, 1, 1), 2)

@@ -26,8 +26,8 @@ import torch
 import kubernetes_tpu_torch
 from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.models.columnar import build_snapshot
-from kubernetes_tpu_torch.ops import build, policy_scan, scan_kernel
-from kubernetes_tpu_torch.ops.matrices import device_snapshot
+from kubernetes_tpu_torch.ops import build, policy_scan, scan_kernel, shard_scan
+from kubernetes_tpu_torch.ops.matrices import device_snapshot, host_mesh
 from kubernetes_tpu_torch.ops import SolverSession
 from kubernetes_tpu_torch.ops.pipeline import gang_member_counts_device, solve_backlog_pipelined
 from kubernetes_tpu_torch.scheduler.batch import schedule_backlog, schedule_backlog_gang
@@ -226,6 +226,7 @@ def test_new_modules_fall_under_the_import_check():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {
         "kubernetes_tpu_torch/ops/incremental.py",
+        "kubernetes_tpu_torch/ops/shard_scan.py",
         "kubernetes_tpu_torch/scheduler/gang.py",
         "kubernetes_tpu_torch/ops/policy_scan.py",
         "kubernetes_tpu_torch/ops/sidecar.py",
@@ -725,6 +726,44 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version(monkeypatch):
     assert scan_kernel.scan_with_state.launches == before
 
 
+def test_sharded_wrapper_routes_cpu_shards_to_the_plain_step(monkeypatch):
+    """A mesh of CPU shards runs `plain_shard_step`: no K1S build or
+    launch, the launch count unchanged."""
+    def no_launch(*args, **kwargs):
+        raise AssertionError("the K1S launch path was taken for CPU shards")
+
+    monkeypatch.setattr(shard_scan, "_kernel_sharded_scan", no_launch)
+    monkeypatch.setattr(shard_scan, "kernel_chain", no_launch)
+    pending, nodes, assigned, services = workload.small_cluster(4)
+    mesh = host_mesh(3, devices=("cpu",) * 3)
+    d = device_snapshot(build_snapshot(pending, nodes, assigned, services), pad_to=6, mesh=mesh)
+    before = shard_scan.sharded_scan_with_state.launches
+    choice, _ = shard_scan.sharded_scan_with_state(d.pods, d.nodes)
+    assert choice.shape == (d.pod_count_padded,)
+    assert shard_scan.sharded_scan_with_state.launches == before
+
+
+def test_sharded_wrapper_rejects_other_and_mixed_devices():
+    pending, nodes, assigned, services = workload.small_cluster(4)
+    snap = build_snapshot(pending, nodes, assigned, services)
+    for devices in (("cpu", "meta"), ("meta", "meta")):
+        mesh = host_mesh(2, devices=devices)
+        d = device_snapshot(snap, mesh=host_mesh(2, devices=("cpu", "cpu")))
+        d.nodes.mesh = mesh
+        with pytest.raises(ValueError, match="unsupported mesh devices"):
+            shard_scan.sharded_scan_with_state(d.pods, d.nodes)
+
+
+def test_mesh_entry_points_raise_without_cuda(no_cuda):
+    """No card: `host_mesh` over CUDA devices forms no mesh, and a mesh
+    named on CUDA devices cannot stage."""
+    assert host_mesh(2) is None
+    pending, nodes, assigned, services = workload.small_cluster(4)
+    with pytest.raises((RuntimeError, AssertionError)):
+        schedule_backlog(pending, nodes, assigned, services,
+                         mesh=host_mesh(2, devices=("cuda:0", "cuda:0")))
+
+
 def test_wrapper_rejects_other_devices():
     pending, nodes, assigned, services = workload.small_cluster(4)
     d = device_snapshot(build_snapshot(pending, nodes, assigned, services), device="cpu")
@@ -746,7 +785,8 @@ def test_build_keys_libraries_by_source_hash(tmp_path, monkeypatch):
 
 
 def test_build_names_every_kernel_source():
-    assert build.kernel_names() == ["policy_scan_kernel", "rebalance_kernel", "scan_kernel"]
+    assert build.kernel_names() == [
+        "policy_scan_kernel", "rebalance_kernel", "scan_kernel", "shard_scan_kernel"]
 
 
 def test_each_kernel_is_keyed_by_its_own_source(tmp_path, monkeypatch):
